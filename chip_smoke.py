@@ -6,21 +6,39 @@
 Phases, in order; any failure exits non-zero:
 
 1. a CUDA card is present; print its name and power limit (nvidia-smi);
-2. build the hand-written kernels from ``contrastyou_tpu_torch/ops/csrc``;
-3. every kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it (forward and dx, batch 5 and 10), bf16, with both
-   times from CUDA events;
-4. the full-width U-Net (max_channel 512, 224x224, 4 classes) on random
+2. build the hand-written kernels from ``contrastyou_tpu_torch/ops/csrc``
+   (one nvcc per source, started together);
+3. every conv kernel (K1-K3) against its plain PyTorch version on the card,
+   at the shapes the main paths give it (forward and dx, batch 5 and 10 of
+   ``semi``, batch 36 of pretraining), bf16, with kernel, plain and library
+   (cuDNN bf16 channels-last convolution) times from CUDA events;
+4. the SupCon kernels (D1 ``supcon_loss``, D2 ``supcon_dz``) against their
+   plain versions at M = 36, 180 and 256 anchors, d = 256, partition and
+   identity masks, f32 with TF32 off;
+5. the full-width U-Net (max_channel 512, 224x224, 4 classes) on random
    weights: its kernel-path levels against the same levels on the plain
    versions, then warm-up and timed ``semi`` + consistency steps (5
    labeled + 5 unlabeled slices) through ``build_cached_train_step`` on a
    device-resident synthetic split; losses finite, parameters changed,
-   every kernel launched.
+   every kernel of the path launched;
+6. ``pretrain_decoder`` (config/base + pretrain + hooks/infonce: InfoNCE on
+   Conv5 by partition and on Up_conv2 by self, 18-slice contrastive batches,
+   36 images per forward) and ``pretrain`` (hooks/infonce_encoder) at full
+   width through ``build_pretrain_run``: the hook losses of one batch through
+   D1 against the plain SupCon, then warm-up and timed steps; losses finite,
+   trainable parameters changed, frozen layers (``_Deconv_1x1``; every
+   decoder layer for ``pretrain``) bit-unchanged, D1 and D2 launched once
+   per hook per step.
 
-The line before the last is the kernels' JSON record: ``launches`` counted
-during the train steps only, ``max_abs_err`` the largest over the phase-3
-shapes, ``ms`` / ``plain_ms`` the sums over those shapes of one launch each.
-The last line is ``{"ok": true, "device": {...}}``.
+Every launch count is set to 0 just before a path is driven and read just
+after. The line before the last is the kernels' JSON record: ``launches``
+counted on the kernel's own main path (K1-K3: ``semi``; D1/D2:
+``pretrain_decoder``; ``launches_by_path`` has all three), ``max_abs_err``
+the largest over the checked shapes, ``ms`` / ``plain_ms`` / ``library_ms``
+/ ``bound_ms`` the sums over those shapes of one launch each; ``bound_ms``
+is max(bytes / 3.35 TB/s, operations / peak) with the bf16 tensor peak (989
+TFLOP/s) for the conv kernels and the f32 peak (67 TFLOP/s) for SupCon. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -46,6 +64,12 @@ STAGE_FACTOR = 2.0
 STAGE_ATOL = 1e-2
 WARMUP_STEPS = 3
 TIMED_STEPS = 10
+PRETRAIN_WARMUP, PRETRAIN_TIMED, ENCODER_STEPS = 2, 5, 3
+#: SupCon kernels against their plain versions (both f32, sums in another order)
+SUPCON_LOSS_RTOL = 1e-5
+SUPCON_DZ_TOL = 1e-4
+#: the card's peaks (H100 SXM data sheet): HBM bytes/s, bf16 tensor and f32 FLOP/s
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 def _card() -> str:
@@ -69,12 +93,27 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes: float, flops: float, peak: float) -> tuple:
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _add_bound(rec: dict, ms: float, by: str) -> None:
+    """Sum a shape's bound into a kernel's record; ``bound_by`` names the
+    kind (bytes or operations) that contributes most to the sum."""
+    parts = rec.setdefault("_bound_parts", {"bytes": 0.0, "operations": 0.0})
+    parts[by] += ms
+    rec["bound_ms"] = sum(parts.values())
+    rec["bound_by"] = max(parts, key=parts.get)
+
+
 def _rel_err(got, ref) -> tuple:
     d = (got.float() - ref.float()).abs().max().item()
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
-# (name, cin, cskip, cout, H, stats) of every K1 call on the main path at 224x224
+# (name, cin, cskip, cout, H, stats) of every K1 call on the main paths at 224x224
 K1_SHAPES = [
     ("Conv1.conv0", 1, 0, 32, 224, True), ("Conv1.conv1", 32, 0, 32, 224, True),
     ("Conv2.conv0", 32, 0, 64, 112, True), ("Conv2.conv1", 64, 0, 64, 112, True),
@@ -84,12 +123,56 @@ K1_SHAPES = [
     ("dx 32->32", 32, 0, 32, 224, False), ("dx 64->32", 64, 0, 32, 112, False),
     ("dx 64->64", 64, 0, 64, 112, False),
 ]
+#: batches of the conv kernels: semi (5 labeled, 10 unlabeled + transformed),
+#: pretraining (two views of 18 slices)
+CONV_BATCHES = (5, 10, 36)
+
+
+def transpose_kernel(taps):
+    """Parity taps [4, 4, Cin, Cout] of K2 -> the [Cin, Cout, 4, 4] kernel of
+    the stride-2, padding-1 transposed convolution that computes the same
+    function (K3's adjoint is the stride-2 convolution with it): output
+    parity a, tap r sits at kernel row 3 - a - 2r (columns alike)."""
+    import torch
+    cin, cout = taps.shape[2:]
+    w = torch.empty(cin, cout, 4, 4, dtype=taps.dtype, device=taps.device)
+    for p in range(4):
+        a, b = divmod(p, 2)
+        for t in range(4):
+            r, c = divmod(t, 2)
+            w[:, :, 3 - a - 2 * r, 3 - b - 2 * c] = taps[p, t]
+    return w
+
+
+def library_calls(x, w, skip=None, w_skip=None, taps=None, g=None):
+    """The one cuDNN call (bf16, channels-last) computing each kernel's
+    function, as the yardstick of its time: K1 a 3x3 convolution (over the
+    pre-built channel concat when there is a skip), K2 the stride-2 transposed
+    convolution, K3 the stride-2 convolution. -> (fn, result as NHWC)."""
+    import torch
+    import torch.nn.functional as F
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    if taps is not None:
+        k = transpose_kernel(taps).contiguous(memory_format=torch.channels_last)
+        if g is None:
+            fn = lambda: F.conv_transpose2d(nchw(x), k, stride=2, padding=1)  # noqa: E731
+        else:
+            fn = lambda: F.conv2d(nchw(g), k, stride=2, padding=1)  # noqa: E731
+    else:
+        if skip is not None:
+            x, w = torch.cat([skip, x], -1), torch.cat([w_skip, w], 2)
+        k = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        fn = lambda: F.conv2d(nchw(x), k, padding=1)  # noqa: E731
+    return fn, fn().permute(0, 2, 3, 1)
 
 
 def check_kernels(device) -> dict:
-    """Phase 3: each kernel vs its plain version at the main-path shapes.
-    Returns one record per kernel (errors maxed, times summed over the
-    shapes) and prints one line per shape."""
+    """Phase 3: each conv kernel vs its plain version at the main-path
+    shapes. Returns one record per kernel (errors maxed, times summed over
+    the shapes) and prints one line per shape."""
     import torch
     from contrastyou_tpu_torch.ops import convblock as cb
 
@@ -98,13 +181,21 @@ def check_kernels(device) -> dict:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
 
-    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for k in cb.LAUNCHES}
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    bound_by="") for k in cb.LAUNCHES}
 
-    def record(kernel, label, got, ref, ms, plain_ms, stats=None):
+    def record(kernel, label, got, ref, fns, work, stats=None, library=None):
+        """``fns``: (kernel, plain, library) callables; ``work``: (bytes, flops)."""
         err, rel = _rel_err(got, ref)
+        torch.cuda.synchronize()
+        ms, pms, lms = (_time_ms(f) for f in fns)
+        bms, by = _bound(*work, BF16_FLOPS)
         line = (f"  {kernel:16s} {label:26s} max_abs_err {err:.3e} (rel {rel:.2e}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                f"kernel {ms:.4f} ms plain {pms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms")
         ok = rel <= KERNEL_RTOL and got.shape == ref.shape
+        lib_rel = _rel_err(library, ref)[1]
+        line += f" cudnn rel {lib_rel:.2e}"
+        ok = ok and lib_rel <= KERNEL_RTOL
         if stats is not None:
             for s_got, s_ref in stats:
                 srel = _rel_err(s_got, s_ref)[1]
@@ -112,13 +203,16 @@ def check_kernels(device) -> dict:
                 ok = ok and srel <= STATS_RTOL
         print(line)
         if not ok:
-            raise AssertionError(f"{kernel} {label}: kernel disagrees with its plain version")
+            raise AssertionError(f"{kernel} {label}: kernel (or its cuDNN yardstick) "
+                                 "disagrees with its plain version")
         r = recs[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
-        r["plain_ms"] += plain_ms
+        r["plain_ms"] += pms
+        r["library_ms"] += lms
+        _add_bound(r, bms, by)
 
-    for B in (5, 10):
+    for B in CONV_BATCHES:
         for name, cin, cs, cout, H, stats in K1_SHAPES:
             x = randn(B, H, H, cin)
             w = randn(3, 3, cin, cout, scale=1 / math.sqrt(9 * (cin + cs)))
@@ -126,28 +220,89 @@ def check_kernels(device) -> dict:
             ws = randn(3, 3, cs, cout, scale=1 / math.sqrt(9 * (cin + cs))) if cs else None
             got = cb.conv3x3_stats(x, w, skip, ws, stats=stats)
             ref = cb.conv3x3_stats_plain(x, w, skip, ws, stats=stats)
-            torch.cuda.synchronize()
-            ms = _time_ms(lambda: cb.conv3x3_stats(x, w, skip, ws, stats=stats))
-            pms = _time_ms(lambda: cb.conv3x3_stats_plain(x, w, skip, ws, stats=stats))
-            record("conv3x3_stats", f"{name} B={B}", got[0], ref[0], ms, pms,
-                   list(zip(got[1:], ref[1:])) if stats else None)
+            lib_fn, lib = library_calls(x, w, skip, ws)
+            px = B * H * H
+            work = (2 * (px * (cin + cs + cout) + 9 * (cin + cs) * cout)
+                    + (8 * B * cout if stats else 0), 2 * px * 9 * (cin + cs) * cout)
+            record("conv3x3_stats", f"{name} B={B}", got[0], ref[0],
+                   (lambda: cb.conv3x3_stats(x, w, skip, ws, stats=stats),
+                    lambda: cb.conv3x3_stats_plain(x, w, skip, ws, stats=stats), lib_fn),
+                   work, list(zip(got[1:], ref[1:])) if stats else None, lib)
         # Up2: 64 -> 32 channels, 112^2 -> 224^2
         x = randn(B, 112, 112, 64)
         taps = cb.parity_taps(randn(3, 3, 64, 32, scale=1 / math.sqrt(9 * 64)))
+        px = B * 224 * 224
+        work = (2 * (px // 4 * 64 + 16 * 64 * 32 + px * 32) + 8 * B * 32,
+                2 * px * 4 * 64 * 32)
         got = cb.upconv3x3_stats(x, taps)
         ref = cb.upconv3x3_stats_plain(x, taps)
-        torch.cuda.synchronize()
-        ms = _time_ms(lambda: cb.upconv3x3_stats(x, taps))
-        pms = _time_ms(lambda: cb.upconv3x3_stats_plain(x, taps))
-        record("upconv3x3_stats", f"Up2 B={B}", got[0], ref[0], ms, pms,
-               list(zip(got[1:], ref[1:])))
+        lib_fn, lib = library_calls(x, None, taps=taps)
+        record("upconv3x3_stats", f"Up2 B={B}", got[0], ref[0],
+               (lambda: cb.upconv3x3_stats(x, taps), lambda: cb.upconv3x3_stats_plain(x, taps),
+                lib_fn), work, list(zip(got[1:], ref[1:])), lib)
         gy = randn(B, 224, 224, 32)
         got = cb.upconv3x3_dx(gy, taps)
         ref = cb.upconv3x3_dx_plain(gy, taps)
-        torch.cuda.synchronize()
-        ms = _time_ms(lambda: cb.upconv3x3_dx(gy, taps))
-        pms = _time_ms(lambda: cb.upconv3x3_dx_plain(gy, taps))
-        record("upconv3x3_dx", f"Up2 dx B={B}", got, ref, ms, pms)
+        lib_fn, lib = library_calls(None, None, taps=taps, g=gy)
+        record("upconv3x3_dx", f"Up2 dx B={B}", got, ref,
+               (lambda: cb.upconv3x3_dx(gy, taps), lambda: cb.upconv3x3_dx_plain(gy, taps),
+                lib_fn), (work[0] - 8 * B * 32, work[1]), library=lib)
+    return recs
+
+
+def check_supcon(device) -> dict:
+    """Phase 4: D1 and D2 vs their plain versions (f32, TF32 off) at the
+    pretrain anchor counts (36: the encoder hook's 2 x 18; 180: the decoder
+    hook's 2 x 18 x 5 points) and the gate's largest (256), d = 256, with
+    partition labels and identity (self) masks."""
+    import torch
+    from contrastyou_tpu_torch.losses.contrastive import (_expand_masks,
+                                                          pair_masks_from_target)
+    from contrastyou_tpu_torch.ops import supcon
+
+    g = torch.Generator(device=device).manual_seed(2)
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+                    bound_by="") for k in supcon.LAUNCHES}
+    tau, d = 0.07, 256
+    for M in (36, 180, 256):
+        for masks in ("partition", "self"):
+            n = M // 2
+            z = torch.nn.functional.normalize(
+                torch.randn(M, d, generator=g, device=device), dim=1)
+            target = torch.arange(n, device=device) % 3 if masks == "partition" else None
+            code = supcon.pair_code(*_expand_masks(
+                *pair_masks_from_target(target, n, device=device), n))
+            got = supcon.supcon_loss(z, code, tau)
+            ref = supcon.supcon_loss_plain(z, code, tau)
+            loss_rel = abs(float(got[0].mean() - ref[0].mean())) / abs(float(ref[0].mean()))
+            vec_err, vec_rel = _rel_err(got[0], ref[0])
+            gs = torch.ones(1, device=device)
+            dz = supcon.supcon_dz(z, code, got[1], got[2], gs, tau)
+            dz_ref = supcon.supcon_dz_plain(z, code, ref[1], ref[2], gs, tau)
+            dz_err, dz_rel = _rel_err(dz, dz_ref)
+            torch.cuda.synchronize()
+            times = {
+                "supcon_loss": (_time_ms(lambda: supcon.supcon_loss(z, code, tau)),
+                                _time_ms(lambda: supcon.supcon_loss_plain(z, code, tau)),
+                                _bound(M * d * 4 + M * M + 12 * M, 2 * M * M * d, F32_FLOPS),
+                                vec_err),
+                "supcon_dz": (_time_ms(lambda: supcon.supcon_dz(z, code, got[1], got[2], gs, tau)),
+                              _time_ms(lambda: supcon.supcon_dz_plain(z, code, ref[1], ref[2],
+                                                                      gs, tau)),
+                              _bound(8 * M * d + M * M + 8 * M + 4, 4 * M * M * d, F32_FLOPS),
+                              dz_err)}
+            print(f"  supcon M={M:3d} {masks:9s} loss rel {loss_rel:.2e} (per anchor "
+                  f"{vec_rel:.2e}) dz max_abs_err {dz_err:.3e} (rel {dz_rel:.2e}); " + "; ".join(
+                      f"{k} kernel {t[0]:.4f} ms plain {t[1]:.4f} ms bound {t[2][0]:.6f} ms"
+                      for k, t in times.items()))
+            if loss_rel > SUPCON_LOSS_RTOL or vec_rel > SUPCON_LOSS_RTOL or dz_rel > SUPCON_DZ_TOL:
+                raise AssertionError(f"SupCon M={M} {masks}: kernel disagrees with plain")
+            for k, (ms, pms, (bms, by), err) in times.items():
+                r = recs[k]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["ms"] += ms
+                r["plain_ms"] += pms
+                _add_bound(r, bms, by)
     return recs
 
 
@@ -209,22 +364,33 @@ def check_stages(device) -> None:
           f"error vs f32 at most {worst:.2f}x the plain bf16 path's (+{STAGE_ATOL})")
 
 
+def _reset_counts() -> None:
+    from contrastyou_tpu_torch.ops import convblock as cb, supcon
+    cb.reset_launch_counts()
+    supcon.reset_launch_counts()
+
+
+def _counts() -> dict:
+    from contrastyou_tpu_torch.ops import convblock as cb, supcon
+    return {**cb.LAUNCHES, **supcon.LAUNCHES}
+
+
 def run_train(device, card: str) -> dict:
-    """Phase 4b: warm-up + timed full-width semi + consistency steps."""
+    """Phase 5b: warm-up + timed full-width semi + consistency steps."""
     import torch
     from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG, build_semi_run
-    from contrastyou_tpu_torch.ops import convblock as cb
 
     run = build_semi_run(MAIN_PATH_CONFIG, device=device)
     before = {k: v.detach().clone() for k, v in run.state.model.named_parameters()}
-    cb.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
     metrics = run.run(WARMUP_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics += run.run(TIMED_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(cb.LAUNCHES)
+    launches = _counts()
     losses = [float(m["total_loss"]) for m in metrics]
     changed = sum(int(not torch.equal(before[k], v.detach()))
                   for k, v in run.state.model.named_parameters())
@@ -237,15 +403,112 @@ def run_train(device, card: str) -> dict:
         raise AssertionError(f"non-finite loss: {losses}")
     if changed == 0:
         raise AssertionError("no parameter changed")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if min(launches[k] for k in CONV_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the semi path never launched: {launches}")
     return launches
 
 
+@contextlib.contextmanager
+def plain_supcon():
+    """Route the SupCon wrappers to their plain versions (on the card too)."""
+    from contrastyou_tpu_torch.ops import supcon
+    saved = supcon.supcon_loss, supcon.supcon_dz
+    supcon.supcon_loss, supcon.supcon_dz = supcon.supcon_loss_plain, supcon.supcon_dz_plain
+    try:
+        yield
+    finally:
+        supcon.supcon_loss, supcon.supcon_dz = saved
+
+
+def check_hook_losses(run) -> None:
+    """Phase 6a: the hook losses of one contrastive batch through D1 against
+    the same losses through the plain SupCon, on the same forward."""
+    import torch
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.hooks import StepContext
+    from contrastyou_tpu_torch.trainers.pretrain import sample_pretrain_draws
+
+    gen = torch.Generator(device=run.cache.device).manual_seed(3)
+    n = run.batch_slices
+    idx = torch.arange(n, device=run.cache.device) % len(run.cache)
+    batch = run.cache.sample_at(idx, *run.cache.draw_offsets(gen, n))
+    grids = sorted({h.grid for h in run.hooks if h.grid is not None})
+    draws = sample_pretrain_draws(gen, n, point_grids=grids)
+    taps = tuple(h.taps[0] for h in run.hooks)
+    with torch.no_grad():
+        x = torch.cat([batch["image"], batch["image"]], 0)
+        _, feats = run.state.model(x, until=run.until, taps=taps, update_stats=False)
+        ctx = StepContext(unlabeled_taps={k: v[:n] for k, v in feats.items()},
+                          unlabeled_tf_taps={k: v[n:] for k, v in feats.items()},
+                          partition_group=batch["partition"], geo_params=draws.geo,
+                          point_draws=draws.points,
+                          bundle=ModelBundle(run.state.model, tuple(x.shape[1:])))
+        for h in run.hooks:
+            got = float(h.loss(ctx, {})[0])
+            with plain_supcon():
+                ref = float(h.loss(ctx, {})[0])
+            rel = abs(got - ref) / abs(ref)
+            print(f"  {h.name}: loss through D1 {got:.6f}, plain {ref:.6f} (rel {rel:.2e})")
+            if not math.isfinite(got) or rel > SUPCON_LOSS_RTOL * 10:
+                raise AssertionError(f"{h.name}: D1 loss {got} vs plain {ref}")
+
+
+def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int) -> dict:
+    """Phase 6b: full-width pretraining steps through ``build_pretrain_run``."""
+    import torch
+    from contrastyou_tpu_torch.main import parse_config, build_pretrain_run
+    from contrastyou_tpu_torch.models.unet import UNet
+
+    run = build_pretrain_run(parse_config(["-o", f"Trainer.name={trainer}"]), device=device)
+    model = run.state.model
+    frozen_layers = UNet.arch_elements[UNet.arch_elements.index(run.until) + 1:]
+    print(f"{trainer}: hooks {[h.name for h in run.hooks]}, forward cut at {run.until}, "
+          f"frozen {list(frozen_layers)}, batch {run.batch_slices} slices x 2 views")
+    check_hook_losses(run)
+    tensors = dict(model.named_parameters())
+    tensors.update({f"{h.name}/{k}": p for h in run.hooks for k, p in h.named_parameters()})
+    before = {k: v.detach().clone() for k, v in tensors.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    metrics = run.run(warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics += run.run(timed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    losses = [{k: round(float(v), 5) for k, v in m.items()} for m in metrics]
+    frozen = [k for k in tensors if k.split(".")[0].lstrip("_") in frozen_layers]
+    moved = [k for k in tensors if not torch.equal(before[k], tensors[k].detach())]
+    ms = dt / timed * 1e3
+    print(f"{trainer}: {warmup}+{timed} steps, losses {losses}")
+    print(f"{trainer}: {len(moved)}/{len(tensors)} parameter tensors changed "
+          f"({len(frozen)} frozen); launches {launches}")
+    print(f"{trainer}: {ms:.3f} ms/step, {run.batch_slices * 1e3 / ms:.2f} slices/s "
+          f"on {card}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if set(moved) & set(frozen) or "_Deconv_1x1.weight" not in frozen:
+        raise AssertionError(f"frozen tensors changed: {sorted(set(moved) & set(frozen))}")
+    for part in ["_"] + [h.name for h in run.hooks]:
+        if not any(k.startswith(part) for k in moved):
+            raise AssertionError(f"no parameter of {part!r} changed")
+    steps = warmup + timed
+    expect = {"supcon_loss": steps * len(run.hooks), "supcon_dz": steps * len(run.hooks)}
+    if any(launches[k] != v for k, v in expect.items()) or launches["conv3x3_stats"] <= 0:
+        raise AssertionError(f"launches {launches}, expected {expect} and K1 > 0")
+    if trainer == "pretrain_decoder" and min(launches[k] for k in CONV_KERNELS) <= 0:
+        raise AssertionError(f"a conv kernel of the decoder path never launched: {launches}")
+    return launches
+
+
+CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 SOURCES = {
     "conv3x3_stats": "contrastyou_tpu/ops/pallas/convblock.py:230",
     "upconv3x3_stats": "contrastyou_tpu/ops/pallas/convblock.py:341",
     "upconv3x3_dx": "contrastyou_tpu/ops/pallas/convblock.py:341",
+    "supcon_loss": "contrastyou_tpu/ops/pallas/infonce.py:36",
+    "supcon_dz": "contrastyou_tpu/ops/pallas/infonce.py:100",
 }
 
 
@@ -260,20 +523,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False        # plain versions: full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
+    start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = _build.build(verbose=True)
+    print(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
 
     print("kernel vs plain (times per launch, CUDA events):")
     recs = check_kernels(device)
+    recs.update(check_supcon(device))
     check_stages(device)
-    launches = run_train(device, card)
+    by_path = {"semi": run_train(device, card)}
+    for trainer, warmup, timed in (("pretrain_decoder", PRETRAIN_WARMUP, PRETRAIN_TIMED),
+                                   ("pretrain", 1, ENCODER_STEPS - 1)):
+        by_path[trainer] = run_pretrain(device, card, trainer, warmup, timed)
 
-    out = [dict(name=k, route="cuda", source="contrastyou_tpu_torch/ops/csrc/tapconv.cu",
-                replaces=SOURCES[k], launches=launches[k], max_abs_err=r["max_abs_err"],
-                ms=r["ms"], plain_ms=r["plain_ms"]) for k, r in recs.items()]
+    out = []
+    for k, r in recs.items():
+        main_path = "semi" if k in CONV_KERNELS else "pretrain_decoder"
+        src = "tapconv.cu" if k in CONV_KERNELS else "supcon.cu"
+        out.append(dict(name=k, route="cuda", source=f"contrastyou_tpu_torch/ops/csrc/{src}",
+                        replaces=SOURCES[k], launches=by_path[main_path][k],
+                        launches_by_path={p: c[k] for p, c in by_path.items()},
+                        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"]))
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

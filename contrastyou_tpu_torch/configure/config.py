@@ -2,9 +2,10 @@
 overrides (counterpart of contrastyou_tpu/configure/config.py).
 
 ``-p a.yaml b.yaml`` merges the files (PyYAML, imported only when a file is
-read); ``-o a.b=c`` overrides an existing key, ``+a.b=c`` adds one, ``~a.b``
-deletes one. Override values are parsed without PyYAML, so a run configured
-in code plus overrides needs no YAML installation.
+read); ``-o a.b=c`` overrides an existing key (or a :data:`RUNTIME_KEYS`
+key), ``+a.b=c`` adds one, ``~a.b`` deletes one. Override values are parsed
+without PyYAML, so a run configured in code plus overrides needs no YAML
+installation.
 """
 from __future__ import annotations
 
@@ -72,6 +73,11 @@ def _set(cfg: dict, dotted: str, value, allow_new: bool) -> None:
     node[parts[-1]] = value
 
 
+#: keys ``-o`` may set though the files lack them: the reference strips these
+#: from the section before the trainer sees it
+RUNTIME_KEYS = ("Trainer.device",)
+
+
 def apply_overrides(config: Mapping, tokens: Iterable[str]) -> dict:
     out = copy.deepcopy(dict(config))
     for tok in tokens:
@@ -83,7 +89,8 @@ def apply_overrides(config: Mapping, tokens: Iterable[str]) -> dict:
             del node[parts[-1]]
         elif "=" in tok:
             key, raw = tok.split("=", 1)
-            _set(out, key.lstrip("+"), parse_value(raw), key.startswith("+"))
+            key_ = key.lstrip("+")
+            _set(out, key_, parse_value(raw), key.startswith("+") or key_ in RUNTIME_KEYS)
         else:
             raise ValueError(f"malformed override '{tok}' (want key=value, +key=value or ~key)")
     return out

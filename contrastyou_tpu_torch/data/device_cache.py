@@ -60,12 +60,17 @@ class DeviceDataCache:
 
     def draw(self, generator: torch.Generator, batch_size: int):
         """-> (idx, oy, ox) [B] long: uniform indices, uniform crop offsets."""
+        idx = torch.randint(0, len(self), (batch_size,), generator=generator,
+                            device=self.device)
+        return (idx, *self.draw_offsets(generator, batch_size))
+
+    def draw_offsets(self, generator: torch.Generator, batch_size: int):
+        """-> (oy, ox) [B] long: uniform crop offsets."""
         h, w = self.images.shape[1:]
         dev = self.device
-        idx = torch.randint(0, len(self), (batch_size,), generator=generator, device=dev)
         oy = torch.randint(0, h - self.crop + 1, (batch_size,), generator=generator, device=dev)
         ox = torch.randint(0, w - self.crop + 1, (batch_size,), generator=generator, device=dev)
-        return idx, oy, ox
+        return oy, ox
 
     def sample(self, generator: torch.Generator, batch_size: int) -> dict:
         return self.sample_at(*self.draw(generator, batch_size))

@@ -1,10 +1,12 @@
 """Hook protocol for semi-supervised regularizers (counterpart of
 contrastyou_tpu/engine/hooks.py).
 
-A hook contributes ``loss(ctx, params, state) -> (loss, new_state, metrics)``
+A hook contributes ``loss(ctx, state) -> (loss, new_state, metrics)``
 inside the differentiated step, and ``post_step(ctx, model, state) -> state``
 after the optimizer update. :class:`StepContext` carries what the step
 computed: both unlabeled logits views, the explicit transform, taps.
+A :class:`ModuleHook` owns parameters (a projection head): it is an
+``nn.Module`` whose parameters join the optimizer beside the model's.
 """
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.affine import GeoParams
+from ..ops.affine import GeoParams, transform_logits
 
-__all__ = ["StepContext", "TrainerHook", "combined_taps", "check_hook_names"]
+__all__ = ["StepContext", "TrainerHook", "ModuleHook", "hook_parameters",
+           "combined_taps", "check_hook_names"]
 
 
 @dataclass
@@ -40,8 +43,16 @@ class StepContext:
     cycle_group: Optional[torch.Tensor] = None
     # the explicit transform
     geo_params: Optional[GeoParams] = None
+    # sampled feature positions of the dense hooks: (H, W) -> (ys, xs) [B, P]
+    point_draws: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=dict)
     epoch: int = 0
     bundle: Any = None
+
+    def affine_transformer(self, feature: torch.Tensor, *, order: int = 0) -> torch.Tensor:
+        """The batch transform applied to an NHWC feature map (normalized
+        coordinates, so any resolution)."""
+        return transform_logits(feature, self.geo_params, order=order)
 
 
 class TrainerHook:
@@ -63,6 +74,19 @@ class TrainerHook:
 
     def post_step(self, ctx: StepContext, model: torch.nn.Module, state: Any) -> Any:
         return state
+
+
+class ModuleHook(torch.nn.Module, TrainerHook):
+    """A hook with parameters: its ``parameters()`` join the optimizer."""
+
+    def __init__(self, *, hook_name: str, weight: float = 1.0):
+        torch.nn.Module.__init__(self)
+        TrainerHook.__init__(self, hook_name=hook_name, weight=weight)
+
+
+def hook_parameters(hooks: Sequence[TrainerHook]) -> list:
+    """Parameters of every :class:`ModuleHook` in ``hooks``."""
+    return [p for h in hooks if isinstance(h, torch.nn.Module) for p in h.parameters()]
 
 
 def combined_taps(hooks: Sequence[TrainerHook]) -> Tuple[str, ...]:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable, Mapping, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["warmup_schedule", "RAdam", "create_optimizer"]
@@ -42,16 +43,19 @@ def warmup_schedule(*, base_lr: float, multiplier: float, warmup_max_epoch: int,
 
 
 def _radam_scalars(b1: float, b2: float, t: int):
-    """(ro, r, 1/(1-b1^t), 1/(1-b2^t)) of update ``t``, in float64. optax
-    forms them in float32, where the first rectified steps are
-    ill-conditioned (ro - 4 ~ 1 is a difference of ~2000-sized terms): its
-    r is 1.2% below this exact value at t=6, 0.4% at t=10."""
-    b2t = b2 ** t
-    ro_inf = 2.0 / (1.0 - b2) - 1.0
-    ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
-    r = (math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
-         if ro > 4.0 else 0.0)
-    return ro, r, 1.0 / (1.0 - b1 ** t), 1.0 / (1.0 - b2t)
+    """(ro, r, 1/(1-b1^t), 1/(1-b2^t)) of update ``t``. ``ro`` and ``r`` are
+    formed in float32 in optax's order (``scale_by_radam``): at the first
+    rectified steps ro - 4 ~ 1 is a difference of ~2000-sized terms, so the
+    rounding of each f32 operation decides r to ~1%, and the port must round
+    where optax does (b2^t correctly rounded, as XLA's pow is: taken in f64
+    from the f32 base, then rounded once)."""
+    f32 = np.float32
+    b2t = f32(np.float64(f32(b2)) ** t)
+    ro_inf = f32(2.0 / (1.0 - b2) - 1.0)
+    ro = ro_inf - f32(2 * t) * b2t / (f32(1.0) - b2t)
+    r = np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * ro_inf
+                / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)) if ro > 4.0 else f32(0.0)
+    return float(ro), float(r), 1.0 / (1.0 - b1 ** t), 1.0 / (1.0 - b2 ** t)
 
 
 class RAdam(torch.optim.Optimizer):

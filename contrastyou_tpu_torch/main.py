@@ -1,38 +1,52 @@
-"""Entry point of the PyTorch port: ``semi`` training on one device.
+"""Entry point of the PyTorch port: ``semi`` training or contrastive
+pretraining on one device.
 
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/consistency.yaml \\
         -o Trainer.name=semi Trainer.num_batches=20
+    python -m contrastyou_tpu_torch.main -p config/base.yaml config/pretrain.yaml \\
+        config/hooks/infonce.yaml
 
-takes the argv of the root ``main.py``. Without ``-p`` the base is
-:data:`MAIN_PATH_CONFIG`, the in-code equal of ``config/base.yaml`` +
-``config/hooks/consistency.yaml``, so no YAML installation is needed. It runs
-``Trainer.num_batches`` steps (one epoch) of the device-cached ``semi`` step
-on a synthetic ACDC-like split made with numpy from ``RandomSeed`` — dataset
-files, the epoch loop, evaluation and checkpoints are not ported yet.
+takes the argv of the root ``main.py``. Without ``-p`` the base is the
+in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
+(``semi``), :data:`PRETRAIN_DECODER_CONFIG` or :data:`PRETRAIN_ENCODER_CONFIG`,
+so no YAML installation is needed. It runs ``Trainer.num_batches`` steps (one
+epoch) on a synthetic ACDC-like split made with numpy from ``RandomSeed`` —
+dataset files, the epoch loop, evaluation and checkpoints are not ported yet.
+
+The run is on the CUDA card; ``-o Trainer.device=cpu`` asks for the CPU.
+Without a card and without that request it raises.
 """
 from __future__ import annotations
 
 import sys
 import time
 from dataclasses import dataclass
-from typing import Callable, Mapping, Optional
+from typing import Callable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from .configure.config import ConfigParser
+from .configure.config import ConfigParser, merge, parse_value
 from .data.device_cache import DeviceDataCache
+from .data.sampler import ContrastBatchSampler, partition_index
 from .engine.bundle import ModelBundle
+from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
 from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state
 from .hooks.consistency import ConsistencyTrainerHook
+from .hooks.creator import create_infonce_hooks
 from .models.unet import UNet
+from .trainers.pretrain import (PRETRAIN_BATCH_SIZE_MAX, build_pretrain_step,
+                                feature_until_from_hooks, frozen_after,
+                                jitter_strength, sample_pretrain_draws)
 
-__all__ = ["MAIN_PATH_CONFIG", "synthetic_split", "SemiRun", "build_semi_run", "main"]
+__all__ = ["MAIN_PATH_CONFIG", "PRETRAIN_DECODER_CONFIG", "PRETRAIN_ENCODER_CONFIG",
+           "resolve_device", "synthetic_split", "synthetic_scans", "SemiRun",
+           "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config", "main"]
 
-#: config/base.yaml merged with config/hooks/consistency.yaml
-MAIN_PATH_CONFIG = {
+#: config/base.yaml
+_BASE = {
     "RandomSeed": 10,
     "trainer_checkpoint": None,
     "Arch": {"name": "unet", "checkpoint": None, "max_channel": 512, "momentum": 0.01},
@@ -44,12 +58,46 @@ MAIN_PATH_CONFIG = {
     "Trainer": {"save_dir": "tmp", "num_batches": 200, "max_epoch": 75,
                 "two_stage": True, "disable_bn": False, "name": None,
                 "enable_scale": True, "accumulate_iter": 1},
-    "ConsistencyParameters": {"weight": 10},
 }
+#: config/pretrain.yaml
+_PRETRAIN = {
+    "Trainer": {"num_batches": 200, "max_epoch": 75},
+    "Optim": {"name": "RAdam", "lr": 1e-7, "weight_decay": 0.0},
+    "Scheduler": {"multiplier": 400, "warmup_max": 10},
+    "ContrastiveLoaderParams": {"scan_sample_num": 6, "partition_sample_num": 1,
+                                "num_workers": 8},
+}
+
+#: config/base.yaml merged with config/hooks/consistency.yaml
+MAIN_PATH_CONFIG = merge(_BASE, {"ConsistencyParameters": {"weight": 10}})
+#: config/base.yaml + config/pretrain.yaml + config/hooks/infonce.yaml
+PRETRAIN_DECODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
+    "InfonceParams": {"feature_names": ["Conv5", "Up_conv2"], "weights": [1.0, 1.0],
+                      "contrast_ons": ["partition", "self"], "spatial_size": [1, 16]},
+    "Trainer": {"name": "pretrain_decoder"}})
+#: config/base.yaml + config/pretrain.yaml + config/hooks/infonce_encoder.yaml
+PRETRAIN_ENCODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
+    "InfonceParams": {"feature_names": "Conv5", "weights": 1.0,
+                      "contrast_ons": "partition", "spatial_size": 1},
+    "Trainer": {"name": "pretrain"}})
+
+_DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG,
+             "pretrain": PRETRAIN_ENCODER_CONFIG,
+             "pretrain_decoder": PRETRAIN_DECODER_CONFIG}
 
 #: ACDC's class count and the reference crop of its slices
 NUM_CLASSES = 4
 CROP = 224
+
+
+def resolve_device(requested: Optional[str] = None) -> torch.device:
+    """The CUDA card unless ``requested`` names another device; raises when
+    the card is asked for (explicitly or by default) and there is none."""
+    device = torch.device(requested or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: run on a machine with a card, or ask "
+                           "for the CPU with -o Trainer.device=cpu")
+    return device
 
 
 def synthetic_split(n_slices: int, size: int, *, num_classes: int = NUM_CLASSES,
@@ -73,6 +121,31 @@ def synthetic_split(n_slices: int, size: int, *, num_classes: int = NUM_CLASSES,
     return images, targets
 
 
+def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
+                    partition_num: int = 3, seed: int = 0) -> dict:
+    """:func:`synthetic_split` slices grouped into ACDC-like scans
+    ``patient<p>_<cycle>`` (two cycles per patient), with per-slice scan,
+    partition (the 3-way threshold rule), patient and cycle ids."""
+    images, targets = synthetic_split(n_scans * slices_per_scan, size, seed=seed)
+    scan = np.repeat(np.arange(n_scans), slices_per_scan)
+    cur = np.tile(np.arange(slices_per_scan), n_scans)
+    patient, cycle = scan // 2 + 1, scan % 2
+    return {"images": images, "targets": targets, "scan_id": scan,
+            "partition": np.array([partition_index(int(c), slices_per_scan, partition_num)
+                                   for c in cur]),
+            "patient": patient, "cycle": cycle,
+            "scan_names": [f"patient{p:03d}_{c:02d}" for p, c in
+                           zip(patient[::slices_per_scan], cycle[::slices_per_scan])]}
+
+
+def _model(config: Mapping, device, dtype, max_channel, generator) -> UNet:
+    arch = config["Arch"]
+    model = UNet(input_dim=1, num_classes=NUM_CLASSES,
+                 max_channel=int(max_channel or arch["max_channel"]),
+                 momentum=float(arch["momentum"]), dtype=dtype).to(device)
+    return model.init_weights(generator)
+
+
 @dataclass
 class SemiRun:
     state: TrainState
@@ -93,13 +166,9 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     cached ``semi`` step from a reference-style config. Weights and data are
     made from ``RandomSeed``."""
     seed = int(config.get("RandomSeed", 10))
-    arch = config["Arch"]
     trainer = config["Trainer"]
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = UNet(input_dim=1, num_classes=NUM_CLASSES,
-                 max_channel=int(max_channel or arch["max_channel"]),
-                 momentum=float(arch["momentum"]), dtype=dtype).to(device)
-    model.init_weights(gen)
+    model = _model(config, device, dtype, max_channel, gen)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = []
     if "ConsistencyParameters" in config:
@@ -127,22 +196,111 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     return SemiRun(state, step, gen, nl + nu, lab, unl)
 
 
-def main(argv=None) -> int:
-    config = ConfigParser(MAIN_PATH_CONFIG).parse(sys.argv[1:] if argv is None else argv)
+@dataclass
+class PretrainRun:
+    state: TrainState
+    step: Callable                  # step(state, generator) -> metrics
+    generator: torch.Generator
+    batch_slices: int               # slices of one contrastive batch (one view)
+    cache: DeviceDataCache
+    hooks: List
+    until: str                      # the forward is cut here; later layers are frozen
+
+    def run(self, n: int):
+        return [self.step(self.state, self.generator) for _ in range(n)]
+
+
+def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
+                       raw_size: int = 256, crop: int = CROP, n_scans: int = 12,
+                       slices_per_scan: int = 10,
+                       max_channel: Optional[int] = None) -> PretrainRun:
+    """``pretrain`` / ``pretrain_decoder``: model, InfoNCE hooks with their
+    projection heads, RAdam over the layers up to the deepest tap plus the
+    heads, synthetic ACDC-like scans resident on the device, the contrastive
+    batch sampler and the pretrain step. Weights and data are made from
+    ``RandomSeed``."""
+    seed = int(config.get("RandomSeed", 10))
+    trainer = config["Trainer"]
+    data_name = str(config["Data"]["name"])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = _model(config, device, dtype, max_channel, gen)
+    bundle = ModelBundle(model, (crop, crop, 1))
+    hooks = create_infonce_hooks(
+        channel_dim=model.get_channel_dim,
+        proj_bf16=dtype == torch.bfloat16 and torch.device(device).type == "cuda",
+        **config["InfonceParams"])
+    for h in hooks:
+        h.to(device).projector.init_weights(gen)
+    until = feature_until_from_hooks(*hooks)
+    trainable = frozen_after(until)
+    params = [p for name, p in model.named_parameters() if trainable(name)]
+    optimizer, _ = create_optimizer(
+        params + hook_parameters(hooks), config["Optim"], config.get("Scheduler"),
+        max_epoch=int(trainer["max_epoch"]), steps_per_epoch=int(trainer["num_batches"]))
+    state = init_train_state(bundle, hooks, optimizer)
+
+    scans = synthetic_scans(n_scans, slices_per_scan, raw_size, seed=seed)
+    cache = DeviceDataCache.from_arrays(
+        scans["images"], scans["targets"], crop=crop, device=device,
+        scan_id=scans["scan_id"], partition=scans["partition"],
+        patient=scans["patient"], cycle=scans["cycle"], scan_names=scans["scan_names"])
+    clp = config.get("ContrastiveLoaderParams", {})
+    sampler = ContrastBatchSampler(
+        [scans["scan_names"][s] for s in scans["scan_id"]], scans["partition"],
+        scan_sample_num=int(clp.get("scan_sample_num", 6)),
+        partition_sample_num=int(clp.get("partition_sample_num", 1)), seed=seed)
+    pad_to = min(sampler.batch_size, PRETRAIN_BATCH_SIZE_MAX)
+    batches = iter(sampler)
+    step = build_pretrain_step(bundle, hooks, until=until)
+    grids = sorted({h.grid for h in hooks if h.grid is not None})
+    strength = jitter_strength(data_name)
+
+    def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0):
+        # a short batch is padded by repeating its last slice (data/loader.py collate)
+        idx = next(batches)[:pad_to]
+        idx = idx + idx[-1:] * (pad_to - len(idx))
+        batch = cache.sample_at(torch.tensor(idx, device=cache.device),
+                                *cache.draw_offsets(generator, pad_to))
+        draws = sample_pretrain_draws(generator, pad_to, color_jitter=strength,
+                                      point_grids=grids)
+        return step(state, batch, draws, epoch)
+
+    return PretrainRun(state, cached_step, gen, pad_to, cache, hooks, until)
+
+
+def parse_config(argv) -> dict:
+    """Reference-style argv -> config; without ``-p`` the in-code base of
+    the ``Trainer.name`` the overrides give."""
+    named = [parse_value(tok.split("=", 1)[1]) for tok in argv
+             if tok.lstrip("+").startswith("Trainer.name=")]
+    base = _DEFAULTS.get(named[-1] if named else None, MAIN_PATH_CONFIG)
+    config = ConfigParser(base).parse(argv)
     name = config["Trainer"].get("name")
-    if name not in (None, "semi"):
-        raise SystemExit(f"Trainer.name={name!r}: only 'semi' is ported")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    run = build_semi_run(config, device=device)
+    if name not in _DEFAULTS:
+        raise SystemExit(f"Trainer.name={name!r}: ported are "
+                         f"{sorted(str(k) for k in _DEFAULTS if k)}")
+    return config
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    config = parse_config(argv)
+    device = resolve_device(config["Trainer"].get("device"))
+    name = config["Trainer"].get("name")
+    pretrain = name in ("pretrain", "pretrain_decoder")
+    run = (build_pretrain_run if pretrain else build_semi_run)(config, device=device)
     n = int(config["Trainer"]["num_batches"])
     t0 = time.perf_counter()
     for i in range(n):
         m = run.step(run.state, run.generator)
         if i % 10 == 0 or i == n - 1:
-            print(f"step {i}: sup {float(m['sup_loss']):.4f} "
-                  f"reg {float(m['reg_loss']):.6f} total {float(m['total_loss']):.4f}")
+            if pretrain:
+                print(f"step {i}: " + " ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
+            else:
+                print(f"step {i}: sup {float(m['sup_loss']):.4f} "
+                      f"reg {float(m['reg_loss']):.6f} total {float(m['total_loss']):.4f}")
     dt = time.perf_counter() - t0
-    print(f"{n} steps on {device} in {dt:.2f} s")
+    print(f"{n} {name or 'semi'} steps on {device} in {dt:.2f} s")
     return 0
 
 

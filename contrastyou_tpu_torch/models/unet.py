@@ -150,6 +150,10 @@ class UNet(nn.Module):
     layer_dimension = {"Conv1": 1, "Conv2": 2, "Conv3": 4, "Conv4": 8,
                        "Conv5": 16, "Up_conv5": 8, "Up_conv4": 4,
                        "Up_conv3": 2, "Up_conv2": 1, "Deconv_1x1": None}
+    encoder_names = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5")
+    decoder_names = ("Up5", "Up_conv5", "Up4", "Up_conv4", "Up3", "Up_conv3",
+                     "Up2", "Up_conv2", "Deconv_1x1")
+    arch_elements = encoder_names + decoder_names
 
     def __init__(self, input_dim: int = 1, num_classes: int = 4,
                  max_channel: int = 256, momentum: float = 0.1,

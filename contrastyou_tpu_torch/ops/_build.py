@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
 
 At first use ``nvcc`` (``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``)
-compiles every source under ``csrc/`` into one shared library with a plain C
-interface, ``build/torch_kernels/libtapconv_<hash>.so`` at the repository
-root, keyed by a hash of the sources and flags so an unchanged tree is not
-rebuilt. The library is bound with ctypes. A missing compiler or a failed
-build raises with the compiler's output; nothing falls back.
+compiles each source under ``csrc/`` into its own shared library with a plain
+C interface, ``build/torch_kernels/lib<source>_<hash>.so`` at the repository
+root, keyed by a hash of the source, the headers and the flags so an unchanged
+tree is not rebuilt. All missing libraries are compiled at once, one ``nvcc``
+process per source. Each library is bound with ctypes. A missing compiler or
+a failed build raises with the compiler's output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -17,20 +18,29 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: C signature of every entry point: name -> argtypes (all return int)
+#: C signature of every entry point, per library (source stem): name ->
+#: argtypes (all return int)
 SIGNATURES = {
-    "tapconv_num_tiles": (_I, _I),
-    "conv3x3_stats": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
-    "upconv3x3_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "upconv3x3_dx": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tapconv": {
+        "tapconv_num_tiles": (_I, _I),
+        "conv3x3_stats": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+        "upconv3x3_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "upconv3x3_dx": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "supcon": {
+        "supcon_max_anchors": (_I,),
+        "supcon_loss": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
+        "supcon_dz": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    },
 }
 
 
@@ -47,56 +57,72 @@ def find_nvcc() -> str:
     return found
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources() -> Dict[str, Path]:
+    """stem -> ``.cu`` source of every library."""
+    return {f.stem: f for f in sorted(CSRC.glob("*.cu"))}
 
 
-def source_hash() -> str:
+def source_hash(stem: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in _sources():
+    for f in [sources()[stem], *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the sources unless the hashed library already exists; return
-    its path. The library is written to a temporary name and renamed, so a
-    cut build never leaves a half-written library behind."""
-    lib = BUILD_DIR / f"libtapconv_{source_hash()}.so"
-    if lib.exists():
-        return lib
+def library_path(stem: str) -> Path:
+    return BUILD_DIR / f"lib{stem}_{source_hash(stem)}.so"
+
+
+def build(verbose: bool = False) -> Dict[str, Path]:
+    """Compile every library that does not exist yet, all ``nvcc`` processes
+    started together; return stem -> library path. Each library is written to
+    a temporary name and renamed, so a cut build never leaves a half-written
+    library behind."""
+    libs = {stem: library_path(stem) for stem in sources()}
+    todo = {stem: lib for stem, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(f) for f in _sources() if f.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    nvcc = find_nvcc()
+    running = {}
+    for stem, lib in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(sources()[stem])]
+        running[stem] = (tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for stem, (tmp, cmd, proc) in running.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            continue
+        if verbose:
+            print(out)
+        os.replace(tmp, todo[stem])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed and bind every entry point's C signature."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+def load_library(stem: str) -> ctypes.CDLL:
+    """Build if needed and bind the C signatures of library ``stem``."""
+    lib = ctypes.CDLL(str(build()[stem]))
+    for name, argtypes in SIGNATURES[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    lib.tapconv_error_string.argtypes = [ctypes.c_int]
-    lib.tapconv_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, f"{stem}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def check(rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def check(rc: int, what: str, stem: str) -> None:
+    """Raise if a launch of library ``stem`` returned a CUDA error code."""
     if rc != 0:
-        msg = load_library().tapconv_error_string(rc).decode()
+        msg = getattr(load_library(stem), f"{stem}_error_string")(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

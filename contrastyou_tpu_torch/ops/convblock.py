@@ -124,7 +124,7 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor,
     _cuda_check("conv3x3_stats", *tensors)
     if cout not in KERNEL_COUT:
         raise ValueError(f"conv3x3_stats: Cout={cout} not in {KERNEL_COUT}")
-    lib = _build.load_library()
+    lib = _build.load_library("tapconv")
     out = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
     part = (torch.empty(B, lib.tapconv_num_tiles(H, W), 2, cout,
                         dtype=torch.float32, device=x.device)
@@ -133,7 +133,7 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor,
         _ptr(x), cin, _ptr(w9), _ptr(skip),
         0 if skip is None else skip.shape[-1], _ptr(ws9), _ptr(out),
         _ptr(part), B, H, W, cout, _stream())
-    _build.check(rc, "conv3x3_stats")
+    _build.check(rc, "conv3x3_stats", "tapconv")
     LAUNCHES["conv3x3_stats"] += 1
     if not stats:
         return out, None, None
@@ -253,13 +253,13 @@ def upconv3x3_stats(x: torch.Tensor, taps: torch.Tensor):
     if cout not in KERNEL_COUT or taps.shape[:3] != (4, 4, cin):
         raise ValueError(f"upconv3x3_stats: taps {tuple(taps.shape)} for "
                          f"Cin={cin}; Cout must be in {KERNEL_COUT}")
-    lib = _build.load_library()
+    lib = _build.load_library("tapconv")
     out = torch.empty(B, 2 * H, 2 * W, cout, dtype=x.dtype, device=x.device)
     part = torch.empty(B, 4 * lib.tapconv_num_tiles(H, W), 2, cout,
                        dtype=torch.float32, device=x.device)
     rc = lib.upconv3x3_stats(_ptr(x), _ptr(taps), _ptr(out), _ptr(part),
                              B, H, W, cin, cout, _stream())
-    _build.check(rc, "upconv3x3_stats")
+    _build.check(rc, "upconv3x3_stats", "tapconv")
     LAUNCHES["upconv3x3_stats"] += 1
     return (out, *_partials_to_sums(part))
 
@@ -293,11 +293,11 @@ def upconv3x3_dx(g: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     if H2 % 2 or W2 % 2 or cin not in KERNEL_COUT or taps.shape[-1] != cg:
         raise ValueError(f"upconv3x3_dx: g {tuple(g.shape)}, taps "
                          f"{tuple(taps.shape)}; Cin must be in {KERNEL_COUT}")
-    lib = _build.load_library()
+    lib = _build.load_library("tapconv")
     dx = torch.empty(B, H2 // 2, W2 // 2, cin, dtype=g.dtype, device=g.device)
     rc = lib.upconv3x3_dx(_ptr(g), _ptr(taps_t), _ptr(dx), B, H2 // 2,
                           W2 // 2, cg, cin, _stream())
-    _build.check(rc, "upconv3x3_dx")
+    _build.check(rc, "upconv3x3_dx", "tapconv")
     LAUNCHES["upconv3x3_dx"] += 1
     return dx
 

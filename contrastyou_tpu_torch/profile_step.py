@@ -1,0 +1,105 @@
+"""Step time and device-time breakdown of the port's train steps on the card.
+
+    python -m contrastyou_tpu_torch.profile_step pretrain_decoder [--steps 5]
+
+For ``semi``, ``pretrain_decoder`` or ``pretrain`` at the reference config
+(full width, 224x224, bf16): after warm-up, ``--rounds`` timed windows of
+``--steps`` steps (host clock around synchronized steps, ms/step), then one
+``torch.profiler`` window of ``--steps`` steps: device busy time per step
+(the sum of the kernels' device times over the window's wall time), kernels
+per step, and the largest items by device time, grouped by the operator that
+launched them. Every line names the card and its power limit. Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def _build(trainer: str, device):
+    # imported here: only what the named trainer needs, so the script also
+    # times older trees of the package that lack the pretrain path
+    if trainer == "semi":
+        from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG, build_semi_run
+        return build_semi_run(MAIN_PATH_CONFIG, device=device)
+    from contrastyou_tpu_torch.main import build_pretrain_run, parse_config
+    return build_pretrain_run(parse_config(["-o", f"Trainer.name={trainer}"]), device=device)
+
+
+def main(argv=None) -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("trainer", choices=("semi", "pretrain_decoder", "pretrain"))
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--shapes", action="store_true",
+                    help="also list the largest operators by input shapes")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    device = torch.device("cuda", 0)
+    card = _card()
+    run = _build(args.trainer, device)
+    run.run(3)
+    torch.cuda.synchronize()
+    for r in range(args.rounds):
+        t0 = time.perf_counter()
+        run.run(args.steps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / args.steps * 1e3
+        print(f"{args.trainer} round {r}: {ms:.3f} ms/step, "
+              f"{run.batch_slices * 1e3 / ms:.2f} slices/s on {card}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=args.shapes) as prof:
+        t0 = time.perf_counter()
+        run.run(args.steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    print(f"{args.trainer} profiled window: {wall_us / args.steps / 1e3:.3f} ms/step wall, "
+          f"device busy {busy_us / args.steps / 1e3:.3f} ms/step "
+          f"({100 * busy_us / wall_us:.1f}%), {len(kernels) / args.steps:.0f} kernels/step "
+          f"on {card}")
+    if not kernels:
+        print("no device events in the trace")
+        return 0
+    by_op = defaultdict(float)
+    count = defaultdict(int)
+    for e in prof.key_averages(group_by_input_shape=args.shapes):
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0 and e.device_type != DeviceType.CUDA:
+            key = f"{e.key} {e.input_shapes}" if args.shapes else e.key
+            by_op[key] += t
+            count[key] += e.count
+    by_kernel = defaultdict(float)
+    kcount = defaultdict(int)
+    for e in kernels:
+        by_kernel[e.name] += e.time_range.elapsed_us()
+        kcount[e.name] += 1
+    for title, table, calls in (("by launching operator", by_op, count),
+                                ("by kernel", by_kernel, kcount)):
+        print(f"  {title}:")
+        for key, t in sorted(table.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"    {key[:110 if args.shapes else 70]:70s} {t / args.steps / 1e3:8.3f} ms/step "
+                  f"{100 * t / busy_us:5.1f}%  {calls[key] / args.steps:7.1f} calls/step")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,6 +8,12 @@ contrastyou_tpu/utils/torch_convert.py, whose key map it ports):
   _UpX.up.1.weight, _UpX.up.2.*   <-> UpX/conv/kernel, UpX/bn/*
   _Deconv_1x1.weight/.bias        <-> Deconv_1x1/{kernel,bias}
 
+and the projection heads of the contrastive hooks, whose torch modules carry
+the flax layer names:
+
+  Dense_i.weight [O,I], .bias   <-> Dense_i/kernel [I,O], /bias   (ProjectionHead)
+  Conv_i.weight [O,I,1,1], .bias <-> Conv_i/kernel [1,1,I,O], /bias (DenseProjectionHead)
+
 Values are numpy arrays on the flax side and tensors on the torch side.
 """
 from __future__ import annotations
@@ -17,7 +23,8 @@ import typing as t
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "state_dict_to_flax"]
+__all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_to_head_state_dict",
+           "head_state_dict_to_flax"]
 
 CONV_BLOCKS = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5",
                "Up_conv5", "Up_conv4", "Up_conv3", "Up_conv2")
@@ -78,4 +85,34 @@ def state_dict_to_flax(sd: t.Mapping[str, torch.Tensor]) -> dict:
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(a)
+    return out
+
+
+def flax_to_head_state_dict(params: t.Mapping) -> dict:
+    """flax params of a projection head (``Dense_i`` / ``Conv_i`` layers) ->
+    the state_dict of the port's head (f32 tensors)."""
+    sd = {}
+    for layer, leaves in params.items():
+        k = np.asarray(leaves["kernel"], np.float32)
+        if layer.startswith("Dense_"):
+            w = k.T
+        elif layer.startswith("Conv_"):
+            w = np.transpose(k, (3, 2, 0, 1))
+        else:
+            raise KeyError(f"unknown head layer {layer!r}")
+        sd[f"{layer}.weight"] = torch.tensor(np.ascontiguousarray(w))
+        sd[f"{layer}.bias"] = torch.tensor(np.asarray(leaves["bias"], np.float32))
+    return sd
+
+
+def head_state_dict_to_flax(sd: t.Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`flax_to_head_state_dict`."""
+    out: dict = {}
+    for key, v in sd.items():
+        layer, kind = key.rsplit(".", 1)
+        a = v.detach().float().cpu().numpy()
+        if kind == "weight":
+            a = a.T if layer.startswith("Dense_") else np.transpose(a, (2, 3, 1, 0))
+        out.setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = \
+            np.ascontiguousarray(a)
     return out

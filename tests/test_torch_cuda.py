@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (contrastyou_tpu_torch/ops/csrc/tapconv.cu) against
-their plain PyTorch versions, on a card. Needs no JAX, so it runs on the
-machine with the card:
+"""The port's CUDA kernels (contrastyou_tpu_torch/ops/csrc/tapconv.cu and
+supcon.cu) against their plain PyTorch versions, on a card. Needs no JAX, so
+it runs on the machine with the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -8,12 +8,15 @@ Without a card the test skips. Tolerance: both sides accumulate in f32 in
 different orders and round once to bf16, so they may differ by one bf16 ulp
 (<= 2^-7 of a value) where a rounding flips; allowed: 2^-6 of the largest
 value. Shapes are small and deliberately ragged (not multiples of the 8x16
-output tile) to exercise the edge masking.
+output tile) to exercise the edge masking. The SupCon kernels (f32) are held
+to loss rtol 1e-5 and dz 1e-4 of its largest value, at anchor counts that are
+not multiples of their 8-row blocks.
 """
 import pytest
 import torch
 
 from contrastyou_tpu_torch.ops import convblock as cb
+from contrastyou_tpu_torch.ops import supcon
 from torch_parity import scaled_close
 
 TOL = 2.0 ** -6
@@ -47,6 +50,33 @@ def test_cuda_kernels_match_plain():
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+def test_supcon_kernels_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for M, d, labels in ((12, 64, True), (37, 256, False), (90, 256, True)):
+        z = torch.nn.functional.normalize(torch.randn(M, d, generator=g, device=dev), dim=1)
+        if labels:
+            y = torch.randint(0, 3, (M,), generator=g, device=dev)
+            pos = (y[:, None] == y[None, :]).float()
+        else:
+            pos = torch.eye(M, device=dev).roll(M // 2, 1)
+        off = 1.0 - torch.eye(M, device=dev)
+        code = supcon.pair_code(pos * off, (1.0 - pos) * off)
+        got = supcon.supcon_loss(z, code, 0.07)
+        ref = supcon.supcon_loss_plain(z, code, 0.07)
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[2], ref[2], rtol=0, atol=0)
+        gs = torch.full((1,), 0.5, device=dev)
+        dz = supcon.supcon_dz(z, code, got[1], got[2], gs, 0.07)
+        dz_ref = supcon.supcon_dz_plain(z, code, ref[1], ref[2], gs, 0.07)
+        scaled_close(dz, dz_ref, tol=1e-4)
+    torch.cuda.synchronize()
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     """On the CPU the wrappers never reach a kernel; the checks that guard
     the kernel launch raise on the device, dtype and channel count."""
@@ -54,3 +84,27 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         cb._cuda_check("k", torch.zeros(2, dtype=torch.bfloat16))
     assert cb.conv3x3_stats(torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 3, 5))[0].shape \
         == (1, 4, 4, 5)
+
+
+def test_library_yardsticks_compute_the_kernels_functions():
+    """chip_smoke.py times one cuDNN call beside each conv kernel; on the CPU
+    (f32) each call computes the plain version's function: K1 a conv over the
+    skip concat, K2 a stride-2 transposed conv with the parity taps, K3 its
+    adjoint."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    g = torch.Generator().manual_seed(0)
+    x, skip = torch.randn(2, 9, 11, 8, generator=g), torch.randn(2, 9, 11, 4, generator=g)
+    w, ws = torch.randn(3, 3, 8, 6, generator=g), torch.randn(3, 3, 4, 6, generator=g)
+    ref = cb.conv3x3_stats_plain(x, w, skip, ws)[0]
+    torch.testing.assert_close(smoke.library_calls(x, w, skip, ws)[1], ref, rtol=1e-5, atol=1e-5)
+    taps = cb.parity_taps(torch.randn(3, 3, 8, 6, generator=g))
+    torch.testing.assert_close(smoke.library_calls(x, None, taps=taps)[1],
+                               cb.upconv3x3_stats_plain(x, taps)[0], rtol=1e-5, atol=1e-5)
+    gy = torch.randn(2, 18, 22, 6, generator=g)
+    torch.testing.assert_close(smoke.library_calls(None, None, taps=taps, g=gy)[1],
+                               cb.upconv3x3_dx_plain(gy, taps), rtol=1e-5, atol=1e-5)
