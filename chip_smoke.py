@@ -10,35 +10,51 @@ Phases, in order; any failure exits non-zero:
    (one nvcc per source, started together);
 3. every conv kernel (K1-K3) against its plain PyTorch version on the card,
    at the shapes the main paths give it (forward and dx, batch 5 and 10 of
-   ``semi``, batch 36 of pretraining), bf16, with kernel, plain and library
+   ``semi``, batch 36 of ACDC and 96 of prostate pretraining), bf16, with
+   kernel, plain and library
    (cuDNN bf16 channels-last convolution) times from CUDA events;
 4. the SupCon kernels (D1 ``supcon_loss``, D2 ``supcon_dz``) against their
    plain versions at M = 36, 180 and 256 anchors, d = 256, partition and
    identity masks, f32 with TF32 off;
-5. the full-width U-Net (max_channel 512, 224x224, 4 classes) on random
+5. the backward kernels (C1 ``conv_dw_taps``, C2 ``conv3x3_bwd_fused``)
+   against their plain versions at the batch-96 shapes of the prostate path
+   (C1: Conv1.conv0 and the Up2 parity taps; C2: the seven convs with Cin >=
+   8, a skip conv as one launch per input), with kernel, plain and library
+   (one cuDNN ``convolution_backward``, bf16 channels-last) times; then at
+   batches 10 and 36 beside the einsum form they would replace there
+   (``conv3x3_dw`` / ``upconv3x3_dtaps``, plus K1's dx for C2);
+6. the full-width U-Net (max_channel 512, 224x224, 4 classes) on random
    weights: its kernel-path levels against the same levels on the plain
-   versions, then warm-up and timed ``semi`` + consistency steps (5
+   versions at batch 5 and at batch 96 (where the backward takes C1/C2),
+   then warm-up and timed ``semi`` + consistency steps (5
    labeled + 5 unlabeled slices) through ``build_cached_train_step`` on a
    device-resident synthetic split; losses finite, parameters changed,
    every kernel of the path launched;
-6. ``pretrain_decoder`` (config/base + pretrain + hooks/infonce: InfoNCE on
+7. ``pretrain_decoder`` (config/base + pretrain + hooks/infonce: InfoNCE on
    Conv5 by partition and on Up_conv2 by self, 18-slice contrastive batches,
    36 images per forward) and ``pretrain`` (hooks/infonce_encoder) at full
    width through ``build_pretrain_run``: the hook losses of one batch through
    D1 against the plain SupCon, then warm-up and timed steps; losses finite,
    trainable parameters changed, frozen layers (``_Deconv_1x1``; every
    decoder layer for ``pretrain``) bit-unchanged, D1 and D2 launched once
-   per hook per step.
+   per hook per step, C1/C2 never (batch 36);
+8. the same two trainers with ``-o Data.name=prostate`` (2 classes, 8
+   partitions, random 48-slice batches, 96 images per forward, colour
+   jitter 0.1): the same checks, with D1/D2 once per step (the Conv5 hook;
+   the dense hook's 480 anchors take the eager form) and C1/C2 as often as
+   the path implies (decoder: 2 and 9 per step, encoder: 1 and 3).
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3: ``semi``; D1/D2:
-``pretrain_decoder``; ``launches_by_path`` has all three), ``max_abs_err``
-the largest over the checked shapes, ``ms`` / ``plain_ms`` / ``library_ms``
-/ ``bound_ms`` the sums over those shapes of one launch each; ``bound_ms``
-is max(bytes / 3.35 TB/s, operations / peak) with the bf16 tensor peak (989
-TFLOP/s) for the conv kernels and the f32 peak (67 TFLOP/s) for SupCon. The
-last line is ``{"ok": true, "device": {...}}``.
+``pretrain_decoder``; C1/C2: prostate ``pretrain_decoder``;
+``launches_by_path`` has all five), ``max_abs_err`` the largest over the
+checked shapes, ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` the
+sums over those shapes of one launch each (C1/C2: over the batch-96 shapes
+only; ``einsum_compare`` has their batch-10 and -36 sums beside the einsum
+form's); ``bound_ms`` is max(bytes / 3.35 TB/s, operations / peak) with the
+bf16 tensor peak (989 TFLOP/s) for the conv kernels and the f32 peak (67
+TFLOP/s) for SupCon. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -62,9 +78,14 @@ STATS_RTOL = 1e-3
 #: same computation), plus STAGE_ATOL of the largest value
 STAGE_FACTOR = 2.0
 STAGE_ATOL = 1e-2
+#: C1 / C2 weight gradients against their plain versions, in units of the
+#: largest |dk|: both f32, sums of up to 4.8M exact bf16 products in other
+#: orders (the kernel's ~10^5 serial in one accumulator per block)
+DK_RTOL = 1e-3
 WARMUP_STEPS = 3
 TIMED_STEPS = 10
 PRETRAIN_WARMUP, PRETRAIN_TIMED, ENCODER_STEPS = 2, 5, 3
+PROSTATE_WARMUP, PROSTATE_TIMED, PROSTATE_ENCODER_STEPS = 1, 3, 3
 #: SupCon kernels against their plain versions (both f32, sums in another order)
 SUPCON_LOSS_RTOL = 1e-5
 SUPCON_DZ_TOL = 1e-4
@@ -124,8 +145,20 @@ K1_SHAPES = [
     ("dx 64->64", 64, 0, 64, 112, False),
 ]
 #: batches of the conv kernels: semi (5 labeled, 10 unlabeled + transformed),
-#: pretraining (two views of 18 slices)
-CONV_BATCHES = (5, 10, 36)
+#: pretraining (two views of 18 slices; prostate: of 48)
+CONV_BATCHES = (5, 10, 36, 96)
+#: (name, cin, cskip, cout, H) of every C2 conv of the prostate decoder path
+#: at 224x224 (C1 takes Conv1.conv0, 1 -> 32 at 224^2, and the Up2 taps,
+#: 64 -> 32 at 112^2 -> 224^2)
+C2_SHAPES = [
+    ("Conv1.conv1", 32, 0, 32, 224), ("Conv2.conv0", 32, 0, 64, 112),
+    ("Conv2.conv1", 64, 0, 64, 112), ("Up_conv3.conv0", 64, 64, 64, 112),
+    ("Up_conv3.conv1", 64, 0, 64, 112), ("Up_conv2.conv0", 32, 32, 32, 224),
+    ("Up_conv2.conv1", 32, 0, 32, 224),
+]
+#: the batch of the prostate path (C1 / C2 records) and the batches where
+#: C1 / C2 are set beside the einsum form they would replace
+BWD_BATCH, EINSUM_BATCHES = 96, (10, 36)
 
 
 def transpose_kernel(taps):
@@ -182,7 +215,7 @@ def check_kernels(device) -> dict:
         return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
 
     recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                    bound_by="") for k in cb.LAUNCHES}
+                    bound_by="") for k in CONV_KERNELS}
 
     def record(kernel, label, got, ref, fns, work, stats=None, library=None):
         """``fns``: (kernel, plain, library) callables; ``work``: (bytes, flops)."""
@@ -250,6 +283,172 @@ def check_kernels(device) -> dict:
     return recs
 
 
+def library_bwd_calls(x, g, w=None, skip=None, w_skip=None, up2=False):
+    """The one cuDNN call (``aten.convolution_backward``, bf16, channels-last)
+    computing C1's or C2's function, as the yardstick of its time: C1 asks it
+    for the weight gradient only (Up2: of the stride-2 transposed convolution
+    whose 4x4 kernel holds the parity taps), C2 for the input and weight
+    gradients of the conv (over the channel concat for a skip conv). -> (fn,
+    result in the kernel's layout: C1 dk [T, Cin, Cout]; C2 (dx NHWC, dk
+    HWIO), skip channels first)."""
+    import torch
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    cout = g.shape[-1]
+    cl = torch.channels_last
+    if up2:
+        cin = x.shape[-1]
+        k = torch.zeros(cin, cout, 4, 4, dtype=x.dtype, device=x.device).contiguous(memory_format=cl)
+        fn = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            nchw(g), nchw(x), k, None, [2, 2], [1, 1], [1, 1], True, [0, 0], 1,
+            [False, True, False])
+        gk = fn()[1]
+        return fn, torch.stack([gk[:, :, 3 - a - 2 * r, 3 - b - 2 * c]
+                                for a in (0, 1) for b in (0, 1) for r in (0, 1) for c in (0, 1)])
+    fused = w is not None
+    if skip is not None:
+        x, w = torch.cat([skip, x], -1), torch.cat([w_skip, w], 2)
+    if not fused:
+        w = torch.zeros(3, 3, x.shape[-1], cout, dtype=x.dtype, device=x.device)
+    k = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    fn = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        nchw(g), nchw(x), k, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [fused, True, False])
+    gx, gk, _ = fn()
+    dk = gk.permute(2, 3, 1, 0)
+    return fn, (dk.reshape(9, *dk.shape[2:]) if gx is None else (gx.permute(0, 2, 3, 1), dk))
+
+
+def check_bwd_kernels(device) -> dict:
+    """Phase 5: C1 and C2 vs their plain versions at the batch-96 shapes of
+    the prostate decoder path (records: errors maxed, times summed over the
+    shapes of one step), then at batches 10 and 36 beside the einsum form
+    (``einsum_compare``: kernel and einsum ms summed over the same shapes).
+    Prints one line per shape."""
+    import torch
+    from contrastyou_tpu_torch.ops import convblock as cb
+
+    g = torch.Generator(device=device).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
+
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    bound_by="", einsum_compare={}) for k in ("conv_dw_taps", "conv3x3_bwd_fused")}
+
+    def dk_rel(got, ref):
+        err, rel = _rel_err(got, ref)
+        if not rel <= DK_RTOL or got.shape != ref.shape:
+            raise AssertionError(f"dk rel {rel:.2e} > {DK_RTOL}")
+        return err, rel
+
+    def c1(B, label, x, gy, up2, einsum):
+        got, ref = cb.conv_dw_taps(x, gy, up2), cb.conv_dw_taps_plain(x, gy, up2)
+        err, rel = dk_rel(got, ref)
+        ms = _time_ms(lambda: cb.conv_dw_taps(x, gy, up2))
+        px = x.numel() // x.shape[-1]
+        T = 16 if up2 else 9
+        work = (2 * (x.numel() + gy.numel()) + 4 * got.numel(), 2 * px * T * x.shape[-1] * gy.shape[-1])
+        line = f"  conv_dw_taps     {label:26s} max_abs_err {err:.3e} (rel {rel:.2e}) kernel {ms:.4f} ms"
+        if B != BWD_BATCH:
+            ems = _time_ms(einsum)
+            print(f"{line} einsum {ems:.4f} ms")
+            return ms, ems, err
+        pms = _time_ms(lambda: cb.conv_dw_taps_plain(x, gy, up2), iters=5)
+        lib_fn, lib = library_bwd_calls(x, gy, up2=up2)
+        lrel = _rel_err(lib, ref)[1]
+        lms = _time_ms(lib_fn)
+        bms, by = _bound(*work, BF16_FLOPS)
+        print(f"{line} plain {pms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms ({by}) "
+              f"cudnn rel {lrel:.2e}")
+        if lrel > KERNEL_RTOL:
+            raise AssertionError(f"C1 {label}: the cuDNN yardstick disagrees with plain")
+        return ms, pms, lms, bms, by, err
+
+    def c2(B, label, x, w, gy, skip, ws, einsum):
+        ms = pms = err = rel = xrel = 0.0
+        fused = [(x, w)] + ([(skip, ws)] if skip is not None else [])
+        refs = []
+        for xi, wi in fused:
+            (dx, dk), (pdx, pdk) = cb.conv3x3_bwd_fused(xi, wi, gy), cb.conv3x3_bwd_fused_plain(xi, wi, gy)
+            e, r = dk_rel(dk, pdk)
+            ex, xr = _rel_err(dx, pdx)
+            if xr > KERNEL_RTOL:
+                raise AssertionError(f"C2 {label}: dx rel {xr:.2e} > {KERNEL_RTOL}")
+            err, rel, xrel = max(err, e, ex), max(rel, r), max(xrel, xr)
+            refs.append((pdx, pdk))
+            ms += _time_ms(lambda: cb.conv3x3_bwd_fused(xi, wi, gy))
+            if B == BWD_BATCH:
+                pms += _time_ms(lambda: cb.conv3x3_bwd_fused_plain(xi, wi, gy), iters=5)
+        line = (f"  conv3x3_bwd_fused {label:25s} max_abs_err {err:.3e} (dk rel {rel:.2e}, dx "
+                f"rel {xrel:.2e}) kernel {ms:.4f} ms")
+        if B != BWD_BATCH:
+            ems = _time_ms(einsum)
+            print(f"{line} einsum+K1 dx {ems:.4f} ms")
+            return ms, ems, err
+        lib_fn, (ldx, ldk) = library_bwd_calls(x, gy, w, skip, ws)
+        pdx = torch.cat([r[0] for r in refs[::-1]], -1)
+        pdk = torch.cat([r[1] for r in refs[::-1]], 2)
+        lrel = max(_rel_err(ldx, pdx)[1], _rel_err(ldk, pdk)[1])
+        lms = _time_ms(lib_fn)
+        cin = sum(xi.shape[-1] for xi, _ in fused)
+        px = x.numel() // x.shape[-1]
+        work = (2 * (2 * px * cin + px * gy.shape[-1] + 9 * cin * gy.shape[-1])
+                + 4 * 9 * cin * gy.shape[-1], 2 * 2 * px * 9 * cin * gy.shape[-1])
+        bms, by = _bound(*work, BF16_FLOPS)
+        print(f"{line} plain {pms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms ({by}) "
+              f"cudnn rel {lrel:.2e}")
+        if lrel > KERNEL_RTOL:
+            raise AssertionError(f"C2 {label}: the cuDNN yardstick disagrees with plain")
+        return ms, pms, lms, bms, by, err
+
+    for B in (BWD_BATCH, *EINSUM_BATCHES):
+        sums = {k: [0.0, 0.0] for k in recs}
+        results = []
+        x = randn(B, 224, 224, 1)
+        gy = randn(B, 224, 224, 32, scale=1e-2)
+        results.append(("conv_dw_taps", c1(B, f"Conv1.conv0 B={B}", x, gy, False,
+                                           lambda: cb.conv3x3_dw(x, gy))))
+        xu = randn(B, 112, 112, 64)
+        results.append(("conv_dw_taps", c1(B, f"Up2 taps B={B}", xu, gy, True,
+                                           lambda: cb.upconv3x3_dtaps(xu, gy))))
+        for name, cin, cs, cout, H in C2_SHAPES:
+            x, gy = randn(B, H, H, cin), randn(B, H, H, cout, scale=1e-2)
+            w = randn(3, 3, cin, cout, scale=1 / math.sqrt(9 * (cin + cs)))
+            skip = randn(B, H, H, cs) if cs else None
+            ws = randn(3, 3, cs, cout, scale=1 / math.sqrt(9 * (cin + cs))) if cs else None
+
+            def einsum(x=x, w=w, gy=gy, skip=skip, ws=ws):
+                for xi, wi in [(x, w)] + ([(skip, ws)] if skip is not None else []):
+                    cb.conv3x3_stats(gy, cb.flip_transpose(wi), stats=False)
+                    cb.conv3x3_dw(xi, gy)
+
+            results.append(("conv3x3_bwd_fused", c2(B, f"{name} B={B}", x, w, gy, skip, ws,
+                                                    einsum)))
+            del x, gy, skip
+        for k, res in results:
+            r = recs[k]
+            r["max_abs_err"] = max(r["max_abs_err"], res[-1])
+            if B == BWD_BATCH:
+                ms, pms, lms, bms, by, _ = res
+                r["ms"] += ms
+                r["plain_ms"] += pms
+                r["library_ms"] += lms
+                _add_bound(r, bms, by)
+            else:
+                sums[k][0] += res[0]
+                sums[k][1] += res[1]
+        for k, (ms, ems) in sums.items():
+            if B != BWD_BATCH:
+                recs[k]["einsum_compare"][f"B={B}"] = {"kernel_ms": ms, "einsum_ms": ems}
+                print(f"  {k} B={B}: kernel {ms:.4f} ms vs einsum form {ems:.4f} ms "
+                      f"over the path's shapes")
+        torch.cuda.empty_cache()
+    return recs
+
+
 def check_supcon(device) -> dict:
     """Phase 4: D1 and D2 vs their plain versions (f32, TF32 off) at the
     pretrain anchor counts (36: the encoder hook's 2 x 18; 180: the decoder
@@ -310,7 +509,7 @@ def check_supcon(device) -> dict:
 def plain_kernels():
     """Route the kernel wrappers to their plain versions (on the card too)."""
     from contrastyou_tpu_torch.ops import convblock as cb
-    names = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
+    names = (*CONV_KERNELS, *BWD_KERNELS)
     saved = [getattr(cb, k) for k in names]
     for k in names:
         setattr(cb, k, getattr(cb, k + "_plain"))
@@ -321,10 +520,11 @@ def plain_kernels():
             setattr(cb, k, f)
 
 
-def check_stages(device) -> None:
-    """Phase 4a: the kernel-path U-Net levels (Conv1; Up2 -> Up_conv2 with
-    the Conv1 skip) at full width, batch 5, forward and backward, are as
-    close to an f32 evaluation of the same modules as the plain bf16 path is.
+def check_stages(device, B: int) -> None:
+    """Phase 6a: the kernel-path U-Net levels (Conv1; Up2 -> Up_conv2 with
+    the Conv1 skip) at full width, batch ``B``, forward and backward, are as
+    close to an f32 evaluation of the same modules as the plain bf16 path is
+    (at batch 96 the backward runs C1 and C2).
     bf16 itself moves these gradients by 10-25% from f32 (measured on the CPU:
     the BN backward cancels large terms), so a direct kernel-vs-plain bound
     would be noise; the kernel path must instead stay within
@@ -336,9 +536,9 @@ def check_stages(device) -> None:
     net = UNet(max_channel=512, momentum=0.01).to(device).init_weights(gen)
     net32 = UNet(max_channel=512, momentum=0.01, dtype=torch.float32).to(device)
     net32.load_state_dict(net.state_dict())
-    x = torch.rand(5, 224, 224, 1, generator=gen, device=device)
-    d3 = torch.randn(5, 112, 112, 64, generator=gen, device=device).to(torch.bfloat16)
-    proj = torch.randn(5, 224, 224, 32, generator=gen, device=device)
+    x = torch.rand(B, 224, 224, 1, generator=gen, device=device)
+    d3 = torch.randn(B, 112, 112, 64, generator=gen, device=device).to(torch.bfloat16)
+    proj = torch.randn(B, 224, 224, 32, generator=gen, device=device)
 
     def run(model):
         model.zero_grad(set_to_none=True)
@@ -351,7 +551,9 @@ def check_stages(device) -> None:
                     if p.grad is not None})
         return res
 
+    _reset_counts()
     got = run(net)
+    launches = _counts()
     with plain_kernels():
         plain, ref = run(net), run(net32)
     worst = 0.0
@@ -360,8 +562,12 @@ def check_stages(device) -> None:
         worst = max(worst, ek / (ep + STAGE_ATOL))
         if ek > STAGE_FACTOR * ep + STAGE_ATOL or not bool(torch.isfinite(got[k]).all()):
             raise AssertionError(f"{k}: kernel path {ek:.3e} from f32, plain bf16 path {ep:.3e}")
-    print(f"stage check (Conv1, Up2, Up_conv2 fwd+bwd, {len(ref)} tensors): kernel-path "
-          f"error vs f32 at most {worst:.2f}x the plain bf16 path's (+{STAGE_ATOL})")
+    bwd = [launches[k] for k in BWD_KERNELS]
+    if bwd != ([2, 4] if B >= BWD_BATCH else [0, 0]):
+        raise AssertionError(f"stage check B={B}: C1/C2 launches {bwd}")
+    print(f"stage check B={B} (Conv1, Up2, Up_conv2 fwd+bwd, {len(ref)} tensors; C1/C2 "
+          f"launches {bwd}): kernel-path error vs f32 at most {worst:.2f}x the plain bf16 "
+          f"path's (+{STAGE_ATOL})")
 
 
 def _reset_counts() -> None:
@@ -376,7 +582,7 @@ def _counts() -> dict:
 
 
 def run_train(device, card: str) -> dict:
-    """Phase 5b: warm-up + timed full-width semi + consistency steps."""
+    """Phase 6b: warm-up + timed full-width semi + consistency steps."""
     import torch
     from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG, build_semi_run
 
@@ -403,8 +609,9 @@ def run_train(device, card: str) -> dict:
         raise AssertionError(f"non-finite loss: {losses}")
     if changed == 0:
         raise AssertionError("no parameter changed")
-    if min(launches[k] for k in CONV_KERNELS) <= 0:
-        raise AssertionError(f"a kernel of the semi path never launched: {launches}")
+    if min(launches[k] for k in CONV_KERNELS) <= 0 or max(launches[k] for k in BWD_KERNELS):
+        raise AssertionError(f"a kernel of the semi path never launched, or C1/C2 did "
+                             f"below batch 96: {launches}")
     return launches
 
 
@@ -421,7 +628,7 @@ def plain_supcon():
 
 
 def check_hook_losses(run) -> None:
-    """Phase 6a: the hook losses of one contrastive batch through D1 against
+    """Phase 7a / 8: the hook losses of one contrastive batch through D1 against
     the same losses through the plain SupCon, on the same forward."""
     import torch
     from contrastyou_tpu_torch.engine.bundle import ModelBundle
@@ -453,17 +660,30 @@ def check_hook_losses(run) -> None:
                 raise AssertionError(f"{h.name}: D1 loss {got} vs plain {ref}")
 
 
-def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int) -> dict:
-    """Phase 6b: full-width pretraining steps through ``build_pretrain_run``."""
+#: launches per step of (D1 and D2 each, C1, C2) on each pretraining path:
+#: one D1/D2 pair per hook of at most 256 anchors (the prostate dense hook's
+#: 2 x 48 x 5 = 480 take the eager form); C1/C2 only from batch 96
+PRETRAIN_LAUNCHES = {
+    ("pretrain_decoder", "acdc"): (2, 0, 0), ("pretrain", "acdc"): (1, 0, 0),
+    ("pretrain_decoder", "prostate"): (1, 2, 9), ("pretrain", "prostate"): (1, 1, 3),
+}
+
+
+def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int,
+                 data: str = "acdc") -> dict:
+    """Phases 7b / 8: full-width pretraining steps through ``build_pretrain_run``."""
     import torch
     from contrastyou_tpu_torch.main import parse_config, build_pretrain_run
     from contrastyou_tpu_torch.models.unet import UNet
 
-    run = build_pretrain_run(parse_config(["-o", f"Trainer.name={trainer}"]), device=device)
+    run = build_pretrain_run(parse_config(["-o", f"Trainer.name={trainer}", f"Data.name={data}"]),
+                             device=device)
     model = run.state.model
     frozen_layers = UNet.arch_elements[UNet.arch_elements.index(run.until) + 1:]
+    trainer = trainer if data == "acdc" else f"{trainer}/{data}"
     print(f"{trainer}: hooks {[h.name for h in run.hooks]}, forward cut at {run.until}, "
-          f"frozen {list(frozen_layers)}, batch {run.batch_slices} slices x 2 views")
+          f"frozen {list(frozen_layers)}, batch {run.batch_slices} slices x 2 views, "
+          f"{model._Deconv_1x1.out_channels} classes")
     check_hook_losses(run)
     tensors = dict(model.named_parameters())
     tensors.update({f"{h.name}/{k}": p for h in run.hooks for k, p in h.named_parameters()})
@@ -494,22 +714,32 @@ def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int) -> di
         if not any(k.startswith(part) for k in moved):
             raise AssertionError(f"no parameter of {part!r} changed")
     steps = warmup + timed
-    expect = {"supcon_loss": steps * len(run.hooks), "supcon_dz": steps * len(run.hooks)}
+    d, c1, c2 = PRETRAIN_LAUNCHES[trainer.split("/")[0], data]
+    expect = {"supcon_loss": steps * d, "supcon_dz": steps * d, "conv_dw_taps": steps * c1,
+              "conv3x3_bwd_fused": steps * c2}
     if any(launches[k] != v for k, v in expect.items()) or launches["conv3x3_stats"] <= 0:
         raise AssertionError(f"launches {launches}, expected {expect} and K1 > 0")
-    if trainer == "pretrain_decoder" and min(launches[k] for k in CONV_KERNELS) <= 0:
+    if trainer.startswith("pretrain_decoder") and min(launches[k] for k in CONV_KERNELS) <= 0:
         raise AssertionError(f"a conv kernel of the decoder path never launched: {launches}")
     return launches
 
 
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
+BWD_KERNELS = ("conv_dw_taps", "conv3x3_bwd_fused")
 SOURCES = {
     "conv3x3_stats": "contrastyou_tpu/ops/pallas/convblock.py:230",
     "upconv3x3_stats": "contrastyou_tpu/ops/pallas/convblock.py:341",
     "upconv3x3_dx": "contrastyou_tpu/ops/pallas/convblock.py:341",
     "supcon_loss": "contrastyou_tpu/ops/pallas/infonce.py:36",
     "supcon_dz": "contrastyou_tpu/ops/pallas/infonce.py:100",
+    "conv_dw_taps": "contrastyou_tpu/ops/pallas/convblock.py:628",
+    "conv3x3_bwd_fused": "contrastyou_tpu/ops/pallas/convblock.py:768",
 }
+#: each kernel's source and main path (its ``launches``)
+ROUTES = {**{k: ("tapconv.cu", "semi") for k in CONV_KERNELS},
+          "supcon_loss": ("supcon.cu", "pretrain_decoder"),
+          "supcon_dz": ("supcon.cu", "pretrain_decoder"),
+          **{k: ("convbwd.cu", "pretrain_decoder/prostate") for k in BWD_KERNELS}}
 
 
 def main() -> int:
@@ -533,22 +763,31 @@ def main() -> int:
     print("kernel vs plain (times per launch, CUDA events):")
     recs = check_kernels(device)
     recs.update(check_supcon(device))
-    check_stages(device)
+    print("backward kernels vs plain (batch 96) and vs the einsum form (batches 10, 36):")
+    recs.update(check_bwd_kernels(device))
+    for B in (5, BWD_BATCH):
+        check_stages(device, B)
     by_path = {"semi": run_train(device, card)}
-    for trainer, warmup, timed in (("pretrain_decoder", PRETRAIN_WARMUP, PRETRAIN_TIMED),
-                                   ("pretrain", 1, ENCODER_STEPS - 1)):
-        by_path[trainer] = run_pretrain(device, card, trainer, warmup, timed)
+    for trainer, data, warmup, timed in (
+            ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
+            ("pretrain", "acdc", 1, ENCODER_STEPS - 1),
+            ("pretrain_decoder", "prostate", PROSTATE_WARMUP, PROSTATE_TIMED),
+            ("pretrain", "prostate", 1, PROSTATE_ENCODER_STEPS - 1)):
+        path = trainer if data == "acdc" else f"{trainer}/{data}"
+        by_path[path] = run_pretrain(device, card, trainer, warmup, timed, data)
+        torch.cuda.empty_cache()
 
     out = []
     for k, r in recs.items():
-        main_path = "semi" if k in CONV_KERNELS else "pretrain_decoder"
-        src = "tapconv.cu" if k in CONV_KERNELS else "supcon.cu"
+        src, main_path = ROUTES[k]
         out.append(dict(name=k, route="cuda", source=f"contrastyou_tpu_torch/ops/csrc/{src}",
                         replaces=SOURCES[k], launches=by_path[main_path][k],
                         launches_by_path={p: c[k] for p, c in by_path.items()},
                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                        library_ms=r["library_ms"]))
+                        library_ms=r["library_ms"],
+                        **({"einsum_compare": r["einsum_compare"]}
+                           if "einsum_compare" in r else {})))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,14 @@
-"""Contrastive batch sampling and scan partitions (counterpart of
-ContrastBatchSampler in contrastyou_tpu/data/sampler.py and of the partition
-rule in contrastyou_tpu/data/base.py), host-side numpy."""
+"""Index samplers and scan partitions (counterpart of InfiniteRandomSampler
+and ContrastBatchSampler in contrastyou_tpu/data/sampler.py and of the
+partition rule in contrastyou_tpu/data/base.py), host-side numpy."""
 from __future__ import annotations
 
+import itertools
 import typing as t
 
 import numpy as np
 
-__all__ = ["partition_index", "ContrastBatchSampler"]
+__all__ = ["partition_index", "InfiniteRandomSampler", "ContrastBatchSampler"]
 
 
 def partition_index(cur_index: int, max_len: int, partition_num: int = 3) -> int:
@@ -24,6 +25,28 @@ def partition_index(cur_index: int, max_len: int, partition_num: int = 3) -> int
     else:
         part = 2
     return min(part, partition_num - 1)
+
+
+class InfiniteRandomSampler:
+    """Endless stream of dataset indices, one fresh permutation of
+    ``range(size)`` after another (the same numpy draws as the JAX sampler,
+    so one seed gives the same indices). Single process: the per-process
+    stride of the JAX sampler belongs to data-parallel training."""
+
+    def __init__(self, size: int, seed: int = 0):
+        self._size = size
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> t.Iterator[int]:
+        while True:
+            yield from self._rng.permutation(self._size).tolist()
+
+    def batches(self, batch_size: int) -> t.Iterator[t.List[int]]:
+        """Consecutive ``batch_size`` runs of the stream (data/loader.py
+        ``BatchLoader`` with a sampler)."""
+        it = iter(self)
+        while True:
+            yield list(itertools.islice(it, batch_size))
 
 
 class ContrastBatchSampler:

@@ -12,6 +12,9 @@ in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
 so no YAML installation is needed. It runs ``Trainer.num_batches`` steps (one
 epoch) on a synthetic ACDC-like split made with numpy from ``RandomSeed`` —
 dataset files, the epoch loop, evaluation and checkpoints are not ported yet.
+Pretraining takes the class count, partition count and contrastive sampler of
+``Data.name`` (``-o Data.name=prostate``: 8 partitions, 2 classes, random
+48-slice batches, 96 images per forward).
 
 The run is on the CUDA card; ``-o Trainer.device=cpu`` asks for the CPU.
 Without a card and without that request it raises.
@@ -27,8 +30,9 @@ import numpy as np
 import torch
 
 from .configure.config import ConfigParser, merge, parse_value
+from .data.datasets import DatasetSpec, dataset_spec
 from .data.device_cache import DeviceDataCache
-from .data.sampler import ContrastBatchSampler, partition_index
+from .data.sampler import partition_index
 from .engine.bundle import ModelBundle
 from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
@@ -37,7 +41,7 @@ from .engine.steps import build_cached_train_step, init_train_state
 from .hooks.consistency import ConsistencyTrainerHook
 from .hooks.creator import create_infonce_hooks
 from .models.unet import UNet
-from .trainers.pretrain import (PRETRAIN_BATCH_SIZE_MAX, build_pretrain_step,
+from .trainers.pretrain import (build_pretrain_step, contrastive_batches,
                                 feature_until_from_hooks, frozen_after,
                                 jitter_strength, sample_pretrain_draws)
 
@@ -85,7 +89,7 @@ _DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG,
              "pretrain": PRETRAIN_ENCODER_CONFIG,
              "pretrain_decoder": PRETRAIN_DECODER_CONFIG}
 
-#: ACDC's class count and the reference crop of its slices
+#: the class count of ``semi`` (ACDC) and the reference crop of the slices
 NUM_CLASSES = 4
 CROP = 224
 
@@ -122,25 +126,28 @@ def synthetic_split(n_slices: int, size: int, *, num_classes: int = NUM_CLASSES,
 
 
 def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
-                    partition_num: int = 3, seed: int = 0) -> dict:
-    """:func:`synthetic_split` slices grouped into ACDC-like scans
-    ``patient<p>_<cycle>`` (two cycles per patient), with per-slice scan,
-    partition (the 3-way threshold rule), patient and cycle ids."""
-    images, targets = synthetic_split(n_scans * slices_per_scan, size, seed=seed)
+                    spec: DatasetSpec = dataset_spec("acdc"), seed: int = 0) -> dict:
+    """:func:`synthetic_split` slices (``spec.num_classes`` classes) grouped
+    into scans named by ``spec.scan_name`` (ACDC ``patient<p>_<cycle>``, two
+    cycles per patient; prostate ``Case<p>``), with per-slice scan, partition
+    (``spec.partition_num`` by the dataset's rule), patient and cycle ids."""
+    images, targets = synthetic_split(n_scans * slices_per_scan, size,
+                                      num_classes=spec.num_classes, seed=seed)
     scan = np.repeat(np.arange(n_scans), slices_per_scan)
     cur = np.tile(np.arange(slices_per_scan), n_scans)
-    patient, cycle = scan // 2 + 1, scan % 2
+    patient, cycle = scan // spec.cycles + 1, scan % spec.cycles
     return {"images": images, "targets": targets, "scan_id": scan,
-            "partition": np.array([partition_index(int(c), slices_per_scan, partition_num)
+            "partition": np.array([partition_index(int(c), slices_per_scan, spec.partition_num)
                                    for c in cur]),
             "patient": patient, "cycle": cycle,
-            "scan_names": [f"patient{p:03d}_{c:02d}" for p, c in
+            "scan_names": [spec.scan_name.format(patient=p, cycle=c) for p, c in
                            zip(patient[::slices_per_scan], cycle[::slices_per_scan])]}
 
 
-def _model(config: Mapping, device, dtype, max_channel, generator) -> UNet:
+def _model(config: Mapping, device, dtype, max_channel, generator,
+           num_classes: int = NUM_CLASSES) -> UNet:
     arch = config["Arch"]
-    model = UNet(input_dim=1, num_classes=NUM_CLASSES,
+    model = UNet(input_dim=1, num_classes=num_classes,
                  max_channel=int(max_channel or arch["max_channel"]),
                  momentum=float(arch["momentum"]), dtype=dtype).to(device)
     return model.init_weights(generator)
@@ -212,18 +219,23 @@ class PretrainRun:
 
 def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
                        raw_size: int = 256, crop: int = CROP, n_scans: int = 12,
-                       slices_per_scan: int = 10,
+                       slices_per_scan: Optional[int] = None,
                        max_channel: Optional[int] = None) -> PretrainRun:
     """``pretrain`` / ``pretrain_decoder``: model, InfoNCE hooks with their
     projection heads, RAdam over the layers up to the deepest tap plus the
-    heads, synthetic ACDC-like scans resident on the device, the contrastive
-    batch sampler and the pretrain step. Weights and data are made from
-    ``RandomSeed``."""
+    heads, synthetic scans of ``Data.name``'s layout resident on the device,
+    its contrastive batch sampler and the pretrain step. Weights and data are
+    made from ``RandomSeed``. ``slices_per_scan`` defaults to 10 for
+    datasets of 3 partitions and to 8 per partition above (64 for prostate),
+    enough for the ``cur // (cut + 1)`` rule to fill every partition."""
     seed = int(config.get("RandomSeed", 10))
     trainer = config["Trainer"]
     data_name = str(config["Data"]["name"])
+    spec = dataset_spec(data_name)
+    if slices_per_scan is None:
+        slices_per_scan = 10 if spec.partition_num <= 3 else 8 * spec.partition_num
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = _model(config, device, dtype, max_channel, gen)
+    model = _model(config, device, dtype, max_channel, gen, spec.num_classes)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = create_infonce_hooks(
         channel_dim=model.get_channel_dim,
@@ -239,18 +251,17 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
         max_epoch=int(trainer["max_epoch"]), steps_per_epoch=int(trainer["num_batches"]))
     state = init_train_state(bundle, hooks, optimizer)
 
-    scans = synthetic_scans(n_scans, slices_per_scan, raw_size, seed=seed)
+    scans = synthetic_scans(n_scans, slices_per_scan, raw_size, spec=spec, seed=seed)
     cache = DeviceDataCache.from_arrays(
         scans["images"], scans["targets"], crop=crop, device=device,
         scan_id=scans["scan_id"], partition=scans["partition"],
         patient=scans["patient"], cycle=scans["cycle"], scan_names=scans["scan_names"])
     clp = config.get("ContrastiveLoaderParams", {})
-    sampler = ContrastBatchSampler(
-        [scans["scan_names"][s] for s in scans["scan_id"]], scans["partition"],
+    batches, pad_to = contrastive_batches(
+        data_name, [scans["scan_names"][s] for s in scans["scan_id"]], scans["partition"],
+        partition_num=spec.partition_num,
         scan_sample_num=int(clp.get("scan_sample_num", 6)),
         partition_sample_num=int(clp.get("partition_sample_num", 1)), seed=seed)
-    pad_to = min(sampler.batch_size, PRETRAIN_BATCH_SIZE_MAX)
-    batches = iter(sampler)
     step = build_pretrain_step(bundle, hooks, until=until)
     grids = sorted({h.grid for h in hooks if h.grid is not None})
     strength = jitter_strength(data_name)

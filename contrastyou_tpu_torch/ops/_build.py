@@ -36,6 +36,11 @@ SIGNATURES = {
         "upconv3x3_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "upconv3x3_dx": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "convbwd": {
+        "convbwd_num_partials": (_I, _I, _I, _I, _I, _I),
+        "conv_dw_taps": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+        "conv3x3_bwd_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
     "supcon": {
         "supcon_max_anchors": (_I,),
         "supcon_loss": (_P, _P, _I, _I, _F, _P, _P, _P, _P),

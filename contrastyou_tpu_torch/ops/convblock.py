@@ -12,12 +12,23 @@ with at most 64 channels (Conv1, Conv2, Up_conv3, Up2, Up_conv2):
   2x2-tap parity convs at input resolution, with the same statistics.
 - ``upconv3x3_dx`` (K3): the adjoint of K2.
 
+Two more (``csrc/convbwd.cu``) carry the backward from batch
+:data:`BWD_KERNEL_MIN_BATCH` (96, the prostate contrastive batch), where the
+JAX package routes its Pallas dW and fused-backward kernels:
+
+- ``conv_dw_taps`` (C1): the weight gradient over a static tap set (the 3x3
+  taps, or the 16 parity taps of Up2).
+- ``conv3x3_bwd_fused`` (C2): dx and dW of a 3x3 conv from one pass over the
+  cotangent.
+
+Below that batch the weight gradients are per-tap einsums, as the JAX package
+leaves them to XLA there.
+
 Every wrapper dispatches on the device of its input: a CPU tensor goes to the
 plain PyTorch version beside it (same signature, same rounding points: f32
 accumulation, one rounding of the output to the input dtype, statistics of the
 rounded output), a CUDA tensor to the kernel — which raises on what it does
-not take. The weight gradients are plain torch, as the JAX package leaves them
-to XLA einsums at these batch sizes. Activations are NHWC, weights HWIO.
+not take. Activations are NHWC, weights HWIO.
 """
 from __future__ import annotations
 
@@ -31,15 +42,23 @@ from . import _build
 
 __all__ = ["conv3x3_stats", "conv3x3_stats_plain", "upconv3x3_stats",
            "upconv3x3_stats_plain", "upconv3x3_dx", "upconv3x3_dx_plain",
-           "parity_taps", "conv3x3_bn_stats", "upconv3x3_bn_stats",
-           "bn_relu", "bn_affine", "convblock_stage", "LAUNCHES",
-           "reset_launch_counts"]
+           "conv_dw_taps", "conv_dw_taps_plain", "conv3x3_bwd_fused",
+           "conv3x3_bwd_fused_plain", "parity_taps", "conv3x3_bn_stats",
+           "upconv3x3_bn_stats", "bn_relu", "bn_affine", "convblock_stage",
+           "LAUNCHES", "reset_launch_counts", "BWD_KERNEL_MIN_BATCH"]
 
 #: launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {"conv3x3_stats": 0, "upconv3x3_stats": 0, "upconv3x3_dx": 0}
+LAUNCHES = {"conv3x3_stats": 0, "upconv3x3_stats": 0, "upconv3x3_dx": 0,
+            "conv_dw_taps": 0, "conv3x3_bwd_fused": 0}
 
 #: output channel counts the kernels are instantiated for
 KERNEL_COUT = (32, 64)
+#: batch from which the backward runs C1 / C2 (the automatic routing of the
+#: JAX package's ``_dw_enabled`` and ``_fusedbwd_enabled``)
+BWD_KERNEL_MIN_BATCH = 96
+#: input channels from which a 3x3 conv's backward is fused (C2); the image
+#: conv below it keeps dx on K1 and dW on C1 (``_plane_conv_bwd``)
+FUSED_BWD_MIN_CIN = 8
 
 
 def reset_launch_counts() -> None:
@@ -180,16 +199,29 @@ class _Conv3x3Stats(torch.autograd.Function):
         x, w, skip, w_skip, out = ctx.saved_tensors
         g = _cotangent(out, g_out, g_s, g_sq, x.dtype)
         need = ctx.needs_input_grad
-        dx = (conv3x3_stats(g, flip_transpose(w), stats=False)[0]
-              if need[0] else None)
-        dw = conv3x3_dw(x, g).to(w.dtype) if need[1] else None
+        dx, dw = _conv3x3_bwd(x, w, g, need[0], need[1])
         dskip = dws = None
         if skip is not None:
-            if need[2]:
-                dskip = conv3x3_stats(g, flip_transpose(w_skip), stats=False)[0]
-            if need[3]:
-                dws = conv3x3_dw(skip, g).to(w_skip.dtype)
+            # the skip's slice of the conv: its own C2 launch on the same g
+            dskip, dws = _conv3x3_bwd(skip, w_skip, g, need[2], need[3])
         return dx, dw, dskip, dws
+
+
+def _conv3x3_bwd(x, w, g, need_dx: bool, need_dw: bool):
+    """(dx, dW) of one input of a 3x3 conv for the folded cotangent ``g``,
+    None where not needed (convblock.py ``_plane_conv_bwd``). Below
+    :data:`BWD_KERNEL_MIN_BATCH`: dx on K1 with the flipped kernel, dW by
+    per-tap einsums. From it: C2 when Cin >= :data:`FUSED_BWD_MIN_CIN`, else
+    dx on K1 and dW on C1."""
+    if x.shape[0] >= BWD_KERNEL_MIN_BATCH:
+        if need_dw and x.shape[-1] >= FUSED_BWD_MIN_CIN:
+            dx, dk = conv3x3_bwd_fused(x, w, g)
+            return (dx if need_dx else None), dk.to(w.dtype)
+        dw = conv_dw_taps(x, g).reshape(w.shape).to(w.dtype) if need_dw else None
+    else:
+        dw = conv3x3_dw(x, g).to(w.dtype) if need_dw else None
+    dx = conv3x3_stats(g, flip_transpose(w), stats=False)[0] if need_dx else None
+    return dx, dw
 
 
 def conv3x3_bn_stats(x, w, skip=None, w_skip=None):
@@ -331,14 +363,112 @@ class _UpconvStats(torch.autograd.Function):
         x, taps, out = ctx.saved_tensors
         g = _cotangent(out, g_out, g_s, g_sq, x.dtype)
         dx = upconv3x3_dx(g, taps) if ctx.needs_input_grad[0] else None
-        dtaps = (upconv3x3_dtaps(x, g).to(taps.dtype)
-                 if ctx.needs_input_grad[1] else None)
+        dtaps = None
+        if ctx.needs_input_grad[1]:
+            dtaps = (conv_dw_taps(x, g, up2=True).reshape(taps.shape)
+                     if x.shape[0] >= BWD_KERNEL_MIN_BATCH
+                     else upconv3x3_dtaps(x, g)).to(taps.dtype)
         return dx, dtaps
 
 
 def upconv3x3_bn_stats(x, k3):
     """Differentiable :func:`upconv3x3_stats` on an HWIO 3x3 kernel."""
     return _UpconvStats.apply(x, parity_taps(k3))
+
+
+# --- C1 / C2: weight gradient and fused backward from batch 96 -------------
+
+def _tap_offsets(up2: bool):
+    """(dy, dx) of each tap: the 3x3 taps in HWIO order, or the 16 parity
+    taps of Up2 (parity-major, as :func:`parity_taps` orders them)."""
+    if up2:
+        return [_parity_offsets(p, t) for p in range(4) for t in range(4)]
+    return [(dy - 1, dx - 1) for dy in range(3) for dx in range(3)]
+
+
+def conv_dw_taps_plain(x: torch.Tensor, g: torch.Tensor, up2: bool = False) -> torch.Tensor:
+    """Plain version of :func:`conv_dw_taps` (f32 accumulation)."""
+    B, H, W, _ = x.shape
+    xp = _pad_hw(x.float())
+    out = []
+    for k, (dy, dx) in enumerate(_tap_offsets(up2)):
+        a, b = divmod(k // 4, 2)
+        gs = g[:, a::2, b::2] if up2 else g
+        out.append(torch.einsum("bhwi,bhwo->io",
+                                xp[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W], gs.float()))
+    return torch.stack(out)
+
+
+def _num_partials(lib, mode: int, B: int, H: int, W: int, cin: int, cout: int) -> int:
+    nb = lib.convbwd_num_partials(mode, B, H, W, cin, cout)
+    if nb <= 0:
+        _build.check(-nb or 1, "convbwd_num_partials", "convbwd")
+    return nb
+
+
+def conv_dw_taps(x: torch.Tensor, g: torch.Tensor, up2: bool = False) -> torch.Tensor:
+    """Weight gradient over a static tap set: dk [T, Cin, Cout] f32 with
+    dk[t,i,o] = sum_{b,h,w} x[b, h+dy_t, w+dx_t, i] * g[b,h,w,o], x zero
+    outside the image (convblock.py ``plane_conv_dw``). 3x3: the 9 taps of a
+    SAME conv in HWIO order, ``g`` [B,H,W,Cout]. ``up2``: the 16 parity taps
+    of :func:`upconv3x3_stats` ([4 parities, 4 taps] flattened), ``g``
+    [B,2H,2W,Cout] read on parity (a, b)'s sub-grid ``g[:, a::2, b::2]``.
+    Kernel C1 on CUDA (bf16, Cout in {32, 64})."""
+    if x.device.type == "cpu":
+        return conv_dw_taps_plain(x, g, up2)
+    B, H, W, cin = x.shape
+    cout = g.shape[-1]
+    _cuda_check("conv_dw_taps", x, g)
+    s = 2 if up2 else 1
+    if cout not in KERNEL_COUT or tuple(g.shape[:3]) != (B, s * H, s * W):
+        raise ValueError(f"conv_dw_taps: x {tuple(x.shape)}, g {tuple(g.shape)} "
+                         f"(up2={up2}); Cout must be in {KERNEL_COUT}")
+    lib = _build.load_library("convbwd")
+    taps = 16 if up2 else 9
+    nb = _num_partials(lib, int(up2), B, H, W, cin, cout)
+    part = torch.empty(nb, taps, cin, cout, dtype=torch.float32, device=x.device)
+    dk = torch.empty(taps, cin, cout, dtype=torch.float32, device=x.device)
+    rc = lib.conv_dw_taps(_ptr(x), _ptr(g), int(up2), _ptr(part), _ptr(dk),
+                          B, H, W, cin, cout, _stream())
+    _build.check(rc, "conv_dw_taps", "convbwd")
+    LAUNCHES["conv_dw_taps"] += 1
+    return dk
+
+
+def conv3x3_bwd_fused_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Plain version of :func:`conv3x3_bwd_fused`."""
+    dx = conv3x3_stats_plain(g, flip_transpose(w), stats=False)[0]
+    return dx, conv_dw_taps_plain(x, g).reshape(3, 3, x.shape[-1], g.shape[-1])
+
+
+def conv3x3_bwd_fused(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Backward of the SAME 3x3 conv of ``x`` [B,H,W,Cin] with HWIO ``w``
+    for the output cotangent ``g`` [B,H,W,Cout] (convblock.py
+    ``plane_conv_bwd_fused``) -> (dx [B,H,W,Cin] in g's dtype, one rounding
+    of f32 sums; dk [3,3,Cin,Cout] f32). Kernel C2 on CUDA (bf16, Cin a
+    multiple of 16, Cout in {32, 64}): each cotangent tile is loaded once
+    for both products."""
+    if x.device.type == "cpu":
+        return conv3x3_bwd_fused_plain(x, w, g)
+    B, H, W, cin = x.shape
+    cout = g.shape[-1]
+    w = w.contiguous()
+    _cuda_check("conv3x3_bwd_fused", x, w, g)
+    if (cout not in KERNEL_COUT or cin % 16 or tuple(w.shape) != (3, 3, cin, cout)
+            or g.shape[:3] != x.shape[:3]):
+        raise ValueError(f"conv3x3_bwd_fused: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"g {tuple(g.shape)}; Cin must be a multiple of 16, Cout "
+                         f"in {KERNEL_COUT}")
+    lib = _build.load_library("convbwd")
+    nb = _num_partials(lib, 2, B, H, W, cin, cout)
+    part = torch.empty(nb, 9, cin, cout, dtype=torch.float32, device=x.device)
+    dk = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    rc = lib.conv3x3_bwd_fused(_ptr(x), _ptr(w), _ptr(g), _ptr(dx), _ptr(part), _ptr(dk),
+                               B, H, W, cin, cout, _stream())
+    _build.check(rc, "conv3x3_bwd_fused", "convbwd")
+    LAUNCHES["conv3x3_bwd_fused"] += 1
+    return dx, dk
 
 
 # --- BatchNorm + ReLU ------------------------------------------------------

@@ -1,9 +1,11 @@
 """Step time and device-time breakdown of the port's train steps on the card.
 
     python -m contrastyou_tpu_torch.profile_step pretrain_decoder [--steps 5]
+    python -m contrastyou_tpu_torch.profile_step pretrain_decoder -o Data.name=prostate
 
 For ``semi``, ``pretrain_decoder`` or ``pretrain`` at the reference config
-(full width, 224x224, bf16): after warm-up, ``--rounds`` timed windows of
+(full width, 224x224, bf16), with trailing ``-o`` overrides as the entry
+point takes them (``Data.name=prostate``: 96 images per forward): after warm-up, ``--rounds`` timed windows of
 ``--steps`` steps (host clock around synchronized steps, ms/step), then one
 ``torch.profiler`` window of ``--steps`` steps: device busy time per step
 (the sum of the kernels' device times over the window's wall time), kernels
@@ -25,14 +27,15 @@ def _card() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def _build(trainer: str, device):
+def _build(trainer: str, device, overrides=()):
     # imported here: only what the named trainer needs, so the script also
     # times older trees of the package that lack the pretrain path
-    if trainer == "semi":
+    if trainer == "semi" and not overrides:
         from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG, build_semi_run
         return build_semi_run(MAIN_PATH_CONFIG, device=device)
-    from contrastyou_tpu_torch.main import build_pretrain_run, parse_config
-    return build_pretrain_run(parse_config(["-o", f"Trainer.name={trainer}"]), device=device)
+    from contrastyou_tpu_torch.main import build_pretrain_run, build_semi_run, parse_config
+    config = parse_config(["-o", f"Trainer.name={trainer}", *overrides])
+    return (build_semi_run if trainer == "semi" else build_pretrain_run)(config, device=device)
 
 
 def main(argv=None) -> int:
@@ -46,12 +49,14 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--shapes", action="store_true",
                     help="also list the largest operators by input shapes")
+    ap.add_argument("-o", dest="overrides", nargs="*", default=[],
+                    help="config overrides, e.g. Data.name=prostate")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA card")
     device = torch.device("cuda", 0)
     card = _card()
-    run = _build(args.trainer, device)
+    run = _build(args.trainer, device, args.overrides)
     run.run(3)
     torch.cuda.synchronize()
     for r in range(args.rounds):

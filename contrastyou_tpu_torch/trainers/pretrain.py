@@ -9,10 +9,11 @@ hands in the JAX step's.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..data.sampler import ContrastBatchSampler, InfiniteRandomSampler
 from ..engine.bundle import ModelBundle
 from ..engine.hooks import StepContext, TrainerHook, combined_taps
 from ..engine.state import TrainState
@@ -25,10 +26,32 @@ from ..ops.affine import (GeoParams, apply_gamma, apply_geometric, sample_gammas
 from ..ops.intensity import color_jitter as apply_jitter
 
 __all__ = ["PRETRAIN_BATCH_SIZE_MAX", "feature_until_from_hooks", "frozen_after",
-           "jitter_strength", "PretrainDraws", "sample_pretrain_draws",
-           "build_pretrain_step"]
+           "jitter_strength", "contrastive_batches", "PretrainDraws",
+           "sample_pretrain_draws", "build_pretrain_step"]
 
 PRETRAIN_BATCH_SIZE_MAX = 50
+
+
+def contrastive_batches(data_name: str, slice_scans: Sequence[str],
+                        partitions: Sequence[int], *, partition_num: int,
+                        scan_sample_num: int = 6, partition_sample_num: int = 1,
+                        seed: int = 0, batch_size_max: int = PRETRAIN_BATCH_SIZE_MAX
+                        ) -> Tuple[Iterator[List[int]], int]:
+    """Endless index batches of the contrastive loader and their size
+    (trainers/pretrain.py ``get_contrastive_loader``). ACDC and spleen:
+    ``scan_sample_num`` scans x every partition (:class:`ContrastBatchSampler`;
+    a short batch is padded to the size by the caller). Otherwise
+    consecutive runs of an :class:`InfiniteRandomSampler` over all slices, of
+    ``min(scan_sample_num * partition_num * partition_sample_num,
+    batch_size_max)``. Slice ``i`` lies in scan ``slice_scans[i]`` and
+    partition ``partitions[i]``."""
+    if data_name.startswith("acdc") or data_name == "spleen":
+        sampler = ContrastBatchSampler(slice_scans, partitions,
+                                       scan_sample_num=scan_sample_num,
+                                       partition_sample_num=partition_sample_num, seed=seed)
+        return iter(sampler), min(sampler.batch_size, batch_size_max)
+    size = min(scan_sample_num * partition_num * partition_sample_num, batch_size_max)
+    return InfiniteRandomSampler(len(partitions), seed=seed).batches(size), size
 
 
 def feature_until_from_hooks(*hooks: TrainerHook,

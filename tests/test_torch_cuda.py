@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (contrastyou_tpu_torch/ops/csrc/tapconv.cu and
-supcon.cu) against their plain PyTorch versions, on a card. Needs no JAX, so
-it runs on the machine with the card:
+"""The port's CUDA kernels (contrastyou_tpu_torch/ops/csrc/tapconv.cu,
+convbwd.cu and supcon.cu) against their plain PyTorch versions, on a card.
+Needs no JAX, so it runs on the machine with the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -10,7 +10,10 @@ different orders and round once to bf16, so they may differ by one bf16 ulp
 value. Shapes are small and deliberately ragged (not multiples of the 8x16
 output tile) to exercise the edge masking. The SupCon kernels (f32) are held
 to loss rtol 1e-5 and dz 1e-4 of its largest value, at anchor counts that are
-not multiples of their 8-row blocks.
+not multiples of their 8-row blocks. The backward kernels' weight gradients
+(f32 on both sides) are held to 1e-4 of the largest |dk|, C2's dx (bf16) as
+the conv kernels are. The CPU tests here check the wrappers' guards and the
+cuDNN yardsticks that chip_smoke.py times.
 """
 import pytest
 import torch
@@ -20,6 +23,9 @@ from contrastyou_tpu_torch.ops import supcon
 from torch_parity import scaled_close
 
 TOL = 2.0 ** -6
+#: C1 / C2 weight gradients (f32 on both sides, sums in another order), in
+#: units of the largest |dk|
+DK_TOL = 1e-4
 
 
 @pytest.mark.gpu
@@ -77,6 +83,63 @@ def test_supcon_kernels_match_plain():
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+def test_conv_bwd_kernels_match_plain():
+    """C1 (3x3 taps at Cin 1 and 32, the Up2 parity taps) and C2 (with and
+    without a ragged edge) against their plain versions on the same bf16
+    operands: dk is f32 on both sides (sums of at most ~2k exact products in
+    another order), dx one bf16 rounding on both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+
+    for cin, cout in ((1, 32), (32, 64)):
+        x, gy = r(3, 13, 21, cin), r(3, 13, 21, cout)
+        scaled_close(cb.conv_dw_taps(x, gy), cb.conv_dw_taps_plain(x, gy), tol=DK_TOL,
+                     what=f"C1 3x3 Cin {cin}")
+    xu, gu = r(2, 10, 18, 64), r(2, 20, 36, 32)
+    scaled_close(cb.conv_dw_taps(xu, gu, up2=True), cb.conv_dw_taps_plain(xu, gu, up2=True),
+                 tol=DK_TOL, what="C1 Up2")
+    for cin, cout, H, W in ((32, 64, 16, 32), (64, 32, 13, 21), (16, 32, 9, 40)):
+        x, gy, w = r(2, H, W, cin), r(2, H, W, cout), r(3, 3, cin, cout) * 0.05
+        (dx, dk), (pdx, pdk) = cb.conv3x3_bwd_fused(x, w, gy), cb.conv3x3_bwd_fused_plain(x, w, gy)
+        scaled_close(dx, pdx, tol=TOL, what=f"C2 dx {cin}->{cout}")
+        scaled_close(dk, pdk, tol=DK_TOL, what=f"C2 dk {cin}->{cout}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_conv_bwd_kernels_refuse_what_they_do_not_take():
+    """A CUDA tensor reaches C1 / C2 or an error, never the plain version:
+    f32 operands, a Cin that is not a multiple of 16 (C2) and a Cout the
+    kernels are not built for all raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+
+    def z(*s, dtype=torch.bfloat16):
+        return torch.zeros(s, dtype=dtype, device=dev)
+
+    before = dict(cb.LAUNCHES)
+    with pytest.raises(ValueError):
+        cb.conv_dw_taps(z(2, 8, 16, 32, dtype=torch.float32), z(2, 8, 16, 32, dtype=torch.float32))
+    with pytest.raises(ValueError):
+        cb.conv_dw_taps(z(2, 8, 16, 32), z(2, 8, 16, 48))
+    with pytest.raises(ValueError):
+        cb.conv_dw_taps(z(2, 8, 16, 32), z(2, 8, 16, 32), up2=True)
+    with pytest.raises(ValueError):
+        cb.conv3x3_bwd_fused(z(2, 8, 16, 24), z(3, 3, 24, 32), z(2, 8, 16, 32))
+    with pytest.raises(ValueError):
+        cb.conv3x3_bwd_fused(z(2, 8, 16, 32, dtype=torch.float32),
+                             z(3, 3, 32, 32, dtype=torch.float32),
+                             z(2, 8, 16, 32, dtype=torch.float32))
+    assert cb.LAUNCHES == before
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     """On the CPU the wrappers never reach a kernel; the checks that guard
     the kernel launch raise on the device, dtype and channel count."""
@@ -108,3 +171,35 @@ def test_library_yardsticks_compute_the_kernels_functions():
     gy = torch.randn(2, 18, 22, 6, generator=g)
     torch.testing.assert_close(smoke.library_calls(None, None, taps=taps, g=gy)[1],
                                cb.upconv3x3_dx_plain(gy, taps), rtol=1e-5, atol=1e-5)
+
+
+def test_backward_yardsticks_compute_c1_c2_functions():
+    """chip_smoke.py times one cuDNN ``convolution_backward`` beside C1 and
+    C2; on the CPU (f32) each call computes the plain version's function: C1
+    the weight gradient of the 3x3 conv and of the stride-2 transposed conv
+    (as the 16 parity taps), C2 the input and weight gradients of a conv,
+    over the channel concat for a skip conv."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    g = torch.Generator().manual_seed(1)
+    x, skip = torch.randn(2, 9, 11, 8, generator=g), torch.randn(2, 9, 11, 4, generator=g)
+    gy = torch.randn(2, 9, 11, 6, generator=g)
+    w, ws = torch.randn(3, 3, 8, 6, generator=g), torch.randn(3, 3, 4, 6, generator=g)
+    tol = dict(rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(smoke.library_bwd_calls(x, gy)[1], cb.conv_dw_taps_plain(x, gy),
+                               **tol)
+    gu = torch.randn(2, 18, 22, 6, generator=g)
+    torch.testing.assert_close(smoke.library_bwd_calls(x, gu, up2=True)[1],
+                               cb.conv_dw_taps_plain(x, gu, up2=True), **tol)
+    dx, dk = smoke.library_bwd_calls(x, gy, w)[1]
+    pdx, pdk = cb.conv3x3_bwd_fused_plain(x, w, gy)
+    torch.testing.assert_close(dx, pdx, **tol)
+    torch.testing.assert_close(dk, pdk, **tol)
+    dx, dk = smoke.library_bwd_calls(x, gy, w, skip, ws)[1]
+    (sdx, sdk), (xdx, xdk) = cb.conv3x3_bwd_fused_plain(skip, ws, gy), (pdx, pdk)
+    torch.testing.assert_close(dx, torch.cat([sdx, xdx], -1), **tol)
+    torch.testing.assert_close(dk, torch.cat([sdk, xdk], 2), **tol)
