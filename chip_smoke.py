@@ -42,19 +42,32 @@ Phases, in order; any failure exits non-zero:
    partitions, random 48-slice batches, 96 images per forward, colour
    jitter 0.1): the same checks, with D1/D2 once per step (the Conv5 hook;
    the dense hook's 480 anchors take the eager form) and C1/C2 as often as
-   the path implies (decoder: 2 and 9 per step, encoder: 1 and 3).
+   the path implies (decoder: 2 and 9 per step, encoder: 1 and 3);
+9. the dense-IIC kernels (E1 ``iic_joints``, E2 ``iic_joints_bwd``) against
+   their plain versions at the Up_conv2 taps of ``semi``'s unlabeled batch
+   (f1, f2 [5, 224, 224, 32] bf16, 5 subheads of 20 clusters) at paddings 1
+   (the udaiic hook's), 0 and 2 (run right after phase 4);
+10. ``semi`` with the udaiic hooks (config/base + hooks/udaiic: IIC on Conv5
+   and, at padding 1, on Up_conv2 through E1/E2, plus consistency) through
+   ``build_semi_run(UDAIIC_CONFIG)`` at full width: the dense hook's loss on
+   one batch through E1 against the plain version, then warm-up and timed
+   steps; every hook loss finite, model and head parameters changed, E1 and
+   E2 once per step, K1-K3 as often per step as on ``semi``, C1/C2 and
+   D1/D2 never (run right after phase 6).
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3: ``semi``; D1/D2:
-``pretrain_decoder``; C1/C2: prostate ``pretrain_decoder``;
-``launches_by_path`` has all five), ``max_abs_err`` the largest over the
-checked shapes, ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` the
-sums over those shapes of one launch each (C1/C2: over the batch-96 shapes
-only; ``einsum_compare`` has their batch-10 and -36 sums beside the einsum
-form's); ``bound_ms`` is max(bytes / 3.35 TB/s, operations / peak) with the
-bf16 tensor peak (989 TFLOP/s) for the conv kernels and the f32 peak (67
-TFLOP/s) for SupCon. The last line is ``{"ok": true, "device": {...}}``.
+``pretrain_decoder``; C1/C2: prostate ``pretrain_decoder``; E1/E2:
+``semi/udaiic``; ``launches_by_path`` has all six), ``max_abs_err`` the
+largest over the checked shapes, ``ms`` / ``plain_ms`` / ``library_ms`` /
+``bound_ms`` the sums over those shapes of one launch each (C1/C2: over the
+batch-96 shapes only; ``einsum_compare`` has their batch-10 and -36 sums
+beside the einsum form's; E1/E2: at padding 1, with every padding in
+``by_padding``); ``bound_ms`` is max(bytes / 3.35 TB/s, operations / peak)
+with the bf16 tensor peak (989 TFLOP/s) for the conv kernels and the f32 peak
+(67 TFLOP/s) for SupCon and IIC. The last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -91,6 +104,18 @@ SUPCON_LOSS_RTOL = 1e-5
 SUPCON_DZ_TOL = 1e-4
 #: the card's peaks (H100 SXM data sheet): HBM bytes/s, bf16 tensor and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+#: E1's raw joints against the plain version, in units of the largest |raw|:
+#: both are f32 sums over 250,880 pixel pairs per displacement in other
+#: orders, of softmaxes whose exp may differ from torch's by an ulp
+IIC_RAW_RTOL = 1e-4
+#: the dense hook's loss through E1 against the plain version: the min-shift
+#: normalization divides the joints' distances from their minimum, which
+#: magnifies the raw joints' relative error
+IIC_LOSS_RTOL = 1e-3
+#: E1/E2 shapes: the Up_conv2 taps of semi's 5 unlabeled slices, 5 subheads
+#: of 20 clusters (config/hooks/udaiic.yaml), the udaiic padding first
+IIC_SHAPE, IIC_S, IIC_K, IIC_PADDINGS = (5, 224, 224, 32), 5, 20, (1, 0, 2)
+UDAIIC_WARMUP, UDAIIC_TIMED = 3, 5
 
 
 def _card() -> str:
@@ -505,6 +530,168 @@ def check_supcon(device) -> dict:
     return recs
 
 
+def iic_work(f: "torch.Tensor", S: int, K: int, padding: int) -> dict:
+    """(bytes, flops) of E1 and E2 on features ``f`` [B, H, W, C] (each input
+    read once, each output written once; only the S diagonal K x K blocks of
+    each displacement's joint): E1 projects both maps (2 * 2N * C * S * K)
+    and forms the joints (2 * Td^2 * N * S * K^2); E2 recomputes the
+    projections, forms dp for both views (twice the joints' work), then df
+    and dW (2 * 2N * C * S * K each)."""
+    B, H, W, C = f.shape
+    N, SK, td2 = B * H * W, S * K, (2 * padding + 1) ** 2
+    fbytes = 2 * f.numel() * f.element_size()
+    params, joints = 4 * (C * SK + SK), 4 * S * td2 * K * K
+    proj, pair = 2 * 2 * N * C * SK, 2 * td2 * N * S * K * K
+    return {"iic_joints": (fbytes + params + joints, proj + pair),
+            "iic_joints_bwd": (2 * fbytes + 2 * params + joints, 3 * proj + 2 * pair)}
+
+
+def check_iic(device) -> dict:
+    """Phase 9: E1 and E2 vs their plain versions (f32 math, TF32 off) on
+    post-ReLU bf16 feature maps of the Up_conv2 taps' shape, at each padding
+    of IIC_PADDINGS. Records: errors maxed over the paddings, times and bound
+    of padding 1 (the udaiic hook's), every padding in ``by_padding``."""
+    import torch
+    from contrastyou_tpu_torch.ops import iic
+
+    g = torch.Generator(device=device).manual_seed(5)
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+                    bound_by="", by_padding={}) for k in iic.LAUNCHES}
+    C, S, K = IIC_SHAPE[-1], IIC_S, IIC_K
+    f1, f2 = (torch.relu(torch.randn(IIC_SHAPE, generator=g, device=device)).to(torch.bfloat16)
+              for _ in range(2))
+    w = torch.randn(C, S * K, generator=g, device=device) / math.sqrt(C)
+    b = torch.randn(S * K, generator=g, device=device) * 0.1
+    for pad in IIC_PADDINGS:
+        kw = dict(num_subheads=S, num_clusters=K, padding=pad)
+        raw, raw_ref = iic.iic_joints(f1, f2, w, b, **kw), iic.iic_joints_plain(f1, f2, w, b, **kw)
+        err1, rel1 = _rel_err(raw, raw_ref)
+        jbar = torch.randn(raw.shape, generator=g, device=device)
+        got = iic.iic_joints_bwd(f1, f2, w, b, jbar, **kw)
+        ref = iic.iic_joints_bwd_plain(f1, f2, w, b, jbar, **kw)
+        rels = [_rel_err(a, r) for a, r in zip(got, ref)]
+        err2 = max(e for e, _ in rels)
+        torch.cuda.synchronize()
+        times = {"iic_joints": (_time_ms(lambda: iic.iic_joints(f1, f2, w, b, **kw)),
+                                _time_ms(lambda: iic.iic_joints_plain(f1, f2, w, b, **kw),
+                                         iters=5), err1),
+                 "iic_joints_bwd": (_time_ms(lambda: iic.iic_joints_bwd(f1, f2, w, b, jbar, **kw)),
+                                    _time_ms(lambda: iic.iic_joints_bwd_plain(f1, f2, w, b, jbar,
+                                                                              **kw), iters=5),
+                                    err2)}
+        work = iic_work(f1, S, K, pad)
+        line = (f"  iic padding {pad}: E1 raw max_abs_err {err1:.3e} (rel {rel1:.2e}); E2 "
+                + ", ".join(f"{n} rel {r:.2e}" for n, (_, r) in zip(("df1", "df2", "dW", "db"),
+                                                                  rels)))
+        for k, (ms, pms, err) in times.items():
+            bms, by = _bound(*work[k], F32_FLOPS)
+            line += f"; {k} kernel {ms:.4f} ms plain {pms:.4f} ms bound {bms:.4f} ms ({by})"
+            r = recs[k]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["by_padding"][str(pad)] = {"ms": ms, "plain_ms": pms, "bound_ms": bms}
+            if pad == IIC_PADDINGS[0]:
+                r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        print(line)
+        if (rel1 > IIC_RAW_RTOL or any(r > KERNEL_RTOL for _, r in rels[:2])
+                or any(r > DK_RTOL for _, r in rels[2:])
+                or any(a.dtype != r.dtype or a.shape != r.shape for a, r in zip(got, ref))):
+            raise AssertionError(f"IIC padding {pad}: a kernel disagrees with its plain version")
+        del raw_ref, ref
+        torch.cuda.empty_cache()
+    return recs
+
+
+@contextlib.contextmanager
+def plain_iic():
+    """Route the IIC wrappers to their plain versions (on the card too)."""
+    from contrastyou_tpu_torch.ops import iic
+    saved = iic.iic_joints, iic.iic_joints_bwd
+    iic.iic_joints, iic.iic_joints_bwd = iic.iic_joints_plain, iic.iic_joints_bwd_plain
+    try:
+        yield
+    finally:
+        iic.iic_joints, iic.iic_joints_bwd = saved
+
+
+def check_iic_hook(run) -> None:
+    """Phase 10a: the dense IIC hook's loss on one unlabeled batch and its
+    transformed copy (one forward, no statistics update) through E1 against
+    the same loss through the plain version."""
+    import torch
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.hooks import StepContext
+    from contrastyou_tpu_torch.engine.steps import sample_step_draws
+    from contrastyou_tpu_torch.models.projectors import DenseClusterHead
+    from contrastyou_tpu_torch.ops.affine import transform_image
+
+    gen = torch.Generator(device=run.unlabeled_cache.device).manual_seed(3)
+    n = run.batch_slices // 2
+    x = run.unlabeled_cache.sample(gen, n)["image"]
+    draws = sample_step_draws(gen, n)
+    hooks = [h for h in run.hooks if isinstance(getattr(h, "projector", None), DenseClusterHead)]
+    taps = tuple(h.taps[0] for h in hooks)
+    with torch.no_grad():
+        _, feats = run.state.model(torch.cat([x, transform_image(x, draws.geo, draws.gammas)]),
+                                   taps=taps, update_stats=False)
+        ctx = StepContext(unlabeled_taps={k: v[:n] for k, v in feats.items()},
+                          unlabeled_tf_taps={k: v[n:] for k, v in feats.items()},
+                          geo_params=draws.geo,
+                          bundle=ModelBundle(run.state.model, tuple(x.shape[1:])))
+        for h in hooks:
+            got = float(h.loss(ctx, {})[0])
+            with plain_iic():
+                ref = float(h.loss(ctx, {})[0])
+            rel = abs(got - ref) / abs(ref)
+            print(f"  {h.name}: loss through E1 {got:.7f}, plain {ref:.7f} (rel {rel:.2e})")
+            if not math.isfinite(got) or rel > IIC_LOSS_RTOL:
+                raise AssertionError(f"{h.name}: E1 loss {got} vs plain {ref}")
+
+
+def run_udaiic(device, card: str, semi: dict) -> dict:
+    """Phase 10b: warm-up + timed full-width semi steps with the udaiic
+    hooks; ``semi``: the launches of phase 6b's semi run."""
+    import torch
+    from contrastyou_tpu_torch.main import UDAIIC_CONFIG, build_semi_run
+
+    run = build_semi_run(UDAIIC_CONFIG, device=device)
+    print(f"semi/udaiic: hooks {[(h.name, h.weight) for h in run.hooks]}")
+    check_iic_hook(run)
+    tensors = dict(run.state.model.named_parameters())
+    tensors.update({f"{h.name}/{k}": p for h in run.hooks if isinstance(h, torch.nn.Module)
+                    for k, p in h.named_parameters()})
+    before = {k: v.detach().clone() for k, v in tensors.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    metrics = run.run(UDAIIC_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics += run.run(UDAIIC_TIMED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    keys = [f"{h.name}/loss" for h in run.hooks] + ["sup_loss", "total_loss"]
+    losses = [{k: round(float(m[k]), 6) for k in keys} for m in metrics]
+    moved = [k for k in tensors if not torch.equal(before[k], tensors[k].detach())]
+    ms = dt / UDAIIC_TIMED * 1e3
+    print(f"semi/udaiic: {UDAIIC_WARMUP}+{UDAIIC_TIMED} steps, losses {losses}")
+    print(f"semi/udaiic: {len(moved)}/{len(tensors)} parameter tensors changed; "
+          f"launches {launches}")
+    print(f"semi/udaiic: {ms:.3f} ms/step, {run.batch_slices * 1e3 / ms:.2f} slices/s "
+          f"on {card}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"non-finite loss: {losses}")
+    for part in ["_"] + [f"{h.name}/" for h in run.hooks if isinstance(h, torch.nn.Module)]:
+        if not any(k.startswith(part) for k in moved):
+            raise AssertionError(f"no parameter of {part!r} changed")
+    steps, semi_steps = UDAIIC_WARMUP + UDAIIC_TIMED, WARMUP_STEPS + TIMED_STEPS
+    if (launches["iic_joints"] != steps or launches["iic_joints_bwd"] != steps
+            or any(launches[k] * semi_steps != semi[k] * steps for k in CONV_KERNELS)
+            or any(launches[k] for k in BWD_KERNELS + SUPCON_KERNELS)):
+        raise AssertionError(f"launches {launches}: want E1/E2 {steps} each, K1-K3 per step "
+                             f"as on semi ({semi}), C1/C2 and D1/D2 none")
+    return launches
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the kernel wrappers to their plain versions (on the card too)."""
@@ -571,14 +758,15 @@ def check_stages(device, B: int) -> None:
 
 
 def _reset_counts() -> None:
-    from contrastyou_tpu_torch.ops import convblock as cb, supcon
+    from contrastyou_tpu_torch.ops import convblock as cb, iic, supcon
     cb.reset_launch_counts()
     supcon.reset_launch_counts()
+    iic.reset_launch_counts()
 
 
 def _counts() -> dict:
-    from contrastyou_tpu_torch.ops import convblock as cb, supcon
-    return {**cb.LAUNCHES, **supcon.LAUNCHES}
+    from contrastyou_tpu_torch.ops import convblock as cb, iic, supcon
+    return {**cb.LAUNCHES, **supcon.LAUNCHES, **iic.LAUNCHES}
 
 
 def run_train(device, card: str) -> dict:
@@ -612,6 +800,8 @@ def run_train(device, card: str) -> dict:
     if min(launches[k] for k in CONV_KERNELS) <= 0 or max(launches[k] for k in BWD_KERNELS):
         raise AssertionError(f"a kernel of the semi path never launched, or C1/C2 did "
                              f"below batch 96: {launches}")
+    if any(launches[k] for k in IIC_KERNELS):
+        raise AssertionError(f"E1/E2 launched without an IIC hook: {launches}")
     return launches
 
 
@@ -716,7 +906,7 @@ def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int,
     steps = warmup + timed
     d, c1, c2 = PRETRAIN_LAUNCHES[trainer.split("/")[0], data]
     expect = {"supcon_loss": steps * d, "supcon_dz": steps * d, "conv_dw_taps": steps * c1,
-              "conv3x3_bwd_fused": steps * c2}
+              "conv3x3_bwd_fused": steps * c2, "iic_joints": 0, "iic_joints_bwd": 0}
     if any(launches[k] != v for k, v in expect.items()) or launches["conv3x3_stats"] <= 0:
         raise AssertionError(f"launches {launches}, expected {expect} and K1 > 0")
     if trainer.startswith("pretrain_decoder") and min(launches[k] for k in CONV_KERNELS) <= 0:
@@ -726,6 +916,8 @@ def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int,
 
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 BWD_KERNELS = ("conv_dw_taps", "conv3x3_bwd_fused")
+SUPCON_KERNELS = ("supcon_loss", "supcon_dz")
+IIC_KERNELS = ("iic_joints", "iic_joints_bwd")
 SOURCES = {
     "conv3x3_stats": "contrastyou_tpu/ops/pallas/convblock.py:230",
     "upconv3x3_stats": "contrastyou_tpu/ops/pallas/convblock.py:341",
@@ -734,12 +926,15 @@ SOURCES = {
     "supcon_dz": "contrastyou_tpu/ops/pallas/infonce.py:100",
     "conv_dw_taps": "contrastyou_tpu/ops/pallas/convblock.py:628",
     "conv3x3_bwd_fused": "contrastyou_tpu/ops/pallas/convblock.py:768",
+    "iic_joints": "contrastyou_tpu/ops/pallas/iic.py:153",
+    "iic_joints_bwd": "contrastyou_tpu/ops/pallas/iic.py:183",
 }
 #: each kernel's source and main path (its ``launches``)
 ROUTES = {**{k: ("tapconv.cu", "semi") for k in CONV_KERNELS},
           "supcon_loss": ("supcon.cu", "pretrain_decoder"),
           "supcon_dz": ("supcon.cu", "pretrain_decoder"),
-          **{k: ("convbwd.cu", "pretrain_decoder/prostate") for k in BWD_KERNELS}}
+          **{k: ("convbwd.cu", "pretrain_decoder/prostate") for k in BWD_KERNELS},
+          **{k: ("iic.cu", "semi/udaiic") for k in IIC_KERNELS}}
 
 
 def main() -> int:
@@ -763,11 +958,15 @@ def main() -> int:
     print("kernel vs plain (times per launch, CUDA events):")
     recs = check_kernels(device)
     recs.update(check_supcon(device))
+    print("dense-IIC kernels vs plain (f1, f2 [5, 224, 224, 32] bf16, S = 5, K = 20):")
+    recs.update(check_iic(device))
     print("backward kernels vs plain (batch 96) and vs the einsum form (batches 10, 36):")
     recs.update(check_bwd_kernels(device))
     for B in (5, BWD_BATCH):
         check_stages(device, B)
     by_path = {"semi": run_train(device, card)}
+    by_path["semi/udaiic"] = run_udaiic(device, card, by_path["semi"])
+    torch.cuda.empty_cache()
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),
@@ -786,8 +985,7 @@ def main() -> int:
                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"],
-                        **({"einsum_compare": r["einsum_compare"]}
-                           if "einsum_compare" in r else {})))
+                        **{k: r[k] for k in ("einsum_compare", "by_padding") if k in r}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

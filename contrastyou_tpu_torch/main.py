@@ -3,18 +3,25 @@ pretraining on one device.
 
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/consistency.yaml \\
         -o Trainer.name=semi Trainer.num_batches=20
+    python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/udaiic.yaml \\
+        -o Trainer.name=semi
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/pretrain.yaml \\
         config/hooks/infonce.yaml
 
 takes the argv of the root ``main.py``. Without ``-p`` the base is the
 in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
 (``semi``), :data:`PRETRAIN_DECODER_CONFIG` or :data:`PRETRAIN_ENCODER_CONFIG`,
-so no YAML installation is needed. It runs ``Trainer.num_batches`` steps (one
-epoch) on a synthetic ACDC-like split made with numpy from ``RandomSeed`` —
-dataset files, the epoch loop, evaluation and checkpoints are not ported yet.
-Pretraining takes the class count, partition count and contrastive sampler of
-``Data.name`` (``-o Data.name=prostate``: 8 partitions, 2 classes, random
-48-slice batches, 96 images per forward).
+so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
+``semi`` + ``udaiic`` base; from the ``semi`` base the same run is
+``-o Trainer.name=semi ~ConsistencyParameters`` plus the four
+``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml). It runs
+``Trainer.num_batches`` steps (one epoch) on a synthetic split made with numpy
+from ``RandomSeed`` — dataset files, the epoch loop, evaluation and
+checkpoints are not ported yet. The hooks come from the config's hook
+sections (``hooks/creator.py``; a section without a port raises). Both
+trainers take the class count of ``Data.name``; pretraining also its
+partition count and contrastive sampler (``-o Data.name=prostate``: 8
+partitions, 2 classes, random 48-slice batches, 96 images per forward).
 
 The run is on the CUDA card; ``-o Trainer.device=cpu`` asks for the CPU.
 Without a card and without that request it raises.
@@ -38,15 +45,15 @@ from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
 from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state
-from .hooks.consistency import ConsistencyTrainerHook
-from .hooks.creator import create_infonce_hooks
+from .hooks.creator import create_hook_from_config
+from .hooks.infonce import INFONCEHook
 from .models.unet import UNet
 from .trainers.pretrain import (build_pretrain_step, contrastive_batches,
                                 feature_until_from_hooks, frozen_after,
                                 jitter_strength, sample_pretrain_draws)
 
-__all__ = ["MAIN_PATH_CONFIG", "PRETRAIN_DECODER_CONFIG", "PRETRAIN_ENCODER_CONFIG",
-           "resolve_device", "synthetic_split", "synthetic_scans", "SemiRun",
+__all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "PRETRAIN_DECODER_CONFIG",
+           "PRETRAIN_ENCODER_CONFIG", "resolve_device", "synthetic_split", "synthetic_scans", "SemiRun",
            "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config", "main"]
 
 #: config/base.yaml
@@ -74,6 +81,12 @@ _PRETRAIN = {
 
 #: config/base.yaml merged with config/hooks/consistency.yaml
 MAIN_PATH_CONFIG = merge(_BASE, {"ConsistencyParameters": {"weight": 10}})
+#: config/base.yaml merged with config/hooks/udaiic.yaml (``Trainer.name`` stays
+#: null, i.e. ``semi``): IIC on Conv5 and, with one pixel of displacement, on
+#: Up_conv2, plus consistency
+UDAIIC_CONFIG = merge(_BASE, {"DiscreteMIConsistencyParams": {
+    "feature_names": ["Conv5", "Up_conv2"], "mi_weights": [0.1, 0.05],
+    "dense_paddings": [1], "consistency_weight": 1}})
 #: config/base.yaml + config/pretrain.yaml + config/hooks/infonce.yaml
 PRETRAIN_DECODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
     "InfonceParams": {"feature_names": ["Conv5", "Up_conv2"], "weights": [1.0, 1.0],
@@ -89,7 +102,8 @@ _DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG,
              "pretrain": PRETRAIN_ENCODER_CONFIG,
              "pretrain_decoder": PRETRAIN_DECODER_CONFIG}
 
-#: the class count of ``semi`` (ACDC) and the reference crop of the slices
+#: the class count of ACDC (the synthetic split's default) and the reference
+#: crop of the slices
 NUM_CLASSES = 4
 CROP = 224
 
@@ -153,6 +167,18 @@ def _model(config: Mapping, device, dtype, max_channel, generator,
     return model.init_weights(generator)
 
 
+def _hooks(config: Mapping, model: UNet, device, dtype, generator, *, is_pretrain: bool):
+    """The config's hooks on ``device``, their heads drawn from ``generator``
+    in hook order."""
+    hooks = create_hook_from_config(
+        config, channel_dim=model.get_channel_dim, is_pretrain=is_pretrain,
+        proj_bf16=dtype == torch.bfloat16 and torch.device(device).type == "cuda")
+    for h in hooks:
+        if isinstance(h, torch.nn.Module):
+            h.to(device).projector.init_weights(generator)
+    return hooks
+
+
 @dataclass
 class SemiRun:
     state: TrainState
@@ -161,6 +187,7 @@ class SemiRun:
     batch_slices: int               # slices per step (labeled + unlabeled)
     labeled_cache: DeviceDataCache
     unlabeled_cache: DeviceDataCache
+    hooks: List
 
     def run(self, n: int):
         return [self.step(self.state, self.generator) for _ in range(n)]
@@ -169,24 +196,24 @@ class SemiRun:
 def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
                    raw_size: int = 256, crop: int = CROP, n_slices: int = 40,
                    max_channel: Optional[int] = None) -> SemiRun:
-    """Model, hooks, optimizer, device-resident synthetic split and the
-    cached ``semi`` step from a reference-style config. Weights and data are
-    made from ``RandomSeed``."""
+    """Model, hooks (their heads optimized beside the model), optimizer,
+    device-resident synthetic split and the cached ``semi`` step from a
+    reference-style config; the class count is ``Data.name``'s. Weights and
+    data are made from ``RandomSeed``."""
     seed = int(config.get("RandomSeed", 10))
     trainer = config["Trainer"]
+    spec = dataset_spec(str(config["Data"]["name"]))
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = _model(config, device, dtype, max_channel, gen)
+    model = _model(config, device, dtype, max_channel, gen, spec.num_classes)
     bundle = ModelBundle(model, (crop, crop, 1))
-    hooks = []
-    if "ConsistencyParameters" in config:
-        hooks.append(ConsistencyTrainerHook(
-            weight=float(config["ConsistencyParameters"]["weight"])))
+    hooks = _hooks(config, model, device, dtype, gen, is_pretrain=False)
     optimizer, _ = create_optimizer(
-        model.parameters(), config["Optim"], config.get("Scheduler"),
-        max_epoch=int(trainer["max_epoch"]),
+        list(model.parameters()) + hook_parameters(hooks), config["Optim"],
+        config.get("Scheduler"), max_epoch=int(trainer["max_epoch"]),
         steps_per_epoch=int(trainer["num_batches"]))
     state = init_train_state(bundle, hooks, optimizer)
-    images, targets = synthetic_split(n_slices, raw_size, seed=seed)
+    images, targets = synthetic_split(n_slices, raw_size, num_classes=spec.num_classes,
+                                      seed=seed)
     half = n_slices // 2
     lab = DeviceDataCache.from_arrays(images[:half], targets[:half], crop=crop,
                                       device=device)
@@ -200,7 +227,7 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
         bundle, hooks, labeled_cache=lab, unlabeled_cache=unl,
         labeled_batch=nl, unlabeled_batch=nu,
         disable_bn=bool(trainer.get("disable_bn", False)))
-    return SemiRun(state, step, gen, nl + nu, lab, unl)
+    return SemiRun(state, step, gen, nl + nu, lab, unl, hooks)
 
 
 @dataclass
@@ -237,12 +264,11 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     gen = torch.Generator(device=device).manual_seed(seed)
     model = _model(config, device, dtype, max_channel, gen, spec.num_classes)
     bundle = ModelBundle(model, (crop, crop, 1))
-    hooks = create_infonce_hooks(
-        channel_dim=model.get_channel_dim,
-        proj_bf16=dtype == torch.bfloat16 and torch.device(device).type == "cuda",
-        **config["InfonceParams"])
-    for h in hooks:
-        h.to(device).projector.init_weights(gen)
+    hooks = _hooks(config, model, device, dtype, gen, is_pretrain=True)
+    others = [h.name for h in hooks if not isinstance(h, INFONCEHook)]
+    if others or not hooks:
+        raise NotImplementedError(f"the port pretrains with InfoNCE hooks only; got "
+                                  f"{others or 'no hook'}")
     until = feature_until_from_hooks(*hooks)
     trainable = frozen_after(until)
     params = [p for name, p in model.named_parameters() if trainable(name)]
@@ -279,12 +305,13 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     return PretrainRun(state, cached_step, gen, pad_to, cache, hooks, until)
 
 
-def parse_config(argv) -> dict:
-    """Reference-style argv -> config; without ``-p`` the in-code base of
-    the ``Trainer.name`` the overrides give."""
+def parse_config(argv, base: Optional[Mapping] = None) -> dict:
+    """Reference-style argv -> config; without ``-p`` the in-code ``base``,
+    by default the one of the ``Trainer.name`` the overrides give."""
     named = [parse_value(tok.split("=", 1)[1]) for tok in argv
              if tok.lstrip("+").startswith("Trainer.name=")]
-    base = _DEFAULTS.get(named[-1] if named else None, MAIN_PATH_CONFIG)
+    if base is None:
+        base = _DEFAULTS.get(named[-1] if named else None, MAIN_PATH_CONFIG)
     config = ConfigParser(base).parse(argv)
     name = config["Trainer"].get("name")
     if name not in _DEFAULTS:

@@ -1,11 +1,14 @@
-"""Projection heads of the contrastive hooks (counterpart of the
-``ProjectionHead`` / ``DenseProjectionHead`` of
+"""Projection heads of the contrastive hooks and cluster heads of the
+discrete-MI hooks (counterpart of the ``ProjectionHead`` /
+``DenseProjectionHead`` / ``ClusterHead`` / ``DenseClusterHead`` of
 contrastyou_tpu/models/projectors.py), on NHWC tensors.
 
-Parameters carry the flax names (``Dense_0``, ``Dense_1``; ``Conv_0``,
-``Conv_1``) so ``utils/torch_convert.py`` maps them one to one. Dense layers
-are ``nn.Linear`` ([out, in] weights), the 1x1 convs ``nn.Conv2d`` ([out, in,
-1, 1]); both run as matrix products over the channel axis.
+Projection-head parameters carry the flax names (``Dense_0``, ``Dense_1``;
+``Conv_0``, ``Conv_1``) so ``utils/torch_convert.py`` maps them one to one.
+Dense layers are ``nn.Linear`` ([out, in] weights), the 1x1 convs
+``nn.Conv2d`` ([out, in, 1, 1]); both run as matrix products over the channel
+axis. A cluster head keeps its S subheads as one stacked ``weight`` [S, C, K]
+and ``bias`` [S, K], the layout of flax's vmapped subheads.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch.nn as nn
 
 from .pooling import adaptive_avg_pool2d
 
-__all__ = ["l2_normalize", "ProjectionHead", "DenseProjectionHead"]
+__all__ = ["l2_normalize", "ProjectionHead", "DenseProjectionHead", "ClusterHead",
+           "DenseClusterHead"]
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -41,6 +45,10 @@ def _init(module: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             w = torch.randn(m.weight.shape, generator=generator, device=generator.device)
             m.weight.copy_(w / math.sqrt(m.weight[0].numel()))
+            m.bias.zero_()
+        elif isinstance(m, _ClusterHeadBase):
+            w = torch.randn(m.weight.shape, generator=generator, device=generator.device)
+            m.weight.copy_(w / math.sqrt(m.weight.shape[1]))
             m.bias.zero_()
 
 
@@ -109,3 +117,44 @@ class DenseProjectionHead(nn.Module):
         else:
             x = _avg_pool(_dense(x, self.Conv_1, cdt), self.spatial_size)
         return l2_normalize(x.float())
+
+
+class _ClusterHeadBase(nn.Module):
+    """S linear subheads of K clusters on C channels, stacked: ``weight`` [S,
+    C, K], ``bias`` [S, K]; softmax over K with temperature ``T``. Only the
+    linear, unnormalized head is ported (the one every discrete-MI hook
+    builds); the ``mlp`` form waits."""
+
+    def __init__(self, in_dim: int, num_clusters: int, num_subheads: int, T: float = 1.0):
+        super().__init__()
+        self.num_clusters, self.num_subheads, self.T = num_clusters, num_subheads, float(T)
+        self.weight = nn.Parameter(torch.empty(num_subheads, in_dim, num_clusters))
+        self.bias = nn.Parameter(torch.zeros(num_subheads, num_clusters))
+
+    def init_weights(self, generator: torch.Generator):
+        _init(self, generator)
+        return self
+
+
+class ClusterHead(_ClusterHeadBase):
+    """Global cluster distributions: average pool, then per subhead ``x @
+    W_s + b_s`` and the softmax -> [S, B, K]."""
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = adaptive_avg_pool2d(features, (1, 1)).reshape(features.shape[0], -1)
+        z = torch.einsum("bc,sck->sbk", x, self.weight) + self.bias[:, None]
+        return torch.softmax(z / self.T, -1)
+
+
+class DenseClusterHead(_ClusterHeadBase):
+    """Per-pixel cluster distributions: a 1x1 projection per subhead and the
+    softmax -> [S, B, H, W, K]."""
+
+    def merged_params(self):
+        """(w [C, S*K] subhead-major, b [S*K]): every subhead in one product."""
+        S, C, K = self.weight.shape
+        return self.weight.permute(1, 0, 2).reshape(C, S * K), self.bias.reshape(S * K)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        z = torch.einsum("bhwc,sck->sbhwk", features, self.weight)
+        return torch.softmax((z + self.bias[:, None, None, None]) / self.T, -1)

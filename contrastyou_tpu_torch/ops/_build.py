@@ -46,6 +46,11 @@ SIGNATURES = {
         "supcon_loss": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
         "supcon_dz": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
     },
+    "iic": {
+        "iic_num_partials": (_I,) * 9,
+        "iic_joints": (_P,) * 6 + (_I,) * 8 + (_P,),
+        "iic_joints_bwd": (_P,) * 10 + (_I,) * 8 + (_P,),
+    },
 }
 
 

@@ -2,10 +2,14 @@
 
     python -m contrastyou_tpu_torch.profile_step pretrain_decoder [--steps 5]
     python -m contrastyou_tpu_torch.profile_step pretrain_decoder -o Data.name=prostate
+    python -m contrastyou_tpu_torch.profile_step semi --udaiic
 
 For ``semi``, ``pretrain_decoder`` or ``pretrain`` at the reference config
 (full width, 224x224, bf16), with trailing ``-o`` overrides as the entry
-point takes them (``Data.name=prostate``: 96 images per forward): after warm-up, ``--rounds`` timed windows of
+point takes them (``Data.name=prostate``: 96 images per forward; for
+``semi`` 2 classes); ``--udaiic`` starts ``semi`` from the in-code
+``udaiic`` config (IIC hooks on Conv5 and Up_conv2, kernels E1/E2) instead
+of ``semi`` + consistency. After warm-up, ``--rounds`` timed windows of
 ``--steps`` steps (host clock around synchronized steps, ms/step), then one
 ``torch.profiler`` window of ``--steps`` steps: device busy time per step
 (the sum of the kernels' device times over the window's wall time), kernels
@@ -27,15 +31,21 @@ def _card() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def _build(trainer: str, device, overrides=()):
-    # imported here: only what the named trainer needs, so the script also
-    # times older trees of the package that lack the pretrain path
-    if trainer == "semi" and not overrides:
-        from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG, build_semi_run
-        return build_semi_run(MAIN_PATH_CONFIG, device=device)
-    from contrastyou_tpu_torch.main import build_pretrain_run, build_semi_run, parse_config
-    config = parse_config(["-o", f"Trainer.name={trainer}", *overrides])
-    return (build_semi_run if trainer == "semi" else build_pretrain_run)(config, device=device)
+def _build(trainer: str, device, overrides=(), *, udaiic: bool = False, **size):
+    """The run ``trainer`` with ``overrides`` on ``device``; ``size`` goes to
+    the run's builder (its defaults are the reference sizes)."""
+    # imported here, and the udaiic base only when asked for, so the script
+    # also times older trees of the package
+    from contrastyou_tpu_torch import main
+    argv = ["-o", f"Trainer.name={trainer}", *overrides]
+    if udaiic:
+        if trainer != "semi":
+            raise SystemExit("--udaiic is a semi configuration")
+        config = main.parse_config(argv, main.UDAIIC_CONFIG)
+    else:
+        config = main.parse_config(argv)
+    build = main.build_semi_run if trainer == "semi" else main.build_pretrain_run
+    return build(config, device=device, **size)
 
 
 def main(argv=None) -> int:
@@ -49,6 +59,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--shapes", action="store_true",
                     help="also list the largest operators by input shapes")
+    ap.add_argument("--udaiic", action="store_true",
+                    help="semi with the udaiic hooks (config/hooks/udaiic.yaml)")
     ap.add_argument("-o", dest="overrides", nargs="*", default=[],
                     help="config overrides, e.g. Data.name=prostate")
     args = ap.parse_args(argv)
@@ -56,7 +68,8 @@ def main(argv=None) -> int:
         raise RuntimeError("profile_step needs a CUDA card")
     device = torch.device("cuda", 0)
     card = _card()
-    run = _build(args.trainer, device, args.overrides)
+    run = _build(args.trainer, device, args.overrides, udaiic=args.udaiic)
+    name = f"{args.trainer}/udaiic" if args.udaiic else args.trainer
     run.run(3)
     torch.cuda.synchronize()
     for r in range(args.rounds):
@@ -64,7 +77,7 @@ def main(argv=None) -> int:
         run.run(args.steps)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / args.steps * 1e3
-        print(f"{args.trainer} round {r}: {ms:.3f} ms/step, "
+        print(f"{name} round {r}: {ms:.3f} ms/step, "
               f"{run.batch_slices * 1e3 / ms:.2f} slices/s on {card}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -75,7 +88,7 @@ def main(argv=None) -> int:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    print(f"{args.trainer} profiled window: {wall_us / args.steps / 1e3:.3f} ms/step wall, "
+    print(f"{name} profiled window: {wall_us / args.steps / 1e3:.3f} ms/step wall, "
           f"device busy {busy_us / args.steps / 1e3:.3f} ms/step "
           f"({100 * busy_us / wall_us:.1f}%), {len(kernels) / args.steps:.0f} kernels/step "
           f"on {card}")

@@ -14,6 +14,13 @@ the flax layer names:
   Dense_i.weight [O,I], .bias   <-> Dense_i/kernel [I,O], /bias   (ProjectionHead)
   Conv_i.weight [O,I,1,1], .bias <-> Conv_i/kernel [1,1,I,O], /bias (DenseProjectionHead)
 
+and the cluster heads of the discrete-MI hooks, whose S subheads flax vmaps:
+
+  weight [S,C,K], bias [S,K] <-> Vmap_SubHead_0/Dense_0/kernel [S,C,K], /bias [S,K]
+                                 (ClusterHead)
+                             <-> Vmap_DenseSubHead_0/Conv_0/kernel [S,1,1,C,K], /bias [S,K]
+                                 (DenseClusterHead)
+
 Values are numpy arrays on the flax side and tensors on the torch side.
 """
 from __future__ import annotations
@@ -24,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_to_head_state_dict",
-           "head_state_dict_to_flax"]
+           "head_state_dict_to_flax", "flax_to_cluster_head_state_dict",
+           "cluster_head_state_dict_to_flax"]
 
 CONV_BLOCKS = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5",
                "Up_conv5", "Up_conv4", "Up_conv3", "Up_conv2")
@@ -116,3 +124,30 @@ def head_state_dict_to_flax(sd: t.Mapping[str, torch.Tensor]) -> dict:
         out.setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = \
             np.ascontiguousarray(a)
     return out
+
+
+#: flax path of a cluster head's linear layer: (vmapped subhead, layer)
+CLUSTER_LAYERS = {False: ("Vmap_SubHead_0", "Dense_0"), True: ("Vmap_DenseSubHead_0", "Conv_0")}
+
+
+def flax_to_cluster_head_state_dict(params: t.Mapping) -> dict:
+    """flax params of a ``ClusterHead`` or ``DenseClusterHead`` (linear) ->
+    the state_dict of the port's head (f32 tensors)."""
+    dense = CLUSTER_LAYERS[True][0] in params
+    sub, layer = CLUSTER_LAYERS[dense]
+    leaves = params[sub][layer]
+    k = np.asarray(leaves["kernel"], np.float32)
+    S, K = k.shape[0], k.shape[-1]
+    return {"weight": torch.tensor(k.reshape(S, -1, K)),
+            "bias": torch.tensor(np.asarray(leaves["bias"], np.float32))}
+
+
+def cluster_head_state_dict_to_flax(sd: t.Mapping[str, torch.Tensor], *, dense: bool) -> dict:
+    """Inverse of :func:`flax_to_cluster_head_state_dict`; ``dense`` picks the
+    ``DenseClusterHead`` tree (1x1 conv kernel [S,1,1,C,K])."""
+    w = sd["weight"].detach().float().cpu().numpy()
+    if dense:
+        w = w[:, None, None]
+    sub, layer = CLUSTER_LAYERS[dense]
+    return {sub: {layer: {"kernel": np.ascontiguousarray(w),
+                          "bias": sd["bias"].detach().float().cpu().numpy()}}}

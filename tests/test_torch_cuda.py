@@ -1,5 +1,5 @@
 """The port's CUDA kernels (contrastyou_tpu_torch/ops/csrc/tapconv.cu,
-convbwd.cu and supcon.cu) against their plain PyTorch versions, on a card.
+convbwd.cu, supcon.cu and iic.cu) against their plain PyTorch versions, on a card.
 Needs no JAX, so it runs on the machine with the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -12,14 +12,18 @@ output tile) to exercise the edge masking. The SupCon kernels (f32) are held
 to loss rtol 1e-5 and dz 1e-4 of its largest value, at anchor counts that are
 not multiples of their 8-row blocks. The backward kernels' weight gradients
 (f32 on both sides) are held to 1e-4 of the largest |dk|, C2's dx (bf16) as
-the conv kernels are. The CPU tests here check the wrappers' guards and the
-cuDNN yardsticks that chip_smoke.py times.
+the conv kernels are. The dense-IIC kernels (f32 math on bf16 or f32
+features) are held to 1e-5 of the largest raw joint and to DK_TOL of the
+largest dW / db (f32 sums over the pixels in another order), their feature
+gradients to TOL in bf16 and 1e-5 of the largest value in f32. The CPU
+tests here check the wrappers' guards and the cuDNN yardsticks that
+chip_smoke.py times.
 """
 import pytest
 import torch
 
 from contrastyou_tpu_torch.ops import convblock as cb
-from contrastyou_tpu_torch.ops import supcon
+from contrastyou_tpu_torch.ops import iic, supcon
 from torch_parity import scaled_close
 
 TOL = 2.0 ** -6
@@ -140,11 +144,82 @@ def test_conv_bwd_kernels_refuse_what_they_do_not_take():
     assert cb.LAUNCHES == before
 
 
+@pytest.mark.gpu
+def test_iic_kernels_match_plain():
+    """E1 and E2 on ragged images (20 x 36: not whole 16 x 16 tiles), every
+    padding, both feature dtypes, the widths the kernels are built for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    for C, S, pad, dtype in ((32, 5, 1, torch.bfloat16), (8, 3, 0, torch.float32),
+                             (16, 5, 2, torch.bfloat16), (32, 2, 2, torch.float32)):
+        f1, f2 = (torch.randn(2, 20, 36, C, generator=g, device=dev).to(dtype)
+                  for _ in range(2))
+        w = torch.randn(C, S * 20, generator=g, device=dev) * 0.3
+        b = torch.randn(S * 20, generator=g, device=dev) * 0.1
+        kw = dict(num_subheads=S, num_clusters=20, padding=pad)
+        what = f"C={C} S={S} pad={pad} {dtype}"
+        scaled_close(iic.iic_joints(f1, f2, w, b, **kw), iic.iic_joints_plain(f1, f2, w, b, **kw),
+                     tol=1e-5, what=f"E1 {what}")
+        jbar = torch.randn(S, 2 * pad + 1, 2 * pad + 1, 20, 20, generator=g, device=dev)
+        got = iic.iic_joints_bwd(f1, f2, w, b, jbar, **kw)
+        ref = iic.iic_joints_bwd_plain(f1, f2, w, b, jbar, **kw)
+        ftol = TOL if dtype == torch.bfloat16 else 1e-5
+        for name, a, r, tol in zip(("df1", "df2", "dw", "db"), got, ref,
+                                   (ftol, ftol, DK_TOL, DK_TOL)):
+            assert a.dtype == r.dtype
+            scaled_close(a, r, tol=tol, what=f"E2 {name} {what}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_iic_kernels_refuse_what_they_do_not_take():
+    """A CUDA tensor reaches E1 / E2 or an error, never the plain version: a
+    width, cluster count or padding the kernels are not built for, fp16,
+    mixed dtypes and a non-contiguous map all raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+
+    def z(*s, dtype=torch.bfloat16):
+        return torch.zeros(s, dtype=dtype, device=dev)
+
+    def call(f1, f2, S=2, K=20, pad=1, C=None):
+        C = C or f1.shape[-1]
+        return iic.iic_joints(f1, f2, z(C, S * K, dtype=torch.float32),
+                              z(S * K, dtype=torch.float32), num_subheads=S,
+                              num_clusters=K, padding=pad)
+
+    before = dict(iic.LAUNCHES)
+    for bad in (lambda: call(z(1, 8, 8, 24), z(1, 8, 8, 24)),
+                lambda: call(z(1, 8, 8, 32), z(1, 8, 8, 32), K=10),
+                lambda: call(z(1, 8, 8, 32), z(1, 8, 8, 32), pad=3),
+                lambda: call(z(1, 8, 8, 32), z(1, 8, 8, 32), S=9),
+                lambda: call(z(1, 8, 8, 32, dtype=torch.float16), z(1, 8, 8, 32, dtype=torch.float16)),
+                lambda: call(z(1, 8, 8, 32), z(1, 8, 8, 32, dtype=torch.float32)),
+                lambda: call(z(1, 8, 16, 32)[:, :, ::2], z(1, 8, 8, 32)),
+                lambda: iic.iic_joints_bwd(z(1, 8, 8, 32), z(1, 8, 8, 32),
+                                           z(32, 40, dtype=torch.float32),
+                                           z(40, dtype=torch.float32),
+                                           z(2, 1, 1, 20, 20, dtype=torch.float32),
+                                           num_subheads=2, num_clusters=20, padding=1)):
+        with pytest.raises(ValueError):
+            bad()
+    assert iic.LAUNCHES == before
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     """On the CPU the wrappers never reach a kernel; the checks that guard
     the kernel launch raise on the device, dtype and channel count."""
     with pytest.raises(ValueError):
         cb._cuda_check("k", torch.zeros(2, dtype=torch.bfloat16))
+    f = torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        iic._cuda_check("iic", f, f, torch.zeros(32, 40), torch.zeros(40), 2, 20, 1)
+    assert iic.iic_joints(f, f, torch.zeros(32, 40), torch.zeros(40), num_subheads=2,
+                          num_clusters=20, padding=1).shape == (2, 3, 3, 20, 20)
     assert cb.conv3x3_stats(torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 3, 5))[0].shape \
         == (1, 4, 4, 5)
 

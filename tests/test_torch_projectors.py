@@ -1,6 +1,7 @@
-"""The port's projection heads and pooling (contrastyou_tpu_torch/models/
-projectors.py, pooling.py) held against the flax modules of the JAX package,
-with the weights carried over by ``utils/torch_convert.py``.
+"""The port's projection heads, cluster heads and pooling
+(contrastyou_tpu_torch/models/projectors.py, pooling.py) held against the
+flax modules of the JAX package, with the weights carried over by
+``utils/torch_convert.py``.
 
 Tolerances. f32: rtol 1e-5 for outputs and gradients, plus an atol of 1e-5
 times the tensor's largest value (the same matrix products and means summed
@@ -121,3 +122,43 @@ def test_l2_normalize_has_a_finite_gradient_at_zero():
     assert torch.isfinite(x.grad).all()
     v = torch.tensor([[3.0, 4.0]])
     close(l2_normalize(v), [[0.6, 0.8]], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["ClusterHead", "DenseClusterHead"])
+def test_cluster_heads_match_flax_through_the_bridge(dense):
+    """The udaiic heads (5 subheads, 20 clusters, linear) on random flax
+    weights, T = 0.5: outputs [S, B, (H, W,) K] and the gradients of a fixed
+    projection in the input and the stacked parameters; the bridge
+    round-trips the flax tree."""
+    from contrastyou_tpu.models.projectors import ClusterHead as JCluster
+    from contrastyou_tpu.models.projectors import DenseClusterHead as JDenseCluster
+    from contrastyou_tpu_torch.models.projectors import ClusterHead, DenseClusterHead
+    from contrastyou_tpu_torch.utils.torch_convert import (cluster_head_state_dict_to_flax,
+                                                            flax_to_cluster_head_state_dict)
+    x = _x((3, 6, 5, 24))
+    kw = dict(num_clusters=20, num_subheads=5, T=0.5)
+    jmod = (JDenseCluster if dense else JCluster)(head_type="linear", **kw)
+    port = (DenseClusterHead if dense else ClusterHead)(24, **kw)
+    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    sd = flax_to_cluster_head_state_dict(params)
+    port.load_state_dict(sd)
+    back = cluster_head_state_dict_to_flax(port.state_dict(), dense=dense)
+    jax.tree.map(np.testing.assert_array_equal, back, jax.tree.map(np.asarray, params))
+    jout = jmod.apply({"params": params}, jnp.asarray(x))
+    proj = _x(jout.shape, seed=9)
+    jgp, jgx = jax.grad(lambda p, x_: (jmod.apply({"params": p}, x_) * proj).sum(),
+                        argnums=(0, 1))(params, jnp.asarray(x))
+    xt = t(x).requires_grad_()
+    out = port(xt)
+    (out * t(proj)).sum().backward()
+    _close(out, jout, "output")
+    _close(xt.grad, jgx, "d input")
+    grads = cluster_head_state_dict_to_flax({k: p.grad for k, p in port.named_parameters()},
+                                            dense=dense)
+    for (path, g), r in zip(jax.tree_util.tree_flatten_with_path(grads)[0],
+                            jax.tree.leaves(jgp)):
+        _close(g, r, f"d {jax.tree_util.keystr(path)}")
+    if dense:
+        w, b = port.merged_params()
+        merged = torch.softmax(((xt @ w + b) / 0.5).reshape(3, 6, 5, 5, 20), -1)
+        _close(merged.permute(3, 0, 1, 2, 4), jout, "merged projection")

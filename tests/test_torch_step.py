@@ -1,7 +1,9 @@
 """One full ``semi`` + consistency train step of the port
 (contrastyou_tpu_torch/engine/steps.py) held against JAX
-``build_train_step(..., raw=True)`` on the same batch, weights and draws, plus
-the port's device cache, config loader and import hygiene.
+``build_train_step(..., raw=True)`` on the same batch, weights and draws, the
+same with the ``udaiic`` hooks (IIC on Conv5 and Up_conv2 with their cluster
+heads, plus consistency), plus the port's device cache, config loader, hook
+factory and import hygiene.
 
 The JAX step draws its GeoParams and gammas from its key
 (steps.py ``jax.random.split(rng, 3)``, affine.py ``apply_gamma``); the test
@@ -15,7 +17,9 @@ param)) are read back as differences of f32 parameters: a BN scale near 1.0
 quantizes its ~1e-6 update to ulp(1) = 1.2e-7, and the consistency gradient
 is a difference of two nearly equal softmaxes, so they are compared in L2,
 per tensor at 3e-2 (measured worst 2.0%, BN scales) and over all parameters
-together at 2e-2 (measured 1.3%, dominated by the same BN updates).
+together at 2e-2 (measured 1.3%, dominated by the same BN updates). The
+udaiic step keeps these bounds for the model and its cluster heads (whose
+first update is -lr * (grad + wd * param) as well).
 """
 import subprocess
 import sys
@@ -32,19 +36,29 @@ from contrastyou_tpu.engine import init_train_state as jinit
 from contrastyou_tpu.engine.optim import create_optimizer as jcreate
 from contrastyou_tpu.engine.steps import build_train_step as jbuild
 from contrastyou_tpu.hooks import ConsistencyTrainerHook as JConsistency
+from contrastyou_tpu.hooks.creator import create_discrete_mi_consistency_hooks as jcreate_dmi
 from contrastyou_tpu.models import UNet as JUNet
 from contrastyou_tpu.ops.affine import sample_geo_params
 from contrastyou_tpu_torch.configure.config import ConfigParser, merge, parse_value, yaml_load
 from contrastyou_tpu_torch.data.device_cache import DeviceDataCache
 from contrastyou_tpu_torch.engine.bundle import ModelBundle
+from contrastyou_tpu_torch.engine.hooks import hook_parameters
 from contrastyou_tpu_torch.engine.optim import create_optimizer
 from contrastyou_tpu_torch.engine.steps import (StepDraws, build_train_step,
                                                 init_train_state, sample_step_draws)
 from contrastyou_tpu_torch.hooks.consistency import ConsistencyTrainerHook
-from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG, build_semi_run
+from contrastyou_tpu_torch.hooks.creator import (UNPORTED_SECTIONS,
+                                                 create_discrete_mi_consistency_hooks,
+                                                 create_hook_from_config)
+from contrastyou_tpu_torch.main import (MAIN_PATH_CONFIG, UDAIIC_CONFIG, build_pretrain_run,
+                                        build_semi_run, parse_config)
 from contrastyou_tpu_torch.models.unet import UNet
+from contrastyou_tpu_torch.ops import convblock as cb
+from contrastyou_tpu_torch.ops import iic
 from contrastyou_tpu_torch.ops.affine import GeoParams
-from contrastyou_tpu_torch.utils.torch_convert import flax_to_state_dict, state_dict_to_flax
+from contrastyou_tpu_torch.utils.torch_convert import (cluster_head_state_dict_to_flax,
+                                                        flax_to_cluster_head_state_dict,
+                                                        flax_to_state_dict, state_dict_to_flax)
 from torch_parity import close, n, scaled_close, t
 
 torch.set_num_threads(1)
@@ -69,13 +83,13 @@ def _batch():
             "unlabeled_image": rng.random((NU, S, S, 1)).astype(np.float32)}
 
 
-def _jax_step(batch, key):
+def _jax_step(batch, key, hooks=None):
     bundle = JBundle.create(JUNet(max_channel=128, momentum=0.1, dtype=jnp.float32),
                             jax.random.PRNGKey(0), (S, S, 1))
-    hooks = [JConsistency(weight=10.0)]
+    hooks = hooks or [JConsistency(weight=10.0)]
     tx, _ = jcreate(OPTIM, SCHED, max_epoch=75, steps_per_epoch=200)
     state = jinit(bundle, hooks, tx, jax.random.PRNGKey(1))
-    before = (jax.tree.map(np.asarray, state.params), jax.tree.map(np.asarray, state.batch_stats))
+    before = jax.tree.map(np.asarray, (state.params, state.batch_stats, state.hook_params))
     step = jax.jit(jbuild(bundle, tx, hooks, raw=True, two_stage=True, mode="semi"))
     new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, key, jnp.int32(0))
     return before, new, jax.tree.map(np.asarray, metrics)
@@ -102,7 +116,7 @@ def _port_state(params, stats):
 def test_semi_step_matches_jax():
     batch = _batch()
     key = jax.random.PRNGKey(7)
-    (params, stats), jnew, jm = _jax_step(batch, key)
+    (params, stats, _), jnew, jm = _jax_step(batch, key)
     bundle, hooks, state = _port_state(params, stats)
     step = build_train_step(bundle, hooks)
     tb = {k: torch.tensor(v) for k, v in batch.items()}
@@ -116,14 +130,63 @@ def test_semi_step_matches_jax():
     new = state_dict_to_flax(state.model.state_dict())
     upd = jax.tree.map(lambda a, b: a - b, new["params"], params)
     jupd = jax.tree.map(lambda a, b: np.asarray(a) - b, jnew.params, params)
-    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(upd)[0],
-                            jax.tree.leaves(jupd)):
-        assert _l2(a, b) <= 3e-2, f"update {jax.tree_util.keystr(path)}: {_l2(a, b):.3e}"
-    assert _l2(*(np.concatenate([v.ravel() for v in jax.tree.leaves(u)])
-                 for u in (upd, jupd))) <= 2e-2
+    _check_updates(upd, jupd)
     for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(new["batch_stats"])[0],
                             jax.tree.leaves(jax.tree.map(np.asarray, jnew.batch_stats))):
         scaled_close(a, b, tol=1e-3, what=f"stats {jax.tree_util.keystr(path)}")
+
+
+def _check_updates(upd, jupd, what="update"):
+    """Per tensor L2 <= 3e-2, all tensors together <= 2e-2."""
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(upd)[0],
+                            jax.tree.leaves(jupd)):
+        assert _l2(a, b) <= 3e-2, f"{what} {jax.tree_util.keystr(path)}: {_l2(a, b):.3e}"
+    assert _l2(*(np.concatenate([np.ravel(v) for v in jax.tree.leaves(u)])
+                 for u in (upd, jupd))) <= 2e-2, what
+
+
+#: config/hooks/udaiic.yaml's DiscreteMIConsistencyParams
+UDAIIC_HOOKS = UDAIIC_CONFIG["DiscreteMIConsistencyParams"]
+
+
+def test_udaiic_semi_step_matches_jax():
+    """The semi step with the udaiic hooks: JAX's factory order
+    (discreteMI/conv5, discreteMI/up_conv2 at padding 1, consistency), the
+    cluster heads carried over by the bridge and optimized beside the model.
+    JAX's dense hook takes its CPU default (the merged XLA form), the port's
+    the plain E1/E2."""
+    batch = _batch()
+    key = jax.random.PRNGKey(7)
+    jhooks = jcreate_dmi(**UDAIIC_HOOKS)
+    (params, stats, hparams), jnew, jm = _jax_step(batch, key, jhooks)
+    model = UNet(max_channel=128, momentum=0.1, dtype=torch.float32)
+    model.load_state_dict(flax_to_state_dict(params, stats))
+    hooks = create_discrete_mi_consistency_hooks(channel_dim=model.get_channel_dim,
+                                                 **UDAIIC_HOOKS)
+    assert [h.name for h in hooks] == [h.name for h in jhooks]
+    heads = hooks[:2]
+    for h in heads:
+        h.projector.load_state_dict(flax_to_cluster_head_state_dict(hparams[h.name]))
+    opt, _ = create_optimizer(list(model.parameters()) + hook_parameters(hooks), OPTIM, SCHED,
+                              max_epoch=75, steps_per_epoch=200)
+    bundle = ModelBundle(model, (S, S, 1))
+    state = init_train_state(bundle, hooks, opt)
+    m = build_train_step(bundle, hooks)(state, {k: torch.tensor(v) for k, v in batch.items()},
+                                        _replayed_draws(key))
+
+    assert set(jm) <= set(m) | {"dice_inter", "dice_union"}
+    for k in jm:
+        if not k.startswith("dice"):
+            close(m[k], jm[k], rtol=1e-4, atol=1e-7, what=k)
+    new = state_dict_to_flax(state.model.state_dict())
+    _check_updates(jax.tree.map(lambda a, b: a - b, new["params"], params),
+                   jax.tree.map(lambda a, b: np.asarray(a) - b, jnew.params, params))
+    for h in heads:
+        dense = h.name.endswith("up_conv2")
+        got = cluster_head_state_dict_to_flax(h.projector.state_dict(), dense=dense)
+        _check_updates(jax.tree.map(lambda a, b: a - b, got, hparams[h.name]),
+                       jax.tree.map(lambda a, b: np.asarray(a) - b, jnew.hook_params[h.name],
+                                    hparams[h.name]), what=f"update {h.name}")
 
 
 def _l2(a, b):
@@ -200,15 +263,112 @@ def test_package_never_imports_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
-def test_main_path_config_equals_the_yaml_files():
+@pytest.mark.parametrize("config,hook_file", [(MAIN_PATH_CONFIG, "consistency.yaml"),
+                                              (UDAIIC_CONFIG, "udaiic.yaml")])
+def test_main_path_config_equals_the_yaml_files(config, hook_file):
     cfg = merge(yaml_load(REPO / "config/base.yaml"),
-                yaml_load(REPO / "config/hooks/consistency.yaml"))
-    assert MAIN_PATH_CONFIG == cfg
+                yaml_load(REPO / "config/hooks" / hook_file))
+    assert config == cfg
     parsed = ConfigParser().parse(["-p", str(REPO / "config/base.yaml"),
-                                   str(REPO / "config/hooks/consistency.yaml"),
+                                   str(REPO / "config/hooks" / hook_file),
                                    "-o", "Trainer.name=semi", "Optim.lr=1e-3"])
     assert parsed["Trainer"]["name"] == "semi" and parsed["Optim"]["lr"] == 1e-3
-    assert ConfigParser(MAIN_PATH_CONFIG).parse([])["Arch"] == cfg["Arch"]
+    assert ConfigParser(config).parse([])["Arch"] == cfg["Arch"]
+
+
+#: the udaiic run from the in-code semi base, as written in the README
+UDAIIC_OVERRIDES = ["Trainer.name=semi", "~ConsistencyParameters",
+                    "+DiscreteMIConsistencyParams.feature_names=[Conv5,Up_conv2]",
+                    "+DiscreteMIConsistencyParams.mi_weights=[0.1,0.05]",
+                    "+DiscreteMIConsistencyParams.dense_paddings=[1]",
+                    "+DiscreteMIConsistencyParams.consistency_weight=1"]
+
+
+def test_udaiic_override_form_equals_the_config():
+    got = parse_config(["-o", *UDAIIC_OVERRIDES])
+    assert got == merge(UDAIIC_CONFIG, {"Trainer": {"name": "semi"}})
+
+
+@pytest.mark.parametrize("section", ["MeanTeacherParameters", "EntropyMinParameters",
+                                     "SPInfonceParams", "FeatureCrossCorrelationParameters"])
+def test_unported_hook_sections_raise(section):
+    """A hook section without a port fails the run instead of training
+    without it, in semi and in pretraining."""
+    with pytest.raises(NotImplementedError, match=section):
+        build_semi_run(merge(MAIN_PATH_CONFIG, {section: {"weight": 1.0}}), device="cpu",
+                       dtype=torch.float32, raw_size=40, crop=32, n_slices=8, max_channel=128)
+    cfg = parse_config(["-o", "Trainer.name=pretrain", f"+{section}.weight=1"])
+    with pytest.raises(NotImplementedError, match=section):
+        build_pretrain_run(cfg, device="cpu", dtype=torch.float32, raw_size=36, crop=32,
+                           n_scans=6, max_channel=128)
+    assert section in UNPORTED_SECTIONS or "CrossCorrelation" in section
+
+
+def test_discrete_mi_under_pretraining_raises():
+    cfg = merge(parse_config(["-o", "Trainer.name=pretrain"]),
+                {"DiscreteMIConsistencyParams": UDAIIC_HOOKS})
+    with pytest.raises(RuntimeError, match="DiscreteMIConsistencyParams"):
+        create_hook_from_config(cfg, channel_dim=UNet(max_channel=128).get_channel_dim,
+                                is_pretrain=True)
+    with pytest.raises(RuntimeError, match="DiscreteMIConsistencyParams"):
+        build_pretrain_run(cfg, device="cpu", dtype=torch.float32, raw_size=36, crop=32,
+                           n_scans=6, max_channel=128)
+
+
+def test_semi_takes_the_class_count_of_the_dataset():
+    """``-o Data.name=prostate`` trains 2 classes (model and synthetic
+    split), as JAX does; ACDC keeps 4."""
+    for name, classes in (("prostate", 2), ("acdc", 4)):
+        run = build_semi_run(parse_config(["-o", "Trainer.name=semi", f"Data.name={name}"]),
+                             device="cpu", dtype=torch.float32, raw_size=40, crop=32,
+                             n_slices=8, max_channel=128)
+        assert run.state.model._Deconv_1x1.out_channels == classes
+        targets = torch.cat([run.labeled_cache.targets, run.unlabeled_cache.targets])
+        assert int(targets.max()) == classes - 1
+        m = run.step(run.state, run.generator)
+        assert m["dice_inter"].shape[-1] == classes
+
+
+def _counting(monkeypatch, module, names):
+    """Count the calls of ``module``'s wrappers ``names`` (plain on the CPU)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def wrapper(*a, _fn=getattr(module, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(module, name, wrapper)
+    return calls
+
+
+def test_udaiic_run_takes_one_e1_e2_pair_per_step_beside_the_semi_convs(monkeypatch):
+    """build_semi_run(UDAIIC_CONFIG): hooks in JAX order, their heads in the
+    optimizer, one E1 and one E2 call per step, the conv kernels called as
+    on the consistency-only semi path, finite losses, heads updated."""
+    conv = _counting(monkeypatch, cb, ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx",
+                                       "conv_dw_taps", "conv3x3_bwd_fused"))
+    joints = _counting(monkeypatch, iic, ("iic_joints", "iic_joints_bwd"))
+    kw = dict(device="cpu", dtype=torch.float32, raw_size=40, crop=32, n_slices=8,
+              max_channel=128)
+    semi = build_semi_run(MAIN_PATH_CONFIG, **kw)
+    semi.step(semi.state, semi.generator)
+    semi_calls = dict(conv)
+    assert joints == {"iic_joints": 0, "iic_joints_bwd": 0}
+    for k in conv:
+        conv[k] = 0
+    run = build_semi_run(UDAIIC_CONFIG, **kw)
+    assert [h.name for h in run.hooks] == ["discreteMI/conv5", "discreteMI/up_conv2",
+                                           "consistency"]
+    heads = {f"{h.name}/bias": h.projector.bias.detach().clone() for h in run.hooks[:2]}
+    params = {id(p) for g in run.state.optimizer.param_groups for p in g["params"]}
+    assert all(id(p) in params for p in hook_parameters(run.hooks))
+    m = run.step(run.state, run.generator)
+    assert conv == semi_calls and joints == {"iic_joints": 1, "iic_joints_bwd": 1}
+    for k in ("discreteMI/conv5/loss", "discreteMI/up_conv2/loss", "consistency/loss"):
+        assert np.isfinite(float(m[k])), k
+    # at the preset's lr (1e-7 in warm-up) a weight's step is below its f32
+    # resolution, so the zero-initialized biases show the update
+    for h in run.hooks[:2]:
+        assert not torch.equal(heads[f"{h.name}/bias"], h.projector.bias), h.name
 
 
 @pytest.mark.parametrize("raw", ["1", "-2", "1e-3", "0.5", "true", "False", "null",
@@ -217,3 +377,18 @@ def test_override_values_parse_like_yaml(raw):
     import yaml
     assert parse_value(raw) == yaml.safe_load(raw) or (
         raw == "1e-3" and parse_value(raw) == 1e-3)
+
+
+def test_profile_step_builds_the_overridden_semi_run():
+    """``profile_step semi -o ...`` profiles the run the overrides describe
+    (class count, hook weights), and ``--udaiic`` the udaiic hooks."""
+    from contrastyou_tpu_torch import profile_step
+    size = dict(dtype=torch.float32, raw_size=40, crop=32, n_slices=8, max_channel=128)
+    run = profile_step._build("semi", "cpu", ["Data.name=prostate",
+                                              "ConsistencyParameters.weight=2"], **size)
+    assert run.state.model._Deconv_1x1.out_channels == 2
+    assert [(h.name, h.weight) for h in run.hooks] == [("consistency", 2.0)]
+    run = profile_step._build("semi", "cpu", ["Data.name=prostate"], udaiic=True, **size)
+    assert run.state.model._Deconv_1x1.out_channels == 2
+    assert [(h.name, h.weight) for h in run.hooks] == [
+        ("discreteMI/conv5", 0.1), ("discreteMI/up_conv2", 0.05), ("consistency", 1.0)]
