@@ -31,7 +31,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argtypes (all return int)
 SIGNATURES = {
     "tapconv": {
-        "tapconv_num_tiles": (_I, _I),
+        "tapconv_num_partials": (_I, _I, _I, _I),
         "conv3x3_stats": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
         "upconv3x3_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "upconv3x3_dx": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -32,7 +32,7 @@ not take. Activations are NHWC, weights HWIO.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -53,6 +53,11 @@ LAUNCHES = {"conv3x3_stats": 0, "upconv3x3_stats": 0, "upconv3x3_dx": 0,
 
 #: output channel counts the kernels are instantiated for
 KERNEL_COUT = (32, 64)
+#: input channel counts K1 takes (1: the image conv, without a skip; a skip
+#: has as many channels as the input beside it)
+K1_CIN = (1, 32, 64)
+#: input channel count K2 takes
+K2_CIN = 64
 #: batch from which the backward runs C1 / C2 (the automatic routing of the
 #: JAX package's ``_dw_enabled`` and ``_fusedbwd_enabled``)
 BWD_KERNEL_MIN_BATCH = 96
@@ -78,6 +83,9 @@ def _stats(out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _cuda_check(what: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
+        if (t.is_cuda and t.dtype is torch.bfloat16 and t.is_contiguous()
+                and not t.data_ptr() % 16):
+            continue
         if t.device.type != "cuda":
             raise ValueError(f"{what}: all inputs must be on the same CUDA device")
         if t.dtype != torch.bfloat16:
@@ -86,17 +94,26 @@ def _cuda_check(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: inputs must be contiguous and 16-byte aligned")
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """Device address for a ``c_void_p`` argument (ctypes converts the int)."""
+    return None if t is None else t.data_ptr()
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s card, without building a
+    ``torch.cuda.Stream`` (K1 launches dozens of times per step)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _partials_to_sums(part: torch.Tensor):
-    s = part.sum(1)                                  # [B, 2, C]
-    return s[:, 0], s[:, 1]
+    return part.sum(1).unbind(1)                     # [B, 2, C] -> sum, sumsq
+
+
+@functools.lru_cache(maxsize=None)
+def _num_partials_tapconv(kind: int, H: int, W: int, cout: int) -> int:
+    """Stat partials per sample of K1 (kind 0) or K2 (kind 1), as the
+    library tiles the image."""
+    return _build.load_library("tapconv").tapconv_num_partials(kind, H, W, cout)
 
 
 # --- K1: 3x3 conv (+ skip) with BN statistics -----------------------------
@@ -127,36 +144,38 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor,
 
     Returns ``(out [B,H,W,Cout] in x.dtype, sum, sumsq)``: the per-sample
     [B, Cout] f32 statistics of the rounded output, or ``None`` when
-    ``stats=False``. Kernel K1 on CUDA (bf16, Cout in {32, 64})."""
-    if x.device.type == "cpu":
+    ``stats=False``. Kernel K1 on CUDA (bf16, Cin in {1, 32, 64}, a skip
+    as wide as ``x``, Cout in {32, 64})."""
+    if x.is_cpu:
         return conv3x3_stats_plain(x, w, skip, w_skip, stats)
+    out, part = _conv3x3_launch(x, w, skip, w_skip, stats)
+    return (out, *_partials_to_sums(part)) if stats else (out, None, None)
+
+
+def _conv3x3_launch(x, w, skip, w_skip, stats: bool):
+    """One K1 launch on CUDA tensors -> (out, the per-(sample, tile) stat
+    partials [B, tiles, 2, Cout] f32, or None without stats)."""
     B, H, W, cin = x.shape
     cout = w.shape[-1]
+    cs = 0 if skip is None else skip.shape[-1]
+    if (cout not in KERNEL_COUT or cin not in K1_CIN or tuple(w.shape) != (3, 3, cin, cout)
+            or (skip is not None and (cin == 1 or cs != cin or skip.shape[:3] != x.shape[:3]
+                                      or tuple(w_skip.shape) != (3, 3, cs, cout)))):
+        raise ValueError(f"conv3x3_stats: x {tuple(x.shape)}, w {tuple(w.shape)}, skip "
+                         f"channels {cs}; the kernel takes Cin in {K1_CIN} (a skip of the "
+                         f"same size only beside Cin > 1) and Cout in {KERNEL_COUT}")
     w9 = w.reshape(9, cin, cout).contiguous()
-    ws9 = None
-    tensors = [x, w9]
-    if skip is not None:
-        ws9 = w_skip.reshape(9, skip.shape[-1], cout).contiguous()
-        if skip.shape[:3] != x.shape[:3]:
-            raise ValueError(f"skip {tuple(skip.shape)} vs x {tuple(x.shape)}")
-        tensors += [skip, ws9]
-    _cuda_check("conv3x3_stats", *tensors)
-    if cout not in KERNEL_COUT:
-        raise ValueError(f"conv3x3_stats: Cout={cout} not in {KERNEL_COUT}")
+    ws9 = None if skip is None else w_skip.reshape(9, cs, cout).contiguous()
+    _cuda_check("conv3x3_stats", *[t for t in (x, w9, skip, ws9) if t is not None])
     lib = _build.load_library("tapconv")
-    out = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
-    part = (torch.empty(B, lib.tapconv_num_tiles(H, W), 2, cout,
-                        dtype=torch.float32, device=x.device)
+    out = x.new_empty((B, H, W, cout))
+    part = (x.new_empty((B, _num_partials_tapconv(0, H, W, cout), 2, cout), dtype=torch.float32)
             if stats else None)
-    rc = lib.conv3x3_stats(
-        _ptr(x), cin, _ptr(w9), _ptr(skip),
-        0 if skip is None else skip.shape[-1], _ptr(ws9), _ptr(out),
-        _ptr(part), B, H, W, cout, _stream())
+    rc = lib.conv3x3_stats(_ptr(x), cin, _ptr(w9), _ptr(skip), cs, _ptr(ws9), _ptr(out),
+                           _ptr(part), B, H, W, cout, _stream(x))
     _build.check(rc, "conv3x3_stats", "tapconv")
     LAUNCHES["conv3x3_stats"] += 1
-    if not stats:
-        return out, None, None
-    return (out, *_partials_to_sums(part))
+    return out, part
 
 
 def flip_transpose(w: torch.Tensor) -> torch.Tensor:
@@ -275,25 +294,31 @@ def upconv3x3_stats(x: torch.Tensor, taps: torch.Tensor):
     """``conv3x3_SAME(upsample2x_nearest(x))`` for NHWC ``x`` [B,H,W,Cin] with
     parity ``taps`` [4,4,Cin,Cout] (:func:`parity_taps`) -> (out
     [B,2H,2W,Cout], per-sample sum, sumsq of the rounded output). Kernel K2
-    on CUDA (bf16, Cout in {32, 64})."""
-    if x.device.type == "cpu":
+    on CUDA (bf16, Cin 64, Cout in {32, 64})."""
+    if x.is_cpu:
         return upconv3x3_stats_plain(x, taps)
+    out, part = _upconv_launch(x, taps)
+    return (out, *_partials_to_sums(part))
+
+
+def _upconv_launch(x, taps):
+    """One K2 launch on CUDA tensors -> (out, the per-(sample, tile) stat
+    partials [B, tiles, 2, Cout] f32)."""
     B, H, W, cin = x.shape
     cout = taps.shape[-1]
+    if cout not in KERNEL_COUT or cin != K2_CIN or taps.shape[:3] != (4, 4, cin):
+        raise ValueError(f"upconv3x3_stats: taps {tuple(taps.shape)} for Cin={cin}; the "
+                         f"kernel takes Cin {K2_CIN} and Cout in {KERNEL_COUT}")
     taps = taps.contiguous()
     _cuda_check("upconv3x3_stats", x, taps)
-    if cout not in KERNEL_COUT or taps.shape[:3] != (4, 4, cin):
-        raise ValueError(f"upconv3x3_stats: taps {tuple(taps.shape)} for "
-                         f"Cin={cin}; Cout must be in {KERNEL_COUT}")
     lib = _build.load_library("tapconv")
-    out = torch.empty(B, 2 * H, 2 * W, cout, dtype=x.dtype, device=x.device)
-    part = torch.empty(B, 4 * lib.tapconv_num_tiles(H, W), 2, cout,
-                       dtype=torch.float32, device=x.device)
+    out = x.new_empty((B, 2 * H, 2 * W, cout))
+    part = x.new_empty((B, _num_partials_tapconv(1, H, W, cout), 2, cout), dtype=torch.float32)
     rc = lib.upconv3x3_stats(_ptr(x), _ptr(taps), _ptr(out), _ptr(part),
-                             B, H, W, cin, cout, _stream())
+                             B, H, W, cin, cout, _stream(x))
     _build.check(rc, "upconv3x3_stats", "tapconv")
     LAUNCHES["upconv3x3_stats"] += 1
-    return (out, *_partials_to_sums(part))
+    return out, part
 
 
 def upconv3x3_dx_plain(g: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -328,7 +353,7 @@ def upconv3x3_dx(g: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     lib = _build.load_library("tapconv")
     dx = torch.empty(B, H2 // 2, W2 // 2, cin, dtype=g.dtype, device=g.device)
     rc = lib.upconv3x3_dx(_ptr(g), _ptr(taps_t), _ptr(dx), B, H2 // 2,
-                          W2 // 2, cg, cin, _stream())
+                          W2 // 2, cg, cin, _stream(g))
     _build.check(rc, "upconv3x3_dx", "tapconv")
     LAUNCHES["upconv3x3_dx"] += 1
     return dx
@@ -429,7 +454,7 @@ def conv_dw_taps(x: torch.Tensor, g: torch.Tensor, up2: bool = False) -> torch.T
     part = torch.empty(nb, taps, cin, cout, dtype=torch.float32, device=x.device)
     dk = torch.empty(taps, cin, cout, dtype=torch.float32, device=x.device)
     rc = lib.conv_dw_taps(_ptr(x), _ptr(g), int(up2), _ptr(part), _ptr(dk),
-                          B, H, W, cin, cout, _stream())
+                          B, H, W, cin, cout, _stream(x))
     _build.check(rc, "conv_dw_taps", "convbwd")
     LAUNCHES["conv_dw_taps"] += 1
     return dk
@@ -465,7 +490,7 @@ def conv3x3_bwd_fused(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     dk = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     rc = lib.conv3x3_bwd_fused(_ptr(x), _ptr(w), _ptr(g), _ptr(dx), _ptr(part), _ptr(dk),
-                               B, H, W, cin, cout, _stream())
+                               B, H, W, cin, cout, _stream(x))
     _build.check(rc, "conv3x3_bwd_fused", "convbwd")
     LAUNCHES["conv3x3_bwd_fused"] += 1
     return dx, dk

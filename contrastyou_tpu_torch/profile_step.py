@@ -14,7 +14,8 @@ of ``semi`` + consistency. After warm-up, ``--rounds`` timed windows of
 ``torch.profiler`` window of ``--steps`` steps: device busy time per step
 (the sum of the kernels' device times over the window's wall time), kernels
 per step, and the largest items by device time, grouped by the operator that
-launched them. Every line names the card and its power limit. Needs a card.
+launched them, and the device time of each of the port's hand-written
+kernels. Every line names the card and its power limit. Needs a card.
 """
 from __future__ import annotations
 
@@ -29,6 +30,20 @@ def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
+
+
+def _hand_kernel(name: str):
+    """The port's kernel a device event belongs to (by its CUDA function's
+    name), or None for a library or PyTorch kernel."""
+    if "tapmma_kernel<" in name:
+        return "K2 upconv3x3_stats" if "true" in name else "K1 conv3x3_stats"
+    for fn, label in (("conv1ch_kernel<", "K1 conv3x3_stats"), ("upconv_dx_kernel<", "K3 upconv3x3_dx"),
+                      ("convbwd_kernel<", "C1/C2 conv_dw_taps / conv3x3_bwd_fused"),
+                      ("supcon_", "D1/D2 supcon"), ("iic_joints", "E1/E2 iic"),
+                      ("sum_partials(", "partial sums of C1/C2, E1"), ("sum_dw(", "partial sums of E2")):
+        if fn in name:
+            return label
+    return None
 
 
 def _build(trainer: str, device, overrides=(), *, udaiic: bool = False, **size):
@@ -116,6 +131,17 @@ def main(argv=None) -> int:
         for key, t in sorted(table.items(), key=lambda kv: -kv[1])[:12]:
             print(f"    {key[:110 if args.shapes else 70]:70s} {t / args.steps / 1e3:8.3f} ms/step "
                   f"{100 * t / busy_us:5.1f}%  {calls[key] / args.steps:7.1f} calls/step")
+    hand = defaultdict(float)
+    hcount = defaultdict(int)
+    for e in kernels:
+        label = _hand_kernel(e.name)
+        if label is not None:
+            hand[label] += e.time_range.elapsed_us()
+            hcount[label] += 1
+    print("  hand-written kernels:")
+    for key, t in sorted(hand.items(), key=lambda kv: -kv[1]):
+        print(f"    {key:70s} {t / args.steps / 1e3:8.3f} ms/step "
+              f"{100 * t / busy_us:5.1f}%  {hcount[key] / args.steps:7.1f} calls/step")
     return 0
 
 

@@ -60,6 +60,113 @@ def test_cuda_kernels_match_plain():
     torch.cuda.synchronize()
 
 
+#: (B, H, W, Cin, skip channels, Cout, stats) of K1: ragged H and W that are
+#: not multiples of the 16 x 16 (Cout 32) or 8 x 16 (Cout 64) tiles, B = 1 and
+#: batches whose tile counts do not divide the persistent grid, Cin 1, skips
+#: of 32 and 64, both Couts, and the dx use (no statistics)
+K1_CASES = [
+    (1, 13, 21, 32, 0, 32, True), (2, 20, 36, 32, 32, 64, True), (3, 1, 40, 64, 64, 64, True),
+    (1, 224, 224, 32, 0, 32, True), (7, 57, 45, 64, 0, 32, True), (5, 13, 21, 1, 0, 32, True),
+    (2, 224, 224, 1, 0, 64, True), (3, 20, 36, 32, 32, 32, True), (7, 112, 112, 64, 64, 64, True),
+    (2, 20, 36, 64, 0, 32, False), (11, 30, 29, 32, 0, 64, False), (1, 3, 5, 1, 0, 64, False),
+]
+#: (B, H, W, Cout) of K2 (Cin 64): odd tile counts (9 x 16 at Cout 32 is 3
+#: tiles of 4 x 16), ragged W, both Couts, B = 1
+K2_CASES = [(1, 9, 16, 32), (3, 10, 18, 32), (1, 112, 112, 32), (5, 7, 9, 64), (2, 13, 21, 64)]
+
+
+def _twice(launch):
+    """Two launches of the same kernel on the same inputs: the outputs and
+    the stat partials must be the same bits."""
+    (o1, p1), (o2, p2) = launch(), launch()
+    assert torch.equal(o1, o2)
+    assert (p1 is None) == (p2 is None)
+    if p1 is not None:
+        assert torch.equal(p1, p2)
+    return o1, p1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cin,cs,cout,stats", K1_CASES)
+def test_k1_tiles_match_plain_and_repeat_bitwise(B, H, W, cin, cs, cout, stats):
+    """K1 against its plain version at tilings that stress the persistent
+    grid and the halo copies; outputs and partials bitwise the same over two
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + H + W + cin + cout)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    scale = (9 * (cin + cs)) ** -0.5
+    x, w = r(B, H, W, cin), r(3, 3, cin, cout, scale=scale)
+    skip, ws = (r(B, H, W, cs), r(3, 3, cs, cout, scale=scale)) if cs else (None, None)
+    out, part = _twice(lambda: cb._conv3x3_launch(x, w, skip, ws, stats))
+    ref = cb.conv3x3_stats_plain(x, w, skip, ws, stats)
+    what = f"K1 {B}x{H}x{W} {cin}+{cs}->{cout}"
+    scaled_close(out, ref[0], tol=TOL, what=what)
+    if stats:
+        assert part.shape[:2] == (B, cb._build.load_library("tapconv").tapconv_num_partials(
+            0, H, W, cout))
+        s, sq = cb._partials_to_sums(part)
+        scaled_close(s, ref[1], tol=1e-3, what=f"{what} sum")
+        scaled_close(sq, ref[2], tol=1e-3, what=f"{what} sumsq")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cout", K2_CASES)
+def test_k2_tiles_match_plain_and_repeat_bitwise(B, H, W, cout):
+    """K2 (all four parities of a tile in one block) against its plain
+    version; outputs and partials bitwise the same over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + H + W + cout)
+    x = torch.randn(B, H, W, 64, generator=g, device=dev).to(torch.bfloat16)
+    taps = cb.parity_taps((torch.randn(3, 3, 64, cout, generator=g, device=dev) / 24)
+                          .to(torch.bfloat16))
+    out, part = _twice(lambda: cb._upconv_launch(x, taps))
+    ref = cb.upconv3x3_stats_plain(x, taps)
+    what = f"K2 {B}x{H}x{W} 64->{cout}"
+    scaled_close(out, ref[0], tol=TOL, what=what)
+    s, sq = cb._partials_to_sums(part)
+    scaled_close(s, ref[1], tol=1e-3, what=f"{what} sum")
+    scaled_close(sq, ref[2], tol=1e-3, what=f"{what} sumsq")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_k1_k2_refuse_what_they_do_not_take():
+    """A CUDA tensor reaches K1 / K2 or an error, never the plain version: a
+    Cin or Cout the kernels are not built for, a skip of another width or
+    beside the image conv, f32 operands and K2 at Cin 32 all raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+
+    def z(*s, dtype=torch.bfloat16):
+        return torch.zeros(s, dtype=dtype, device=dev)
+
+    before = dict(cb.LAUNCHES)
+    for bad in (lambda: cb.conv3x3_stats(z(2, 8, 16, 16), z(3, 3, 16, 32)),
+                lambda: cb.conv3x3_stats(z(2, 8, 16, 32), z(3, 3, 32, 48)),
+                lambda: cb.conv3x3_stats(z(2, 8, 16, 3), z(3, 3, 3, 32)),
+                lambda: cb.conv3x3_stats(z(2, 8, 16, 64), z(3, 3, 64, 64), z(2, 8, 16, 32),
+                                         z(3, 3, 32, 64)),
+                lambda: cb.conv3x3_stats(z(2, 8, 16, 1), z(3, 3, 1, 32), z(2, 8, 16, 1),
+                                         z(3, 3, 1, 32)),
+                lambda: cb.conv3x3_stats(z(2, 8, 16, 32, dtype=torch.float32),
+                                         z(3, 3, 32, 32, dtype=torch.float32)),
+                lambda: cb.upconv3x3_stats(z(2, 8, 16, 32), z(4, 4, 32, 32)),
+                lambda: cb.upconv3x3_stats(z(2, 8, 16, 64), z(4, 4, 64, 16))):
+        with pytest.raises(ValueError):
+            bad()
+    assert cb.LAUNCHES == before
+
+
 @pytest.mark.gpu
 def test_supcon_kernels_match_plain():
     if not torch.cuda.is_available():
@@ -278,3 +385,19 @@ def test_backward_yardsticks_compute_c1_c2_functions():
     (sdx, sdk), (xdx, xdk) = cb.conv3x3_bwd_fused_plain(skip, ws, gy), (pdx, pdk)
     torch.testing.assert_close(dx, torch.cat([sdx, xdx], -1), **tol)
     torch.testing.assert_close(dk, torch.cat([sdk, xdk], 2), **tol)
+
+
+def test_profile_step_names_the_hand_kernels():
+    """profile_step attributes device events to the port's kernels by their
+    CUDA function names: K1 and K2 share the tensor-core body and differ in
+    its Up2 template argument."""
+    from contrastyou_tpu_torch.profile_step import _hand_kernel
+    ns = "void (anonymous namespace)::"
+    assert _hand_kernel(ns + "tapmma_kernel<64, 64, false, 2>((anonymous namespace)::MmaParams)") \
+        == "K1 conv3x3_stats"
+    assert _hand_kernel(ns + "tapmma_kernel<32, 64, true, 2>((anonymous namespace)::MmaParams)") \
+        == "K2 upconv3x3_stats"
+    assert _hand_kernel(ns + "conv1ch_kernel<32>(__nv_bfloat16 const*)") == "K1 conv3x3_stats"
+    assert _hand_kernel(ns + "upconv_dx_kernel<64>((anonymous namespace)::DxParams)") \
+        == "K3 upconv3x3_dx"
+    assert _hand_kernel("void at::native::elementwise_kernel<128, 4>") is None
