@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero:
    8, a skip conv as one launch per input), with kernel, plain and library
    (one cuDNN ``convolution_backward``, bf16 channels-last) times; then at
    batches 10 and 36 beside the einsum form they would replace there
-   (``conv3x3_dw`` / ``upconv3x3_dtaps``, plus K1's dx for C2);
+   (``conv3x3_dw`` / ``upconv3x3_dtaps``, plus K1's dx for C2) and the same
+   cuDNN call;
 6. the full-width U-Net (max_channel 512, 224x224, 4 classes) on random
    weights: its kernel-path levels against the same levels on the plain
    versions at batch 5 and at batch 96 (where the backward takes C1/C2),
@@ -63,10 +64,11 @@ counted on the kernel's own main path (K1-K3: ``semi``; D1/D2:
 largest over the checked shapes, ``ms`` / ``plain_ms`` / ``library_ms`` /
 ``bound_ms`` the sums over those shapes of one launch each (C1/C2: over the
 batch-96 shapes only; ``einsum_compare`` has their batch-10 and -36 sums
-beside the einsum form's; E1/E2: at padding 1, with every padding in
-``by_padding``); ``bound_ms`` is max(bytes / 3.35 TB/s, operations / peak)
-with the bf16 tensor peak (989 TFLOP/s) for the conv kernels and the f32 peak
-(67 TFLOP/s) for SupCon and IIC. The last line is ``{"ok": true, "device":
+beside the einsum form's and cuDNN's; E1/E2: at padding 1, with every
+padding in ``by_padding``); ``bound_ms`` is
+max(bytes / 3.35 TB/s, operations / peak) with the bf16 tensor peak (989
+TFLOP/s) for the conv kernels and the f32 peak (67 TFLOP/s) for SupCon and
+IIC. The last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -376,20 +378,20 @@ def check_bwd_kernels(device) -> dict:
         px = x.numel() // x.shape[-1]
         T = 16 if up2 else 9
         work = (2 * (x.numel() + gy.numel()) + 4 * got.numel(), 2 * px * T * x.shape[-1] * gy.shape[-1])
-        line = f"  conv_dw_taps     {label:26s} max_abs_err {err:.3e} (rel {rel:.2e}) kernel {ms:.4f} ms"
-        if B != BWD_BATCH:
-            ems = _time_ms(einsum)
-            print(f"{line} einsum {ems:.4f} ms")
-            return ms, ems, err
-        pms = _time_ms(lambda: cb.conv_dw_taps_plain(x, gy, up2), iters=5)
         lib_fn, lib = library_bwd_calls(x, gy, up2=up2)
         lrel = _rel_err(lib, ref)[1]
         lms = _time_ms(lib_fn)
-        bms, by = _bound(*work, BF16_FLOPS)
-        print(f"{line} plain {pms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms ({by}) "
-              f"cudnn rel {lrel:.2e}")
         if lrel > KERNEL_RTOL:
             raise AssertionError(f"C1 {label}: the cuDNN yardstick disagrees with plain")
+        bms, by = _bound(*work, BF16_FLOPS)
+        line = (f"  conv_dw_taps     {label:26s} max_abs_err {err:.3e} (rel {rel:.2e}) kernel "
+                f"{ms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms ({by}) cudnn rel {lrel:.2e}")
+        if B != BWD_BATCH:
+            ems = _time_ms(einsum)
+            print(f"{line} einsum {ems:.4f} ms")
+            return ms, ems, lms, err
+        pms = _time_ms(lambda: cb.conv_dw_taps_plain(x, gy, up2), iters=5)
+        print(f"{line} plain {pms:.4f} ms")
         return ms, pms, lms, bms, by, err
 
     def c2(B, label, x, w, gy, skip, ws, einsum):
@@ -407,30 +409,30 @@ def check_bwd_kernels(device) -> dict:
             ms += _time_ms(lambda: cb.conv3x3_bwd_fused(xi, wi, gy))
             if B == BWD_BATCH:
                 pms += _time_ms(lambda: cb.conv3x3_bwd_fused_plain(xi, wi, gy), iters=5)
-        line = (f"  conv3x3_bwd_fused {label:25s} max_abs_err {err:.3e} (dk rel {rel:.2e}, dx "
-                f"rel {xrel:.2e}) kernel {ms:.4f} ms")
-        if B != BWD_BATCH:
-            ems = _time_ms(einsum)
-            print(f"{line} einsum+K1 dx {ems:.4f} ms")
-            return ms, ems, err
         lib_fn, (ldx, ldk) = library_bwd_calls(x, gy, w, skip, ws)
         pdx = torch.cat([r[0] for r in refs[::-1]], -1)
         pdk = torch.cat([r[1] for r in refs[::-1]], 2)
         lrel = max(_rel_err(ldx, pdx)[1], _rel_err(ldk, pdk)[1])
         lms = _time_ms(lib_fn)
+        if lrel > KERNEL_RTOL:
+            raise AssertionError(f"C2 {label}: the cuDNN yardstick disagrees with plain")
         cin = sum(xi.shape[-1] for xi, _ in fused)
         px = x.numel() // x.shape[-1]
         work = (2 * (2 * px * cin + px * gy.shape[-1] + 9 * cin * gy.shape[-1])
                 + 4 * 9 * cin * gy.shape[-1], 2 * 2 * px * 9 * cin * gy.shape[-1])
         bms, by = _bound(*work, BF16_FLOPS)
-        print(f"{line} plain {pms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms ({by}) "
-              f"cudnn rel {lrel:.2e}")
-        if lrel > KERNEL_RTOL:
-            raise AssertionError(f"C2 {label}: the cuDNN yardstick disagrees with plain")
+        line = (f"  conv3x3_bwd_fused {label:25s} max_abs_err {err:.3e} (dk rel {rel:.2e}, dx "
+                f"rel {xrel:.2e}) kernel {ms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms "
+                f"({by}) cudnn rel {lrel:.2e}")
+        if B != BWD_BATCH:
+            ems = _time_ms(einsum)
+            print(f"{line} einsum+K1 dx {ems:.4f} ms")
+            return ms, ems, lms, err
+        print(f"{line} plain {pms:.4f} ms")
         return ms, pms, lms, bms, by, err
 
     for B in (BWD_BATCH, *EINSUM_BATCHES):
-        sums = {k: [0.0, 0.0] for k in recs}
+        sums = {k: [0.0, 0.0, 0.0] for k in recs}
         results = []
         x = randn(B, 224, 224, 1)
         gy = randn(B, 224, 224, 32, scale=1e-2)
@@ -463,13 +465,14 @@ def check_bwd_kernels(device) -> dict:
                 r["library_ms"] += lms
                 _add_bound(r, bms, by)
             else:
-                sums[k][0] += res[0]
-                sums[k][1] += res[1]
-        for k, (ms, ems) in sums.items():
+                for i in range(3):
+                    sums[k][i] += res[i]
+        for k, (ms, ems, lms) in sums.items():
             if B != BWD_BATCH:
-                recs[k]["einsum_compare"][f"B={B}"] = {"kernel_ms": ms, "einsum_ms": ems}
-                print(f"  {k} B={B}: kernel {ms:.4f} ms vs einsum form {ems:.4f} ms "
-                      f"over the path's shapes")
+                recs[k]["einsum_compare"][f"B={B}"] = {"kernel_ms": ms, "einsum_ms": ems,
+                                                       "cudnn_ms": lms}
+                print(f"  {k} B={B}: kernel {ms:.4f} ms vs einsum form {ems:.4f} ms, cuDNN "
+                      f"{lms:.4f} ms over the path's shapes")
         torch.cuda.empty_cache()
     return recs
 

@@ -1,11 +1,14 @@
 """Static dataset table (counterpart of the class attributes in
 contrastyou_tpu/data/datasets.py): class count, anatomical partition count,
-the scan-grouping pattern of each dataset, and the scan names its synthetic
-scans take (contrastyou_tpu/data/synthetic.py ``_LAYOUTS``). It reads no
-files."""
+the scan-grouping pattern of each dataset, the scan names its synthetic
+scans take (contrastyou_tpu/data/synthetic.py ``_LAYOUTS``) and, for the
+binary ACDC sub-tasks, the label remap of contrastyou_tpu/augment/host.py
+``transform_zoo``. It reads no files."""
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
 
 __all__ = ["DatasetSpec", "DATASETS", "dataset_spec"]
 
@@ -16,13 +19,28 @@ class DatasetSpec(NamedTuple):
     group_re: str          # regex of a slice's scan name within its stem
     scan_name: str         # synthetic scan name from {patient} and {cycle}
     cycles: int = 1        # scans per patient (ACDC: end-diastole and end-systole)
+    #: label value -> trained class (acdc_lv/rv/myo: one structure against
+    #: the rest), or None to train the labels as they are
+    label_map: Optional[Tuple[int, ...]] = None
+
+    @property
+    def train_classes(self) -> int:
+        """Classes the model is trained on (``num_classes`` of opt/<name>.yaml)."""
+        return self.num_classes if self.label_map is None else max(self.label_map) + 1
+
+    def remap(self, targets: np.ndarray) -> np.ndarray:
+        """Integer label maps in the dataset's values -> trained classes."""
+        return targets if self.label_map is None else np.asarray(self.label_map)[targets]
 
 
 _ACDC = DatasetSpec(4, 3, r"patient\d+_\d+", "patient{patient:03d}_{cycle:02d}", 2)
 _MMWHS = DatasetSpec(5, 5, r"\d+", "{patient:04d}")
 
 DATASETS: Dict[str, DatasetSpec] = {
-    "acdc": _ACDC, "acdc_lv": _ACDC, "acdc_rv": _ACDC, "acdc_myo": _ACDC,
+    "acdc": _ACDC,
+    "acdc_lv": _ACDC._replace(label_map=(0, 0, 0, 1)),
+    "acdc_rv": _ACDC._replace(label_map=(0, 1, 0, 0)),
+    "acdc_myo": _ACDC._replace(label_map=(0, 0, 1, 0)),
     "acdc_superpixel": _ACDC,
     "prostate": DatasetSpec(2, 8, r"Case\d+", "Case{patient:02d}"),
     "prostate_md": DatasetSpec(2, 4, r"prostate_\d+", "prostate_{patient:02d}"),

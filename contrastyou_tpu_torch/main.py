@@ -17,7 +17,8 @@ so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
 ``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml). It runs
 ``Trainer.num_batches`` steps (one epoch) on a synthetic split made with numpy
 from ``RandomSeed`` — dataset files, the epoch loop, evaluation and
-checkpoints are not ported yet. The hooks come from the config's hook
+checkpoints are not ported yet, and their keys (:data:`UNPORTED_KEYS`)
+raise when set. The hooks come from the config's hook
 sections (``hooks/creator.py``; a section without a port raises). Both
 trainers take the class count of ``Data.name``; pretraining also its
 partition count and contrastive sampler (``-o Data.name=prostate``: 8
@@ -53,7 +54,8 @@ from .trainers.pretrain import (build_pretrain_step, contrastive_batches,
                                 jitter_strength, sample_pretrain_draws)
 
 __all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "PRETRAIN_DECODER_CONFIG",
-           "PRETRAIN_ENCODER_CONFIG", "resolve_device", "synthetic_split", "synthetic_scans", "SemiRun",
+           "PRETRAIN_ENCODER_CONFIG", "UNPORTED_KEYS", "refuse_unported_keys",
+           "resolve_device", "synthetic_split", "synthetic_scans", "SemiRun",
            "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config", "main"]
 
 #: config/base.yaml
@@ -141,12 +143,14 @@ def synthetic_split(n_slices: int, size: int, *, num_classes: int = NUM_CLASSES,
 
 def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
                     spec: DatasetSpec = dataset_spec("acdc"), seed: int = 0) -> dict:
-    """:func:`synthetic_split` slices (``spec.num_classes`` classes) grouped
-    into scans named by ``spec.scan_name`` (ACDC ``patient<p>_<cycle>``, two
-    cycles per patient; prostate ``Case<p>``), with per-slice scan, partition
+    """:func:`synthetic_split` slices (``spec.num_classes`` label values,
+    remapped to the trained classes by ``spec.remap``) grouped into scans
+    named by ``spec.scan_name`` (ACDC ``patient<p>_<cycle>``, two cycles per
+    patient; prostate ``Case<p>``), with per-slice scan, partition
     (``spec.partition_num`` by the dataset's rule), patient and cycle ids."""
     images, targets = synthetic_split(n_scans * slices_per_scan, size,
                                       num_classes=spec.num_classes, seed=seed)
+    targets = spec.remap(targets)
     scan = np.repeat(np.arange(n_scans), slices_per_scan)
     cur = np.tile(np.arange(slices_per_scan), n_scans)
     patient, cycle = scan // spec.cycles + 1, scan % spec.cycles
@@ -156,6 +160,27 @@ def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
             "patient": patient, "cycle": cycle,
             "scan_names": [spec.scan_name.format(patient=p, cycle=c) for p, c in
                            zip(patient[::slices_per_scan], cycle[::slices_per_scan])]}
+
+
+#: config keys the port parses but does not implement yet, with the value
+#: that means "not used": another value raises rather than train something
+#: else (JAX: ``optax.MultiSteps``, ``get_arch`` and the checkpoint keys of
+#: the root main.py)
+UNPORTED_KEYS = {("Trainer", "accumulate_iter"): 1, ("Arch", "name"): "unet",
+                 ("Arch", "checkpoint"): None, ("Arch", "pretrained_path"): None,
+                 ("trainer_checkpoint",): None}
+
+
+def refuse_unported_keys(config: Mapping) -> None:
+    """Raise ``NotImplementedError`` naming the first key of
+    :data:`UNPORTED_KEYS` whose value is not its default."""
+    for path, default in UNPORTED_KEYS.items():
+        node = config
+        for k in path:
+            node = node.get(k) if isinstance(node, Mapping) else None
+        if node is not None and node != default:
+            raise NotImplementedError(f"{'.'.join(path)}={node!r} is not ported yet "
+                                      f"(only {default!r})")
 
 
 def _model(config: Mapping, device, dtype, max_channel, generator,
@@ -198,13 +223,15 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
                    max_channel: Optional[int] = None) -> SemiRun:
     """Model, hooks (their heads optimized beside the model), optimizer,
     device-resident synthetic split and the cached ``semi`` step from a
-    reference-style config; the class count is ``Data.name``'s. Weights and
-    data are made from ``RandomSeed``."""
+    reference-style config; the class count is ``Data.name``'s (its label
+    remap applied to the targets). Weights and data are made from
+    ``RandomSeed``."""
+    refuse_unported_keys(config)
     seed = int(config.get("RandomSeed", 10))
     trainer = config["Trainer"]
     spec = dataset_spec(str(config["Data"]["name"]))
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = _model(config, device, dtype, max_channel, gen, spec.num_classes)
+    model = _model(config, device, dtype, max_channel, gen, spec.train_classes)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=False)
     optimizer, _ = create_optimizer(
@@ -214,6 +241,7 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     state = init_train_state(bundle, hooks, optimizer)
     images, targets = synthetic_split(n_slices, raw_size, num_classes=spec.num_classes,
                                       seed=seed)
+    targets = spec.remap(targets)
     half = n_slices // 2
     lab = DeviceDataCache.from_arrays(images[:half], targets[:half], crop=crop,
                                       device=device)
@@ -255,6 +283,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     made from ``RandomSeed``. ``slices_per_scan`` defaults to 10 for
     datasets of 3 partitions and to 8 per partition above (64 for prostate),
     enough for the ``cur // (cut + 1)`` rule to fill every partition."""
+    refuse_unported_keys(config)
     seed = int(config.get("RandomSeed", 10))
     trainer = config["Trainer"]
     data_name = str(config["Data"]["name"])
@@ -262,7 +291,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     if slices_per_scan is None:
         slices_per_scan = 10 if spec.partition_num <= 3 else 8 * spec.partition_num
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = _model(config, device, dtype, max_channel, gen, spec.num_classes)
+    model = _model(config, device, dtype, max_channel, gen, spec.train_classes)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=True)
     others = [h.name for h in hooks if not isinstance(h, INFONCEHook)]

@@ -10,7 +10,8 @@ with at most 64 channels (Conv1, Conv2, Up_conv3, Up2, Up_conv2):
   the dx of its own backward, run on flipped, channel-swapped weights.
 - ``upconv3x3_stats`` (K2): ``conv3x3(upsample2x_nearest(x))`` as four
   2x2-tap parity convs at input resolution, with the same statistics.
-- ``upconv3x3_dx`` (K3): the adjoint of K2.
+- ``upconv3x3_dx`` (K3): the adjoint of K2, on K1's body with the four
+  parity sub-grids of the cotangent as its sources.
 
 Two more (``csrc/convbwd.cu``) carry the backward from batch
 :data:`BWD_KERNEL_MIN_BATCH` (96, the prostate contrastive batch), where the
@@ -58,6 +59,8 @@ KERNEL_COUT = (32, 64)
 K1_CIN = (1, 32, 64)
 #: input channel count K2 takes
 K2_CIN = 64
+#: input channel counts C1 takes on the 3x3 taps (on Up2's: K2_CIN only)
+C1_CIN = (1, 32, 64)
 #: batch from which the backward runs C1 / C2 (the automatic routing of the
 #: JAX package's ``_dw_enabled`` and ``_fusedbwd_enabled``)
 BWD_KERNEL_MIN_BATCH = 96
@@ -339,20 +342,21 @@ def upconv3x3_dx_plain(g: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 def upconv3x3_dx(g: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Adjoint of :func:`upconv3x3_stats` in x: cotangent ``g``
-    [B,2H,2W,Cout] -> dx [B,H,W,Cin]. Kernel K3 on CUDA (bf16, Cin in
-    {32, 64})."""
+    [B,2H,2W,Cout] -> dx [B,H,W,Cin]. Kernel K3 on CUDA (bf16, Cin and Cout
+    in {32, 64}); it reads ``taps`` as they are."""
     if g.device.type == "cpu":
         return upconv3x3_dx_plain(g, taps)
     B, H2, W2, cg = g.shape
     cin = taps.shape[2]
-    taps_t = taps.transpose(2, 3).contiguous()       # [4, 4, Cout, Cin]
-    _cuda_check("upconv3x3_dx", g, taps_t)
-    if H2 % 2 or W2 % 2 or cin not in KERNEL_COUT or taps.shape[-1] != cg:
-        raise ValueError(f"upconv3x3_dx: g {tuple(g.shape)}, taps "
-                         f"{tuple(taps.shape)}; Cin must be in {KERNEL_COUT}")
+    if (H2 % 2 or W2 % 2 or cin not in KERNEL_COUT or cg not in KERNEL_COUT
+            or tuple(taps.shape) != (4, 4, cin, cg)):
+        raise ValueError(f"upconv3x3_dx: g {tuple(g.shape)}, taps {tuple(taps.shape)}; the "
+                         f"kernel takes even H and W, Cin and Cout in {KERNEL_COUT}")
+    taps = taps.contiguous()
+    _cuda_check("upconv3x3_dx", g, taps)
     lib = _build.load_library("tapconv")
     dx = torch.empty(B, H2 // 2, W2 // 2, cin, dtype=g.dtype, device=g.device)
-    rc = lib.upconv3x3_dx(_ptr(g), _ptr(taps_t), _ptr(dx), B, H2 // 2,
+    rc = lib.upconv3x3_dx(_ptr(g), _ptr(taps), _ptr(dx), B, H2 // 2,
                           W2 // 2, cg, cin, _stream(g))
     _build.check(rc, "upconv3x3_dx", "tapconv")
     LAUNCHES["upconv3x3_dx"] += 1
@@ -438,16 +442,25 @@ def conv_dw_taps(x: torch.Tensor, g: torch.Tensor, up2: bool = False) -> torch.T
     SAME conv in HWIO order, ``g`` [B,H,W,Cout]. ``up2``: the 16 parity taps
     of :func:`upconv3x3_stats` ([4 parities, 4 taps] flattened), ``g``
     [B,2H,2W,Cout] read on parity (a, b)'s sub-grid ``g[:, a::2, b::2]``.
-    Kernel C1 on CUDA (bf16, Cout in {32, 64})."""
+    Kernel C1 on CUDA (bf16, Cin in {1, 32, 64} on the 3x3 taps and 64 on
+    the Up2 taps, K2's only input width; Cout in {32, 64})."""
     if x.device.type == "cpu":
         return conv_dw_taps_plain(x, g, up2)
+    return _dw_launch(x, g, up2)[0]
+
+
+def _dw_launch(x: torch.Tensor, g: torch.Tensor, up2: bool):
+    """One C1 launch on CUDA tensors -> (dk, the per-block partials
+    [nb, T, Cin, Cout] f32 it summed)."""
     B, H, W, cin = x.shape
     cout = g.shape[-1]
     _cuda_check("conv_dw_taps", x, g)
     s = 2 if up2 else 1
-    if cout not in KERNEL_COUT or tuple(g.shape[:3]) != (B, s * H, s * W):
+    if (cout not in KERNEL_COUT or (cin != K2_CIN if up2 else cin not in C1_CIN)
+            or tuple(g.shape[:3]) != (B, s * H, s * W)):
         raise ValueError(f"conv_dw_taps: x {tuple(x.shape)}, g {tuple(g.shape)} "
-                         f"(up2={up2}); Cout must be in {KERNEL_COUT}")
+                         f"(up2={up2}); the kernel takes Cin in {C1_CIN} on the 3x3 "
+                         f"taps, {K2_CIN} on the Up2 taps, and Cout in {KERNEL_COUT}")
     lib = _build.load_library("convbwd")
     taps = 16 if up2 else 9
     nb = _num_partials(lib, int(up2), B, H, W, cin, cout)
@@ -457,7 +470,7 @@ def conv_dw_taps(x: torch.Tensor, g: torch.Tensor, up2: bool = False) -> torch.T
                           B, H, W, cin, cout, _stream(x))
     _build.check(rc, "conv_dw_taps", "convbwd")
     LAUNCHES["conv_dw_taps"] += 1
-    return dk
+    return dk, part
 
 
 def conv3x3_bwd_fused_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):

@@ -16,9 +16,11 @@
 //                      as four 2x2-tap convs at input resolution, one per output
 //                      parity (taps folded in torch, convblock.py parity_taps),
 //                      writing the interleaved 2x output directly.
-//   K3 upconv3x3_dx    K2's adjoint (convblock.py _UpconvStats.backward): every
-//                      input pixel gathers the four parity planes of the
-//                      cotangent at the negated tap offsets.
+//   K3 upconv3x3_dx    K2's adjoint (convblock.py _UpconvStats.backward;
+//                      _pcts_bwd, which runs _conv_plane_kernel_multi at
+//                      negated offsets on transposed taps): every input pixel
+//                      gathers the four parity planes of the cotangent at the
+//                      negated tap offsets.
 //
 // What bounds K1 and K2 on the H100: each output pixel costs 9*Cin*Cout MACs
 // (K2: 4*Cin*Cout) against (Cin + Cout) * 2 bytes, 144-288 FLOP per byte at
@@ -58,9 +60,21 @@
 //   against 2 bytes in and 2*Cout out per pixel is a bytes-bound FP32 loop,
 //   with the same tiles, partials and staged 16-byte stores.
 //
-// K3 keeps the first version's FP32 body: an 8x16 output tile plus a one-pixel
-// halo in shared memory 8 input channels at a time, FMAs on the FP32 cores; it
-// is the next kernel to redesign.
+// K3 is the same body with four sources: M the pixels of an input-grid tile,
+// N dx's channels, K 4 parities x 4 taps x the cotangent's channels (512 at
+// the path's 32). Source s is parity s's sub-grid g[:, a::2, b::2] with a
+// one-pixel halo, loaded by the ring at stride 2; its 4 taps read it at the
+// negated offsets; the accumulators persist across the four sources as they
+// do across K1's skip input, and the epilogue is K1's without statistics.
+// Its weights are K2's taps as they are, [16][Cin][Cout] = [tap][N][K] with
+// K contiguous, so they are read with plain ldmatrix (no .trans) and the
+// wrapper makes no transposed copy; they are staged once per block (80 KB at
+// 32 -> 64). The four parity stages of a tile are loaded back to back rather
+// than as one full-resolution halo: parities (a, 0) and (a, 1) read the two
+// halves of the same 128-byte lines one stage apart, so L2 serves the second
+// and HBM is read once, while every stage stays an ordinary halo tile whose
+// ldmatrix rows fall on distinct banks. At batch 96 K3 moves 462 MB for
+// 79 GFLOP: bytes bound it (0.138 ms), as for K1 and K2.
 //
 // Every entry point launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a shape it does not
@@ -74,35 +88,48 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // threads of the Cin = 1 and K3 blocks
+constexpr int kThreads = 256;          // threads of the Cin = 1 blocks
 constexpr int kTW = 16;                // tile cols (input grid): one m16 fragment
 constexpr int kHW = kTW + 2;           // halo tile cols
 
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
-// K1 (Cin >= 32) and K2: implicit GEMM on the tensor cores
+// K1 (Cin >= 32), K2 and K3: implicit GEMM on the tensor cores
 // ---------------------------------------------------------------------------
+
+// What an instantiation of the body computes (its KIND)
+constexpr int kConv = 0;  // K1: 3x3 conv of one or two inputs (x, skip)
+constexpr int kUp = 1;    // K2: Up2's four parity convs of one input tile
+constexpr int kUpDx = 2;  // K3: Up2's adjoint; its four sources are g's parity sub-grids
 
 // A group of WG = 16 / MF warps computes one tile; each warp MF rows of 16
 // pixels (m16 fragments) x 32 output channels. MF = 2 and 4 give the same
-// tile, so the partials do not depend on it.
-template <int COUT, int CIN, bool UP, int MF = 2>
+// tile, so the partials do not depend on it. K3's "input" is the cotangent
+// (CIN = its channels) and its "output" dx (COUT = Up2's input channels).
+template <int COUT, int CIN, int KIND, int MF = 2>
 struct Cfg {
+  static constexpr bool UP = KIND == kUp, DX = KIND == kUpDx;
   static constexpr int WG = 16 / MF;                    // warps of a group
   static constexpr int GT = 32 * WG;                    // threads of a group
   static constexpr int NWN = COUT / 32;                 // warps along Cout
   static constexpr int NPAR = UP ? 4 : 1;               // output parities of a tile
   static constexpr int NWM = WG / (NWN * NPAR);         // warps along pixel rows
   static constexpr int TH = MF * NWM;                   // tile rows (input grid)
-  static constexpr int NT = UP ? 16 : 9;                // taps of one input's weights
-  static constexpr int TPW = UP ? 4 : 9;                // taps one warp applies
+  static constexpr int NT = (UP || DX) ? 16 : 9;        // taps of one weight set
+  static constexpr int TPW = (UP || DX) ? 4 : 9;        // taps one warp applies per source
   static constexpr int CS = CIN + 8;                    // halo pixel stride (elements)
-  static constexpr int WS = COUT + 8;                   // weight / output row stride
+  static constexpr int WS = COUT + 8;                   // staged output row stride
+  // weight rows: K1 / K2 [tap][CIN][COUT] (ldmatrix.trans); K3 reads K2's
+  // taps as they are, [tap][COUT][CIN], the reduction axis contiguous (plain
+  // ldmatrix), so no transposed copy is made
+  static constexpr int WROWS = DX ? COUT : CIN;
+  static constexpr int WLEN = DX ? CIN : COUT;          // elements of a weight row
+  static constexpr int WRS = WLEN + 8;                  // padded weight row stride
   static constexpr int HALO = (TH + 2) * kHW;           // halo pixels
   static constexpr int OUT_PX = TH * kTW * NPAR;        // output pixels of a tile
   static constexpr int STAGE = (HALO * CS > OUT_PX * WS) ? HALO * CS : OUT_PX * WS;
-  static constexpr int WELEMS = NT * CIN * WS;          // one input's weights
+  static constexpr int WELEMS = NT * WROWS * WRS;       // one weight set
   static constexpr int NRED = NPAR * NWM;               // stat rows per channel
   static_assert(NWM >= 1 && NWN * NPAR * NWM == WG, "warps must tile the group");
   static_assert(CIN % 16 == 0 && COUT % 32 == 0, "mma tiling");
@@ -110,18 +137,19 @@ struct Cfg {
   // a group's ring and stat rows; the weights are shared by the groups
   static constexpr size_t GROUP_BYTES = sizeof(bf16) * 2 * STAGE + sizeof(float) * NRED * 2 * COUT;
 
-  static constexpr size_t smem_bytes(int nsrc, int ngroups) {
-    return sizeof(bf16) * (size_t)nsrc * WELEMS + ngroups * GROUP_BYTES;
+  // nw weight sets (K1: one per input; K2, K3: one)
+  static constexpr size_t smem_bytes(int nw, int ngroups) {
+    return sizeof(bf16) * (size_t)nw * WELEMS + ngroups * GROUP_BYTES;
   }
 };
 
 struct MmaParams {
-  const bf16* src[2];  // NHWC inputs [B,H,W,CIN] (K1: x and optional skip)
-  const bf16* w[2];    // K1: [9,CIN,COUT] per input; K2: [4 parities * 4 taps,CIN,COUT]
-  int nsrc;            // inputs (1 or 2)
-  bf16* out;           // K1 [B,H,W,COUT]; K2 [B,2H,2W,COUT]
+  const bf16* src[2];  // K1 x and optional skip [B,H,W,CIN]; K2 x; K3 g [B,2H,2W,CIN]
+  const bf16* w[2];    // K1 [9,CIN,COUT] per input; K2 [16 parity taps,CIN,COUT]; K3 [16,COUT,CIN]
+  int nsrc;            // stages per tile: K1 its inputs (1 or 2), K2 1, K3 4 parities
+  bf16* out;           // K1, K3 [B,H,W,COUT]; K2 [B,2H,2W,COUT]
   float* part;         // [B,tiles,2,COUT] stat partials, or null
-  int B, H, W;         // input resolution
+  int B, H, W;         // input resolution (K3: dx's)
 };
 
 // the warps of one group (named barrier 1 + group)
@@ -133,15 +161,17 @@ __device__ __forceinline__ void group_sync(int group) {
 // NG groups share one staged copy of the weights; each group runs its own
 // two-stage ring over its own items, so one group's epilogue overlaps the
 // others' MMAs.
-template <int COUT, int CIN, bool UP, int NG, int MF>
-__global__ void __launch_bounds__(Cfg<COUT, CIN, UP, MF>::GT * NG) tapmma_kernel(const MmaParams p) {
-  using C = Cfg<COUT, CIN, UP, MF>;
+template <int COUT, int CIN, int KIND, int NG, int MF>
+__global__ void __launch_bounds__(Cfg<COUT, CIN, KIND, MF>::GT * NG) tapmma_kernel(const MmaParams p) {
+  using C = Cfg<COUT, CIN, KIND, MF>;
   constexpr int GT = C::GT;
+  constexpr bool UP = C::UP, DX = C::DX;
   extern __shared__ __align__(16) unsigned char smem[];
   const int group = threadIdx.x / GT;
-  bf16* sW = reinterpret_cast<bf16*>(smem);                  // [nsrc][NT*CIN][WS]
+  const int nw = DX ? 1 : p.nsrc;                            // weight sets
+  bf16* sW = reinterpret_cast<bf16*>(smem);                  // [nw][NT*WROWS][WRS]
   bf16* sBuf = reinterpret_cast<bf16*>(                      // this group's [2][STAGE]
-      smem + sizeof(bf16) * (size_t)p.nsrc * C::WELEMS + group * C::GROUP_BYTES);
+      smem + sizeof(bf16) * (size_t)nw * C::WELEMS + group * C::GROUP_BYTES);
   float* sRed = reinterpret_cast<float*>(sBuf + 2 * C::STAGE);  // [NRED][2][COUT]
 
   const int tid = threadIdx.x % GT, warp = tid >> 5, lane = tid & 31;
@@ -161,28 +191,37 @@ __global__ void __launch_bounds__(Cfg<COUT, CIN, UP, MF>::GT * NG) tapmma_kernel
   const int nst = nmine * p.nsrc;               // stages: (item, input) pairs
 
   // the whole kernel once per block, shared by its groups
-  for (int s = 0; s < p.nsrc; ++s) {
+  for (int s = 0; s < nw; ++s) {
     const bf16* w = s ? p.w[1] : p.w[0];
-    for (int e = threadIdx.x; e < C::NT * CIN * (COUT / 8); e += GT * NG) {
-      const int row = e / (COUT / 8), c8 = e % (COUT / 8);
-      tc::cp_async16(tc::smem_addr(sW + (size_t)s * C::WELEMS + row * C::WS + c8 * 8),
-                     w + (size_t)row * COUT + c8 * 8, 16);
+    for (int e = threadIdx.x; e < C::NT * C::WROWS * (C::WLEN / 8); e += GT * NG) {
+      const int row = e / (C::WLEN / 8), c8 = e % (C::WLEN / 8);
+      tc::cp_async16(tc::smem_addr(sW + (size_t)s * C::WELEMS + row * C::WRS + c8 * 8),
+                     w + (size_t)row * C::WLEN + c8 * 8, 16);
     }
   }
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
   __syncthreads();  // every group sees every thread's weight copies
 
+  // K3's stages of one tile are g's four parity sub-grids, back to back:
+  // parities (a, 0) and (a, 1) read the two 64-byte halves of the same
+  // 128-byte lines (Cin 32), so the second is served by L2 and every byte
+  // of g comes from HBM once per tile
   auto load_stage = [&](int k, bf16* buf) {
-    const int item = g0 + (k / p.nsrc) * ngrid;
-    const bf16* src = (k % p.nsrc) ? p.src[1] : p.src[0];
+    const int item = g0 + (k / p.nsrc) * ngrid, s = k % p.nsrc;
+    const bf16* src = (!DX && s) ? p.src[1] : p.src[0];
     const int b = item / tiles, t = item % tiles;
     const int ty0 = (t / tiles_x) * C::TH, tx0 = (t % tiles_x) * kTW;
     for (int e = tid; e < C::HALO * (CIN / 8); e += GT) {
       const int hp = e / (CIN / 8), c8 = e % (CIN / 8);
       const int y = ty0 - 1 + hp / kHW, x = tx0 - 1 + hp % kHW;
       const bool in = y >= 0 && y < H && x >= 0 && x < W;
-      const bf16* g = in ? src + (((size_t)b * H + y) * W + x) * CIN + c8 * 8 : src;
+      const bf16* g = src;
+      if (in) {
+        const size_t pix = DX ? ((size_t)b * 2 * H + 2 * y + (s >> 1)) * (2 * W) + 2 * x + (s & 1)
+                              : ((size_t)b * H + y) * W + x;
+        g = src + pix * CIN + c8 * 8;
+      }
       tc::cp_async16(tc::smem_addr(buf + hp * C::CS + c8 * 8), g, in ? 16 : 0);
     }
   };
@@ -207,13 +246,15 @@ __global__ void __launch_bounds__(Cfg<COUT, CIN, UP, MF>::GT * NG) tapmma_kernel
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[f][n][e] = 0.f;
     }
-    const bf16* sWs = sW + (size_t)s * C::WELEMS;
+    const bf16* sWs = sW + (DX ? 0 : (size_t)s * C::WELEMS);
 #pragma unroll
     for (int i = 0; i < C::TPW; ++i) {
-      // halo offset of this tap and its weight row block
-      const int hy = UP ? (i >> 1) + pa : i / 3;
-      const int hx = UP ? (i & 1) + pb : i % 3;
-      const int wt = UP ? par * 4 + i : i;
+      // halo offset of this tap and its weight row block. K3: tap (r, c) of
+      // parity (a, b) reads input offset (r + a - 1, c + b - 1), so its
+      // adjoint gathers the parity's sub-grid at the negated offset
+      const int hy = UP ? (i >> 1) + pa : DX ? 2 - (i >> 1) - (s >> 1) : i / 3;
+      const int hx = UP ? (i & 1) + pb : DX ? 2 - (i & 1) - (s & 1) : i % 3;
+      const int wt = UP ? par * 4 + i : DX ? s * 4 + i : i;
 #pragma unroll
       for (int kc = 0; kc < CIN / 16; ++kc) {
         unsigned a[MF][4], bq[2][4];
@@ -223,10 +264,16 @@ __global__ void __launch_bounds__(Cfg<COUT, CIN, UP, MF>::GT * NG) tapmma_kernel
                                     kc * 16 + 8 * (lj >> 1)),
                       a[f]);
 #pragma unroll
-        for (int nn = 0; nn < 2; ++nn)
-          tc::ldsm_x4_trans(tc::smem_addr(sWs + (wt * CIN + kc * 16 + lr + 8 * (lj & 1)) * C::WS +
-                                          co0 + 16 * nn + 8 * (lj >> 1)),
-                            bq[nn]);
+        for (int nn = 0; nn < 2; ++nn) {
+          if (DX)  // rows: output channels, k contiguous
+            tc::ldsm_x4(tc::smem_addr(sWs + (wt * COUT + co0 + 16 * nn + lr + 8 * (lj >> 1)) * C::WRS +
+                                      kc * 16 + 8 * (lj & 1)),
+                        bq[nn]);
+          else
+            tc::ldsm_x4_trans(tc::smem_addr(sWs + (wt * CIN + kc * 16 + lr + 8 * (lj & 1)) * C::WRS +
+                                            co0 + 16 * nn + 8 * (lj >> 1)),
+                              bq[nn]);
+        }
 #pragma unroll
         for (int f = 0; f < MF; ++f)
 #pragma unroll
@@ -405,134 +452,6 @@ __global__ void __launch_bounds__(kThreads, 3)
 }
 
 // ---------------------------------------------------------------------------
-// K3: the first version's FP32 body (upconv adjoint)
-// ---------------------------------------------------------------------------
-
-constexpr int kTH3 = 8;                // output tile rows
-constexpr int kTile3 = kTH3 * kTW;     // pixels per block
-constexpr int kHaloH3 = kTH3 + 2;
-constexpr int kCK = 8;                 // input channels per shared-memory chunk
-
-struct DxParams {
-  const bf16* g;        // [B,2H,2W,C] cotangent
-  const bf16* w;        // [4 parities, 4 taps, C, COUT] (K2's taps, channels swapped)
-  int C;                // cotangent channels
-  bf16* out;            // [B,H,W,COUT]
-  int B, H, W;          // input resolution
-};
-
-template <int COUT>
-__global__ void __launch_bounds__(kThreads) upconv_dx_kernel(const DxParams p) {
-  constexpr int NT = 4;
-  constexpr int NCG = COUT / 8;            // groups of 8 output channels
-  constexpr int PG = kThreads / NCG;       // threads sharing one group
-  constexpr int PX = kTile3 / PG;          // pixels per thread
-  static_assert(PG % 32 == 0, "a warp must stay inside one channel group");
-  static_assert(PX * PG == kTile3, "tile must split evenly");
-
-  __shared__ __align__(16) float s_in[kCK][kHaloH3][kHW];
-  __shared__ __align__(16) float s_w[NT][kCK][COUT];
-
-  const int tid = threadIdx.x;
-  const int cg = tid / PG;
-  const int pg = tid % PG;
-  const int H = p.H, W = p.W;
-  const int ntx = (W + kTW - 1) / kTW;
-  const int ty0 = (blockIdx.x / ntx) * kTH3;
-  const int tx0 = (blockIdx.x % ntx) * kTW;
-  const int b = blockIdx.y;
-  const int Hs = H * 2, Ws = W * 2;        // the full-resolution cotangent
-  const int C = p.C;
-
-  float acc[PX][8];
-#pragma unroll
-  for (int k = 0; k < PX; ++k)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[k][j] = 0.f;
-
-  for (int par = 0; par < 4; ++par) {
-    const bf16* w = p.w + (size_t)par * NT * C * COUT;
-    const int sa = par >> 1, sb = par & 1;
-
-    for (int c0 = 0; c0 < C; c0 += kCK) {
-      __syncthreads();  // the previous chunk's reads are done
-      for (int i = tid; i < kHaloH3 * kHW; i += kThreads) {
-        const int r = i / kHW, c = i % kHW;
-        const int y = ty0 - 1 + r, x = tx0 - 1 + c;
-        float v[kCK];
-#pragma unroll
-        for (int j = 0; j < kCK; ++j) v[j] = 0.f;
-        if (y >= 0 && y < H && x >= 0 && x < W) {
-          const bf16* px =
-              p.g + (((size_t)b * Hs + (size_t)y * 2 + sa) * Ws + (size_t)x * 2 + sb) * C + c0;
-          if ((C & 7) == 0) {
-            // 8 channels = one aligned 16-byte load
-            const uint4 u = *reinterpret_cast<const uint4*>(px);
-            const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-            for (int j = 0; j < kCK; ++j) v[j] = __bfloat162float(e[j]);
-          } else {
-#pragma unroll
-            for (int j = 0; j < kCK; ++j)
-              if (c0 + j < C) v[j] = __bfloat162float(px[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kCK; ++j) s_in[j][r][c] = v[j];
-      }
-      for (int i = tid; i < NT * kCK * COUT; i += kThreads) {
-        const int co = i % COUT;
-        const int ci = (i / COUT) % kCK;
-        const int t = i / (COUT * kCK);
-        s_w[t][ci][co] = (c0 + ci < C) ? __bfloat162float(w[((size_t)t * C + c0 + ci) * COUT + co])
-                                       : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        // tap (r, c) of parity (a, b) reads offset (r + a - 1, c + b - 1);
-        // the adjoint gathers at the negated offset
-        const int dy = -((t >> 1) + (par >> 1) - 1);
-        const int dx = -((t & 1) + (par & 1) - 1);
-#pragma unroll
-        for (int ci = 0; ci < kCK; ++ci) {
-          const float4 w0 = *reinterpret_cast<const float4*>(&s_w[t][ci][cg * 8]);
-          const float4 w1 = *reinterpret_cast<const float4*>(&s_w[t][ci][cg * 8 + 4]);
-#pragma unroll
-          for (int k = 0; k < PX; ++k) {
-            const int pix = pg + k * PG;
-            const float xv = s_in[ci][pix / kTW + 1 + dy][pix % kTW + 1 + dx];
-            acc[k][0] = fmaf(xv, w0.x, acc[k][0]);
-            acc[k][1] = fmaf(xv, w0.y, acc[k][1]);
-            acc[k][2] = fmaf(xv, w0.z, acc[k][2]);
-            acc[k][3] = fmaf(xv, w0.w, acc[k][3]);
-            acc[k][4] = fmaf(xv, w1.x, acc[k][4]);
-            acc[k][5] = fmaf(xv, w1.y, acc[k][5]);
-            acc[k][6] = fmaf(xv, w1.z, acc[k][6]);
-            acc[k][7] = fmaf(xv, w1.w, acc[k][7]);
-          }
-        }
-      }
-    }
-  }
-
-  // round to bf16 and store 8 channels as one 16-byte write
-#pragma unroll
-  for (int k = 0; k < PX; ++k) {
-    const int pix = pg + k * PG;
-    const int y = ty0 + pix / kTW, x = tx0 + pix % kTW;
-    if (y < H && x < W) {
-      __align__(16) bf16 o[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(acc[k][j]);
-      *reinterpret_cast<uint4*>(p.out + (((size_t)b * H + y) * W + x) * COUT + cg * 8) =
-          *reinterpret_cast<const uint4*>(o);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -608,11 +527,11 @@ int persistent_grid(Kern kern, int threads, size_t smem, int nitems, int per_blo
   return 0;
 }
 
-// K1 tile rows at a Cout (K1's MMA and Cin = 1 kernels share them), K2's
+// K1 tile rows at a Cout (K1's MMA and Cin = 1 kernels and K3 share them), K2's
 template <bool UP>
 int tile_rows(int cout) {
-  return UP ? (cout == 32 ? Cfg<32, 64, true>::TH : Cfg<64, 64, true>::TH)
-            : (cout == 32 ? Cfg<32, 32, false>::TH : Cfg<64, 32, false>::TH);
+  return UP ? (cout == 32 ? Cfg<32, 64, kUp>::TH : Cfg<64, 64, kUp>::TH)
+            : (cout == 32 ? Cfg<32, 32, kConv>::TH : Cfg<64, 32, kConv>::TH);
 }
 
 int num_tiles(bool up, int H, int W, int cout) {
@@ -620,11 +539,11 @@ int num_tiles(bool up, int H, int W, int cout) {
   return ((H + th - 1) / th) * ((W + kTW - 1) / kTW);
 }
 
-template <int COUT, int CIN, bool UP, int NG, int MF>
-int launch_mma_t(const MmaParams& p, int nitems, cudaStream_t st) {
-  using C = Cfg<COUT, CIN, UP, MF>;
-  auto kern = tapmma_kernel<COUT, CIN, UP, NG, MF>;
-  const size_t smem = C::smem_bytes(p.nsrc, NG);
+template <int COUT, int CIN, int KIND, int NG, int MF>
+int launch_mma_t(const MmaParams& p, int nw, int nitems, cudaStream_t st) {
+  using C = Cfg<COUT, CIN, KIND, MF>;
+  auto kern = tapmma_kernel<COUT, CIN, KIND, NG, MF>;
+  const size_t smem = C::smem_bytes(nw, NG);
   int grid = 0;
   const int rc = persistent_grid(kern, C::GT * NG, smem, nitems, NG, &grid);
   if (rc != 0) return rc;
@@ -632,30 +551,34 @@ int launch_mma_t(const MmaParams& p, int nitems, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// K1: the first that fits beside the staged weights of three or two groups of
-// 4 warps with 64-pixel warp tiles (a quarter fewer ldmatrix per MMA than
-// 32-pixel tiles), else one group of 8 warps with 32-pixel tiles (the skip
-// conv at 64 + 64 channels, and 64 -> 32). K2: two groups of 8 warps with
-// 32-pixel tiles where they fit, else one.
-template <int COUT, int CIN, bool UP>
+// K1 and K3: the first that fits beside the staged weights of three or two
+// groups of 4 warps with 64-pixel warp tiles (a quarter fewer ldmatrix per
+// MMA than 32-pixel tiles), else one group of 8 warps with 32-pixel tiles
+// (the skip conv at 64 + 64 channels, K1 64 -> 32, K3 from 64 cotangent
+// channels to 32). K2: two groups of 8 warps with 32-pixel tiles where they
+// fit, else one.
+template <int COUT, int CIN, int KIND>
 int launch_mma(const MmaParams& p, cudaStream_t st) {
-  using C2 = Cfg<COUT, CIN, UP, 2>;
+  using C2 = Cfg<COUT, CIN, KIND, 2>;
   Card c;
   const int rc = card(&c);
   if (rc != 0) return rc;
-  const int nitems = p.B * num_tiles(UP, p.H, p.W, COUT);
+  const int nitems = p.B * num_tiles(KIND == kUp, p.H, p.W, COUT);
+  const int nw = KIND == kUpDx ? 1 : p.nsrc;
   const size_t optin = (size_t)c.smem_optin;
-  if constexpr (!UP) {
-    using C4 = Cfg<COUT, CIN, UP, 4>;
+  if constexpr (KIND != kUp) {
+    using C4 = Cfg<COUT, CIN, KIND, 4>;
     // three groups are compiled only where they can fit on a Hopper card
     if constexpr (C4::smem_bytes(1, 3) <= kSmemOptinHopper) {
-      if (C4::smem_bytes(p.nsrc, 3) <= optin) return launch_mma_t<COUT, CIN, UP, 3, 4>(p, nitems, st);
+      if (C4::smem_bytes(nw, 3) <= optin) return launch_mma_t<COUT, CIN, KIND, 3, 4>(p, nw, nitems, st);
     }
-    if (C4::smem_bytes(p.nsrc, 2) <= optin) return launch_mma_t<COUT, CIN, UP, 2, 4>(p, nitems, st);
+    if constexpr (C4::smem_bytes(1, 2) <= kSmemOptinHopper) {
+      if (C4::smem_bytes(nw, 2) <= optin) return launch_mma_t<COUT, CIN, KIND, 2, 4>(p, nw, nitems, st);
+    }
   } else {
-    if (C2::smem_bytes(p.nsrc, 2) <= optin) return launch_mma_t<COUT, CIN, UP, 2, 2>(p, nitems, st);
+    if (C2::smem_bytes(nw, 2) <= optin) return launch_mma_t<COUT, CIN, KIND, 2, 2>(p, nw, nitems, st);
   }
-  return launch_mma_t<COUT, CIN, UP, 1, 2>(p, nitems, st);
+  return launch_mma_t<COUT, CIN, KIND, 1, 2>(p, nw, nitems, st);
 }
 
 template <int COUT>
@@ -720,8 +643,8 @@ int conv3x3_stats(const void* x, int cin, const void* w, const void* skip, int c
   p.B = B;
   p.H = H;
   p.W = W;
-  if (cout == 32) return cin == 32 ? launch_mma<32, 32, false>(p, st) : launch_mma<32, 64, false>(p, st);
-  return cin == 32 ? launch_mma<64, 32, false>(p, st) : launch_mma<64, 64, false>(p, st);
+  if (cout == 32) return cin == 32 ? launch_mma<32, 32, kConv>(p, st) : launch_mma<32, 64, kConv>(p, st);
+  return cin == 32 ? launch_mma<64, 32, kConv>(p, st) : launch_mma<64, 64, kConv>(p, st);
 }
 
 // K2. x [B,H,W,64], taps [4 parities,4 taps,64,cout]; out [B,2H,2W,cout];
@@ -739,30 +662,25 @@ int upconv3x3_stats(const void* x, const void* taps, void* out, void* part, int 
   p.H = H;
   p.W = W;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return cout == 32 ? launch_mma<32, 64, true>(p, st) : launch_mma<64, 64, true>(p, st);
+  return cout == 32 ? launch_mma<32, 64, kUp>(p, st) : launch_mma<64, 64, kUp>(p, st);
 }
 
-// K3. g [B,2H,2W,cg], taps_t [4 parities,4 taps,cg,cin] (K2's taps with the
-// channel axes swapped); dx [B,H,W,cin].
-int upconv3x3_dx(const void* g, const void* taps_t, void* dx, int B, int H, int W, int cg,
+// K3. g [B,2H,2W,cg], taps [4 parities,4 taps,cin,cg] (K2's taps as they
+// are); dx [B,H,W,cin]. Takes cg and cin in {32, 64}.
+int upconv3x3_dx(const void* g, const void* taps, void* dx, int B, int H, int W, int cg,
                  int cin, void* stream) {
-  if (!valid(B, H, W, cin) || B > 65535) return (int)cudaErrorInvalidValue;
-  DxParams p{};
-  p.g = static_cast<const bf16*>(g);
-  p.w = static_cast<const bf16*>(taps_t);
-  p.C = cg;
+  if (!valid(B, H, W, cin) || (cg != 32 && cg != 64)) return (int)cudaErrorInvalidValue;
+  MmaParams p{};
+  p.src[0] = static_cast<const bf16*>(g);
+  p.w[0] = static_cast<const bf16*>(taps);
+  p.nsrc = 4;
   p.out = static_cast<bf16*>(dx);
   p.B = B;
   p.H = H;
   p.W = W;
-  const dim3 grid(((H + kTH3 - 1) / kTH3) * ((W + kTW - 1) / kTW), B);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (cin == 32) {
-    upconv_dx_kernel<32><<<grid, kThreads, 0, st>>>(p);
-  } else {
-    upconv_dx_kernel<64><<<grid, kThreads, 0, st>>>(p);
-  }
-  return (int)cudaGetLastError();
+  if (cin == 32) return cg == 32 ? launch_mma<32, 32, kUpDx>(p, st) : launch_mma<32, 64, kUpDx>(p, st);
+  return cg == 32 ? launch_mma<64, 32, kUpDx>(p, st) : launch_mma<64, 64, kUpDx>(p, st);
 }
 
 }  // extern "C"

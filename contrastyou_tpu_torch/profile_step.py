@@ -35,10 +35,11 @@ def _card() -> str:
 def _hand_kernel(name: str):
     """The port's kernel a device event belongs to (by its CUDA function's
     name), or None for a library or PyTorch kernel."""
-    if "tapmma_kernel<" in name:
-        return "K2 upconv3x3_stats" if "true" in name else "K1 conv3x3_stats"
-    for fn, label in (("conv1ch_kernel<", "K1 conv3x3_stats"), ("upconv_dx_kernel<", "K3 upconv3x3_dx"),
-                      ("convbwd_kernel<", "C1/C2 conv_dw_taps / conv3x3_bwd_fused"),
+    if "tapmma_kernel<" in name:   # <Cout, Cin, KIND, groups, rows>: KIND 1 is K2, 2 is K3
+        kind = name.split("tapmma_kernel<", 1)[1].split(",")[2].strip()
+        return {"1": "K2 upconv3x3_stats", "2": "K3 upconv3x3_dx"}.get(kind, "K1 conv3x3_stats")
+    for fn, label in (("conv1ch_kernel<", "K1 conv3x3_stats"), ("dw_mma_kernel<", "C1 conv_dw_taps"),
+                      ("dw1ch_kernel<", "C1 conv_dw_taps"), ("convbwd_kernel<", "C2 conv3x3_bwd_fused"),
                       ("supcon_", "D1/D2 supcon"), ("iic_joints", "E1/E2 iic"),
                       ("sum_partials(", "partial sums of C1/C2, E1"), ("sum_dw(", "partial sums of E2")):
         if fn in name:

@@ -167,6 +167,87 @@ def test_k1_k2_refuse_what_they_do_not_take():
     assert cb.LAUNCHES == before
 
 
+#: (B, H, W, cotangent channels, Cin) of K3, on dx's grid (g is 2H x 2W):
+#: ragged tilings of the 16 x 16 (Cin 32) and 8 x 16 (Cin 64) tiles, B = 1
+#: to 11, both channel counts on each side, the path's 112 x 112 and 224 x 224
+K3_CASES = [(1, 13, 21, 32, 64), (3, 20, 36, 32, 32), (2, 1, 40, 64, 64), (11, 57, 45, 32, 64),
+            (1, 112, 112, 32, 64), (2, 224, 224, 64, 32), (5, 7, 9, 64, 32), (7, 57, 45, 64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cg,cin", K3_CASES)
+def test_k3_tiles_match_plain_and_repeat_bitwise(B, H, W, cg, cin):
+    """K3 (the four parity sub-grids of g as the sources of K1's body)
+    against its plain version; dx bitwise the same over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + H + W + cg + cin)
+    gy = torch.randn(B, 2 * H, 2 * W, cg, generator=g, device=dev).to(torch.bfloat16)
+    taps = cb.parity_taps((torch.randn(3, 3, cin, cg, generator=g, device=dev) / (3 * cg ** 0.5))
+                          .to(torch.bfloat16))
+    dx, dx2 = cb.upconv3x3_dx(gy, taps), cb.upconv3x3_dx(gy, taps)
+    assert torch.equal(dx, dx2)
+    scaled_close(dx, cb.upconv3x3_dx_plain(gy, taps), tol=TOL, what=f"K3 {B}x{H}x{W} {cg}->{cin}")
+    torch.cuda.synchronize()
+
+
+#: (B, H, W, Cin, Cout, up2) of C1, on x's grid: Cin 1 and 32 (3x3), 64 on
+#: both tap sets, both Couts (64: two 32-channel slices per tile), ragged
+#: tilings of the 8 x 16 (16 x 16 at Cin 1) tiles, B = 1 to 11, the path's
+#: 224 x 224 (Cin 1) and 112 x 112 (Up2)
+C1_CASES = [(3, 13, 21, 1, 32, False), (1, 224, 224, 1, 64, False), (11, 57, 45, 1, 32, False),
+            (2, 20, 36, 32, 32, False), (1, 1, 40, 32, 64, False), (3, 13, 21, 64, 64, False),
+            (2, 10, 18, 64, 32, True), (1, 112, 112, 64, 32, True), (5, 57, 45, 64, 64, True),
+            (7, 13, 21, 64, 32, True), (1, 1, 40, 64, 32, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cin,cout,up2", C1_CASES)
+def test_c1_tiles_match_plain_and_repeat_bitwise(B, H, W, cin, cout, up2):
+    """C1 against its plain version at tilings that stress the persistent
+    grid, the halo copies and the channel slices; dk and the per-block
+    partials bitwise the same over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + H + W + cin + cout + up2)
+    s = 2 if up2 else 1
+    x = torch.randn(B, H, W, cin, generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn(B, s * H, s * W, cout, generator=g, device=dev).to(torch.bfloat16)
+    (dk, part), (dk2, part2) = cb._dw_launch(x, gy, up2), cb._dw_launch(x, gy, up2)
+    assert torch.equal(dk, dk2) and torch.equal(part, part2)
+    assert part.shape[1:] == dk.shape
+    scaled_close(dk, cb.conv_dw_taps_plain(x, gy, up2), tol=DK_TOL,
+                 what=f"C1 {B}x{H}x{W} {cin}->{cout} up2={up2}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_k3_refuses_what_it_does_not_take():
+    """A CUDA tensor reaches K3 or an error, never the plain version: channel
+    counts outside {32, 64} on either side, an odd cotangent grid, taps of
+    another shape and f32 operands all raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+
+    def z(*s, dtype=torch.bfloat16):
+        return torch.zeros(s, dtype=dtype, device=dev)
+
+    before = dict(cb.LAUNCHES)
+    for bad in (lambda: cb.upconv3x3_dx(z(2, 16, 32, 48), z(4, 4, 64, 48)),
+                lambda: cb.upconv3x3_dx(z(2, 16, 32, 32), z(4, 4, 16, 32)),
+                lambda: cb.upconv3x3_dx(z(2, 15, 32, 32), z(4, 4, 64, 32)),
+                lambda: cb.upconv3x3_dx(z(2, 16, 32, 32), z(4, 4, 64, 64)),
+                lambda: cb.upconv3x3_dx(z(2, 16, 32, 32), z(3, 4, 64, 32)),
+                lambda: cb.upconv3x3_dx(z(2, 16, 32, 32, dtype=torch.float32),
+                                        z(4, 4, 64, 32, dtype=torch.float32))):
+        with pytest.raises(ValueError):
+            bad()
+    assert cb.LAUNCHES == before
+
+
 @pytest.mark.gpu
 def test_supcon_kernels_match_plain():
     if not torch.cuda.is_available():
@@ -226,7 +307,8 @@ def test_conv_bwd_kernels_match_plain():
 @pytest.mark.gpu
 def test_conv_bwd_kernels_refuse_what_they_do_not_take():
     """A CUDA tensor reaches C1 / C2 or an error, never the plain version:
-    f32 operands, a Cin that is not a multiple of 16 (C2) and a Cout the
+    f32 operands, a Cin that is not a multiple of 16 (C2), a Cin outside
+    {1, 32, 64} or other than 64 on the Up2 taps (C1) and a Cout the
     kernels are not built for all raise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -242,6 +324,10 @@ def test_conv_bwd_kernels_refuse_what_they_do_not_take():
         cb.conv_dw_taps(z(2, 8, 16, 32), z(2, 8, 16, 48))
     with pytest.raises(ValueError):
         cb.conv_dw_taps(z(2, 8, 16, 32), z(2, 8, 16, 32), up2=True)
+    for cin, up2 in ((16, False), (3, False), (1, True), (32, True), (48, True)):
+        with pytest.raises(ValueError):
+            cb.conv_dw_taps(z(2, 8, 16, cin), z(2, 16 if up2 else 8, 32 if up2 else 16, 32),
+                            up2=up2)
     with pytest.raises(ValueError):
         cb.conv3x3_bwd_fused(z(2, 8, 16, 24), z(3, 3, 24, 32), z(2, 8, 16, 32))
     with pytest.raises(ValueError):
@@ -389,15 +475,17 @@ def test_backward_yardsticks_compute_c1_c2_functions():
 
 def test_profile_step_names_the_hand_kernels():
     """profile_step attributes device events to the port's kernels by their
-    CUDA function names: K1 and K2 share the tensor-core body and differ in
-    its Up2 template argument."""
+    CUDA function names: K1, K2 and K3 share the tensor-core body and differ
+    in its KIND template argument; C1 and C2 have kernels of their own."""
     from contrastyou_tpu_torch.profile_step import _hand_kernel
     ns = "void (anonymous namespace)::"
-    assert _hand_kernel(ns + "tapmma_kernel<64, 64, false, 2>((anonymous namespace)::MmaParams)") \
-        == "K1 conv3x3_stats"
-    assert _hand_kernel(ns + "tapmma_kernel<32, 64, true, 2>((anonymous namespace)::MmaParams)") \
-        == "K2 upconv3x3_stats"
+    mma = ns + "tapmma_kernel<{}>((anonymous namespace)::MmaParams)"
+    assert _hand_kernel(mma.format("64, 64, 0, 3, 4")) == "K1 conv3x3_stats"
+    assert _hand_kernel(mma.format("32, 64, 1, 2, 2")) == "K2 upconv3x3_stats"
+    assert _hand_kernel(mma.format("64, 32, 2, 3, 4")) == "K3 upconv3x3_dx"
     assert _hand_kernel(ns + "conv1ch_kernel<32>(__nv_bfloat16 const*)") == "K1 conv3x3_stats"
-    assert _hand_kernel(ns + "upconv_dx_kernel<64>((anonymous namespace)::DxParams)") \
-        == "K3 upconv3x3_dx"
+    params = "((anonymous namespace)::Params)"
+    assert _hand_kernel(ns + "dw_mma_kernel<64, true>" + params) == "C1 conv_dw_taps"
+    assert _hand_kernel(ns + "dw1ch_kernel<32>" + params) == "C1 conv_dw_taps"
+    assert _hand_kernel(ns + "convbwd_kernel<32>" + params) == "C2 conv3x3_bwd_fused"
     assert _hand_kernel("void at::native::elementwise_kernel<128, 4>") is None
