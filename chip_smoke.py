@@ -17,20 +17,24 @@ Phases, in order; any failure exits non-zero:
    plain versions at M = 36, 180 and 256 anchors, d = 256, partition and
    identity masks, f32 with TF32 off;
 5. the backward kernels (C1 ``conv_dw_taps``, C2 ``conv3x3_bwd_fused``)
-   against their plain versions at the batch-96 shapes of the prostate path
-   (C1: Conv1.conv0 and the Up2 parity taps; C2: the seven convs with Cin >=
-   8, a skip conv as one launch per input), with kernel, plain and library
-   (one cuDNN ``convolution_backward``, bf16 channels-last) times; then at
-   batches 10 and 36 beside the einsum form they would replace there
-   (``conv3x3_dw`` / ``upconv3x3_dtaps``, plus K1's dx for C2) and the same
-   cuDNN call;
+   against their plain versions at the shapes of the paths' backward (C1:
+   Conv1.conv0 and the Up2 parity taps; C2: the seven convs with Cin >= 8, a
+   skip conv as one launch per input), at batch 96 (prostate) with kernel,
+   plain, library (one cuDNN ``convolution_backward``, bf16 channels-last)
+   and bound times, then at batches 5, 10 (semi) and 36 (ACDC) with kernel,
+   library and bound times beside the einsum form (``conv3x3_dw`` /
+   ``upconv3x3_dtaps``, plus K1's dx for C2) that the JAX package's XLA path
+   takes there; at every batch C2 also beside the split form on the port's
+   own kernels (K1 dx on the flipped kernel + C1 dk), and both kernels
+   twice on the same inputs, bitwise equal;
 6. the full-width U-Net (max_channel 512, 224x224, 4 classes) on random
    weights: its kernel-path levels against the same levels on the plain
-   versions at batch 5 and at batch 96 (where the backward takes C1/C2),
+   versions at batch 5 and at batch 96 (the backward takes C1/C2 at both),
    then warm-up and timed ``semi`` + consistency steps (5
    labeled + 5 unlabeled slices) through ``build_cached_train_step`` on a
    device-resident synthetic split; losses finite, parameters changed,
-   every kernel of the path launched;
+   K1, C1 and C2 launched as often per step as the path implies (16, 4 and
+   18), K2 and K3 launched;
 7. ``pretrain_decoder`` (config/base + pretrain + hooks/infonce: InfoNCE on
    Conv5 by partition and on Up_conv2 by self, 18-slice contrastive batches,
    36 images per forward) and ``pretrain`` (hooks/infonce_encoder) at full
@@ -38,7 +42,8 @@ Phases, in order; any failure exits non-zero:
    D1 against the plain SupCon, then warm-up and timed steps; losses finite,
    trainable parameters changed, frozen layers (``_Deconv_1x1``; every
    decoder layer for ``pretrain``) bit-unchanged, D1 and D2 launched once
-   per hook per step, C1/C2 never (batch 36);
+   per hook per step, C1/C2 as often as the path implies (decoder: 2 and 9
+   per step, encoder: 1 and 3);
 8. the same two trainers with ``-o Data.name=prostate`` (2 classes, 8
    partitions, random 48-slice batches, 96 images per forward, colour
    jitter 0.1): the same checks, with D1/D2 once per step (the Conv5 hook;
@@ -53,19 +58,19 @@ Phases, in order; any failure exits non-zero:
    ``build_semi_run(UDAIIC_CONFIG)`` at full width: the dense hook's loss on
    one batch through E1 against the plain version, then warm-up and timed
    steps; every hook loss finite, model and head parameters changed, E1 and
-   E2 once per step, K1-K3 as often per step as on ``semi``, C1/C2 and
+   E2 once per step, K1-K3, C1 and C2 as often per step as on ``semi``,
    D1/D2 never (run right after phase 6).
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
-counted on the kernel's own main path (K1-K3: ``semi``; D1/D2:
-``pretrain_decoder``; C1/C2: prostate ``pretrain_decoder``; E1/E2:
-``semi/udaiic``; ``launches_by_path`` has all six), ``max_abs_err`` the
-largest over the checked shapes, ``ms`` / ``plain_ms`` / ``library_ms`` /
-``bound_ms`` the sums over those shapes of one launch each (C1/C2: over the
-batch-96 shapes only; ``einsum_compare`` has their batch-10 and -36 sums
-beside the einsum form's and cuDNN's; E1/E2: at padding 1, with every
-padding in ``by_padding``); ``bound_ms`` is
+counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
+``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has all
+six), ``max_abs_err`` the largest over the checked shapes, ``ms`` /
+``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
+one launch each (C1/C2: over the batch-96 shapes only; ``by_batch`` has the
+sums at every checked batch, beside the einsum form's below 96 and, for C2,
+the split form's; E1/E2: at padding 1, with every padding in
+``by_padding``); ``bound_ms`` is
 max(bytes / 3.35 TB/s, operations / peak) with the bf16 tensor peak (989
 TFLOP/s) for the conv kernels and the f32 peak (67 TFLOP/s) for SupCon and
 IIC. The last line is ``{"ok": true, "device":
@@ -184,8 +189,8 @@ C2_SHAPES = [
     ("Up_conv2.conv1", 32, 0, 32, 224),
 ]
 #: the batch of the prostate path (C1 / C2 records) and the batches where
-#: C1 / C2 are set beside the einsum form they would replace
-BWD_BATCH, EINSUM_BATCHES = 96, (10, 36)
+#: C1 / C2 are set beside the einsum form (semi's 5 and 10, ACDC's 36)
+BWD_BATCH, EINSUM_BATCHES = 96, (5, 10, 36)
 
 
 def transpose_kernel(taps):
@@ -349,11 +354,12 @@ def library_bwd_calls(x, g, w=None, skip=None, w_skip=None, up2=False):
 
 
 def check_bwd_kernels(device) -> dict:
-    """Phase 5: C1 and C2 vs their plain versions at the batch-96 shapes of
-    the prostate decoder path (records: errors maxed, times summed over the
-    shapes of one step), then at batches 10 and 36 beside the einsum form
-    (``einsum_compare``: kernel and einsum ms summed over the same shapes).
-    Prints one line per shape."""
+    """Phase 5: C1 and C2 vs their plain versions at the shapes of the paths'
+    backward, each launched twice (bitwise equal). Records: errors maxed
+    over every batch, times of the batch-96 shapes summed (one step of the
+    prostate decoder path); ``by_batch`` holds each batch's sums (kernel,
+    cuDNN and bound; plain at 96, the einsum form below it; for C2 the split
+    form on the port's own kernels). Prints one line per shape."""
     import torch
     from contrastyou_tpu_torch.ops import convblock as cb
 
@@ -363,7 +369,7 @@ def check_bwd_kernels(device) -> dict:
         return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
 
     recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                    bound_by="", einsum_compare={}) for k in ("conv_dw_taps", "conv3x3_bwd_fused")}
+                    bound_by="", by_batch={}) for k in BWD_KERNELS}
 
     def dk_rel(got, ref):
         err, rel = _rel_err(got, ref)
@@ -371,8 +377,15 @@ def check_bwd_kernels(device) -> dict:
             raise AssertionError(f"dk rel {rel:.2e} > {DK_RTOL}")
         return err, rel
 
+    def twice(label, fn):
+        first, second = fn(), fn()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{label}: two launches on the same inputs differ")
+        return first
+
     def c1(B, label, x, gy, up2, einsum):
-        got, ref = cb.conv_dw_taps(x, gy, up2), cb.conv_dw_taps_plain(x, gy, up2)
+        (got,) = twice(f"C1 {label}", lambda: (cb.conv_dw_taps(x, gy, up2),))
+        ref = cb.conv_dw_taps_plain(x, gy, up2)
         err, rel = dk_rel(got, ref)
         ms = _time_ms(lambda: cb.conv_dw_taps(x, gy, up2))
         px = x.numel() // x.shape[-1]
@@ -384,22 +397,24 @@ def check_bwd_kernels(device) -> dict:
         if lrel > KERNEL_RTOL:
             raise AssertionError(f"C1 {label}: the cuDNN yardstick disagrees with plain")
         bms, by = _bound(*work, BF16_FLOPS)
-        line = (f"  conv_dw_taps     {label:26s} max_abs_err {err:.3e} (rel {rel:.2e}) kernel "
-                f"{ms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms ({by}) cudnn rel {lrel:.2e}")
-        if B != BWD_BATCH:
-            ems = _time_ms(einsum)
-            print(f"{line} einsum {ems:.4f} ms")
-            return ms, ems, lms, err
-        pms = _time_ms(lambda: cb.conv_dw_taps_plain(x, gy, up2), iters=5)
-        print(f"{line} plain {pms:.4f} ms")
-        return ms, pms, lms, bms, by, err
+        t = dict(ms=ms, library_ms=lms, bound_ms=bms, bound_by=by, err=err)
+        if B == BWD_BATCH:
+            t["plain_ms"] = _time_ms(lambda: cb.conv_dw_taps_plain(x, gy, up2), iters=5)
+        else:
+            t["einsum_ms"] = _time_ms(einsum)
+        print(f"  conv_dw_taps     {label:26s} max_abs_err {err:.3e} (rel {rel:.2e}) kernel "
+              f"{ms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms ({by}) cudnn rel {lrel:.2e} "
+              + (f"plain {t['plain_ms']:.4f}" if B == BWD_BATCH else f"einsum {t['einsum_ms']:.4f}")
+              + " ms")
+        return t
 
     def c2(B, label, x, w, gy, skip, ws, einsum):
-        ms = pms = err = rel = xrel = 0.0
+        ms = split = plain = err = rel = xrel = 0.0
         fused = [(x, w)] + ([(skip, ws)] if skip is not None else [])
         refs = []
         for xi, wi in fused:
-            (dx, dk), (pdx, pdk) = cb.conv3x3_bwd_fused(xi, wi, gy), cb.conv3x3_bwd_fused_plain(xi, wi, gy)
+            dx, dk = twice(f"C2 {label}", lambda: cb.conv3x3_bwd_fused(xi, wi, gy))
+            pdx, pdk = cb.conv3x3_bwd_fused_plain(xi, wi, gy)
             e, r = dk_rel(dk, pdk)
             ex, xr = _rel_err(dx, pdx)
             if xr > KERNEL_RTOL:
@@ -407,8 +422,10 @@ def check_bwd_kernels(device) -> dict:
             err, rel, xrel = max(err, e, ex), max(rel, r), max(xrel, xr)
             refs.append((pdx, pdk))
             ms += _time_ms(lambda: cb.conv3x3_bwd_fused(xi, wi, gy))
+            wt = cb.flip_transpose(wi)
+            split += _time_ms(lambda: (cb.conv3x3_stats(gy, wt, stats=False), cb.conv_dw_taps(xi, gy)))
             if B == BWD_BATCH:
-                pms += _time_ms(lambda: cb.conv3x3_bwd_fused_plain(xi, wi, gy), iters=5)
+                plain += _time_ms(lambda: cb.conv3x3_bwd_fused_plain(xi, wi, gy), iters=5)
         lib_fn, (ldx, ldk) = library_bwd_calls(x, gy, w, skip, ws)
         pdx = torch.cat([r[0] for r in refs[::-1]], -1)
         pdk = torch.cat([r[1] for r in refs[::-1]], 2)
@@ -421,18 +438,19 @@ def check_bwd_kernels(device) -> dict:
         work = (2 * (2 * px * cin + px * gy.shape[-1] + 9 * cin * gy.shape[-1])
                 + 4 * 9 * cin * gy.shape[-1], 2 * 2 * px * 9 * cin * gy.shape[-1])
         bms, by = _bound(*work, BF16_FLOPS)
-        line = (f"  conv3x3_bwd_fused {label:25s} max_abs_err {err:.3e} (dk rel {rel:.2e}, dx "
-                f"rel {xrel:.2e}) kernel {ms:.4f} ms cudnn {lms:.4f} ms bound {bms:.4f} ms "
-                f"({by}) cudnn rel {lrel:.2e}")
-        if B != BWD_BATCH:
-            ems = _time_ms(einsum)
-            print(f"{line} einsum+K1 dx {ems:.4f} ms")
-            return ms, ems, lms, err
-        print(f"{line} plain {pms:.4f} ms")
-        return ms, pms, lms, bms, by, err
+        t = dict(ms=ms, library_ms=lms, bound_ms=bms, bound_by=by, err=err, split_ms=split)
+        if B == BWD_BATCH:
+            t["plain_ms"] = plain
+        else:
+            t["einsum_ms"] = _time_ms(einsum)
+        print(f"  conv3x3_bwd_fused {label:25s} max_abs_err {err:.3e} (dk rel {rel:.2e}, dx "
+              f"rel {xrel:.2e}) kernel {ms:.4f} ms cudnn {lms:.4f} ms split (K1 dx + C1) "
+              f"{split:.4f} ms bound {bms:.4f} ms ({by}) cudnn rel {lrel:.2e} "
+              + (f"plain {plain:.4f} ms" if B == BWD_BATCH else
+                 f"einsum+K1 dx {t['einsum_ms']:.4f} ms"))
+        return t
 
     for B in (BWD_BATCH, *EINSUM_BATCHES):
-        sums = {k: [0.0, 0.0, 0.0] for k in recs}
         results = []
         x = randn(B, 224, 224, 1)
         gy = randn(B, 224, 224, 32, scale=1e-2)
@@ -455,24 +473,22 @@ def check_bwd_kernels(device) -> dict:
             results.append(("conv3x3_bwd_fused", c2(B, f"{name} B={B}", x, w, gy, skip, ws,
                                                     einsum)))
             del x, gy, skip
-        for k, res in results:
+        sums = {k: {} for k in recs}
+        for k, t in results:
             r = recs[k]
-            r["max_abs_err"] = max(r["max_abs_err"], res[-1])
+            r["max_abs_err"] = max(r["max_abs_err"], t["err"])
+            for key in ("ms", "library_ms", "bound_ms", "plain_ms", "einsum_ms", "split_ms"):
+                if key in t:
+                    sums[k][key] = sums[k].get(key, 0.0) + t[key]
             if B == BWD_BATCH:
-                ms, pms, lms, bms, by, _ = res
-                r["ms"] += ms
-                r["plain_ms"] += pms
-                r["library_ms"] += lms
-                _add_bound(r, bms, by)
-            else:
-                for i in range(3):
-                    sums[k][i] += res[i]
-        for k, (ms, ems, lms) in sums.items():
-            if B != BWD_BATCH:
-                recs[k]["einsum_compare"][f"B={B}"] = {"kernel_ms": ms, "einsum_ms": ems,
-                                                       "cudnn_ms": lms}
-                print(f"  {k} B={B}: kernel {ms:.4f} ms vs einsum form {ems:.4f} ms, cuDNN "
-                      f"{lms:.4f} ms over the path's shapes")
+                r["ms"] += t["ms"]
+                r["plain_ms"] += t["plain_ms"]
+                r["library_ms"] += t["library_ms"]
+                _add_bound(r, t["bound_ms"], t["bound_by"])
+        for k, agg in sums.items():
+            recs[k]["by_batch"][f"B={B}"] = agg
+            print(f"  {k} B={B} over the path's shapes: " + ", ".join(
+                f"{n} {v:.4f} ms" for n, v in agg.items()))
         torch.cuda.empty_cache()
     return recs
 
@@ -688,10 +704,10 @@ def run_udaiic(device, card: str, semi: dict) -> dict:
             raise AssertionError(f"no parameter of {part!r} changed")
     steps, semi_steps = UDAIIC_WARMUP + UDAIIC_TIMED, WARMUP_STEPS + TIMED_STEPS
     if (launches["iic_joints"] != steps or launches["iic_joints_bwd"] != steps
-            or any(launches[k] * semi_steps != semi[k] * steps for k in CONV_KERNELS)
-            or any(launches[k] for k in BWD_KERNELS + SUPCON_KERNELS)):
-        raise AssertionError(f"launches {launches}: want E1/E2 {steps} each, K1-K3 per step "
-                             f"as on semi ({semi}), C1/C2 and D1/D2 none")
+            or any(launches[k] * semi_steps != semi[k] * steps for k in CONV_KERNELS + BWD_KERNELS)
+            or any(launches[k] for k in SUPCON_KERNELS)):
+        raise AssertionError(f"launches {launches}: want E1/E2 {steps} each, K1-K3, C1 and C2 "
+                             f"per step as on semi ({semi}), D1/D2 none")
     return launches
 
 
@@ -714,7 +730,7 @@ def check_stages(device, B: int) -> None:
     """Phase 6a: the kernel-path U-Net levels (Conv1; Up2 -> Up_conv2 with
     the Conv1 skip) at full width, batch ``B``, forward and backward, are as
     close to an f32 evaluation of the same modules as the plain bf16 path is
-    (at batch 96 the backward runs C1 and C2).
+    (the backward runs C1 twice and C2 four times at every batch).
     bf16 itself moves these gradients by 10-25% from f32 (measured on the CPU:
     the BN backward cancels large terms), so a direct kernel-vs-plain bound
     would be noise; the kernel path must instead stay within
@@ -753,7 +769,7 @@ def check_stages(device, B: int) -> None:
         if ek > STAGE_FACTOR * ep + STAGE_ATOL or not bool(torch.isfinite(got[k]).all()):
             raise AssertionError(f"{k}: kernel path {ek:.3e} from f32, plain bf16 path {ep:.3e}")
     bwd = [launches[k] for k in BWD_KERNELS]
-    if bwd != ([2, 4] if B >= BWD_BATCH else [0, 0]):
+    if bwd != [2, 4]:
         raise AssertionError(f"stage check B={B}: C1/C2 launches {bwd}")
     print(f"stage check B={B} (Conv1, Up2, Up_conv2 fwd+bwd, {len(ref)} tensors; C1/C2 "
           f"launches {bwd}): kernel-path error vs f32 at most {worst:.2f}x the plain bf16 "
@@ -800,9 +816,11 @@ def run_train(device, card: str) -> dict:
         raise AssertionError(f"non-finite loss: {losses}")
     if changed == 0:
         raise AssertionError("no parameter changed")
-    if min(launches[k] for k in CONV_KERNELS) <= 0 or max(launches[k] for k in BWD_KERNELS):
-        raise AssertionError(f"a kernel of the semi path never launched, or C1/C2 did "
-                             f"below batch 96: {launches}")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    expect = {k: steps * n for k, n in SEMI_LAUNCHES.items()}
+    if (any(launches[k] != v for k, v in expect.items())
+            or min(launches[k] for k in CONV_KERNELS) <= 0):
+        raise AssertionError(f"launches {launches}: want {expect} and K2, K3 > 0")
     if any(launches[k] for k in IIC_KERNELS):
         raise AssertionError(f"E1/E2 launched without an IIC hook: {launches}")
     return launches
@@ -855,9 +873,10 @@ def check_hook_losses(run) -> None:
 
 #: launches per step of (D1 and D2 each, C1, C2) on each pretraining path:
 #: one D1/D2 pair per hook of at most 256 anchors (the prostate dense hook's
-#: 2 x 48 x 5 = 480 take the eager form); C1/C2 only from batch 96
+#: 2 x 48 x 5 = 480 take the eager form); C1 for Conv1.conv0 (and Up2's
+#: taps), C2 for every other narrow conv input the backward reaches
 PRETRAIN_LAUNCHES = {
-    ("pretrain_decoder", "acdc"): (2, 0, 0), ("pretrain", "acdc"): (1, 0, 0),
+    ("pretrain_decoder", "acdc"): (2, 2, 9), ("pretrain", "acdc"): (1, 1, 3),
     ("pretrain_decoder", "prostate"): (1, 2, 9), ("pretrain", "prostate"): (1, 1, 3),
 }
 
@@ -918,6 +937,10 @@ def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int,
 
 
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
+#: launches per semi step (a batch-5 and a batch-10 forward, each with its
+#: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
+#: C1 Conv1.conv0 and Up2's taps, C2 the 9 other narrow conv inputs, per pass
+SEMI_LAUNCHES = {"conv3x3_stats": 16, "conv_dw_taps": 4, "conv3x3_bwd_fused": 18}
 BWD_KERNELS = ("conv_dw_taps", "conv3x3_bwd_fused")
 SUPCON_KERNELS = ("supcon_loss", "supcon_dz")
 IIC_KERNELS = ("iic_joints", "iic_joints_bwd")
@@ -936,7 +959,7 @@ SOURCES = {
 ROUTES = {**{k: ("tapconv.cu", "semi") for k in CONV_KERNELS},
           "supcon_loss": ("supcon.cu", "pretrain_decoder"),
           "supcon_dz": ("supcon.cu", "pretrain_decoder"),
-          **{k: ("convbwd.cu", "pretrain_decoder/prostate") for k in BWD_KERNELS},
+          **{k: ("convbwd.cu", "semi") for k in BWD_KERNELS},
           **{k: ("iic.cu", "semi/udaiic") for k in IIC_KERNELS}}
 
 
@@ -963,7 +986,7 @@ def main() -> int:
     recs.update(check_supcon(device))
     print("dense-IIC kernels vs plain (f1, f2 [5, 224, 224, 32] bf16, S = 5, K = 20):")
     recs.update(check_iic(device))
-    print("backward kernels vs plain (batch 96) and vs the einsum form (batches 10, 36):")
+    print("backward kernels vs plain (batch 96) and vs the einsum form (batches 5, 10, 36):")
     recs.update(check_bwd_kernels(device))
     for B in (5, BWD_BATCH):
         check_stages(device, B)
@@ -988,7 +1011,7 @@ def main() -> int:
                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"],
-                        **{k: r[k] for k in ("einsum_compare", "by_padding") if k in r}))
+                        **{k: r[k] for k in ("by_batch", "by_padding") if k in r}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,17 +13,19 @@ with at most 64 channels (Conv1, Conv2, Up_conv3, Up2, Up_conv2):
 - ``upconv3x3_dx`` (K3): the adjoint of K2, on K1's body with the four
   parity sub-grids of the cotangent as its sources.
 
-Two more (``csrc/convbwd.cu``) carry the backward from batch
-:data:`BWD_KERNEL_MIN_BATCH` (96, the prostate contrastive batch), where the
-JAX package routes its Pallas dW and fused-backward kernels:
+Two more (``csrc/convbwd.cu``) carry the backward at every batch (the JAX
+package routes its Pallas dW and fused-backward kernels only from batch 96,
+a threshold measured on the TPU; on the H100 the kernels are faster than the
+einsum form at every batch the paths give):
 
 - ``conv_dw_taps`` (C1): the weight gradient over a static tap set (the 3x3
   taps, or the 16 parity taps of Up2).
 - ``conv3x3_bwd_fused`` (C2): dx and dW of a 3x3 conv from one pass over the
   cotangent.
 
-Below that batch the weight gradients are per-tap einsums, as the JAX package
-leaves them to XLA there.
+The per-tap einsum form of the weight gradients (:func:`conv3x3_dw`,
+:func:`upconv3x3_dtaps`), which the JAX package leaves to XLA below batch 96,
+stays as a yardstick for the tests and ``chip_smoke.py``; no path calls it.
 
 Every wrapper dispatches on the device of its input: a CPU tensor goes to the
 plain PyTorch version beside it (same signature, same rounding points: f32
@@ -46,13 +48,14 @@ __all__ = ["conv3x3_stats", "conv3x3_stats_plain", "upconv3x3_stats",
            "conv_dw_taps", "conv_dw_taps_plain", "conv3x3_bwd_fused",
            "conv3x3_bwd_fused_plain", "parity_taps", "conv3x3_bn_stats",
            "upconv3x3_bn_stats", "bn_relu", "bn_affine", "convblock_stage",
-           "LAUNCHES", "reset_launch_counts", "BWD_KERNEL_MIN_BATCH"]
+           "LAUNCHES", "reset_launch_counts"]
 
 #: launches of each kernel, counted by its wrapper where it launches
 LAUNCHES = {"conv3x3_stats": 0, "upconv3x3_stats": 0, "upconv3x3_dx": 0,
             "conv_dw_taps": 0, "conv3x3_bwd_fused": 0}
 
-#: output channel counts the kernels are instantiated for
+#: output channel counts the kernels are instantiated for (C2: its input
+#: channel counts too)
 KERNEL_COUT = (32, 64)
 #: input channel counts K1 takes (1: the image conv, without a skip; a skip
 #: has as many channels as the input beside it)
@@ -61,9 +64,6 @@ K1_CIN = (1, 32, 64)
 K2_CIN = 64
 #: input channel counts C1 takes on the 3x3 taps (on Up2's: K2_CIN only)
 C1_CIN = (1, 32, 64)
-#: batch from which the backward runs C1 / C2 (the automatic routing of the
-#: JAX package's ``_dw_enabled`` and ``_fusedbwd_enabled``)
-BWD_KERNEL_MIN_BATCH = 96
 #: input channels from which a 3x3 conv's backward is fused (C2); the image
 #: conv below it keeps dx on K1 and dW on C1 (``_plane_conv_bwd``)
 FUSED_BWD_MIN_CIN = 8
@@ -231,17 +231,13 @@ class _Conv3x3Stats(torch.autograd.Function):
 
 def _conv3x3_bwd(x, w, g, need_dx: bool, need_dw: bool):
     """(dx, dW) of one input of a 3x3 conv for the folded cotangent ``g``,
-    None where not needed (convblock.py ``_plane_conv_bwd``). Below
-    :data:`BWD_KERNEL_MIN_BATCH`: dx on K1 with the flipped kernel, dW by
-    per-tap einsums. From it: C2 when Cin >= :data:`FUSED_BWD_MIN_CIN`, else
-    dx on K1 and dW on C1."""
-    if x.shape[0] >= BWD_KERNEL_MIN_BATCH:
-        if need_dw and x.shape[-1] >= FUSED_BWD_MIN_CIN:
-            dx, dk = conv3x3_bwd_fused(x, w, g)
-            return (dx if need_dx else None), dk.to(w.dtype)
-        dw = conv_dw_taps(x, g).reshape(w.shape).to(w.dtype) if need_dw else None
-    else:
-        dw = conv3x3_dw(x, g).to(w.dtype) if need_dw else None
+    None where not needed (convblock.py ``_plane_conv_bwd``): C2 when Cin >=
+    :data:`FUSED_BWD_MIN_CIN`, else dx on K1 with the flipped kernel and dW
+    on C1."""
+    if need_dw and x.shape[-1] >= FUSED_BWD_MIN_CIN:
+        dx, dk = conv3x3_bwd_fused(x, w, g)
+        return (dx if need_dx else None), dk.to(w.dtype)
+    dw = conv_dw_taps(x, g).reshape(w.shape).to(w.dtype) if need_dw else None
     dx = conv3x3_stats(g, flip_transpose(w), stats=False)[0] if need_dx else None
     return dx, dw
 
@@ -394,9 +390,7 @@ class _UpconvStats(torch.autograd.Function):
         dx = upconv3x3_dx(g, taps) if ctx.needs_input_grad[0] else None
         dtaps = None
         if ctx.needs_input_grad[1]:
-            dtaps = (conv_dw_taps(x, g, up2=True).reshape(taps.shape)
-                     if x.shape[0] >= BWD_KERNEL_MIN_BATCH
-                     else upconv3x3_dtaps(x, g)).to(taps.dtype)
+            dtaps = conv_dw_taps(x, g, up2=True).reshape(taps.shape).to(taps.dtype)
         return dx, dtaps
 
 
@@ -405,7 +399,7 @@ def upconv3x3_bn_stats(x, k3):
     return _UpconvStats.apply(x, parity_taps(k3))
 
 
-# --- C1 / C2: weight gradient and fused backward from batch 96 -------------
+# --- C1 / C2: weight gradient and fused backward --------------------------
 
 def _tap_offsets(up2: bool):
     """(dy, dx) of each tap: the 3x3 taps in HWIO order, or the 16 parity
@@ -483,20 +477,20 @@ def conv3x3_bwd_fused(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     """Backward of the SAME 3x3 conv of ``x`` [B,H,W,Cin] with HWIO ``w``
     for the output cotangent ``g`` [B,H,W,Cout] (convblock.py
     ``plane_conv_bwd_fused``) -> (dx [B,H,W,Cin] in g's dtype, one rounding
-    of f32 sums; dk [3,3,Cin,Cout] f32). Kernel C2 on CUDA (bf16, Cin a
-    multiple of 16, Cout in {32, 64}): each cotangent tile is loaded once
-    for both products."""
+    of f32 sums; dk [3,3,Cin,Cout] f32). Kernel C2 on CUDA (bf16, Cin and
+    Cout in {32, 64}: the widths of the paths' narrow levels): each x tile
+    and cotangent halo is loaded once for both products."""
     if x.device.type == "cpu":
         return conv3x3_bwd_fused_plain(x, w, g)
     B, H, W, cin = x.shape
     cout = g.shape[-1]
     w = w.contiguous()
     _cuda_check("conv3x3_bwd_fused", x, w, g)
-    if (cout not in KERNEL_COUT or cin % 16 or tuple(w.shape) != (3, 3, cin, cout)
-            or g.shape[:3] != x.shape[:3]):
+    if (cout not in KERNEL_COUT or cin not in KERNEL_COUT
+            or tuple(w.shape) != (3, 3, cin, cout) or g.shape[:3] != x.shape[:3]):
         raise ValueError(f"conv3x3_bwd_fused: x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                         f"g {tuple(g.shape)}; Cin must be a multiple of 16, Cout "
-                         f"in {KERNEL_COUT}")
+                         f"g {tuple(g.shape)}; the kernel takes Cin and Cout in "
+                         f"{KERNEL_COUT}")
     lib = _build.load_library("convbwd")
     nb = _num_partials(lib, 2, B, H, W, cin, cout)
     part = torch.empty(nb, 9, cin, cout, dtype=torch.float32, device=x.device)

@@ -49,10 +49,31 @@
 // pixel, not 16-byte aligned at a halo) through registers loaded a tile
 // ahead. The warps' dk (9 x Cout) are summed in shared memory in warp order.
 //
-// C2 (convbwd_kernel): a block loads an 8x16-pixel tile of x (a 16-channel
-// slice of Cin) and the cotangent tile with a one-pixel halo once; every tap
-// is a shifted view of that tile, read by both products.
-//
+// C2 (convbwd_kernel<Cin, Cout>, Cin and Cout in {32, 64}) joins K1's dx and
+// C1's dk over one staged tile. A block of 8 warps owns all of Cin and all of
+// Cout: per tile of 8 (32/64: 16) rows x 16 pixels it reads the x tile and
+// the cotangent halo from memory once, through a cp.async two-stage ring
+// that zero-fills the image border, and it stages the weights [9][Cin][Cout]
+// once (82.9 KB at 64/64; 190 KB of shared memory in all). Each tile runs two
+// products on the tensor cores:
+// - dx, K1's implicit GEMM on the flipped taps: M the 16 pixels of a tile
+//   row, N 16 channels of Cin per warp, K the 9 taps x Cout; A a shifted
+//   ldmatrix view of the g halo, B the staged weights (plain ldmatrix: w[t]
+//   is [i][o], K contiguous). A halo row serves three tile rows (one per
+//   ky), so a warp of RW rows loads RW + 2 A fragments per (kx, 16 o), not
+//   3 RW. One bf16 rounding, staged in shared memory, 16-byte row stores.
+// - dk, C1's q-form: M Cin (x^T by ldmatrix.trans), N 16 output channels per
+//   warp, K the pixels. The warp walks the halo rows: one g fragment per kx
+//   serves three tile rows and every Cin tile of the warp, an x^T fragment
+//   lives for three halo rows; MW + 3 ldmatrix feed up to 18 MW mma.
+// Registers bound the design: dk's 9 x Cin x Cout f32 sums stay in registers
+// across the block's tiles, 144 a thread at 64/64 (ptxas: 244 registers, no
+// spill), beside dx's sums for one tile. With 8 warps on an SM the mma.sync
+// latency is what holds it (16-warp blocks at 64/64 spill at 128 registers
+// and ran 1.4x slower); at 32/32 the dx and dk roles go to separate warps so
+// two blocks fit an SM (128 registers, no spill), which made those convs
+// 1.2x faster than one block of 8 warps doing both (A/B runs, PERF.md §6).
+
 // Every entry point launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a shape it does not
 // take).
@@ -60,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -148,7 +171,7 @@ __global__ void __launch_bounds__(DwCfg<CIN, UP>::THREADS) dw_mma_kernel(const P
     const int tile = blk + k * p.nb;
     const int b = tile / tiles_img, r = tile % tiles_img;
     const int ty0 = (r / tiles_x) * kTH, tx0 = (r % tiles_x) * kTW;
-    for (int e = tid; e < kTile * (CIN / 8); e += C::THREADS) {
+    for (int e = tid; e < kTile * (CIN / 8); e += kThreads) {
       const int pix = e / (CIN / 8), c8 = e % (CIN / 8);
       const int y = ty0 + pix / kTW, x = tx0 + pix % kTW;
       const bool in = y < H && x < W;
@@ -156,7 +179,7 @@ __global__ void __launch_bounds__(DwCfg<CIN, UP>::THREADS) dw_mma_kernel(const P
       tc::cp_async16(smem_addr(st + pix * C::XS + c8 * 8), src, in ? 16 : 0);
     }
     bf16* sg = st + kTile * C::XS;
-    for (int e = tid; e < C::NPAR * kHalo * (kCo / 8); e += C::THREADS) {
+    for (int e = tid; e < C::NPAR * kHalo * (kCo / 8); e += kThreads) {
       const int par = e / (kHalo * (kCo / 8)), hp = (e / (kCo / 8)) % kHalo, o8 = e % (kCo / 8);
       const int y = ty0 - 1 + hp / kHW, x = tx0 - 1 + hp % kHW;
       const bool in = y >= 0 && y < H && x >= 0 && x < W;
@@ -380,155 +403,259 @@ __global__ void __launch_bounds__(kThreads) dw1ch_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// C2: dx and dk of a 3x3 conv from one load of each cotangent tile
+// C2: dx and dk of a 3x3 conv from one load of each x tile and g halo
 // ---------------------------------------------------------------------------
 
-constexpr int kCS = 16;                  // input channels of one block (its slice)
-constexpr int kXS = kCS + 8;             // padded pixel stride of the x tile
 constexpr int kWarps = kThreads / 32;
 
-template <int COUT>
-constexpr size_t fused_smem_bytes() {
-  return 2 * ((size_t)kHalo * (COUT + 8) + (size_t)kTile * kXS + (size_t)9 * kCS * (COUT + 8));
-}
+// Warp roles of a C2 block (8 warps) at (CIN, COUT), each in {32, 64}.
+// Without SPEC every warp runs dx and then dk on each tile. At 32/32 (SPEC)
+// warps 0-3 run dx and warps 4-7 dk on the same staged tile, each role in its
+// own loop (the barriers match one for one), so a warp holds only its own
+// role's sums: 128 registers, two blocks per SM. 32/64 takes 16-row tiles.
+// dx: warp = (RW tile rows, 16 input channels). dk: warp = (MW m16 tiles of
+// Cin, 16 output channels), all 9 taps over all TH tile rows.
+template <int CIN, int COUT>
+struct FusedCfg {
+  static constexpr bool SPEC = CIN == 32 && COUT == 32; // dx and dk on separate warps
+  static constexpr int TH = CIN == 32 && COUT == 64 ? 16 : 8;  // tile rows
+  static constexpr int TILE = TH * kTW, HALO = (TH + 2) * kHW;
+  static constexpr int NDX = SPEC ? kWarps / 2 : kWarps;  // warps running dx
+  static constexpr int NDK = SPEC ? kWarps / 2 : kWarps;  // warps running dk
+  static constexpr int MT = CIN / 16, N16 = COUT / 16;
+  static constexpr int MW = MT * N16 / NDK;             // m16 tiles of Cin of a dk warp
+  static constexpr int RW = TH * MT / NDX;              // tile rows of a dx warp
+  static constexpr int NGR = TH / RW;                   // dx warps along the rows
+  static constexpr int XS = CIN + 8, GS = COUT + 8;     // padded pixel strides (x / dx, g)
+  static constexpr int WS = COUT + 8;                   // padded weight row stride
+  static constexpr int STAGE = TILE * XS + HALO * GS;   // x tile + g halo (elements)
+  static constexpr int WELEMS = 9 * CIN * WS;
+  static constexpr size_t SMEM = sizeof(bf16) * (2 * STAGE + WELEMS + TILE * XS);
+  static constexpr int MINB = SPEC ? 2 : 1;             // blocks per SM
+  static_assert((MT / MW) * N16 == NDK && NGR * MT == NDX, "warps must tile the block");
+};
 
-template <int COUT>
-__global__ void __launch_bounds__(kThreads) convbwd_kernel(const Params p) {
-  constexpr int T = 9;
-  constexpr int NT = COUT / 8;                  // n8 tiles of dk's output channels
-  constexpr int NF = T * NT;                    // dk fragments [16 x 8] of a block
-  constexpr int NJ = (NF + kWarps - 1) / kWarps;
-  constexpr int GS = COUT + 8;                  // padded pixel stride of the g tile
-  constexpr int G8 = COUT / 8;                  // 16-byte groups per g pixel
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sG = reinterpret_cast<bf16*>(smem);     // [kHalo][GS]
-  bf16* sX = sG + kHalo * GS;                   // [kTile][kXS]
-  bf16* sW = sX + kTile * kXS;                  // [9][kCS][GS]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;      // mma fragment row / column pair
-  const int lj = lane >> 3, lr = lane & 7;      // ldmatrix matrix / row of this lane
-  const int slice = blockIdx.x % p.nslice;
-  const int blk = blockIdx.x / p.nslice;
-  const int c0 = slice * kCS;
-  const int H = p.H, W = p.W, cin = p.cin;
-  const int tiles_x = (W + kTW - 1) / kTW;
-  const int tiles_img = ((H + kTH - 1) / kTH) * tiles_x;
-  const int ntiles = p.B * tiles_img;
-
-  float acc[NJ][4];
+// dx of one tile by dx warp wd: dx[r][i] = sum_{ky,kx,o} g[halo row r + 2 -
+// ky, col + 2 - kx][o] * w[3ky+kx][i][o]. M the 16 pixels of a tile row, N 16
+// channels of Cin, K the taps x Cout. A halo row serves tile rows h - 2 .. h
+// (ky = 0 .. 2), so a warp loads RW + 2 A fragments, not 3 RW, per (kx, 16
+// output channels). One rounding to bf16, staged in sO, then 16-byte rows out
+// by the dx warps.
+template <int CIN, int COUT>
+__device__ __forceinline__ void fused_dx_tile(const Params& p, const bf16* sg, const bf16* sW, bf16* sO,
+                                              int wd, int lane, int b, int ty0, int tx0) {
+  using C = FusedCfg<CIN, COUT>;
+  constexpr int RW = C::RW;
+  const int gq = lane >> 2, tq = lane & 3, lj = lane >> 3, lr = lane & 7;
+  const int r0 = (wd % C::NGR) * RW, i0 = (wd / C::NGR) * 16;
+  float acc[RW][2][4];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  // this slice's weights, [t][i][o], once per block
-  for (int e = tid; e < 9 * kCS * G8; e += kThreads) {
-    const int o8 = e % G8, i = (e / G8) % kCS, t = e / (G8 * kCS);
-    *reinterpret_cast<uint4*>(sW + (t * kCS + i) * GS + o8 * 8) =
-        *reinterpret_cast<const uint4*>(p.w + ((size_t)t * cin + c0 + i) * COUT + o8 * 8);
-  }
-
-  for (int tile = blk; tile < ntiles; tile += p.nb) {
-    const int b = tile / tiles_img;
-    const int ty0 = ((tile % tiles_img) / tiles_x) * kTH;
-    const int tx0 = ((tile % tiles_img) % tiles_x) * kTW;
-
-    __syncthreads();  // the previous tile's reads are done
-    // x tile: 128 pixels x this slice's 16 channels, zero outside
-    for (int e = tid; e < kTile * 2; e += kThreads) {
-      const int pix = e >> 1, ch = c0 + (e & 1) * 8;
-      const int y = ty0 + pix / kTW, x = tx0 + pix % kTW;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (y < H && x < W)
-        v = *reinterpret_cast<const uint4*>(p.x + (((size_t)b * H + y) * W + x) * cin + ch);
-      *reinterpret_cast<uint4*>(sX + pix * kXS + (e & 1) * 8) = v;
-    }
-    // cotangent tile with a one-pixel halo
-    for (int e = tid; e < kHalo * G8; e += kThreads) {
-      const int hp = e / G8, o8 = e % G8;
-      const int y = ty0 - 1 + hp / kHW, x = tx0 - 1 + hp % kHW;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (y >= 0 && y < H && x >= 0 && x < W)
-        v = *reinterpret_cast<const uint4*>(p.g + (((size_t)b * H + y) * W + x) * COUT + o8 * 8);
-      *reinterpret_cast<uint4*>(sG + hp * GS + o8 * 8) = v;
-    }
-    __syncthreads();
-
-    // dx: warp w computes tile row w (16 pixels) x the slice's 16 channels;
-    // A = shifted g [pixel][o] (row-major), B = w[t] stored [i][o]
-    float dacc[2][4];
+  for (int r = 0; r < RW; ++r)
 #pragma unroll
     for (int n = 0; n < 2; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dacc[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int dy = t / 3 - 1, dx = t % 3 - 1;
-      const int col = lr + 8 * (lj & 1);
-      const bf16* arow = sG + ((warp + 1 - dy) * kHW + col + 1 - dx) * GS + 8 * (lj >> 1);
-      const bf16* brow = sW + (t * kCS + lr + 8 * (lj >> 1)) * GS + 8 * (lj & 1);
+  for (int kx = 0; kx < 3; ++kx) {
 #pragma unroll
-      for (int ok = 0; ok < COUT / 16; ++ok) {
-        unsigned a[4], bf[4];
-        ldsm_x4(smem_addr(arow + ok * 16), a);
-        ldsm_x4(smem_addr(brow + ok * 16), bf);
-        mma_bf16(dacc[0], a, bf[0], bf[1]);
-        mma_bf16(dacc[1], a, bf[2], bf[3]);
-      }
-    }
-    const int y = ty0 + warp;
-    if (y < H) {
+    for (int ok = 0; ok < COUT / 16; ++ok) {
+      unsigned bw[3][4];
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+      for (int ky = 0; ky < 3; ++ky)
+        ldsm_x4(smem_addr(sW + ((ky * 3 + kx) * CIN + i0 + lr + 8 * (lj >> 1)) * C::WS + ok * 16 +
+                          8 * (lj & 1)),
+                bw[ky]);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int x = tx0 + gq + 8 * h;
-          if (x < W) {
-            *reinterpret_cast<__nv_bfloat162*>(
-                p.dx + (((size_t)b * H + y) * W + x) * cin + c0 + n * 8 + 2 * tq) =
-                __floats2bfloat162_rn(dacc[n][2 * h], dacc[n][2 * h + 1]);
+      for (int hh = 0; hh < RW + 2; ++hh) {
+        unsigned a[4];
+        ldsm_x4(smem_addr(sg + ((r0 + hh) * kHW + lr + 8 * (lj & 1) + 2 - kx) * C::GS + ok * 16 +
+                          8 * (lj >> 1)),
+                a);
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          const int rr = hh + ky - 2;
+          if (rr >= 0 && rr < RW) {
+            mma_bf16(acc[rr][0], a, bw[ky][0], bw[ky][1]);
+            mma_bf16(acc[rr][1], a, bw[ky][2], bw[ky][3]);
           }
         }
       }
     }
-
-    // dk: per tile row (16 pixels = one K step), A = x^T [i][pixel] and
-    // B = shifted g [pixel][o], both through ldmatrix.trans
-#pragma unroll 1
-    for (int ks = 0; ks < kTH; ++ks) {
-      unsigned a[4];
-      ldsm_x4_trans(smem_addr(sX + (ks * kTW + lr + 8 * (lj >> 1)) * kXS + 8 * (lj & 1)), a);
+  }
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int f = warp + kWarps * j;
-        if (f >= NF) continue;
-        const int t = f / NT, n = f % NT;
-        int dy, dx;
-        tap_offset<false>(t, dy, dx);
-        const int col = lane & 15;
-        unsigned bf[2];
-        tc::ldsm_x2_trans(smem_addr(sG + ((ks + 1 - dy) * kHW + col + 1 - dx) * GS + n * 8), bf);
-        mma_bf16(acc[j], a, bf[0], bf[1]);
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(sO + ((r0 + r) * kTW + gq + 8 * h) * C::XS + i0 + 8 * n + 2 * tq) =
+            __floats2bfloat162_rn(acc[r][n][2 * h], acc[r][n][2 * h + 1]);
+  // the dx warps' named barrier: the dx tile is staged
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * C::NDX) : "memory");
+  for (int e = wd * 32 + lane; e < C::TILE * (CIN / 8); e += 32 * C::NDX) {
+    const int pix = e / (CIN / 8), c8 = e % (CIN / 8);
+    const int y = ty0 + pix / kTW, x = tx0 + pix % kTW;
+    if (y < p.H && x < p.W)
+      *reinterpret_cast<uint4*>(p.dx + (((size_t)b * p.H + y) * p.W + x) * CIN + c8 * 8) =
+          *reinterpret_cast<const uint4*>(sO + pix * C::XS + c8 * 8);
+  }
+}
+
+// dk of one tile by dk warp wk, added to its sums: dk[3ky+kx][i][o] +=
+// sum_p x[p][i] * g[halo row(p) + 2 - ky, col(p) + 2 - kx][o]. M Cin (x^T by
+// ldmatrix.trans), N 16 output channels, K the 16 pixels of a tile row.
+// Walking the halo rows h, one B fragment per kx serves the three tile rows h
+// - 2 .. h (ky = 0 .. 2) and every Cin tile of the warp, and an x^T fragment
+// lives for three halo rows: per halo row MW + 3 ldmatrix feed up to 18 MW mma.
+template <int CIN, int COUT>
+__device__ __forceinline__ void fused_dk_tile(const bf16* st, const bf16* sg,
+                                              float (&dk)[9][FusedCfg<CIN, COUT>::MW][2][4], int wk,
+                                              int lane) {
+  using C = FusedCfg<CIN, COUT>;
+  constexpr int TH = C::TH, MW = C::MW;
+  const int lj = lane >> 3, lr = lane & 7;
+  const int m0 = (wk % (C::MT / MW)) * MW, nn = wk / (C::MT / MW);
+  unsigned a[TH][MW][4];
+#pragma unroll
+  for (int hh = 0; hh < TH + 2; ++hh) {
+    if (hh < TH) {
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+        ldsm_x4_trans(smem_addr(st + (hh * kTW + lr + 8 * (lj >> 1)) * C::XS + (m0 + m) * 16 + 8 * (lj & 1)),
+                      a[hh][m]);
+    }
+    unsigned bq[3][4];
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+      ldsm_x4_trans(smem_addr(sg + (hh * kHW + lr + 8 * (lj & 1) + 2 - kx) * C::GS + nn * 16 + 8 * (lj >> 1)),
+                    bq[kx]);
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      const int rr = hh + ky - 2;
+      if (rr >= 0 && rr < TH) {
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+          for (int m = 0; m < MW; ++m) {
+            mma_bf16(dk[ky * 3 + kx][m][0], a[rr][m], bq[kx][0], bq[kx][1]);
+            mma_bf16(dk[ky * 3 + kx][m][1], a[rr][m], bq[kx][2], bq[kx][3]);
+          }
       }
     }
   }
+}
 
-  // this block's partial: acc[j] is dk[t][c0 + m][n*8 + k] for the fragment
-  // rows m in {gq, gq + 8} and columns k in {2tq, 2tq + 1}
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int f = warp + kWarps * j;
-    if (f >= NF) continue;
-    const int t = f / NT, n = f % NT;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = c0 + gq + 8 * h;
-      *reinterpret_cast<float2*>(p.part + (((size_t)blk * T + t) * cin + i) * COUT + n * 8 +
-                                 2 * tq) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-    }
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads, FusedCfg<CIN, COUT>::MINB) convbwd_kernel(const Params p) {
+  using C = FusedCfg<CIN, COUT>;
+  constexpr int MW = C::MW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sbuf = reinterpret_cast<bf16*>(smem);  // [2][STAGE]: x tile [TILE][XS], g halo [HALO][GS]
+  bf16* sW = sbuf + 2 * C::STAGE;              // [9][CIN][WS]: w[t][i][o]
+  bf16* sO = sW + C::WELEMS;                   // the rounded dx tile [TILE][XS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int blk = blockIdx.x;
+  const int H = p.H, W = p.W;
+  const int tiles_x = (W + kTW - 1) / kTW;
+  const int tiles_img = ((H + C::TH - 1) / C::TH) * tiles_x;
+  const int ntiles = p.B * tiles_img;
+  const int nmine = blk < ntiles ? (ntiles - blk + p.nb - 1) / p.nb : 0;
+  const int wk = C::SPEC ? warp - C::NDX : warp;  // dk warp index
+
+  // the weights once per block, in the same cp.async group as the first tile
+  for (int e = tid; e < 9 * CIN * (COUT / 8); e += kThreads) {
+    const int row = e / (COUT / 8), o8 = e % (COUT / 8);
+    tc::cp_async16(smem_addr(sW + row * C::WS + o8 * 8), p.w + (size_t)row * COUT + o8 * 8, 16);
   }
+  auto origin = [&](int k, int& b, int& ty0, int& tx0) {
+    const int tile = blk + k * p.nb;
+    b = tile / tiles_img;
+    const int r = tile % tiles_img;
+    ty0 = (r / tiles_x) * C::TH;
+    tx0 = (r % tiles_x) * kTW;
+  };
+  auto load = [&](int k, bf16* st) {
+    int b, ty0, tx0;
+    origin(k, b, ty0, tx0);
+    for (int e = tid; e < C::TILE * (CIN / 8); e += kThreads) {
+      const int pix = e / (CIN / 8), c8 = e % (CIN / 8);
+      const int y = ty0 + pix / kTW, x = tx0 + pix % kTW;
+      const bool in = y < H && x < W;
+      const bf16* src = in ? p.x + (((size_t)b * H + y) * W + x) * CIN + c8 * 8 : p.x;
+      tc::cp_async16(smem_addr(st + pix * C::XS + c8 * 8), src, in ? 16 : 0);
+    }
+    bf16* sg = st + C::TILE * C::XS;
+    for (int e = tid; e < C::HALO * (COUT / 8); e += kThreads) {
+      const int hp = e / (COUT / 8), o8 = e % (COUT / 8);
+      const int y = ty0 - 1 + hp / kHW, x = tx0 - 1 + hp % kHW;
+      const bool in = y >= 0 && y < H && x >= 0 && x < W;
+      const bf16* src = in ? p.g + (((size_t)b * H + y) * W + x) * COUT + o8 * 8 : p.g;
+      tc::cp_async16(smem_addr(sg + hp * C::GS + o8 * 8), src, in ? 16 : 0);
+    }
+  };
+
+  // the block's tiles through the two-stage ring; tile_fn(k, x tile, g halo)
+  auto walk = [&](auto&& tile_fn) {
+    if (nmine > 0) load(0, sbuf);
+    tc::cp_async_commit();
+    for (int k = 0; k < nmine; ++k) {
+      const bf16* st = sbuf + (k & 1) * C::STAGE;
+      if (k + 1 < nmine) load(k + 1, sbuf + ((k + 1) & 1) * C::STAGE);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+      __syncthreads();  // tile k (and the weights) visible to every thread
+      tile_fn(k, st, st + C::TILE * C::XS);
+      __syncthreads();  // slot k is free for tile k + 2, sO for tile k + 1
+    }
+    tc::cp_async_wait<0>();
+  };
+  auto dx_tile = [&](int k, const bf16* sg) {
+    int b, ty0, tx0;
+    origin(k, b, ty0, tx0);
+    fused_dx_tile<CIN, COUT>(p, sg, sW, sO, warp, lane, b, ty0, tx0);
+  };
+  // dk[t][m][n]: tap t = 3 ky + kx, rows 16 (m0 + m) + gq (+8), columns
+  // 16 nn + 8 n + 2 tq (+1); in registers across the block's tiles, then
+  // this block's partial [9][CIN][COUT]
+  auto run_dk = [&](auto with_dx) {  // with_dx: std::true_type / std::false_type
+    float dk[9][MW][2][4];
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dk[t][m][n][e] = 0.f;
+    walk([&](int k, const bf16* st, const bf16* sg) {
+      if constexpr (decltype(with_dx)::value) dx_tile(k, sg);
+      fused_dk_tile<CIN, COUT>(st, sg, dk, wk, lane);
+    });
+    const int gq = lane >> 2, tq = lane & 3;
+    const int m0 = (wk % (C::MT / MW)) * MW, nn = wk / (C::MT / MW);
+    float* out = p.part + (size_t)blk * 9 * CIN * COUT;
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(out + ((size_t)t * CIN + 16 * (m0 + m) + gq + 8 * h) * COUT +
+                                       16 * nn + 8 * n + 2 * tq) =
+                make_float2(dk[t][m][n][2 * h], dk[t][m][n][2 * h + 1]);
+  };
+
+  // SPEC: each role walks the tiles in its own loop (the barriers match one
+  // for one), so a dx warp holds no dk sums
+  if (!C::SPEC)
+    run_dk(std::true_type{});
+  else if (warp < C::NDX)
+    walk([&](int k, const bf16*, const bf16* sg) { dx_tile(k, sg); });
+  else
+    run_dk(std::false_type{});
 }
 
 // ---------------------------------------------------------------------------
@@ -578,16 +705,22 @@ Launch make_launch(Kern kern, int threads, size_t smem, int ntiles, int nslice) 
 
 int tiles(int B, int H, int W, int th) { return B * ((H + th - 1) / th) * ((W + kTW - 1) / kTW); }
 
+template <int CIN, int COUT>
+Launch fused_launch(int B, int H, int W) {
+  using C = FusedCfg<CIN, COUT>;
+  return make_launch(convbwd_kernel<CIN, COUT>, kThreads, C::SMEM, tiles(B, H, W, C::TH), 1);
+}
+
 // The kernel of a (mode, shape), or fn = nullptr for a shape no kernel takes:
-// C1 at Cin 1 (3x3 only), 32 or 64; C2 at Cin a multiple of 16; Cout 32, 64.
+// C1 at Cin 1 (3x3 only), 32 or 64; C2 at Cin 32 or 64; Cout 32, 64.
 Launch select(int mode, int B, int H, int W, int cin, int cout) {
   Launch none{nullptr, 0, 0, 0, 0};
   if (B <= 0 || H <= 0 || W <= 0 || (cout != 32 && cout != 64)) return none;
   const int nt = tiles(B, H, W, kTH);
   if (mode == kFused) {
-    if (cin <= 0 || cin % kCS) return none;
-    return cout == 32 ? make_launch(convbwd_kernel<32>, kThreads, fused_smem_bytes<32>(), nt, cin / kCS)
-                      : make_launch(convbwd_kernel<64>, kThreads, fused_smem_bytes<64>(), nt, cin / kCS);
+    if (cin == 32) return cout == 32 ? fused_launch<32, 32>(B, H, W) : fused_launch<32, 64>(B, H, W);
+    if (cin == 64) return cout == 32 ? fused_launch<64, 32>(B, H, W) : fused_launch<64, 64>(B, H, W);
+    return none;
   }
   const int ns = cout / kCo;
   if (mode == kDw3x3 && cin == 1) {
@@ -683,7 +816,8 @@ int conv_dw_taps(const void* x, const void* g, int up2, void* part, void* dk, in
 }
 
 // C2. x [B,H,W,cin], w [3,3,cin,cout] (HWIO), g [B,H,W,cout]; dx [B,H,W,cin];
-// part [nb,9,cin,cout] f32 scratch; dk [3,3,cin,cout] f32.
+// part [nb,9,cin,cout] f32 scratch; dk [3,3,cin,cout] f32. Takes cin and
+// cout in {32, 64}.
 int conv3x3_bwd_fused(const void* x, const void* w, const void* g, void* dx, void* part,
                       void* dk, int B, int H, int W, int cin, int cout, void* stream) {
   Params p{};

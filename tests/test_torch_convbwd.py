@@ -1,8 +1,8 @@
 """The port's backward kernels C1 (``conv_dw_taps``) and C2
 (``conv3x3_bwd_fused``) of contrastyou_tpu_torch/ops/convblock.py held against
 the JAX package's Pallas kernels ``plane_conv_dw`` and ``plane_conv_bwd_fused``
-(interpret mode), and the batch-96 routing of the conv-block backward against
-the JAX routed backward and the port's own einsum backward. On the CPU the
+(interpret mode), and the routing of the conv-block backward (C1 / C2 at every
+batch) against the JAX routed backward and the port's own einsum form. On the CPU the
 wrappers run their plain versions; the CUDA kernels are held against those in
 tests/test_torch_cuda.py.
 
@@ -10,8 +10,8 @@ Tolerances (f32 throughout, so the point is the algorithm): dk rtol 1e-5 /
 atol 1e-4 (the same sums of at most 3 x 12 x 10 products of unit normals in
 another order; entries reach ~50), dx rtol 1e-5 / atol 1e-5; through the
 routed backward with BN statistics folded in, rtol 1e-4 / atol 1e-4 as in
-tests/test_torch_convblock.py. Port against port (routed vs einsum) is the
-same arithmetic up to summation order: rtol 1e-5 / atol 1e-5.
+tests/test_torch_convblock.py. Port against port (routed vs the einsum form)
+is the same arithmetic up to summation order: rtol 1e-5 / atol 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -122,11 +122,10 @@ def _recording(monkeypatch, name):
 
 @pytest.mark.parametrize("cin", [1, 16])
 def test_routed_conv_backward_matches_jax_routed_backward(monkeypatch, cin):
-    """With the port's threshold at the test batch, the conv backward takes
-    C2 (Cin >= 8) or K1 dx + C1 (Cin 1), as JAX ``_plane_conv_bwd`` does
-    with its knobs on: dx and dW of ``conv3x3_bn_stats`` == those of JAX
-    ``plane_conv_stats`` (statistics' cotangents folded in)."""
-    monkeypatch.setattr(cb, "BWD_KERNEL_MIN_BATCH", 2)
+    """The conv backward takes C2 (Cin >= 8) or K1 dx + C1 (Cin 1), as JAX
+    ``_plane_conv_bwd`` does with its knobs on: dx and dW of
+    ``conv3x3_bn_stats`` == those of JAX ``plane_conv_stats`` (statistics'
+    cotangents folded in)."""
     fused = _recording(monkeypatch, "conv3x3_bwd_fused")
     dw = _recording(monkeypatch, "conv_dw_taps")
     rng = np.random.default_rng(4)
@@ -152,9 +151,8 @@ def test_routed_conv_backward_matches_jax_routed_backward(monkeypatch, cin):
 
 
 def test_routed_upconv_backward_matches_jax_upconv_plane(monkeypatch):
-    """Up2 from the threshold: the parity taps' gradient through C1 ==
-    JAX ``upconv_plane`` with ``plane_conv_dw`` routed."""
-    monkeypatch.setattr(cb, "BWD_KERNEL_MIN_BATCH", 2)
+    """Up2: the parity taps' gradient through C1 == JAX ``upconv_plane``
+    with ``plane_conv_dw`` routed."""
     dw = _recording(monkeypatch, "conv_dw_taps")
     rng = np.random.default_rng(5)
     B, H, W, cin, cout = 2, 6, 8, 16, 8
@@ -185,12 +183,34 @@ def _grads(fn, *args):
     return [a.grad.clone() for a in args]
 
 
+def _einsum_grads(fn, *args):
+    """The gradients of :func:`_grads`'s loss by the einsum form: the folded
+    cotangent, dx by the flipped kernel (K1) or K3, dW by ``conv3x3_dw`` /
+    ``upconv3x3_dtaps`` called directly (Up2: carried back through
+    ``parity_taps`` to the 3x3 kernel)."""
+    args = [t(a) for a in args]
+    out, s, sq = fn(*args)
+    ones = torch.ones_like(s)
+    g = cb._cotangent(out, 2.0 * out, ones, 0.1 * ones, out.dtype)
+    if fn is cb.upconv3x3_bn_stats:
+        x, k3 = args
+        k3 = k3.requires_grad_()
+        taps = cb.parity_taps(k3)
+        (dk3,) = torch.autograd.grad(taps, k3, cb.upconv3x3_dtaps(x, g))
+        return [cb.upconv3x3_dx(g, taps.detach()), dk3]
+    grads = []
+    for x, w in zip(args[::2], args[1::2]):
+        grads += [cb.conv3x3_stats(g, cb.flip_transpose(w), stats=False)[0], cb.conv3x3_dw(x, g)]
+    return grads
+
+
 def test_routed_backward_equals_the_einsum_backward(monkeypatch):
-    """At the threshold batch the gradients of ``conv3x3_bn_stats`` (with a
-    skip, and at Cin 1) and ``upconv3x3_bn_stats`` equal those of the path
-    below it (K1 dx + per-tap einsums); only the routing differs."""
+    """The gradients of ``conv3x3_bn_stats`` (with a skip, and at Cin 1) and
+    ``upconv3x3_bn_stats`` through C1 / C2 equal those of the einsum form
+    (K1 dx + per-tap einsums) that the JAX package's XLA path takes below
+    batch 96; only the routing differs."""
     rng = np.random.default_rng(6)
-    B = cb.BWD_KERNEL_MIN_BATCH
+    B = 3
     x1, k1 = _rand(rng, B, 6, 6, 1), _rand(rng, 3, 3, 1, 8, scale=0.3)
     x, skip = _rand(rng, B, 6, 6, 8), _rand(rng, B, 6, 6, 8)
     k, ks = _rand(rng, 3, 3, 8, 8, scale=0.1), _rand(rng, 3, 3, 8, 8, scale=0.1)
@@ -201,8 +221,27 @@ def test_routed_backward_equals_the_einsum_backward(monkeypatch):
     dw = _recording(monkeypatch, "conv_dw_taps")
     routed = [_grads(fn, *a) for fn, a in cases]
     assert (len(fused), len(dw)) == (2, 2)
-    monkeypatch.setattr(cb, "BWD_KERNEL_MIN_BATCH", B + 1)
     for (fn, a), got in zip(cases, routed):
-        for g_routed, g_einsum in zip(got, _grads(fn, *a)):
+        for g_routed, g_einsum in zip(got, _einsum_grads(fn, *a)):
             close(g_routed, g_einsum, **DX)
     assert (len(fused), len(dw)) == (2, 2)
+
+
+@pytest.mark.parametrize("B", [1, 5, 10, 36])
+def test_semi_backward_routes_to_c1_c2_at_every_batch(monkeypatch, B):
+    """A ``semi``-shaped forward and backward of the U-Net (max_channel 128:
+    every level of at most 64 channels on the kernel path) calls C1 for
+    Conv1.conv0 and the taps of Up4, Up3 and Up2, and C2 for the 19 conv
+    inputs of Cin >= 8, skips included, at every batch: no batch threshold."""
+    from contrastyou_tpu_torch.models.unet import UNet
+    fused = _recording(monkeypatch, "conv3x3_bwd_fused")
+    dw = _recording(monkeypatch, "conv_dw_taps")
+    gen = torch.Generator().manual_seed(B)
+    net = UNet(max_channel=128, momentum=0.1, dtype=torch.float32).init_weights(gen)
+    x = torch.rand(B, 32, 32, 1, generator=gen)
+    out, _ = net(x)
+    out.square().mean().backward()
+    assert (len(fused), len(dw)) == (19, 4)
+    assert all(s[0] == B for s in fused + dw)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in net.parameters() if p.requires_grad)

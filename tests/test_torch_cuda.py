@@ -223,6 +223,48 @@ def test_c1_tiles_match_plain_and_repeat_bitwise(B, H, W, cin, cout, up2):
     torch.cuda.synchronize()
 
 
+#: (B, H, W, Cin, Cout, skip) of C2: every (Cin, Cout) in {32, 64}^2, B 1
+#: and 5, ragged tilings of the 8 x 16 and 16 x 16 tiles (13 x 21, 20 x 36,
+#: 57 x 45, 9 x 40, 1 x 40, 30 x 29), the path's 112 x 112 and 224 x 224, and
+#: skip convs as two launches on the same cotangent
+C2_CASES = [(1, 13, 21, 32, 32, False), (5, 20, 36, 32, 64, False), (1, 57, 45, 64, 32, False),
+            (5, 9, 40, 64, 64, False), (5, 1, 40, 64, 64, False), (1, 224, 224, 32, 32, False),
+            (1, 112, 112, 64, 64, True), (5, 30, 29, 32, 32, True), (1, 13, 21, 64, 64, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cin,cout,skip", C2_CASES)
+def test_c2_tiles_match_plain_and_repeat_bitwise(B, H, W, cin, cout, skip):
+    """C2 against its plain version at tilings that stress the persistent
+    grid, the halo copies and the warp roles (32/32: dx and dk on separate
+    warps, two blocks per SM; 32/64: 16-row tiles); a skip conv is one launch
+    per input, together the backward of the conv over the channel concat. dx
+    and dk bitwise the same over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + H + W + cin + cout + skip)
+    nin = 2 if skip else 1
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    xs = [r(B, H, W, cin) for _ in range(nin)]
+    ws = [r(3, 3, cin, cout, scale=(9 * cin * nin) ** -0.5) for _ in range(nin)]
+    gy = r(B, H, W, cout)
+    got = []
+    for x, w in zip(xs, ws):
+        (dx, dk), (dx2, dk2) = cb.conv3x3_bwd_fused(x, w, gy), cb.conv3x3_bwd_fused(x, w, gy)
+        assert torch.equal(dx, dx2) and torch.equal(dk, dk2)
+        assert dx.dtype == torch.bfloat16 and dk.dtype == torch.float32
+        got.append((dx, dk))
+    pdx, pdk = cb.conv3x3_bwd_fused_plain(torch.cat(xs, -1), torch.cat(ws, 2), gy)
+    what = f"C2 {B}x{H}x{W} {nin}x{cin}->{cout}"
+    scaled_close(torch.cat([d for d, _ in got], -1), pdx, tol=TOL, what=f"{what} dx")
+    scaled_close(torch.cat([k for _, k in got], 2), pdk, tol=DK_TOL, what=f"{what} dk")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_k3_refuses_what_it_does_not_take():
     """A CUDA tensor reaches K3 or an error, never the plain version: channel
@@ -296,7 +338,7 @@ def test_conv_bwd_kernels_match_plain():
     xu, gu = r(2, 10, 18, 64), r(2, 20, 36, 32)
     scaled_close(cb.conv_dw_taps(xu, gu, up2=True), cb.conv_dw_taps_plain(xu, gu, up2=True),
                  tol=DK_TOL, what="C1 Up2")
-    for cin, cout, H, W in ((32, 64, 16, 32), (64, 32, 13, 21), (16, 32, 9, 40)):
+    for cin, cout, H, W in ((32, 64, 16, 32), (64, 32, 13, 21), (32, 32, 9, 40)):
         x, gy, w = r(2, H, W, cin), r(2, H, W, cout), r(3, 3, cin, cout) * 0.05
         (dx, dk), (pdx, pdk) = cb.conv3x3_bwd_fused(x, w, gy), cb.conv3x3_bwd_fused_plain(x, w, gy)
         scaled_close(dx, pdx, tol=TOL, what=f"C2 dx {cin}->{cout}")
@@ -307,7 +349,7 @@ def test_conv_bwd_kernels_match_plain():
 @pytest.mark.gpu
 def test_conv_bwd_kernels_refuse_what_they_do_not_take():
     """A CUDA tensor reaches C1 / C2 or an error, never the plain version:
-    f32 operands, a Cin that is not a multiple of 16 (C2), a Cin outside
+    f32 operands, a Cin or Cout outside {32, 64} (C2), a Cin outside
     {1, 32, 64} or other than 64 on the Up2 taps (C1) and a Cout the
     kernels are not built for all raise."""
     if not torch.cuda.is_available():
@@ -328,8 +370,11 @@ def test_conv_bwd_kernels_refuse_what_they_do_not_take():
         with pytest.raises(ValueError):
             cb.conv_dw_taps(z(2, 8, 16, cin), z(2, 16 if up2 else 8, 32 if up2 else 16, 32),
                             up2=up2)
+    for cin, cout in ((24, 32), (16, 32), (48, 64), (1, 32), (128, 64), (32, 16), (64, 128)):
+        with pytest.raises(ValueError):
+            cb.conv3x3_bwd_fused(z(2, 8, 16, cin), z(3, 3, cin, cout), z(2, 8, 16, cout))
     with pytest.raises(ValueError):
-        cb.conv3x3_bwd_fused(z(2, 8, 16, 24), z(3, 3, 24, 32), z(2, 8, 16, 32))
+        cb.conv3x3_bwd_fused(z(2, 8, 16, 32), z(3, 3, 32, 32), z(2, 8, 12, 32))
     with pytest.raises(ValueError):
         cb.conv3x3_bwd_fused(z(2, 8, 16, 32, dtype=torch.float32),
                              z(3, 3, 32, 32, dtype=torch.float32),

@@ -329,7 +329,7 @@ def test_entry_point_runs_on_the_card_unless_asked():
         main(["-o", "Trainer.name=pretrain_decoder", "Trainer.num_batches=1"])
 
 
-#: C1 / C2 calls of one decoder step at max_channel 128 from batch 96
+#: C1 / C2 calls of one decoder step at max_channel 128 (at any batch)
 KERNEL_CALLS_128 = {"conv_dw_taps": 4, "conv3x3_bwd_fused": 19}
 
 
@@ -359,8 +359,8 @@ def _routing_calls(monkeypatch):
 def test_prostate_pretrain_step_matches_jax(monkeypatch):
     """The prostate ``pretrain_decoder`` step at its reference batch: 48
     slices, 96 images through the forward, 2 classes, colour jitter 0.1.
-    Its conv backward takes the batch-96 routing and still matches the JAX
-    step on its XLA path. At max_channel 128 every level of at most 64
+    Its conv backward takes C1 / C2 (as at every batch) and still matches
+    the JAX step on its XLA path. At max_channel 128 every level of at most 64
     channels is on the kernel path (Conv1-Conv4, Up4-Up2, Up_conv5-Up_conv2):
     C1 for Conv1.conv0 and the taps of Up4, Up3 and Up2, C2 for the 19 conv
     inputs of Cin >= 8, skips included (at full width: 2 and 9).
@@ -443,7 +443,7 @@ def test_dataset_table_matches_the_jax_datasets():
 def test_prostate_run_builds_48_slice_batches(monkeypatch):
     """``-o Data.name=prostate``: 2 classes, 8 partitions filled in the
     synthetic scans, random 48-slice batches (96 images per forward) and one
-    finite step through the batch-96 backward (plain C1 / C2 on the CPU);
+    finite step through the C1 / C2 backward (plain versions on the CPU);
     ACDC keeps its 18-slice partition batches."""
     calls = _routing_calls(monkeypatch)
     cfg = parse_config(["-o", "Trainer.name=pretrain_decoder", "Data.name=prostate",
