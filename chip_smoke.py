@@ -52,7 +52,10 @@ Phases, in order; any failure exits non-zero:
 9. the dense-IIC kernels (E1 ``iic_joints``, E2 ``iic_joints_bwd``) against
    their plain versions at the Up_conv2 taps of ``semi``'s unlabeled batch
    (f1, f2 [5, 224, 224, 32] bf16, 5 subheads of 20 clusters) at paddings 1
-   (the udaiic hook's), 0 and 2 (run right after phase 4);
+   (the udaiic hook's), 0 and 2 (run right after phase 4); E2 on a random
+   cotangent and on the dense hook's own (the gradient of 0.05 x the summed
+   IIC losses of E1's raw joints), E2's bound on its split-bf16 tensor-core
+   arithmetic beside the FP32-core figure of the arithmetic it replaced;
 10. ``semi`` with the udaiic hooks (config/base + hooks/udaiic: IIC on Conv5
    and, at padding 1, on Up_conv2 through E1/E2, plus consistency) through
    ``build_semi_run(UDAIIC_CONFIG)`` at full width: the dense hook's loss on
@@ -72,8 +75,9 @@ sums at every checked batch, beside the einsum form's below 96 and, for C2,
 the split form's; E1/E2: at padding 1, with every padding in
 ``by_padding``); ``bound_ms`` is
 max(bytes / 3.35 TB/s, operations / peak) with the bf16 tensor peak (989
-TFLOP/s) for the conv kernels and the f32 peak (67 TFLOP/s) for SupCon and
-IIC. The last line is ``{"ok": true, "device":
+TFLOP/s) for the conv kernels and for E2 (its useful FLOP times the fewest
+products of bf16 pieces its split needs, ``e2_split_flops``) and the f32
+peak (67 TFLOP/s) for SupCon and E1. The last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -565,12 +569,33 @@ def iic_work(f: "torch.Tensor", S: int, K: int, padding: int) -> dict:
             "iic_joints_bwd": (2 * fbytes + 2 * params + joints, 3 * proj + 2 * pair)}
 
 
+def e2_split_flops(f: "torch.Tensor", S: int, K: int, padding: int) -> float:
+    """bf16 tensor-core FLOP that E2's split needs at the least on bf16
+    features ``f`` [B, H, W, C]: each product's useful FLOP (``iic_work``)
+    times the products of bf16 pieces it takes (pieces i, j with i + j < the
+    larger count): the projection and dW 2 (features exact, W or dz in two
+    pieces), df 3 (dz and W in two), dp 3, or 5 at padding 0 where the
+    cotangent takes three pieces. Padding K to 24 and the halo's recomputed
+    projections are work the kernel issues beyond this."""
+    B, H, W, C = f.shape
+    N, SK, td2 = B * H * W, S * K, (2 * padding + 1) ** 2
+    proj, pair = 2 * 2 * N * C * SK, 2 * td2 * N * S * K * K
+    dp_products = 5 if padding == 0 else 3
+    return float(2 * proj + dp_products * 2 * pair + 3 * proj + 2 * proj)
+
+
 def check_iic(device) -> dict:
     """Phase 9: E1 and E2 vs their plain versions (f32 math, TF32 off) on
     post-ReLU bf16 feature maps of the Up_conv2 taps' shape, at each padding
-    of IIC_PADDINGS. Records: errors maxed over the paddings, times and bound
-    of padding 1 (the udaiic hook's), every padding in ``by_padding``."""
+    of IIC_PADDINGS; E2 on a random cotangent and on the dense hook's own
+    (the gradient of 0.05 x the summed IIC losses of E1's raw joints).
+    Records: errors maxed over the paddings and cotangents, times and bound
+    of padding 1 (the udaiic hook's), every padding in ``by_padding``. E1's
+    bound is on the FP32 cores it runs on, E2's on bf16 tensor cores
+    (``e2_split_flops``); the line also prints E2's FP32-core figure, the
+    bound of the arithmetic its earlier body used."""
     import torch
+    from contrastyou_tpu_torch.losses.discrete_mi import iid_loss_from_raw_joints
     from contrastyou_tpu_torch.ops import iic
 
     g = torch.Generator(device=device).manual_seed(5)
@@ -586,10 +611,17 @@ def check_iic(device) -> dict:
         raw, raw_ref = iic.iic_joints(f1, f2, w, b, **kw), iic.iic_joints_plain(f1, f2, w, b, **kw)
         err1, rel1 = _rel_err(raw, raw_ref)
         jbar = torch.randn(raw.shape, generator=g, device=device)
-        got = iic.iic_joints_bwd(f1, f2, w, b, jbar, **kw)
-        ref = iic.iic_joints_bwd_plain(f1, f2, w, b, jbar, **kw)
-        rels = [_rel_err(a, r) for a, r in zip(got, ref)]
-        err2 = max(e for e, _ in rels)
+        loss_raw = raw.detach().clone().requires_grad_()
+        (0.05 * iid_loss_from_raw_joints(loss_raw, padding=pad,
+                                         count=math.prod(IIC_SHAPE[:3])).sum()).backward()
+        rels, bad_dtype = {}, False
+        for cot, jb in (("randn", jbar), ("loss", loss_raw.grad)):
+            got = iic.iic_joints_bwd(f1, f2, w, b, jb, **kw)
+            ref = iic.iic_joints_bwd_plain(f1, f2, w, b, jb, **kw)
+            rels[cot] = [_rel_err(a, r) for a, r in zip(got, ref)]
+            bad_dtype |= any(a.dtype != r.dtype or a.shape != r.shape for a, r in zip(got, ref))
+            del got, ref
+        err2 = max(e for rs in rels.values() for e, _ in rs)
         torch.cuda.synchronize()
         times = {"iic_joints": (_time_ms(lambda: iic.iic_joints(f1, f2, w, b, **kw)),
                                 _time_ms(lambda: iic.iic_joints_plain(f1, f2, w, b, **kw),
@@ -599,23 +631,30 @@ def check_iic(device) -> dict:
                                                                               **kw), iters=5),
                                     err2)}
         work = iic_work(f1, S, K, pad)
-        line = (f"  iic padding {pad}: E1 raw max_abs_err {err1:.3e} (rel {rel1:.2e}); E2 "
-                + ", ".join(f"{n} rel {r:.2e}" for n, (_, r) in zip(("df1", "df2", "dW", "db"),
-                                                                  rels)))
+        e2_bytes, e2_flops = work["iic_joints_bwd"]
+        bounds = {"iic_joints": _bound(*work["iic_joints"], F32_FLOPS),
+                  "iic_joints_bwd": _bound(e2_bytes, e2_split_flops(f1, S, K, pad), BF16_FLOPS)}
+        fp32_ms, _ = _bound(e2_bytes, e2_flops, F32_FLOPS)
+        line = f"  iic padding {pad}: E1 raw max_abs_err {err1:.3e} (rel {rel1:.2e})"
+        for cot, rs in rels.items():
+            line += f"; E2 on the {cot} cotangent " + ", ".join(
+                f"{n} rel {r:.2e}" for n, (_, r) in zip(("df1", "df2", "dW", "db"), rs))
         for k, (ms, pms, err) in times.items():
-            bms, by = _bound(*work[k], F32_FLOPS)
+            bms, by = bounds[k]
             line += f"; {k} kernel {ms:.4f} ms plain {pms:.4f} ms bound {bms:.4f} ms ({by})"
+            if k == "iic_joints_bwd":
+                line += f", FP32-core figure {fp32_ms:.4f} ms"
             r = recs[k]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["by_padding"][str(pad)] = {"ms": ms, "plain_ms": pms, "bound_ms": bms}
             if pad == IIC_PADDINGS[0]:
                 r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
         print(line)
-        if (rel1 > IIC_RAW_RTOL or any(r > KERNEL_RTOL for _, r in rels[:2])
-                or any(r > DK_RTOL for _, r in rels[2:])
-                or any(a.dtype != r.dtype or a.shape != r.shape for a, r in zip(got, ref))):
+        if (rel1 > IIC_RAW_RTOL or bad_dtype
+                or any(r > KERNEL_RTOL for rs in rels.values() for _, r in rs[:2])
+                or any(r > DK_RTOL for rs in rels.values() for _, r in rs[2:])):
             raise AssertionError(f"IIC padding {pad}: a kernel disagrees with its plain version")
-        del raw_ref, ref
+        del raw_ref
         torch.cuda.empty_cache()
     return recs
 

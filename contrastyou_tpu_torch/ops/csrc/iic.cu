@@ -8,11 +8,12 @@
 //                      with (dy,dx) = (ty,tx) - pad and p1 zero outside the image
 //                      (the zero padding is on the probabilities, not on the
 //                      features: a border pixel's displaced partner contributes 0).
-//   E2 iic_joints_bwd  replaces iic.py _bwd_kernel: for the cotangent Jbar of raw,
-//                      dp2(l) = sum_t Jbar_t^T p1(l + off_t), dp1(m) = sum_t Jbar_t
-//                      p2(m - off_t) (both maps zero outside the image), dz = s (dp -
-//                      <dp, s>) per subhead on real pixels, then df = W dz, dW = sum
-//                      f dz^T, db = sum dz. W and b carry 1/T already.
+//   E2 iic_joints_bwd  replaces iic.py _bwd_kernel (:183): for the cotangent Jbar
+//                      of raw, dp2(l) = sum_t Jbar_t^T p1(l + off_t), dp1(m) =
+//                      sum_t Jbar_t p2(m - off_t) (both maps zero outside the
+//                      image), dz = s (dp - <dp, s>) per subhead on real pixels,
+//                      then df = W dz, dW = sum f dz^T, db = sum dz. W and b
+//                      carry 1/T already.
 //
 // The TPU layout is not carried over: no row-band chunks with halo masks, no
 // K -> 24 padding with -1e9 bias slots, no lane rolls, and only the S diagonal
@@ -23,27 +24,66 @@
 // What bounds it on the H100: at the udaiic shapes (B = 5, 224 x 224, C = 32,
 // S = 5, K = 20, 9 displacements) E1 does ~12.2 GFLOP on 32 MB of features
 // and E2 ~27.7 GFLOP on 64 MB (features in, feature gradients out), 380-430
-// FLOP per byte: the FP32 cores (67 TFLOP/s), not the memory, set the bound.
-// So the design keeps every probability map on chip and spends its shared
-// memory on them. Blocks are persistent and walk 16 x 16-pixel tiles:
+// FLOP per byte: arithmetic, not the memory, sets the bound. So both keep
+// every probability map on chip. Blocks are persistent and walk pixel tiles.
 //
-// - E1: one block per (set of tiles, subhead). Per tile it projects the
-//   tile's f2 pixels and the (16 + 2 pad)^2 halo of f1 pixels into softmaxes
-//   in shared memory, then each thread accumulates 4 x 4 blocks of the K x K
-//   joints of one or more displacements in registers across all its tiles
-//   (several thread groups split the pixels when there are few blocks, as at
-//   pad 0). Each (block, group) writes one f32 partial.
-// - E2: one block per set of tiles, one thread per pixel, all subheads in
-//   turn (df sums over them). Per subhead: Jbar_s and both halo softmaxes in
-//   shared memory; each thread forms dp, dz and the df sums of its own pixel
-//   in registers; then the block folds f dz^T into a dW partial in shared
-//   memory (one (channel, 4-cluster) item per thread).
+// - E1 (FP32 cores): one block per (set of 16 x 16 tiles, subhead). Per tile
+//   it projects the tile's f2 pixels and the (16 + 2 pad)^2 halo of f1 pixels
+//   into softmaxes in shared memory, then each thread accumulates 4 x 4
+//   blocks of the K x K joints of one or more displacements in registers
+//   across all its tiles (several thread groups split the pixels when there
+//   are few blocks, as at pad 0). Each (block, group) writes one f32 partial.
 //
-// A second kernel sums the partials in a fixed order: no atomics, and every
-// run gives the same result. FP32 cores with f32 accumulation, as the TPU
-// kernel's preferred_element_type=f32 dots; tensor cores are later work (the
-// loss's min-shift normalization amplifies joint errors, so TF32 needs an
-// accuracy study first).
+// - E2 (tensor cores: mma.sync m16n8k16 / m16n8k8, bf16 operands, f32
+//   accumulators; helpers in mma.cuh). One block of 8 warps per SM walks
+//   16 x 16 tiles (bf16 features, pad <= 1) or 8 x 16 tiles, all subheads of
+//   a tile in turn, each warp one or two tile rows (m16 fragments of pixels).
+//   Per tile, cp.async brings both views' feature halos (bf16, the border
+//   zero-filled by the copy) once, not once per subhead. Per subhead:
+//     * the projection Z = F W_s of every halo pixel on the tensor cores
+//       (16-pixel chunks, K = 20 padded to three n8 tiles), the softmax on
+//       the accumulator fragments (a quad holds a pixel's row: two shuffles
+//       per reduction), written as bf16 pieces of the halo maps p1, p2;
+//     * dp2 = sum_t Jbar_t^T p1(+off_t) and dp1 = sum_t Jbar_t p2(-off_t) as
+//       implicit GEMMs: displacement t is a shifted ldmatrix view of the halo
+//       map (pixel stride 48 bytes, no bank conflicts), the reduction over
+//       the 20 clusters as k16 + k8;
+//     * the softmax VJP on the dp accumulators in registers; dz, still in
+//       registers, is the A operand of df += dz W_s^T (the m16n8 accumulator
+//       layout of two n8 tiles is the A layout of one k16) and, transposed
+//       in registers (movmatrix), the B operand of dW_s += F^T dz; db sums dz.
+//   df stays in registers across the subheads and is written once per tile;
+//   each warp's dW / db sums go through shared memory into the block's f32
+//   partial in a fixed order.
+//   Operand precision: every f32 operand x is split into bf16 pieces, x ~=
+//   x0 + x1 (+ x2), x_i the rounding of what the earlier pieces left; a
+//   product takes the pairs of pieces (i, j) with i + j < pieces (hi hi +
+//   hi lo + lo hi for two), so it keeps ~16 (two pieces) or ~24 bits (three)
+//   instead of bf16's 8 at 3 (6) times the mma work. bf16 features are exact
+//   and take no split. p, dz and W take two pieces for bf16 features and
+//   three for f32 features (whose gradients are held to 1e-5); the cotangent
+//   takes two, three at pad 0, after a centring that drops out of dz
+//   exactly: dp2 uses Jbar_t minus its mean over j and dp1 Jbar_t minus its
+//   mean over i (the VJP removes a per-pixel constant). At pad 0 the loss's
+//   joint is divided by the pixel count, not min-shift normalized: its
+//   cotangent carries a large constant part, and db sums terms that cancel
+//   over every pixel, so the rounding of a two-piece cotangent, centred or
+//   not, reaches db. tests/test_torch_split_bf16.py emulates these roundings
+//   on the CPU and holds them to the card tests' tolerances. A small kernel
+//   (iic_joints_bwd_prep, one block per subhead) writes each subhead's
+//   centred, split cotangent and split W_s as one image that the main kernel
+//   copies with cp.async, into a second slot while the current subhead
+//   runs where shared memory holds two (218 KB at pad 1). f32 features
+//   project on the FP32 cores (exact f32) and read their dW fragments from
+//   device memory.
+//   What holds it back (per-phase clock counts on the card): the dp
+//   products run at about half the mma.sync rate with 8 warps per SM (two
+//   per scheduler hide little latency; 238 registers at C = 32, 16-row tiles), and
+//   the projection recomputes the halo (324 of 256 pixels at pad 1) for
+//   every subhead.
+//
+// A last kernel sums the partials in a fixed order: no atomics, and every
+// run gives the same result.
 //
 // Every entry point launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a shape it does not
@@ -51,13 +91,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kT = 16;               // tile side in pixels
 constexpr int kTile = kT * kT;       // pixels of a tile
-constexpr int kThreads = kTile;      // E2: one thread per tile pixel
 constexpr int kK = 20;               // clusters per subhead the kernels are built for
 constexpr int kMaxPad = 2;
 constexpr int kMaxSK = 160;          // largest S * K
@@ -125,31 +167,6 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p, float (&f)
   }
 }
 
-// f32 registers -> one pixel's C values in the features' dtype (round to nearest even).
-template <int C>
-__device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ p, const float (&f)[C]) {
-  uint4* q = reinterpret_cast<uint4*>(p);
-#pragma unroll
-  for (int v = 0; v < C / 8; ++v) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(f[8 * v + 2 * e], f[8 * v + 2 * e + 1]);
-    q[v] = u;
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void store_row(float* __restrict__ p, const float (&f)[C]) {
-  float4* q = reinterpret_cast<float4*>(p);
-#pragma unroll
-  for (int v = 0; v < C / 4; ++v)
-    q[v] = make_float4(f[4 * v], f[4 * v + 1], f[4 * v + 2], f[4 * v + 3]);
-}
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
 // p = softmax(z), z[k] = bias[k] + sum_c f[c] w[c][k]; w [C][K] and bias [K] in
 // shared memory (read by every thread alike: broadcasts).
 template <int C, int K>
@@ -185,38 +202,6 @@ __device__ __forceinline__ void project_softmax(const float (&f)[C], const float
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) p[k] = p[k] / s;
-}
-
-// The softmax's VJP: dz = s (dp - <dp, s>), s read from shared memory.
-template <int K>
-__device__ __forceinline__ void softmax_vjp(const float (&dp)[K], const float* s, float (&dz)[K]) {
-  float sv[K];
-  float inner = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    sv[k] = s[k];
-    inner = fmaf(dp[k], sv[k], inner);
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) dz[k] = sv[k] * (dp[k] - inner);
-}
-
-// d[c] += sum_k w[c][k] dz[k] (w: one subhead's [C][K] in shared memory).
-template <int C, int K>
-__device__ __forceinline__ void accumulate_df(const float* w, const float (&dz)[K], float (&d)[C]) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float a = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      const float4 w4 = *reinterpret_cast<const float4*>(w + c * K + k);
-      a = fmaf(w4.x, dz[k], a);
-      a = fmaf(w4.y, dz[k + 1], a);
-      a = fmaf(w4.z, dz[k + 2], a);
-      a = fmaf(w4.w, dz[k + 3], a);
-    }
-    d[c] += a;
-  }
 }
 
 // ---------------------------------------------------------------- E1 -----
@@ -335,185 +320,665 @@ __global__ void __launch_bounds__(kSumThreads)
 
 // ---------------------------------------------------------------- E2 -----
 
-// dw[c][k] += sum_l f(l)[c] dz(l)[k], db[k] += sum_l dz(l)[k] over the tile's
-// real pixels (dz rows [kTile][K] in shared memory, zero on pixels outside the
-// image). One (channel, 4-cluster) item per thread, channel fastest, so a warp
-// reads one pixel's channels in one transaction.
-template <typename T, int C, int K>
-__device__ void accumulate_dw(const T* __restrict__ f, const float* dzs, float* dw, float* db,
-                              const Geo& g, int bi, int y0, int x0) {
-  constexpr int NI = C * (K / 4);
-  const int ny = min(kT, g.H - y0), nx = min(kT, g.W - x0);
-  for (int it = threadIdx.x; it < NI + K; it += kThreads) {
-    if (it < NI) {
-      const int c = it % C, k = (it / C) * 4;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int ly = 0; ly < ny; ++ly) {
-        const T* row = f + (((size_t)bi * g.H + y0 + ly) * g.W + x0) * C + c;
-        const float* dzr = dzs + ly * kT * K + k;
-#pragma unroll 4
-        for (int lx = 0; lx < nx; ++lx) {
-          const float fv = to_f32(row[(size_t)lx * C]);
-          const float4 d = *reinterpret_cast<const float4*>(dzr + lx * K);
-          a0 = fmaf(fv, d.x, a0);
-          a1 = fmaf(fv, d.y, a1);
-          a2 = fmaf(fv, d.z, a2);
-          a3 = fmaf(fv, d.w, a3);
-        }
-      }
-      dw[c * K + k] += a0;
-      dw[c * K + k + 1] += a1;
-      dw[c * K + k + 2] += a2;
-      dw[c * K + k + 3] += a3;
-    } else {
-      const int k = it - NI;
-      float a = 0.f;
-      for (int l = 0; l < kTile; ++l) a += dzs[l * K + k];
-      db[k] += a;
-    }
+namespace e2 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 8;
+constexpr int kThr = 32 * kWarps;
+constexpr int kTW = 16;              // tile columns: one m16 fragment of pixels
+constexpr int kKP = 24;              // clusters padded to three n8 tiles (k16 + k8)
+
+template <typename T>
+struct Feat;
+template <>
+struct Feat<bf16> {
+  static constexpr int NP = 2;       // pieces of p, dz and W
+  static constexpr int NF = 1;       // pieces of a feature (exact in bf16)
+};
+template <>
+struct Feat<float> {
+  static constexpr int NP = 3;
+  static constexpr int NF = 3;
+};
+
+struct G2 {
+  int B, H, W, S, pad, td, td2;
+  int th, hw, nh, nhp;               // tile rows; halo cols, pixels, pixels padded to 16
+  int ntx, per_image, ntiles;
+  int jrows;                         // rows of one (orientation, piece) cotangent block
+  int jp;                            // pieces of the cotangent: 3 at pad 0, else 2
+  int img;                           // bf16 elements of one subhead's operand image
+  int nslot;                         // operand image slots in shared memory (1 or 2)
+};
+
+// bytes of each shared-memory region (the same on host and device)
+struct Lay {
+  size_t f, p, img, wf, bias, red, total;
+};
+
+__host__ __device__ inline Lay layout(const G2& g, int C, int np, bool bf) {
+  Lay L;
+  size_t o = 0;
+  L.f = o;                           // bf16 features: [view][nhp][C + 8] halo tiles
+  if (bf) o += 2ull * g.nhp * (C + 8) * 2;
+  L.p = o;                           // [view][piece][nh][24] softmax halo maps
+  o += 2ull * np * g.nh * kKP * 2;
+  L.img = o;                         // [slot][img] cotangent and weight pieces
+  o += (size_t)g.nslot * g.img * 2;
+  L.wf = o;                          // f32 features: [S][C][K] weights for the f32 projection
+  if (!bf) o += (size_t)g.S * C * kK * 4;
+  L.bias = o;                        // [S][K]
+  o += (size_t)g.S * kK * 4;
+  L.red = o;                         // [warp][C + 1][24] dW and db sums of the warps
+  o += (size_t)kWarps * (C + 1) * kKP * 4;
+  L.total = o;
+  return L;
+}
+
+// x ~= p[0] + p[1] (+ p[2]) for a pair (a, b): each piece is the bf16 rounding
+// of what the earlier pieces left (low half: a)
+template <int N>
+__device__ __forceinline__ void split2(float a, float b, unsigned (&p)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    p[i] = *reinterpret_cast<const unsigned*>(&h);
+    a -= __low2float(h);
+    b -= __high2float(h);
   }
 }
 
-template <typename T, int C, int K>
-__global__ void __launch_bounds__(kThreads, 1)
-    iic_joints_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
-                          const float* __restrict__ w, const float* __restrict__ b,
-                          const float* __restrict__ jbar, T* __restrict__ df1,
-                          T* __restrict__ df2, float* __restrict__ part, Geo g) {
-  static_assert(K % 4 == 0, "clusters come in groups of 4");
-  constexpr int KH = K + 1;          // odd row stride: one pixel per thread, distinct banks
-  extern __shared__ __align__(16) float smem[];
-  const int S = g.S, SK = S * K, JN = g.td2 * K * K;
-  float* ws = smem;                  // [S][C][K] weights of every subhead
-  float* bs = ws + S * C * K;        // [S][K]
-  float* dws = bs + SK;              // [S][C][K] this block's dW partial,
-  float* dbs = dws + S * C * K;      // [S][K] then its db partial
-  float* jb = dbs + SK;              // [td2][K][K] Jbar of the current subhead
-  float* dzs = jb + JN;              // [kTile][K] dz of the current subhead and view
-  float* p1h = dzs + kTile * K;      // [nh][KH] p1 on the halo tile, zero outside the image
-  float* p2h = p1h + g.nh * KH;      // [nh][KH] p2 likewise
-  const int tid = threadIdx.x;
-  for (int i = tid; i < S * C * K; i += kThreads) {
-    const int s = i / (C * K), r = i - s * C * K, c = r / K, k = r - c * K;
-    ws[i] = w[(size_t)c * SK + s * K + k];
-    dws[i] = 0.f;
-  }
-  for (int i = tid; i < SK; i += kThreads) {
-    bs[i] = b[i];
-    dbs[i] = 0.f;
-  }
-  const int ly = tid / kT, lx = tid % kT;
-  const int own = (ly + g.pad) * g.hw + lx + g.pad;   // this thread's pixel in the halo maps
+__device__ __forceinline__ float2 unpack(unsigned u) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u);
+  return __bfloat1622float2(h);
+}
 
-  for (int tile = blockIdx.x; tile < g.ntiles; tile += gridDim.x) {
-    int bi, y0, x0;
-    tile_origin(g, tile, bi, y0, x0);
-    const bool real = y0 + ly < g.H && x0 + lx < g.W;
-    const size_t pix = ((size_t)bi * g.H + y0 + ly) * g.W + x0 + lx;
-    float d1[C], d2[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) d1[c] = d2[c] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float* wsub = ws + s * C * K;
-      __syncthreads();                 // the last subhead's maps, Jbar and dz consumed
-      for (int i = tid; i < JN; i += kThreads) jb[i] = jbar[(size_t)s * JN + i];
-      for (int idx = tid; idx < 2 * g.nh; idx += kThreads) {
-        const bool v2 = idx >= g.nh;
-        const int hp = v2 ? idx - g.nh : idx;
-        const int y = y0 - g.pad + hp / g.hw, x = x0 - g.pad + hp % g.hw;
-        float* dst = (v2 ? p2h : p1h) + hp * KH;
-        float p[K];
-        if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
-          float f[C];
-          load_row<C>((v2 ? f2 : f1) + (((size_t)bi * g.H + y) * g.W + x) * C, f);
-          project_softmax<C, K>(f, wsub, bs + s * K, p);
-        } else {
-#pragma unroll
-          for (int k = 0; k < K; ++k) p[k] = 0.f;
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) dst[k] = p[k];
-      }
-      __syncthreads();
-
-      // view 2: dp2(l)[j] = sum_t sum_i p1(l + off_t)[i] Jbar_t[i][j]
-      float dz[K];
-      if (real) {
-        float dp[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) dp[k] = 0.f;
-        for (int t = 0; t < g.td2; ++t) {
-          const float* pr = p1h + ((ly + t / g.td) * g.hw + lx + t % g.td) * KH;
-          const float* jt = jb + t * K * K;
-#pragma unroll 4
-          for (int i = 0; i < K; ++i) {
-            const float pi = pr[i];
-#pragma unroll
-            for (int j = 0; j < K; j += 4) {
-              const float4 j4 = *reinterpret_cast<const float4*>(jt + i * K + j);
-              dp[j] = fmaf(pi, j4.x, dp[j]);
-              dp[j + 1] = fmaf(pi, j4.y, dp[j + 1]);
-              dp[j + 2] = fmaf(pi, j4.z, dp[j + 2]);
-              dp[j + 3] = fmaf(pi, j4.w, dp[j + 3]);
-            }
-          }
-        }
-        softmax_vjp<K>(dp, p2h + own * KH, dz);
-        accumulate_df<C, K>(wsub, dz, d2);
-      } else {
-#pragma unroll
-        for (int k = 0; k < K; ++k) dz[k] = 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < K; k += 4)
-        *reinterpret_cast<float4*>(dzs + tid * K + k) = make_float4(dz[k], dz[k + 1], dz[k + 2], dz[k + 3]);
-      __syncthreads();
-      accumulate_dw<T, C, K>(f2, dzs, dws + s * C * K, dbs + s * K, g, bi, y0, x0);
-
-      // view 1: dp1(m)[i] = sum_t sum_j Jbar_t[i][j] p2(m - off_t)[j]
-      if (real) {
-        float dp[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) dp[k] = 0.f;
-        for (int t = 0; t < g.td2; ++t) {
-          const float* pr = p2h + ((ly + g.td - 1 - t / g.td) * g.hw + lx + g.td - 1 - t % g.td) * KH;
-          const float* jt = jb + t * K * K;
-          float pv[K];
-#pragma unroll
-          for (int j = 0; j < K; ++j) pv[j] = pr[j];
-#pragma unroll
-          for (int i = 0; i < K; ++i) {
-            float a = dp[i];
-#pragma unroll
-            for (int j = 0; j < K; j += 4) {
-              const float4 j4 = *reinterpret_cast<const float4*>(jt + i * K + j);
-              a = fmaf(j4.x, pv[j], a);
-              a = fmaf(j4.y, pv[j + 1], a);
-              a = fmaf(j4.z, pv[j + 2], a);
-              a = fmaf(j4.w, pv[j + 3], a);
-            }
-            dp[i] = a;
-          }
-        }
-        softmax_vjp<K>(dp, p1h + own * KH, dz);
-        accumulate_df<C, K>(wsub, dz, d1);
-      }
-      __syncthreads();                 // the view-2 dW pass has read dzs
-#pragma unroll
-      for (int k = 0; k < K; k += 4)
-        *reinterpret_cast<float4*>(dzs + tid * K + k) = make_float4(dz[k], dz[k + 1], dz[k + 2], dz[k + 3]);
-      __syncthreads();
-      accumulate_dw<T, C, K>(f1, dzs, dws + s * C * K, dbs + s * K, g, bi, y0, x0);
+// Operand image of subhead s (one block per subhead), read by the main
+// kernel with 16-byte copies: the cotangent centred per view and split in
+// JP pieces, [orientation][piece][jrows][24] (orientation 0 for dp2: rows j,
+// columns i, Jbar_t[i][j] minus its mean over j; orientation 1 for dp1: rows
+// i, columns j, minus its mean over i; rows of displacement t from 20 t, four
+// zero rows at the end, columns 20-23 zero), then W_s split in NP pieces,
+// [piece][C][24]. The means drop out of dz exactly (the softmax's VJP removes
+// a pixel's constant), and without them the split would carry the rounding
+// of a large constant.
+template <int NP, int JP>
+__global__ void __launch_bounds__(kThr)
+    iic_joints_bwd_prep(const float* __restrict__ jbar, const float* __restrict__ w,
+                        bf16* __restrict__ img, G2 g, int C) {
+  __shared__ float rmean[25 * kK], cmean[25 * kK];
+  const int s = blockIdx.x, tid = threadIdx.x, SK = g.S * kK;
+  const float* J = jbar + (size_t)s * g.td2 * kK * kK;
+  for (int e = tid; e < g.td2 * kK; e += kThr) {
+    const int t = e / kK, a = e % kK;
+    float r = 0.f, c = 0.f;
+    for (int u = 0; u < kK; ++u) {
+      r += J[(t * kK + a) * kK + u];
+      c += J[(t * kK + u) * kK + a];
     }
-    if (real) {
-      store_row<C>(df1 + pix * C, d1);
-      store_row<C>(df2 + pix * C, d2);
-    }
+    rmean[e] = r / kK;
+    cmean[e] = c / kK;
   }
   __syncthreads();
-  float* out = part + (size_t)blockIdx.x * (S * C * K + SK);
-  for (int i = tid; i < S * C * K + SK; i += kThreads) out[i] = dws[i];
+  bf16* out = img + (size_t)s * g.img;
+  const int nj = 2 * g.jrows * (kKP / 2);
+  for (int e = tid; e < nj; e += kThr) {
+    const int o = e / (g.jrows * (kKP / 2)), rem = e % (g.jrows * (kKP / 2));
+    const int r = rem / (kKP / 2), k = 2 * (rem % (kKP / 2));
+    float x[2] = {0.f, 0.f};
+    if (r < g.td2 * kK) {
+      const int t = r / kK, n = r % kK;
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (k + q < kK)
+          x[q] = o == 0 ? J[(t * kK + k + q) * kK + n] - rmean[t * kK + k + q]
+                        : J[(t * kK + n) * kK + k + q] - cmean[t * kK + k + q];
+    }
+    unsigned pc[JP];
+    split2<JP>(x[0], x[1], pc);
+#pragma unroll
+    for (int i = 0; i < JP; ++i)
+      *reinterpret_cast<unsigned*>(out + ((size_t)(o * JP + i) * g.jrows + r) * kKP + k) = pc[i];
+  }
+  bf16* wo = out + (size_t)2 * JP * g.jrows * kKP;
+  for (int e = tid; e < C * (kKP / 2); e += kThr) {
+    const int c = e / (kKP / 2), k = 2 * (e % (kKP / 2));
+    const float a = k < kK ? w[(size_t)c * SK + s * kK + k] : 0.f;
+    const float b = k + 1 < kK ? w[(size_t)c * SK + s * kK + k + 1] : 0.f;
+    unsigned pc[NP];
+    split2<NP>(a, b, pc);
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      *reinterpret_cast<unsigned*>(wo + ((size_t)i * C + c) * kKP + k) = pc[i];
+  }
 }
+
+template <typename T, int C, int MF, int JP>
+__global__ void __launch_bounds__(kThr, 1)
+    iic_joints_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
+                          const float* __restrict__ w, const float* __restrict__ b,
+                          const bf16* __restrict__ img, T* __restrict__ df1, T* __restrict__ df2,
+                          float* __restrict__ part, G2 g) {
+  constexpr bool BF = Feat<T>::NF == 1;
+  constexpr int NP = Feat<T>::NP, NF = Feat<T>::NF;
+  constexpr int NPJ = NP > JP ? NP : JP;  // products: pieces (i, j) with i + j < NPJ
+  constexpr int CS = C + 8;          // feature halo pixel stride (elements)
+  constexpr int CT = C / 8;          // n8 tiles of df (channels)
+  constexpr int MT = (C + 15) / 16;  // m16 tiles of dW (channels)
+  constexpr int RS = (C + 1) * kKP;  // floats of one warp's dW / db sums
+  static_assert(C % 8 == 0 && C <= 32, "channels");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Lay L = layout(g, C, NP, BF);
+  bf16* sF = reinterpret_cast<bf16*>(smem + L.f);
+  bf16* sP = reinterpret_cast<bf16*>(smem + L.p);
+  bf16* sImg = reinterpret_cast<bf16*>(smem + L.img);
+  float* sWf = reinterpret_cast<float*>(smem + L.wf);
+  float* sB = reinterpret_cast<float*>(smem + L.bias);
+  float* sRed = reinterpret_cast<float*>(smem + L.red);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;      // mma fragment row / column pair
+  const int lj = lane >> 3, lr = lane & 7;      // ldmatrix matrix / row of this lane
+  const int S = g.S, SK = S * kK;
+  const size_t mapsz = (size_t)g.nh * kKP;      // one piece of one view's halo map
+  float* mypart = part + (size_t)blockIdx.x * (C + 1) * SK;
+
+  for (int i = tid; i < SK; i += kThr) sB[i] = b[i];
+  if (!BF)
+    for (int i = tid; i < S * C * kK; i += kThr) {
+      const int s = i / (C * kK), r = i % (C * kK), c = r / kK, k = r % kK;
+      sWf[i] = w[(size_t)c * SK + s * kK + k];
+    }
+
+  auto load_img = [&](int s, int slot) {
+    const char* src = reinterpret_cast<const char*>(img + (size_t)s * g.img);
+    const unsigned dst = tc::smem_addr(sImg + (size_t)slot * g.img);
+    for (int e = tid; e < g.img / 8; e += kThr) tc::cp_async16(dst + 16 * e, src + 16 * e, 16);
+  };
+  auto origin = [&](int tile, int& bi, int& y0, int& x0) {
+    bi = tile / g.per_image;
+    const int r = tile % g.per_image;
+    y0 = (r / g.ntx) * g.th;
+    x0 = (r % g.ntx) * kTW;
+  };
+  // both views' feature halos, zero outside the image (bf16 features)
+  auto load_f = [&](int tile) {
+    int bi, y0, x0;
+    origin(tile, bi, y0, x0);
+    for (int e = tid; e < 2 * g.nhp * (C / 8); e += kThr) {
+      const int v = e / (g.nhp * (C / 8)), rem = e % (g.nhp * (C / 8));
+      const int hp = rem / (C / 8), c8 = rem % (C / 8);
+      const int y = y0 - g.pad + hp / g.hw, x = x0 - g.pad + hp % g.hw;
+      const bool in = hp < g.nh && y >= 0 && y < g.H && x >= 0 && x < g.W;
+      const T* src = in ? (v ? f2 : f1) + (((size_t)bi * g.H + y) * g.W + x) * C + c8 * 8 : f1;
+      tc::cp_async16(tc::smem_addr(sF + ((size_t)v * g.nhp + hp) * CS + c8 * 8), src, in ? 16 : 0);
+    }
+  };
+
+  load_img(0, 0);
+  if constexpr (BF) load_f(blockIdx.x);
+  tc::cp_async_commit();
+
+  int k = 0;                          // subheads this block has run
+  for (int tile = blockIdx.x; tile < g.ntiles; tile += gridDim.x) {
+    int bi, y0, x0;
+    origin(tile, bi, y0, x0);
+    const bool first = tile == (int)blockIdx.x;
+    float dfa[2][MF][CT][4];
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int f = 0; f < MF; ++f)
+#pragma unroll
+        for (int n = 0; n < CT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dfa[o][f][n][e] = 0.f;
+
+    for (int s = 0; s < S; ++s, ++k) {
+      const int slot = g.nslot == 2 ? (k & 1) : 0;
+      tc::cp_async_wait<0>();
+      __syncthreads();  // (A) features, this subhead's image; the last one's maps and sums consumed
+      if (g.nslot == 2) {
+        load_img((s + 1) % S, slot ^ 1);
+        tc::cp_async_commit();
+      }
+      const bf16* sJ = sImg + (size_t)slot * g.img;
+      const bf16* sW = sJ + (size_t)2 * JP * g.jrows * kKP;
+      const float* bias = sB + s * kK;
+
+      // ---- both views' softmaxes on the halo tile -> NP bf16 pieces
+      if constexpr (BF) {
+        // Z = F W_s on the tensor cores: 16 halo pixels x 24 clusters a chunk
+        constexpr int KS = C >= 16 ? C / 16 : 1;
+        unsigned wb[NP][KS][6];
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+#pragma unroll
+          for (int kc = 0; kc < KS; ++kc) {
+            const bf16* wp = sW + (size_t)i * C * kKP;
+            if constexpr (C >= 16) {
+              unsigned r4[4], r2[2];
+              tc::ldsm_x4_trans(tc::smem_addr(wp + (kc * 16 + lr + 8 * (lj & 1)) * kKP + 8 * (lj >> 1)), r4);
+              tc::ldsm_x2_trans(tc::smem_addr(wp + (kc * 16 + lr + 8 * (lj & 1)) * kKP + 16), r2);
+              wb[i][kc][0] = r4[0]; wb[i][kc][1] = r4[1];
+              wb[i][kc][2] = r4[2]; wb[i][kc][3] = r4[3];
+              wb[i][kc][4] = r2[0]; wb[i][kc][5] = r2[1];
+            } else {
+              unsigned r2[2];
+              tc::ldsm_x2_trans(tc::smem_addr(wp + lr * kKP + 8 * (lj & 1)), r2);
+              wb[i][kc][0] = r2[0];
+              wb[i][kc][1] = r2[1];
+              wb[i][kc][2] = tc::ldsm_x1_trans(tc::smem_addr(wp + lr * kKP + 16));
+            }
+          }
+        // this lane's six bias columns (-inf on the padding columns 20-23)
+        float bl[3][2];
+#pragma unroll
+        for (int n = 0; n < 3; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * n + 2 * tq + e;
+            bl[n][e] = col < kK ? bias[col] : -CUDART_INF_F;
+          }
+        const float hw_inv = 1.f / g.hw;
+        const int nch = g.nhp / 16;
+        for (int ch = warp; ch < 2 * nch; ch += kWarps) {
+          const int v = ch >= nch, q = ch - v * nch;
+          const bf16* F = sF + (size_t)v * g.nhp * CS;
+          float z[3][4];
+#pragma unroll
+          for (int n = 0; n < 3; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) z[n][e] = 0.f;
+#pragma unroll
+          for (int kc = 0; kc < KS; ++kc) {
+            if constexpr (C >= 16) {
+              unsigned a[4];
+              tc::ldsm_x4(tc::smem_addr(F + (16 * q + lr + 8 * (lj & 1)) * CS + kc * 16 + 8 * (lj >> 1)), a);
+#pragma unroll
+              for (int i = 0; i < NP; ++i)
+#pragma unroll
+                for (int n = 0; n < 3; ++n) tc::mma_bf16(z[n], a, wb[i][kc][2 * n], wb[i][kc][2 * n + 1]);
+            } else {
+              unsigned a[2];
+              tc::ldsm_x2(tc::smem_addr(F + (16 * q + lr + 8 * (lj & 1)) * CS), a);
+#pragma unroll
+              for (int i = 0; i < NP; ++i)
+#pragma unroll
+                for (int n = 0; n < 3; ++n) tc::mma_bf16_k8(z[n], a[0], a[1], wb[i][kc][n]);
+            }
+          }
+          // softmax over the 20 clusters of a row: a quad holds one pixel's row
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float m = -CUDART_INF_F;
+#pragma unroll
+            for (int n = 0; n < 3; ++n)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                z[n][2 * h + e] += bl[n][e];
+                m = fmaxf(m, z[n][2 * h + e]);
+              }
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+            float sum = 0.f;
+#pragma unroll
+            for (int n = 0; n < 3; ++n)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float x = __expf(z[n][2 * h + e] - m);
+                z[n][2 * h + e] = x;
+                sum += x;
+              }
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            const int l = 16 * q + gq + 8 * h;
+            const int hy = (int)((l + 0.5f) * hw_inv);           // l / hw for l < 2^16
+            const int y = y0 - g.pad + hy, x = x0 - g.pad + l - hy * g.hw;
+            const float rs = y >= 0 && y < g.H && x >= 0 && x < g.W ? 1.f / sum : 0.f;
+            if (l < g.nh) {
+#pragma unroll
+              for (int n = 0; n < 3; ++n) {
+                unsigned pc[NP];
+                split2<NP>(z[n][2 * h] * rs, z[n][2 * h + 1] * rs, pc);
+#pragma unroll
+                for (int i = 0; i < NP; ++i)
+                  *reinterpret_cast<unsigned*>(sP + (v * NP + i) * mapsz + (size_t)l * kKP + 8 * n +
+                                               2 * tq) = pc[i];
+              }
+            }
+          }
+        }
+      } else {
+        // f32 features: one halo pixel a thread on the FP32 cores (exact f32)
+        for (int idx = tid; idx < 2 * g.nh; idx += kThr) {
+          const int v = idx / g.nh, l = idx % g.nh;
+          const int y = y0 - g.pad + l / g.hw, x = x0 - g.pad + l % g.hw;
+          float p[kKP];
+#pragma unroll
+          for (int q = 0; q < kKP; ++q) p[q] = 0.f;
+          if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
+            float fr[C], pk[kK];
+            load_row<C>((v ? f2 : f1) + (((size_t)bi * g.H + y) * g.W + x) * C, fr);
+            project_softmax<C, kK>(fr, sWf + s * C * kK, bias, pk);
+#pragma unroll
+            for (int q = 0; q < kK; ++q) p[q] = pk[q];
+          }
+#pragma unroll
+          for (int q = 0; q < kKP; q += 2) {
+            unsigned pc[NP];
+            split2<NP>(p[q], p[q + 1], pc);
+#pragma unroll
+            for (int i = 0; i < NP; ++i)
+              *reinterpret_cast<unsigned*>(sP + (v * NP + i) * mapsz + (size_t)l * kKP + q) = pc[i];
+          }
+        }
+      }
+      __syncthreads();  // (B) the halo maps are complete
+
+      float dwa[MT][3][4], dba[3][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < 3; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dwa[m][n][e] = 0.f;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) dba[n][0] = dba[n][1] = 0.f;
+
+      // ---- view o: o = 1 gives dz2 (f2's pixels), o = 0 dz1 (f1's pixels)
+#pragma unroll
+      for (int o = 1; o >= 0; --o) {
+        const bf16* A0 = sP + (size_t)(1 - o) * NP * mapsz;   // the other view's halo map
+        const bf16* So = sP + (size_t)o * NP * mapsz;         // this view's softmaxes
+        const bf16* Jo = sJ + (size_t)(1 - o) * JP * g.jrows * kKP;
+        float acc[MF][3][4];
+#pragma unroll
+        for (int f = 0; f < MF; ++f)
+#pragma unroll
+          for (int n = 0; n < 3; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[f][n][e] = 0.f;
+        // dp as implicit GEMMs: displacement t is a shifted ldmatrix view of
+        // the halo map (dp2 at +off_t, dp1 at -off_t), K = 24 as k16 + k8.
+        // Output columns 20-23 read the next block's rows: finite, and the
+        // VJP multiplies them by s = 0
+        for (int t = 0; t < g.td2; ++t) {
+          const int ty = t / g.td, tx = t % g.td;
+          const int hy = o ? ty : g.td - 1 - ty, hx = o ? tx : g.td - 1 - tx;
+          unsigned bj[JP][9];
+#pragma unroll
+          for (int j = 0; j < JP; ++j) {
+            const bf16* Jt = Jo + ((size_t)j * g.jrows + t * kK) * kKP;
+            unsigned r4[4], r2[2], s2[2];
+            tc::ldsm_x4(tc::smem_addr(Jt + (lr + 8 * (lj >> 1)) * kKP + 8 * (lj & 1)), r4);
+            tc::ldsm_x2(tc::smem_addr(Jt + (16 + lr) * kKP + 8 * (lj & 1)), r2);
+            tc::ldsm_x2(tc::smem_addr(Jt + (lr + 8 * (lj & 1)) * kKP + 16), s2);
+            bj[j][0] = r4[0]; bj[j][1] = r4[1]; bj[j][2] = r4[2]; bj[j][3] = r4[3];
+            bj[j][4] = r2[0]; bj[j][5] = r2[1];
+            bj[j][6] = s2[0]; bj[j][7] = s2[1];
+            bj[j][8] = tc::ldsm_x1(tc::smem_addr(Jt + (16 + lr) * kKP + 16));
+          }
+#pragma unroll
+          for (int f = 0; f < MF; ++f) {
+            const int base = (MF * warp + f + hy) * g.hw + hx;
+            unsigned a[NP][6];
+#pragma unroll
+            for (int i = 0; i < NP; ++i) {
+              const bf16* Ap = A0 + i * mapsz + (size_t)(base + lr + 8 * (lj & 1)) * kKP;
+              unsigned r4[4], r2[2];
+              tc::ldsm_x4(tc::smem_addr(Ap + 8 * (lj >> 1)), r4);
+              tc::ldsm_x2(tc::smem_addr(Ap + 16), r2);
+              a[i][0] = r4[0]; a[i][1] = r4[1]; a[i][2] = r4[2]; a[i][3] = r4[3];
+              a[i][4] = r2[0]; a[i][5] = r2[1];
+            }
+#pragma unroll
+            for (int i = 0; i < NP; ++i)
+#pragma unroll
+              for (int j = 0; j < JP; ++j) {
+                if (i + j >= NPJ) continue;
+                const unsigned a4[4] = {a[i][0], a[i][1], a[i][2], a[i][3]};
+#pragma unroll
+                for (int n = 0; n < 3; ++n) {
+                  tc::mma_bf16(acc[f][n], a4, bj[j][2 * n], bj[j][2 * n + 1]);
+                  tc::mma_bf16_k8(acc[f][n], a[i][4], a[i][5], bj[j][6 + n]);
+                }
+              }
+          }
+        }
+
+        // W_s^T fragments for df: k16 (clusters 0-15) and k8 (16-23) per channel tile
+        unsigned wd[NP][CT][3];
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const bf16* wp = sW + (size_t)i * C * kKP;
+          if constexpr (C >= 16) {
+#pragma unroll
+            for (int cp = 0; cp < C / 16; ++cp) {
+              unsigned r4[4];
+              tc::ldsm_x4(tc::smem_addr(wp + (16 * cp + lr + 8 * (lj >> 1)) * kKP + 8 * (lj & 1)), r4);
+              wd[i][2 * cp][0] = r4[0]; wd[i][2 * cp][1] = r4[1];
+              wd[i][2 * cp + 1][0] = r4[2]; wd[i][2 * cp + 1][1] = r4[3];
+            }
+          } else {
+            unsigned r2[2];
+            tc::ldsm_x2(tc::smem_addr(wp + lr * kKP + 8 * (lj & 1)), r2);
+            wd[i][0][0] = r2[0];
+            wd[i][0][1] = r2[1];
+          }
+          if constexpr (C == 32) {
+            unsigned r4[4];
+            tc::ldsm_x4(tc::smem_addr(wp + (lr + 8 * lj) * kKP + 16), r4);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) wd[i][n][2] = r4[n];
+          } else if constexpr (C == 16) {
+            unsigned r2[2];
+            tc::ldsm_x2(tc::smem_addr(wp + (lr + 8 * (lj & 1)) * kKP + 16), r2);
+            wd[i][0][2] = r2[0];
+            wd[i][1][2] = r2[1];
+          } else {
+            wd[i][0][2] = tc::ldsm_x1(tc::smem_addr(wp + lr * kKP + 16));
+          }
+        }
+
+#pragma unroll
+        for (int f = 0; f < MF; ++f) {
+          const int row = MF * warp + f;
+          const int own = (row + g.pad) * g.hw + g.pad;      // halo index of the row's pixel 0
+          // the softmax's VJP on the accumulators: dz = s (dp - <dp, s>)
+          float sv[3][4], in2[2] = {0.f, 0.f};
+#pragma unroll
+          for (int n = 0; n < 3; ++n)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float2 x = make_float2(0.f, 0.f);
+#pragma unroll
+              for (int i = 0; i < NP; ++i) {
+                const float2 u = unpack(*reinterpret_cast<const unsigned*>(
+                    So + i * mapsz + (size_t)(own + gq + 8 * h) * kKP + 8 * n + 2 * tq));
+                x.x += u.x;
+                x.y += u.y;
+              }
+              sv[n][2 * h] = x.x;
+              sv[n][2 * h + 1] = x.y;
+              in2[h] = fmaf(acc[f][n][2 * h], x.x, fmaf(acc[f][n][2 * h + 1], x.y, in2[h]));
+            }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            in2[h] += __shfl_xor_sync(0xffffffffu, in2[h], 1);
+            in2[h] += __shfl_xor_sync(0xffffffffu, in2[h], 2);
+          }
+          float dz[3][4];
+#pragma unroll
+          for (int n = 0; n < 3; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dz[n][e] = sv[n][e] * (acc[f][n][e] - in2[e >> 1]);
+#pragma unroll
+          for (int n = 0; n < 3; ++n) {
+            dba[n][0] += dz[n][0] + dz[n][2];
+            dba[n][1] += dz[n][1] + dz[n][3];
+          }
+          // dz in NP pieces, as the A fragments of df (k = clusters): the
+          // accumulator layout of two n8 tiles is the A layout of one k16
+          unsigned az[NP][6];
+#pragma unroll
+          for (int n = 0; n < 3; ++n)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              unsigned pc[NP];
+              split2<NP>(dz[n][2 * h], dz[n][2 * h + 1], pc);
+#pragma unroll
+              for (int i = 0; i < NP; ++i) az[i][2 * n + h] = pc[i];
+            }
+          // df += dz W_s^T
+#pragma unroll
+          for (int i = 0; i < NP; ++i)
+#pragma unroll
+            for (int j = 0; j < NP; ++j) {
+              if (i + j >= NP) continue;
+              const unsigned a4[4] = {az[i][0], az[i][1], az[i][2], az[i][3]};
+#pragma unroll
+              for (int n = 0; n < CT; ++n) {
+                tc::mma_bf16(dfa[o][f][n], a4, wd[j][n][0], wd[j][n][1]);
+                tc::mma_bf16_k8(dfa[o][f][n], az[i][4], az[i][5], wd[j][n][2]);
+              }
+            }
+          // dW_s += F^T dz: dz's B fragments (k = pixels) by an in-register transpose
+          unsigned bz[NP][3][2];
+#pragma unroll
+          for (int i = 0; i < NP; ++i)
+#pragma unroll
+            for (int n = 0; n < 3; ++n) {
+              bz[i][n][0] = tc::movmatrix_trans(az[i][2 * n]);
+              bz[i][n][1] = tc::movmatrix_trans(az[i][2 * n + 1]);
+            }
+          unsigned af[NF][MT][4];
+          if constexpr (BF) {
+            const bf16* F = sF + (size_t)o * g.nhp * CS;
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              if constexpr (C >= 16) {
+                tc::ldsm_x4_trans(tc::smem_addr(F + (own + lr + 8 * (lj >> 1)) * CS + 16 * m + 8 * (lj & 1)),
+                                  af[0][m]);
+              } else {
+                unsigned r2[2];
+                tc::ldsm_x2_trans(tc::smem_addr(F + (own + lr + 8 * (lj & 1)) * CS), r2);
+                af[0][m][0] = r2[0];
+                af[0][m][1] = 0u;
+                af[0][m][2] = r2[1];
+                af[0][m][3] = 0u;
+              }
+            }
+          } else {
+            // f32 features: the transposed fragments straight from device memory
+            const T* fo = o ? f2 : f1;
+            const int y = y0 + row;
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const int c = 16 * m + gq + 8 * (r & 1), x = x0 + 2 * tq + 8 * (r >> 1);
+                float v0 = 0.f, v1 = 0.f;
+                if (c < C && y < g.H) {
+                  const T* pp = fo + (((size_t)bi * g.H + y) * g.W + x) * C + c;
+                  if (x < g.W) v0 = pp[0];
+                  if (x + 1 < g.W) v1 = pp[C];
+                }
+                unsigned pc[NF];
+                split2<NF>(v0, v1, pc);
+#pragma unroll
+                for (int i = 0; i < NF; ++i) af[i][m][r] = pc[i];
+              }
+          }
+#pragma unroll
+          for (int i = 0; i < NF; ++i)
+#pragma unroll
+            for (int j = 0; j < NP; ++j) {
+              if (i + j >= NP) continue;
+#pragma unroll
+              for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int n = 0; n < 3; ++n) tc::mma_bf16(dwa[m][n], af[i][m], bz[j][n][0], bz[j][n][1]);
+            }
+        }
+      }
+
+      // ---- this warp's dW and db sums of the subhead -> sRed[warp]
+      float* red = sRed + warp * RS;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < 3; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 16 * m + gq + 8 * (e >> 1);
+            if (c < C) red[c * kKP + 8 * n + 2 * tq + (e & 1)] = dwa[m][n][e];
+          }
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = dba[n][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (gq == 0) red[C * kKP + 8 * n + 2 * tq + e] = v;
+        }
+      __syncthreads();  // (C) the maps and this image are consumed; the warps' sums are complete
+      if (g.nslot == 1) load_img((s + 1) % S, 0);
+      if constexpr (BF)
+        if (s == S - 1 && tile + (int)gridDim.x < g.ntiles) load_f(tile + gridDim.x);
+      tc::cp_async_commit();
+      // the block's partial: warps summed in order, tiles in order (no
+      // atomics); each thread's earlier values are read together
+      constexpr int NE = ((C + 1) * kK + kThr - 1) / kThr;
+      float v[NE], old[NE];
+      size_t dst[NE];
+#pragma unroll
+      for (int r = 0; r < NE; ++r) {
+        const int e = tid + r * kThr, c = e / kK, kk = e % kK;
+        v[r] = old[r] = 0.f;
+        dst[r] = c < C ? (size_t)(s * C + c) * kK + kk : (size_t)S * C * kK + s * kK + kk;
+        if (e < (C + 1) * kK) {
+#pragma unroll
+          for (int q = 0; q < kWarps; ++q) v[r] += sRed[q * RS + c * kKP + kk];
+          if (!first) old[r] = mypart[dst[r]];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < NE; ++r)
+        if (tid + r * kThr < (C + 1) * kK) mypart[dst[r]] = old[r] + v[r];
+    }
+
+    // ---- df of the tile's real pixels, summed over the subheads
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      T* dfo = o ? df2 : df1;
+#pragma unroll
+      for (int f = 0; f < MF; ++f) {
+        const int y = y0 + MF * warp + f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int x = x0 + gq + 8 * h;
+          if (y >= g.H || x >= g.W) continue;
+          T* dst = dfo + (((size_t)bi * g.H + y) * g.W + x) * C + 2 * tq;
+#pragma unroll
+          for (int n = 0; n < CT; ++n) {
+            if constexpr (BF)
+              *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+                  __floats2bfloat162_rn(dfa[o][f][n][2 * h], dfa[o][f][n][2 * h + 1]);
+            else
+              *reinterpret_cast<float2*>(dst + 8 * n) =
+                  make_float2(dfa[o][f][n][2 * h], dfa[o][f][n][2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+}
+
+}  // namespace e2
 
 // dw[c][s*K + k] = sum_q part[q][(s*C + c)*K + k], db[s*K + k] = sum_q
 // part[q][S*C*K + s*K + k], q in order.
@@ -553,11 +1018,6 @@ size_t fwd_smem(int C, const Geo& g) {
   return sizeof(float) * ((size_t)C * kK + kK + (size_t)g.nh * kK + (size_t)kTile * kK);
 }
 
-size_t bwd_smem(int C, const Geo& g) {
-  return sizeof(float) * (2 * (size_t)g.S * (C + 1) * kK + (size_t)g.td2 * kK * kK +
-                          (size_t)kTile * kK + 2 * (size_t)g.nh * (kK + 1));
-}
-
 // E1: thread groups per block (pixels split among them when items are few).
 int fwd_groups(const Geo& g) {
   const int nitems = g.td2 * (kK / 4) * (kK / 4);
@@ -581,9 +1041,64 @@ int resident_blocks(K kern, size_t smem, int* blocks) {
   return 0;
 }
 
+// E2's geometry: 16-row tiles for bf16 features at padding <= 1, else 8 rows;
+// two operand image slots where shared memory holds them
+int make_g2(const Geo& in, int C, bool bf, e2::G2* out) {
+  e2::G2 g;
+  g.B = in.B;
+  g.H = in.H;
+  g.W = in.W;
+  g.S = in.S;
+  g.pad = in.pad;
+  g.td = in.td;
+  g.td2 = in.td2;
+  g.th = bf && in.pad <= 1 ? 16 : 8;
+  g.hw = e2::kTW + 2 * in.pad;
+  g.nh = (g.th + 2 * in.pad) * g.hw;
+  g.nhp = (g.nh + 15) / 16 * 16;
+  g.ntx = (in.W + e2::kTW - 1) / e2::kTW;
+  g.per_image = ((in.H + g.th - 1) / g.th) * g.ntx;
+  g.ntiles = in.B * g.per_image;
+  g.jrows = g.td2 * kK + 4;
+  // a third piece of the cotangent at pad 0: there the loss's joint is not
+  // min-shift normalized, and db, a sum over every pixel of terms that
+  // cancel, keeps the rounding of the cotangent's second piece
+  g.jp = in.pad == 0 ? 3 : 2;
+  const int np = bf ? e2::Feat<__nv_bfloat16>::NP : e2::Feat<float>::NP;
+  g.img = 2 * g.jp * g.jrows * e2::kKP + np * C * e2::kKP;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  g.nslot = 2;
+  if (e2::layout(g, C, np, bf).total > (size_t)optin) g.nslot = 1;
+  if (e2::layout(g, C, np, bf).total > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
+  *out = g;
+  return 0;
+}
+
 template <typename T, int C>
 struct Impl {
-  // blocks of the grid's x dimension and partials per subhead (E1) / in all (E2)
+  static constexpr bool BF = e2::Feat<T>::NF == 1;
+  static constexpr int NP = e2::Feat<T>::NP;
+
+  // E2's main kernel at the tile height of g (16 rows: two m16 row fragments
+  // a warp) and its pieces of the cotangent
+  template <typename F>
+  static int with_bwd_kernel(const e2::G2& g, F&& fn) {
+    if constexpr (BF) {
+      if (g.th == 8) return fn(e2::iic_joints_bwd_kernel<T, C, 1, 2>);  // pad 2
+      return g.jp == 3 ? fn(e2::iic_joints_bwd_kernel<T, C, 2, 3>)
+                       : fn(e2::iic_joints_bwd_kernel<T, C, 2, 2>);
+    } else {
+      return g.jp == 3 ? fn(e2::iic_joints_bwd_kernel<T, C, 1, 3>)
+                       : fn(e2::iic_joints_bwd_kernel<T, C, 1, 2>);
+    }
+  }
+
+  // blocks of the grid's x dimension and partials per subhead (E1) / the
+  // block partials and the rows that hold the operand images (E2)
   static int plan(int mode, const Geo& g, int* nblk, int* nparts) {
     int blocks = 0, rc;
     if (mode == 0) {
@@ -593,10 +1108,14 @@ struct Impl {
       if (*nblk > g.ntiles) *nblk = g.ntiles;
       *nparts = *nblk * fwd_groups(g);
     } else {
-      rc = resident_blocks(iic_joints_bwd_kernel<T, C, kK>, bwd_smem(C, g), &blocks);
+      e2::G2 g2;
+      if ((rc = make_g2(g, C, BF, &g2))) return rc;
+      const size_t smem = e2::layout(g2, C, NP, BF).total;
+      rc = with_bwd_kernel(g2, [&](auto kern) { return resident_blocks(kern, smem, &blocks); });
       if (rc) return rc;
-      *nblk = blocks < g.ntiles ? blocks : g.ntiles;
-      *nparts = *nblk;
+      *nblk = blocks < g2.ntiles ? blocks : g2.ntiles;
+      const size_t row = sizeof(float) * (size_t)g.S * (C + 1) * kK;
+      *nparts = *nblk + (int)((sizeof(__nv_bfloat16) * (size_t)g.S * g2.img + row - 1) / row);
     }
     return 0;
   }
@@ -616,20 +1135,34 @@ struct Impl {
     return (int)cudaGetLastError();
   }
 
+  // E2: the operand images (prep, one block a subhead), the main kernel, then
+  // the fixed-order sum of the block partials
   static int bwd(const Args& a) {
     int nblk = 0, nparts = 0;
     int rc = plan(1, a.g, &nblk, &nparts);
     if (rc) return rc;
-    iic_joints_bwd_kernel<T, C, kK><<<nblk, kThreads, bwd_smem(C, a.g), a.stream>>>(
-        static_cast<const T*>(a.f1), static_cast<const T*>(a.f2), static_cast<const float*>(a.w),
-        static_cast<const float*>(a.b), static_cast<const float*>(a.jbar), static_cast<T*>(a.df1),
-        static_cast<T*>(a.df2), static_cast<float*>(a.part), a.g);
+    e2::G2 g2;
+    if ((rc = make_g2(a.g, C, BF, &g2))) return rc;
+    float* part = static_cast<float*>(a.part);
+    auto* img = reinterpret_cast<__nv_bfloat16*>(part + (size_t)nblk * a.g.S * (C + 1) * kK);
+    auto prep = g2.jp == 3 ? e2::iic_joints_bwd_prep<NP, 3> : e2::iic_joints_bwd_prep<NP, 2>;
+    prep<<<a.g.S, e2::kThr, 0, a.stream>>>(static_cast<const float*>(a.jbar),
+                                           static_cast<const float*>(a.w), img, g2, C);
     cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = e2::layout(g2, C, NP, BF).total;
+    with_bwd_kernel(g2, [&](auto kern) {
+      kern<<<nblk, e2::kThr, smem, a.stream>>>(
+          static_cast<const T*>(a.f1), static_cast<const T*>(a.f2),
+          static_cast<const float*>(a.w), static_cast<const float*>(a.b), img,
+          static_cast<T*>(a.df1), static_cast<T*>(a.df2), part, g2);
+      return 0;
+    });
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n = a.g.S * (C + 1) * kK;
     sum_dw<<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0, a.stream>>>(
-        static_cast<const float*>(a.part), static_cast<float*>(a.dw), static_cast<float*>(a.db),
-        nparts, C, a.g.S, kK);
+        part, static_cast<float*>(a.dw), static_cast<float*>(a.db), nblk, C, a.g.S, kK);
     return (int)cudaGetLastError();
   }
 };
@@ -663,9 +1196,11 @@ const char* iic_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Partials the caller allocates: mode 0 (E1) [S, n, td^2, K, K] f32 with the
-// returned n; mode 1 (E2) [n, S (C + 1) K] f32. Returns n, or minus a CUDA
-// error code.
+// Rows of the f32 buffer the caller allocates: mode 0 (E1) [S, n, td^2, K, K],
+// the blocks' partials; mode 1 (E2) [n, S (C + 1) K], the blocks' partials
+// followed by E2's workspace (rows that hold each subhead's centred, split
+// cotangent and split W_s, written by iic_joints_bwd_prep). Returns n, or
+// minus a CUDA error code.
 int iic_num_partials(int mode, int B, int H, int W, int C, int S, int K, int pad, int bf16) {
   if (!valid(B, H, W, C, S, K, pad, bf16) || (mode != 0 && mode != 1))
     return -(int)cudaErrorInvalidValue;
@@ -697,9 +1232,10 @@ int iic_joints(const void* f1, const void* f2, const void* w, const void* b, voi
 }
 
 // E2. The inputs of E1 plus jbar [S, td, td, K, K] f32 -> df1, df2 [B,H,W,C]
-// (the features' dtype), dw [C, S*K] and db [S*K] f32; part: the mode-1 partials.
+// (the features' dtype), dw [C, S*K] and db [S*K] f32; work: the mode-1 buffer
+// (partials, then workspace).
 int iic_joints_bwd(const void* f1, const void* f2, const void* w, const void* b,
-                   const void* jbar, void* df1, void* df2, void* part, void* dw, void* db,
+                   const void* jbar, void* df1, void* df2, void* work, void* dw, void* db,
                    int B, int H, int W, int C, int S, int K, int pad, int bf16, void* stream) {
   if (!valid(B, H, W, C, S, K, pad, bf16)) return (int)cudaErrorInvalidValue;
   Args a{};
@@ -710,7 +1246,7 @@ int iic_joints_bwd(const void* f1, const void* f2, const void* w, const void* b,
   a.jbar = jbar;
   a.df1 = df1;
   a.df2 = df2;
-  a.part = part;
+  a.part = work;
   a.dw = dw;
   a.db = db;
   a.g = make_geo(B, H, W, S, pad);

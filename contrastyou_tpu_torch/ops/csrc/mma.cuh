@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers shared by the kernels that run on
-// Hopper's mma.sync path (tapconv.cu, convbwd.cu): ldmatrix loads of bf16
-// fragments from shared memory, the m16n8k16 bf16 -> f32 product and 16-byte
-// cp.async copies from device to shared memory.
+// Hopper's mma.sync path (tapconv.cu, convbwd.cu, iic.cu): ldmatrix loads of
+// bf16 fragments from shared memory, the m16n8k16 and m16n8k8 bf16 -> f32
+// products, an in-register 8x8 transpose and 16-byte cp.async copies from
+// device to shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +17,24 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned addr, unsigned (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+__device__ __forceinline__ unsigned ldsm_x1(unsigned addr) {
+  unsigned r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n" : "=r"(r) : "r"(addr));
+  return r;
+}
+
+__device__ __forceinline__ unsigned ldsm_x1_trans(unsigned addr) {
+  unsigned r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+               : "=r"(r) : "r"(addr));
+  return r;
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
@@ -36,6 +55,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[16x8] += a[16x8] * b[8x8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], unsigned a0, unsigned a1, unsigned b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// the transpose of an 8x8 b16 matrix held as one register a lane (lane l:
+// row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1), in the same layout
+__device__ __forceinline__ unsigned movmatrix_trans(unsigned x) {
+  unsigned y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // 16 bytes from device to shared memory, bypassing L1; src_bytes = 0 reads

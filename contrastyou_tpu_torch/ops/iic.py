@@ -57,9 +57,10 @@ def reset_launch_counts() -> None:
 
 def _probs(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            num_subheads: int, num_clusters: int) -> torch.Tensor:
-    """[B, H, W, C] features -> [B, H, W, S, K] f32 per-subhead softmaxes of
-    ``f @ w + b`` (the merged projection, computed in f32)."""
-    z = f.float() @ w + b
+    """[B, H, W, C] features -> [B, H, W, S, K] per-subhead softmaxes of
+    ``f @ w + b`` (the merged projection, computed in w's dtype: f32 on every
+    path, f64 for a reference)."""
+    z = f.to(w.dtype) @ w + b
     return torch.softmax(z.reshape(*f.shape[:3], num_subheads, num_clusters), -1)
 
 
@@ -109,8 +110,8 @@ def iic_joints_bwd_plain(f1: torch.Tensor, f2: torch.Tensor, w: torch.Tensor,
     dz2 = _softmax_vjp(dp2, s2).reshape(B, H, W, S * K)
     df1 = (dz1 @ w.T).to(f1.dtype)
     df2 = (dz2 @ w.T).to(f2.dtype)
-    dw = (torch.einsum("bhwc,bhwk->ck", f1.float(), dz1)
-          + torch.einsum("bhwc,bhwk->ck", f2.float(), dz2))
+    dw = (torch.einsum("bhwc,bhwk->ck", f1.to(dz1.dtype), dz1)
+          + torch.einsum("bhwc,bhwk->ck", f2.to(dz2.dtype), dz2))
     db = dz1.sum((0, 1, 2)) + dz2.sum((0, 1, 2))
     return df1, df2, dw, db
 
@@ -153,6 +154,10 @@ def _stream() -> ctypes.c_void_p:
 
 
 def _num_partials(lib, mode: int, f: torch.Tensor, S: int, K: int, padding: int) -> int:
+    """Rows of the f32 buffer a kernel writes its per-block partials into:
+    E1 (mode 0) one per block; E2 (mode 1) one per block, then the rows of
+    E2's workspace (each subhead's centred, split cotangent and split W_s,
+    written by its preparation kernel)."""
     B, H, W, C = f.shape
     n = lib.iic_num_partials(mode, B, H, W, C, S, K, padding, int(f.dtype == torch.bfloat16))
     if n <= 0:
@@ -196,13 +201,14 @@ def iic_joints_bwd(f1: torch.Tensor, f2: torch.Tensor, w: torch.Tensor, b: torch
     _cuda_check("iic_joints_bwd", f1, f2, w, b, S, K, p, jbar)
     B, H, W, C = f1.shape
     lib = _build.load_library("iic")
-    nparts = _num_partials(lib, 1, f1, S, K, p)
-    part = torch.empty(nparts, S * (C + 1) * K, dtype=torch.float32, device=f1.device)
+    # the blocks' dW / db partials followed by the operand workspace
+    rows = _num_partials(lib, 1, f1, S, K, p)
+    work = torch.empty(rows, S * (C + 1) * K, dtype=torch.float32, device=f1.device)
     df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
     dw = torch.empty(C, S * K, dtype=torch.float32, device=f1.device)
     db = torch.empty(S * K, dtype=torch.float32, device=f1.device)
     rc = lib.iic_joints_bwd(_ptr(f1), _ptr(f2), _ptr(w), _ptr(b), _ptr(jbar), _ptr(df1),
-                            _ptr(df2), _ptr(part), _ptr(dw), _ptr(db), B, H, W, C, S, K, p,
+                            _ptr(df2), _ptr(work), _ptr(dw), _ptr(db), B, H, W, C, S, K, p,
                             int(f1.dtype == torch.bfloat16), _stream())
     _build.check(rc, "iic_joints_bwd", "iic")
     LAUNCHES["iic_joints_bwd"] += 1

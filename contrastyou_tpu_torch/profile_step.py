@@ -40,7 +40,8 @@ def _hand_kernel(name: str):
         return {"1": "K2 upconv3x3_stats", "2": "K3 upconv3x3_dx"}.get(kind, "K1 conv3x3_stats")
     for fn, label in (("conv1ch_kernel<", "K1 conv3x3_stats"), ("dw_mma_kernel<", "C1 conv_dw_taps"),
                       ("dw1ch_kernel<", "C1 conv_dw_taps"), ("convbwd_kernel<", "C2 conv3x3_bwd_fused"),
-                      ("supcon_", "D1/D2 supcon"), ("iic_joints", "E1/E2 iic"),
+                      ("supcon_", "D1/D2 supcon"), ("iic_joints_bwd", "E2 iic_joints_bwd"),
+                      ("iic_joints", "E1 iic_joints"),
                       ("sum_partials(", "partial sums of C1/C2, E1"), ("sum_dw(", "partial sums of E2")):
         if fn in name:
             return label

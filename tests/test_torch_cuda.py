@@ -15,7 +15,8 @@ not multiples of their 8-row blocks. The backward kernels' weight gradients
 the conv kernels are. The dense-IIC kernels (f32 math on bf16 or f32
 features) are held to 1e-5 of the largest raw joint and to DK_TOL of the
 largest dW / db (f32 sums over the pixels in another order), their feature
-gradients to TOL in bf16 and 1e-5 of the largest value in f32. The CPU
+gradients to TOL in bf16 and 1e-5 of the largest value in f32, also on the
+dense loss's own cotangent. The CPU
 tests here check the wrappers' guards and the cuDNN yardsticks that
 chip_smoke.py times.
 """
@@ -412,6 +413,69 @@ def test_iic_kernels_match_plain():
     torch.cuda.synchronize()
 
 
+def _loss_cotangent(f1, f2, w, b, S, pad):
+    """The dense hook's own cotangent of the raw joints: the gradient of 0.05
+    x the summed per-subhead IIC losses (min-shift normalized at padding > 0)."""
+    from contrastyou_tpu_torch.losses.discrete_mi import iid_loss_from_raw_joints
+    raw = iic.iic_joints_plain(f1, f2, w, b, num_subheads=S, num_clusters=20,
+                               padding=pad).requires_grad_()
+    B, H, W = f1.shape[:3]
+    (0.05 * iid_loss_from_raw_joints(raw, padding=pad, count=B * H * W).sum()).backward()
+    return raw.grad
+
+
+#: (B, H, W, C, S, padding, features, cotangent) of E2: ragged images (20 x 36
+#: and 17 x 33 are not whole 16 x 16 or 8 x 16 tiles), every padding, width and
+#: feature dtype, S = 1 and S * K = 160, the loss cotangent at every padding
+#: (at padding 0 its joint is divided by the pixel count, not min-shift
+#: normalized, and db sums terms that cancel over every pixel).
+E2_CASES = [
+    (2, 20, 36, 32, 5, 1, torch.bfloat16, "loss"), (2, 17, 33, 32, 5, 1, torch.bfloat16, "randn"),
+    (2, 17, 33, 8, 1, 0, torch.bfloat16, "randn"), (2, 20, 36, 16, 8, 2, torch.bfloat16, "loss"),
+    (3, 17, 33, 32, 5, 2, torch.bfloat16, "randn"), (2, 17, 33, 16, 5, 0, torch.bfloat16, "randn"),
+    (2, 17, 33, 32, 8, 0, torch.float32, "randn"), (1, 17, 33, 8, 5, 2, torch.float32, "loss"),
+    (2, 20, 36, 16, 1, 1, torch.float32, "loss"), (2, 20, 36, 32, 8, 1, torch.float32, "randn"),
+    (2, 17, 33, 32, 2, 2, torch.float32, "randn"), (1, 17, 33, 8, 3, 1, torch.bfloat16, "loss"),
+    (2, 17, 33, 32, 5, 0, torch.bfloat16, "loss"), (2, 20, 36, 8, 3, 0, torch.float32, "loss"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,C,S,pad,dtype,cot", E2_CASES)
+def test_e2_matches_plain_and_repeats_bitwise(B, H, W, C, S, pad, dtype, cot):
+    """E2 (split-bf16 operands on the tensor cores) against its plain version
+    run in float64 (f32 itself strays from it by up to ~2e-5 of max |db| at
+    padding 0 on the loss cotangent), at the file's tolerances: feature
+    gradients TOL in bf16 and 1e-5 of the largest value in f32 (the reference
+    rounded to the features' dtype), dW and db DK_TOL. Two launches on the
+    same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    f1, f2 = (torch.randn(B, H, W, C, generator=g, device=dev).to(dtype) for _ in range(2))
+    w = torch.randn(C, S * 20, generator=g, device=dev) * 0.3
+    b = torch.randn(S * 20, generator=g, device=dev) * 0.1
+    td = 2 * pad + 1
+    jbar = (_loss_cotangent(f1, f2, w, b, S, pad) if cot == "loss"
+            else torch.randn(S, td, td, 20, 20, generator=g, device=dev))
+    kw = dict(num_subheads=S, num_clusters=20, padding=pad)
+    got = iic.iic_joints_bwd(f1, f2, w, b, jbar, **kw)
+    again = iic.iic_joints_bwd(f1, f2, w, b, jbar, **kw)
+    ref = iic.iic_joints_bwd_plain(*(x.double() for x in (f1, f2, w, b, jbar)), **kw)
+    ref = (ref[0].to(dtype), ref[1].to(dtype), *ref[2:])
+    ftol = TOL if dtype == torch.bfloat16 else 1e-5
+    what = f"C={C} S={S} pad={pad} {dtype} {cot}"
+    for name, a, a2, r, tol, want in zip(("df1", "df2", "dw", "db"), got, again, ref,
+                                         (ftol, ftol, DK_TOL, DK_TOL),
+                                         (dtype, dtype, torch.float32, torch.float32)):
+        assert a.dtype == want and a.shape == r.shape
+        assert torch.equal(a, a2), f"E2 {name} {what}: two launches differ"
+        scaled_close(a, r, tol=tol, what=f"E2 {name} {what}")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_iic_kernels_refuse_what_they_do_not_take():
     """A CUDA tensor reaches E1 / E2 or an error, never the plain version: a
@@ -521,7 +585,8 @@ def test_backward_yardsticks_compute_c1_c2_functions():
 def test_profile_step_names_the_hand_kernels():
     """profile_step attributes device events to the port's kernels by their
     CUDA function names: K1, K2 and K3 share the tensor-core body and differ
-    in its KIND template argument; C1 and C2 have kernels of their own."""
+    in its KIND template argument; C1, C2, E1 and E2 (with its operand
+    preparation) have kernels of their own."""
     from contrastyou_tpu_torch.profile_step import _hand_kernel
     ns = "void (anonymous namespace)::"
     mma = ns + "tapmma_kernel<{}>((anonymous namespace)::MmaParams)"
@@ -533,4 +598,9 @@ def test_profile_step_names_the_hand_kernels():
     assert _hand_kernel(ns + "dw_mma_kernel<64, true>" + params) == "C1 conv_dw_taps"
     assert _hand_kernel(ns + "dw1ch_kernel<32>" + params) == "C1 conv_dw_taps"
     assert _hand_kernel(ns + "convbwd_kernel<32>" + params) == "C2 conv3x3_bwd_fused"
+    geo = "((anonymous namespace)::Geo)"
+    assert _hand_kernel(ns + "iic_joints_kernel<__nv_bfloat16, 32, 20>" + geo) == "E1 iic_joints"
+    assert (_hand_kernel(ns + "e2::iic_joints_bwd_kernel<__nv_bfloat16, 32, 2, 2>(float*)")
+            == "E2 iic_joints_bwd")
+    assert _hand_kernel(ns + "e2::iic_joints_bwd_prep<2, 3>(float const*)") == "E2 iic_joints_bwd"
     assert _hand_kernel("void at::native::elementwise_kernel<128, 4>") is None

@@ -86,6 +86,35 @@ def test_plain_joints_and_vjp_match_the_pallas_kernel(padding, S, T):
         close(x.grad, g, **GRAD_TOL, what=name)
 
 
+@pytest.mark.parametrize("padding", [0, 1, 2])
+def test_plain_backward_on_the_loss_cotangent_matches_jax(padding):
+    """E2's plain version on the dense hook's own cotangent: the gradients in
+    w, b, f1 and f2 of 0.05 x the summed IIC losses of the raw joints (min-
+    shift normalized at padding > 0, divided by the pixel count at 0),
+    against jax.grad through the Pallas kernel and the JAX loss. The loss
+    normalizes the joints, so these gradients are 1e-7 to 1e-4: they are
+    compared in units of the largest JAX gradient of the four, where
+    GRAD_TOL's atol bounds the error relative to the gradient's scale rather
+    than vacuously."""
+    S, T = 3, 1.0
+    f1, f2, w, b = _inputs(S, seed=6)
+    count = f1.shape[0] * f1.shape[1] * f1.shape[2]
+
+    def jloss(*a):
+        raw = jfused(*a, num_subheads=S, num_clusters=K, padding=padding, T=T)
+        return 0.05 * jmi.iid_loss_from_raw_joints(raw, padding=padding, count=count).sum()
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(w), jnp.asarray(b), jnp.asarray(f1), jnp.asarray(f2))
+    ins = [t(a).requires_grad_() for a in (w, b, f1, f2)]
+    raw = iic.fused_dense_iic_raw_joints(*ins, num_subheads=S, num_clusters=K,
+                                         padding=padding, T=T)
+    (0.05 * mi.iid_loss_from_raw_joints(raw, padding=padding, count=count).sum()).backward()
+    scale = max(float(np.abs(np.asarray(g)).max()) for g in jgrads)
+    for name, x, g in zip(("dw", "db", "df1", "df2"), ins, jgrads):
+        close(x.grad / scale, np.asarray(g) / scale, **GRAD_TOL, what=name)
+
+
 def test_plain_backward_is_the_vjp_of_the_plain_forward():
     """E2's plain version == torch autograd through E1's plain version (same
     folded parameters), at padding 1."""
