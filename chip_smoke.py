@@ -54,8 +54,9 @@ Phases, in order; any failure exits non-zero:
    (f1, f2 [5, 224, 224, 32] bf16, 5 subheads of 20 clusters) at paddings 1
    (the udaiic hook's), 0 and 2 (run right after phase 4); E2 on a random
    cotangent and on the dense hook's own (the gradient of 0.05 x the summed
-   IIC losses of E1's raw joints), E2's bound on its split-bf16 tensor-core
-   arithmetic beside the FP32-core figure of the arithmetic it replaced;
+   IIC losses of E1's raw joints), E1 twice at padding 1 (bitwise equal),
+   each bound on its split-bf16 tensor-core arithmetic beside the FP32-core
+   figure of the arithmetic its earlier body used;
 10. ``semi`` with the udaiic hooks (config/base + hooks/udaiic: IIC on Conv5
    and, at padding 1, on Up_conv2 through E1/E2, plus consistency) through
    ``build_semi_run(UDAIIC_CONFIG)`` at full width: the dense hook's loss on
@@ -75,9 +76,10 @@ sums at every checked batch, beside the einsum form's below 96 and, for C2,
 the split form's; E1/E2: at padding 1, with every padding in
 ``by_padding``); ``bound_ms`` is
 max(bytes / 3.35 TB/s, operations / peak) with the bf16 tensor peak (989
-TFLOP/s) for the conv kernels and for E2 (its useful FLOP times the fewest
-products of bf16 pieces its split needs, ``e2_split_flops``) and the f32
-peak (67 TFLOP/s) for SupCon and E1. The last line is ``{"ok": true, "device":
+TFLOP/s) for the conv kernels and for E1 and E2 (their useful FLOP times the
+fewest products of bf16 pieces their splits need, ``e1_split_flops``,
+``e2_split_flops``) and the f32 peak (67 TFLOP/s) for SupCon. The last line
+is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -584,16 +586,31 @@ def e2_split_flops(f: "torch.Tensor", S: int, K: int, padding: int) -> float:
     return float(2 * proj + dp_products * 2 * pair + 3 * proj + 2 * proj)
 
 
+def e1_split_flops(f: "torch.Tensor", S: int, K: int, padding: int) -> float:
+    """bf16 tensor-core FLOP that E1's split needs at the least on bf16
+    features ``f`` [B, H, W, C]: each product's useful FLOP (``iic_work``)
+    times the products of bf16 pieces it takes: the projection 3 (features
+    exact, W_s in three pieces), the joints 3 (p in two pieces: hi hi + hi
+    lo + lo hi). Padding K to 24, the halo's recomputed projections and the
+    spare rows of the joints' fragments are work the kernel issues beyond
+    this."""
+    B, H, W, C = f.shape
+    N, SK, td2 = B * H * W, S * K, (2 * padding + 1) ** 2
+    proj, pair = 2 * 2 * N * C * SK, 2 * td2 * N * S * K * K
+    return float(3 * proj + 3 * pair)
+
+
 def check_iic(device) -> dict:
     """Phase 9: E1 and E2 vs their plain versions (f32 math, TF32 off) on
     post-ReLU bf16 feature maps of the Up_conv2 taps' shape, at each padding
     of IIC_PADDINGS; E2 on a random cotangent and on the dense hook's own
-    (the gradient of 0.05 x the summed IIC losses of E1's raw joints).
-    Records: errors maxed over the paddings and cotangents, times and bound
-    of padding 1 (the udaiic hook's), every padding in ``by_padding``. E1's
-    bound is on the FP32 cores it runs on, E2's on bf16 tensor cores
-    (``e2_split_flops``); the line also prints E2's FP32-core figure, the
-    bound of the arithmetic its earlier body used."""
+    (the gradient of 0.05 x the summed IIC losses of E1's raw joints); E1
+    twice on the same inputs at padding 1, bitwise equal. Records: errors
+    maxed over the paddings and cotangents, times and bound of padding 1
+    (the udaiic hook's), every padding in ``by_padding``. Both bounds are on
+    bf16 tensor cores (``e1_split_flops``, ``e2_split_flops``); the line
+    also prints each kernel's FP32-core figure, the bound of the arithmetic
+    of its earlier body."""
     import torch
     from contrastyou_tpu_torch.losses.discrete_mi import iid_loss_from_raw_joints
     from contrastyou_tpu_torch.ops import iic
@@ -610,6 +627,8 @@ def check_iic(device) -> dict:
         kw = dict(num_subheads=S, num_clusters=K, padding=pad)
         raw, raw_ref = iic.iic_joints(f1, f2, w, b, **kw), iic.iic_joints_plain(f1, f2, w, b, **kw)
         err1, rel1 = _rel_err(raw, raw_ref)
+        if pad == IIC_PADDINGS[0] and not torch.equal(raw, iic.iic_joints(f1, f2, w, b, **kw)):
+            raise AssertionError(f"E1 padding {pad}: two launches differ")
         jbar = torch.randn(raw.shape, generator=g, device=device)
         loss_raw = raw.detach().clone().requires_grad_()
         (0.05 * iid_loss_from_raw_joints(loss_raw, padding=pad,
@@ -631,19 +650,18 @@ def check_iic(device) -> dict:
                                                                               **kw), iters=5),
                                     err2)}
         work = iic_work(f1, S, K, pad)
-        e2_bytes, e2_flops = work["iic_joints_bwd"]
-        bounds = {"iic_joints": _bound(*work["iic_joints"], F32_FLOPS),
-                  "iic_joints_bwd": _bound(e2_bytes, e2_split_flops(f1, S, K, pad), BF16_FLOPS)}
-        fp32_ms, _ = _bound(e2_bytes, e2_flops, F32_FLOPS)
+        split = {"iic_joints": e1_split_flops(f1, S, K, pad),
+                 "iic_joints_bwd": e2_split_flops(f1, S, K, pad)}
+        bounds = {k: _bound(work[k][0], split[k], BF16_FLOPS) for k in work}
+        fp32_ms = {k: _bound(*work[k], F32_FLOPS)[0] for k in work}
         line = f"  iic padding {pad}: E1 raw max_abs_err {err1:.3e} (rel {rel1:.2e})"
         for cot, rs in rels.items():
             line += f"; E2 on the {cot} cotangent " + ", ".join(
                 f"{n} rel {r:.2e}" for n, (_, r) in zip(("df1", "df2", "dW", "db"), rs))
         for k, (ms, pms, err) in times.items():
             bms, by = bounds[k]
-            line += f"; {k} kernel {ms:.4f} ms plain {pms:.4f} ms bound {bms:.4f} ms ({by})"
-            if k == "iic_joints_bwd":
-                line += f", FP32-core figure {fp32_ms:.4f} ms"
+            line += (f"; {k} kernel {ms:.4f} ms plain {pms:.4f} ms bound {bms:.4f} ms ({by}), "
+                     f"FP32-core figure {fp32_ms[k]:.4f} ms")
             r = recs[k]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["by_padding"][str(pad)] = {"ms": ms, "plain_ms": pms, "bound_ms": bms}

@@ -1,6 +1,6 @@
 // Dense-IIC displacement joints (E1) and their backward (E2): a linear dense
 // cluster head's per-subhead softmaxes over two NHWC feature maps and the
-// joints of their displaced pairs, f32 math on bf16 or f32 features.
+// joints of their displaced pairs, on bf16 or f32 features.
 //
 //   E1 iic_joints      replaces contrastyou_tpu/ops/pallas/iic.py _fwd_kernel:
 //                      p = softmax_K(f W_s + b_s) per pixel and subhead s, then
@@ -22,20 +22,68 @@
 // 7.2x the joint arithmetic at S = 5, K = 20).
 //
 // What bounds it on the H100: at the udaiic shapes (B = 5, 224 x 224, C = 32,
-// S = 5, K = 20, 9 displacements) E1 does ~12.2 GFLOP on 32 MB of features
-// and E2 ~27.7 GFLOP on 64 MB (features in, feature gradients out), 380-430
-// FLOP per byte: arithmetic, not the memory, sets the bound. So both keep
-// every probability map on chip. Blocks are persistent and walk pixel tiles.
+// S = 5, K = 20, 9 displacements) E1 does ~12.2 GFLOP of useful work on 32
+// MB of features and E2 ~27.7 GFLOP on 64 MB (features in, feature
+// gradients out), 380-430 FLOP per byte: arithmetic, not the memory, sets
+// the bound. So both keep every probability map on chip. Blocks are
+// persistent and walk pixel tiles. Both run on the tensor cores (mma.sync
+// m16n8k16 / m16n8k8, bf16 operands, f32 accumulators; helpers in mma.cuh).
 //
-// - E1 (FP32 cores): one block per (set of 16 x 16 tiles, subhead). Per tile
-//   it projects the tile's f2 pixels and the (16 + 2 pad)^2 halo of f1 pixels
-//   into softmaxes in shared memory, then each thread accumulates 4 x 4
-//   blocks of the K x K joints of one or more displacements in registers
-//   across all its tiles (several thread groups split the pixels when there
-//   are few blocks, as at pad 0). Each (block, group) writes one f32 partial.
+// Operand precision: every f32 operand x is split into bf16 pieces, x ~=
+// x0 + x1 (+ x2), x_i the rounding of what the earlier pieces left; a
+// product takes the pairs of pieces (i, j) with i + j < pieces (hi hi + hi
+// lo + lo hi for two), so it keeps ~16 (two pieces) or ~24 bits (three)
+// instead of bf16's 8 at 3 (6) times the mma work. bf16 features are exact
+// and take no split. tests/test_torch_split_bf16.py emulates each kernel's
+// roundings on the CPU and holds them to the card tests' tolerances.
 //
-// - E2 (tensor cores: mma.sync m16n8k16 / m16n8k8, bf16 operands, f32
-//   accumulators; helpers in mma.cuh). One block of 8 warps per SM walks
+// - E1: a block of 8 warps per (set of 16 x 16 tiles, subhead), grid
+//   (blocks, S); blocks of the S subheads walk the same tiles at the same
+//   time, so the features come from device memory about once and from L2
+//   S times. Per tile, cp.async brings f1's (16 + 2 pad)^2 halo and f2's
+//   tile (bf16, the border zero-filled by the copy) into the one feature
+//   buffer, the next tile's while this one's joints run. Then:
+//     * the projection Z = F W_s of the halo and tile pixels on the tensor
+//       cores (16-pixel chunks, K = 20 padded to three n8 tiles; W_s split
+//       in three pieces in the block, so three products), the softmax on
+//       the accumulator fragments (__expf, one reciprocal a row), written as
+//       two bf16 pieces of the halo map p1 and the tile map p2, [piece]
+//       [pixel][24] (pixel stride 48 bytes: ldmatrix without bank
+//       conflicts), 0 outside the image. f32 features project on the FP32
+//       cores (exact f32), one pixel a thread, into the same maps;
+//     * the joints as an implicit GEMM that reduces over pixels: M = (t, i)
+//       in row groups of 8 clusters (20 -> 8 + 8 + 4 and 4 zero rows), two
+//       row groups to an m16 fragment, so that the two halves of a fragment
+//       may come from two displacements (27 groups, 14 fragments at pad 1:
+//       80% useful rows); N = j as three n8 tiles; k = the 16 pixels of a
+//       tile row. A = p1^T by ldmatrix.x4.trans, each of its four 8 x 8
+//       matrices at its own lane addresses, so a displacement is a shifted
+//       pixel address; B = p2 by ldmatrix.trans, loaded once a row for all
+//       of the warp's fragments; hi hi + hi lo + lo hi.
+//   The accumulators stay in registers across the block's tiles (a tile's
+//   sums in fresh ones first): at pads 1 and 2 the warps split the
+//   fragments (2 a warp at pad 1, 5 at pad 2), at pad 0 (2 fragments) the
+//   tile's rows, whose sums are added in a fixed order through shared
+//   memory. One f32 partial per block. The padding is a template constant.
+//   Registers (ptxas) and shared bytes a block, pads 0 / 1 / 2:
+//     bf16 C 32: 100 / 113 / 191, 94,800 / 107,728 / 120,144
+//     bf16 C 16:  93 /  96 / 191, 76,112 /  86,480 /  96,848
+//     bf16 C  8:  94 /  91 / 188, 66,768 /  75,856 /  85,200
+//     f32  C 32: 125 / 128 / 181, 51,792 /  58,320 /  65,616
+//     f32  C 16: 123 / 128 / 182, 50,512 /  57,040 /  64,336
+//     f32  C  8: 113 / 123 / 182, 49,872 /  56,400 /  63,696
+//   Pads 0 and 1 ask for two blocks of 8 warps per SM (<= 128 registers; f32
+//   C 16 and 32 at pad 1 spill 4 bytes), pad 2 for one.
+//   What bounds it (the card, [5, 224, 224, 32] bf16, S = 5, pad 1; phases
+//   timed by removing one): the projection with its softmax epilogue and
+//   the joints each take a large share, neither dominant; the feature
+//   copies, which cross L2 once per subhead, and two barriers a tile take
+//   much of the rest. The split's bound is 0.037 ms; the kernel issues ~54
+//   GFLOP of mma for its 12.2 useful (the split's three products, K padded
+//   to 24, the spare rows of the fragments, the halo's recomputed
+//   projections).
+//
+// - E2: one block of 8 warps per SM walks
 //   16 x 16 tiles (bf16 features, pad <= 1) or 8 x 16 tiles, all subheads of
 //   a tile in turn, each warp one or two tile rows (m16 fragments of pixels).
 //   Per tile, cp.async brings both views' feature halos (bf16, the border
@@ -55,12 +103,7 @@
 //   df stays in registers across the subheads and is written once per tile;
 //   each warp's dW / db sums go through shared memory into the block's f32
 //   partial in a fixed order.
-//   Operand precision: every f32 operand x is split into bf16 pieces, x ~=
-//   x0 + x1 (+ x2), x_i the rounding of what the earlier pieces left; a
-//   product takes the pairs of pieces (i, j) with i + j < pieces (hi hi +
-//   hi lo + lo hi for two), so it keeps ~16 (two pieces) or ~24 bits (three)
-//   instead of bf16's 8 at 3 (6) times the mma work. bf16 features are exact
-//   and take no split. p, dz and W take two pieces for bf16 features and
+//   Operand precision: p, dz and W take two pieces for bf16 features and
 //   three for f32 features (whose gradients are held to 1e-5); the cotangent
 //   takes two, three at pad 0, after a centring that drops out of dz
 //   exactly: dp2 uses Jbar_t minus its mean over j and dp1 Jbar_t minus its
@@ -103,7 +146,6 @@ constexpr int kTile = kT * kT;       // pixels of a tile
 constexpr int kK = 20;               // clusters per subhead the kernels are built for
 constexpr int kMaxPad = 2;
 constexpr int kMaxSK = 160;          // largest S * K
-constexpr int kMaxPer = 4;           // E1 accumulator items per thread
 constexpr int kSumThreads = 256;
 
 struct Geo {
@@ -111,6 +153,7 @@ struct Geo {
   int td, td2;                       // displacements per axis, in all
   int hw, nh;                        // halo tile side, halo tile pixels
   int ntx, ntiles;                   // tiles per image row, tiles in all
+  int nhp;                           // halo tile pixels padded to 16
 };
 
 Geo make_geo(int B, int H, int W, int S, int pad) {
@@ -126,6 +169,7 @@ Geo make_geo(int B, int H, int W, int S, int pad) {
   g.nh = g.hw * g.hw;
   g.ntx = (W + kT - 1) / kT;
   g.ntiles = B * ((H + kT - 1) / kT) * g.ntx;
+  g.nhp = (g.nh + 15) / 16 * 16;
   return g;
 }
 
@@ -204,107 +248,433 @@ __device__ __forceinline__ void project_softmax(const float (&f)[C], const float
   for (int k = 0; k < K; ++k) p[k] = p[k] / s;
 }
 
+// x ~= p[0] + p[1] (+ p[2]) for a pair (a, b): each piece is the bf16 rounding
+// of what the earlier pieces left (low half: a)
+template <int N>
+__device__ __forceinline__ void split2(float a, float b, unsigned (&p)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    p[i] = *reinterpret_cast<const unsigned*>(&h);
+    a -= __low2float(h);
+    b -= __high2float(h);
+  }
+}
+
+// ------------------------------------------ tensor-core projection -----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 8;            // warps of an E1 or E2 block
+constexpr int kThr = 32 * kWarps;
+constexpr int kKP = 24;              // clusters padded to three n8 tiles (k16 + k8)
+
+// k16 steps of the projection over C channels (C = 8: one k8 step)
+template <int C>
+constexpr int kSteps = C >= 16 ? C / 16 : 1;
+
+// The B fragments of W_s [C][24] (NW bf16 pieces in shared memory, piece
+// stride C x 24) for Z = F W_s: per piece and k step, three n8 tiles
+template <int NW, int C>
+__device__ __forceinline__ void load_w_frags(const bf16* sW, int lane,
+                                             unsigned (&wb)[NW][kSteps<C>][6]) {
+  const int lj = lane >> 3, lr = lane & 7;
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+#pragma unroll
+    for (int kc = 0; kc < kSteps<C>; ++kc) {
+      const bf16* wp = sW + (size_t)i * C * kKP;
+      if constexpr (C >= 16) {
+        unsigned r4[4], r2[2];
+        tc::ldsm_x4_trans(tc::smem_addr(wp + (kc * 16 + lr + 8 * (lj & 1)) * kKP + 8 * (lj >> 1)), r4);
+        tc::ldsm_x2_trans(tc::smem_addr(wp + (kc * 16 + lr + 8 * (lj & 1)) * kKP + 16), r2);
+        wb[i][kc][0] = r4[0]; wb[i][kc][1] = r4[1];
+        wb[i][kc][2] = r4[2]; wb[i][kc][3] = r4[3];
+        wb[i][kc][4] = r2[0]; wb[i][kc][5] = r2[1];
+      } else {
+        unsigned r2[2];
+        tc::ldsm_x2_trans(tc::smem_addr(wp + lr * kKP + 8 * (lj & 1)), r2);
+        wb[i][kc][0] = r2[0];
+        wb[i][kc][1] = r2[1];
+        wb[i][kc][2] = tc::ldsm_x1_trans(tc::smem_addr(wp + lr * kKP + 16));
+      }
+    }
+}
+
+// this lane's six bias columns of a fragment row (-inf on the padding 20-23)
+__device__ __forceinline__ void bias_cols(const float* bias, int lane, float (&bl)[3][2]) {
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * n + 2 * (lane & 3) + e;
+      bl[n][e] = col < kK ? bias[col] : -CUDART_INF_F;
+    }
+}
+
+// z = F W_s for 16 pixels (rows of F at stride CS elements) x 24 clusters:
+// the products of the exact bf16 features with each of W_s's NW pieces
+template <int NW, int C, int CS>
+__device__ __forceinline__ void project_chunk(const bf16* F, int lane,
+                                              const unsigned (&wb)[NW][kSteps<C>][6],
+                                              float (&z)[3][4]) {
+  const int lj = lane >> 3, lr = lane & 7;
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[n][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < kSteps<C>; ++kc) {
+    if constexpr (C >= 16) {
+      unsigned a[4];
+      tc::ldsm_x4(tc::smem_addr(F + (lr + 8 * (lj & 1)) * CS + kc * 16 + 8 * (lj >> 1)), a);
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+#pragma unroll
+        for (int n = 0; n < 3; ++n) tc::mma_bf16(z[n], a, wb[i][kc][2 * n], wb[i][kc][2 * n + 1]);
+    } else {
+      unsigned a[2];
+      tc::ldsm_x2(tc::smem_addr(F + (lr + 8 * (lj & 1)) * CS), a);
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+#pragma unroll
+        for (int n = 0; n < 3; ++n) tc::mma_bf16_k8(z[n], a[0], a[1], wb[i][kc][n]);
+    }
+  }
+}
+
+// The softmax of fragment row h (rows gq, gq + 8) over its 20 clusters, in
+// place: adds the bias columns, exponentiates and returns the row's sum (a
+// quad holds one pixel's row: two shuffles per reduction)
+__device__ __forceinline__ float softmax_row(float (&z)[3][4], int h, const float (&bl)[3][2]) {
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      z[n][2 * h + e] += bl[n][e];
+      m = fmaxf(m, z[n][2 * h + e]);
+    }
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  float sum = 0.f;
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float x = __expf(z[n][2 * h + e] - m);
+      z[n][2 * h + e] = x;
+      sum += x;
+    }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  return sum;
+}
+
 // ---------------------------------------------------------------- E1 -----
 
-template <typename T, int C, int K>
-__global__ void __launch_bounds__(kTile)
+namespace e1 {
+
+constexpr int kWP = 3;               // pieces of W_s (bf16 features)
+constexpr int kPP = 2;               // pieces of p
+
+// E1 at padding PAD: the warps of a block as RG row groups x FG = kWarps /
+// RG fragment groups, a warp holding at most MF m16 fragments of the
+// joints; MINB blocks per SM asked of ptxas (2: at most 128 registers).
+template <int PAD_, int MF_, int RG_, int MINB_>
+struct Plan {
+  static constexpr int PAD = PAD_, MF = MF_, RG = RG_, MINB = MINB_, FG = kWarps / RG_;
+  static constexpr int HW = kT + 2 * PAD, NH = HW * HW, NHP = (NH + 15) / 16 * 16;
+  static constexpr int TD = 2 * PAD + 1, TD2 = TD * TD;
+  static constexpr int NFRAG = (3 * TD2 + 1) / 2;  // 3 TD2 row groups of 8 clusters, in pairs
+  static_assert(MF * FG >= NFRAG, "every fragment has a warp");
+};
+using Pad0 = Plan<0, 2, 8, 2>;       // 2 fragments, each warp 2 of the tile's rows
+using Pad1 = Plan<1, 2, 1, 2>;       // 14 fragments over 8 warps
+using Pad2 = Plan<2, 5, 1, 1>;       // 38 fragments over 8 warps
+
+// bytes of each shared-memory region (the same on host and device)
+struct Lay {
+  size_t f, p, w, bias, total;
+};
+
+__host__ __device__ inline Lay layout(const Geo& g, int C, bool bf) {
+  Lay L;
+  size_t o = 0;
+  L.f = o;                           // bf16 features: f1's halo [nhp][C + 8], f2's tile [256][C + 8]
+  if (bf) o += (size_t)(g.nhp + kTile) * (C + 8) * 2;
+  L.p = o;                           // [piece][nh][24] p1 halo map, then [piece][256][24] p2 tile map
+  o += (size_t)kPP * (g.nh + kTile) * kKP * 2;
+  L.w = o;                           // W_s: [piece][C][24] bf16 pieces, or [C][K] f32 (f32 features)
+  o += bf ? (size_t)kWP * C * kKP * 2 : (size_t)C * kK * 4;
+  L.bias = o;                        // [K] f32
+  o += kK * 4;
+  L.total = o;
+  return L;
+}
+
+template <typename T, int C, typename P>
+__global__ void __launch_bounds__(kThr, P::MINB)
     iic_joints_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
                       const float* __restrict__ w, const float* __restrict__ b,
                       float* __restrict__ part, Geo g) {
-  static_assert(K % 4 == 0, "clusters come in groups of 4");
-  constexpr int NB = K / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                  // [C][K] weights of this block's subhead
-  float* bs = ws + C * K;            // [K]
-  float* p1h = bs + K;               // [nh][K] p1 on the halo tile, zero outside the image
-  float* p2t = p1h + g.nh * K;       // [kTile][K] p2 on the tile, zero outside the image
-  const int tid = threadIdx.x, s = blockIdx.y, SK = g.S * K;
-  for (int i = tid; i < C * K; i += kTile) {
-    const int c = i / K, k = i - c * K;
-    ws[i] = w[(size_t)c * SK + s * K + k];
-  }
-  for (int k = tid; k < K; k += kTile) bs[k] = b[s * K + k];
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int MF = P::MF, RG = P::RG, FG = P::FG, PAD = P::PAD, HW = P::HW, NH = P::NH;
+  constexpr int NHP = P::NHP, TD = P::TD, TD2 = P::TD2;
+  constexpr int CS = C + 8;          // feature pixel stride (elements)
+  static_assert(C % 8 == 0 && C <= 32, "channels");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Lay L = layout(g, C, BF);
+  bf16* sF = reinterpret_cast<bf16*>(smem + L.f);
+  bf16* sP1 = reinterpret_cast<bf16*>(smem + L.p);
+  float* sB = reinterpret_cast<float*>(smem + L.bias);
+  const int s = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;      // mma fragment row / column pair
+  const int lj = lane >> 3, lr = lane & 7;      // ldmatrix matrix / row of this lane
+  const int rg = warp / FG, fg = warp % FG;
+  const int SK = g.S * kK;
+  constexpr size_t m1 = (size_t)NH * kKP;        // one piece of the p1 halo map
+  constexpr size_t m2 = (size_t)kTile * kKP;     // one piece of the p2 tile map
+  bf16* sP2 = sP1 + kPP * m1;
 
-  // accumulator items (t, ib, jb): the 4 x 4 block (ib, jb) of displacement t's
-  // K x K joint; with fewer items than threads, `groups` thread groups split the
-  // tile's pixels and each keeps its own partial
-  const int nitems = g.td2 * NB * NB;
-  const bool few = nitems < kTile;
-  const int groups = few ? kTile / nitems : 1;
-  const int nper = (nitems + kTile - 1) / kTile;
-  const int grp = few ? tid / nitems : 0;
-  const bool active = grp < groups;
-  int tix[kMaxPer], toff[kMaxPer], iofs[kMaxPer], jofs[kMaxPer];
-  bool has[kMaxPer];
-  float acc[kMaxPer][16];
+  // W_s, split in the block (bf16 features), and b_s
+  if constexpr (BF) {
+    bf16* sW = reinterpret_cast<bf16*>(smem + L.w);
+    for (int e = tid; e < C * (kKP / 2); e += kThr) {
+      const int c = e / (kKP / 2), k = 2 * (e % (kKP / 2));
+      const float x0 = k < kK ? w[(size_t)c * SK + s * kK + k] : 0.f;
+      const float x1 = k + 1 < kK ? w[(size_t)c * SK + s * kK + k + 1] : 0.f;
+      unsigned pc[kWP];
+      split2<kWP>(x0, x1, pc);
 #pragma unroll
-  for (int r = 0; r < kMaxPer; ++r) {
-    const int it = (few ? tid % nitems : tid) + r * kTile;
-    has[r] = active && r < nper && it < nitems;
-    const int t = it / (NB * NB), ij = it - t * NB * NB;
-    tix[r] = t;
-    toff[r] = (t / g.td) * g.hw + t % g.td;
-    iofs[r] = (ij / NB) * 4;
-    jofs[r] = (ij % NB) * 4;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[r][e] = 0.f;
+      for (int i = 0; i < kWP; ++i)
+        *reinterpret_cast<unsigned*>(sW + ((size_t)i * C + c) * kKP + k) = pc[i];
+    }
+  } else {
+    float* sWf = reinterpret_cast<float*>(smem + L.w);
+    for (int e = tid; e < C * kK; e += kThr) sWf[e] = w[(size_t)(e / kK) * SK + s * kK + e % kK];
   }
+  for (int k = tid; k < kK; k += kThr) sB[k] = b[s * kK + k];
 
+  // f1's halo and f2's tile (bf16), zero outside the image
+  auto load_f = [&](int tile) {
+    int bi, y0, x0;
+    tile_origin(g, tile, bi, y0, x0);
+    constexpr int CV = C / 8;
+    for (int e = tid; e < (NHP + kTile) * CV; e += kThr) {
+      const int hp = e / CV, c8 = e % CV;
+      const bool halo = hp < NHP;
+      const int l = halo ? hp : hp - NHP;
+      const int y = halo ? y0 - PAD + l / HW : y0 + l / kT;
+      const int x = halo ? x0 - PAD + l % HW : x0 + l % kT;
+      const bool in = (!halo || l < NH) && y >= 0 && y < g.H && x >= 0 && x < g.W;
+      const T* src = in ? (halo ? f1 : f2) + (((size_t)bi * g.H + y) * g.W + x) * C + c8 * 8 : f1;
+      tc::cp_async16(tc::smem_addr(sF + (size_t)hp * CS + c8 * 8), src, in ? 16 : 0);
+    }
+  };
+
+  // This lane's ldmatrix offset (elements) into the p1 halo map for each of
+  // its fragments at tile row 0: half (lj & 1) of fragment f is row group
+  // h = 2 f + (lj & 1), i.e. displacement t = h / 3 and clusters 8 (h % 3)
+  // .. + 7; the lane addresses pixel 8 (lj >> 1) + lr of the tile row,
+  // shifted by t.
+  int aoff[MF];
+  bool has[MF];
+#pragma unroll
+  for (int m = 0; m < MF; ++m) {
+    const int f = fg + FG * m;
+    has[m] = f < P::NFRAG;
+    int h = 2 * f + (lj & 1);
+    if (h >= 3 * TD2) h = 3 * TD2 - 1;           // the last fragment's spare half: discarded
+    const int t = h / 3;
+    aoff[m] = ((t / TD) * HW + t % TD + 8 * (lj >> 1) + lr) * kKP + 8 * (h % 3);
+  }
+  float acc[MF][3][4];
+#pragma unroll
+  for (int m = 0; m < MF; ++m)
+#pragma unroll
+    for (int n = 0; n < 3; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  if constexpr (BF) {
+    load_f(blockIdx.x);
+    tc::cp_async_commit();
+  }
   for (int tile = blockIdx.x; tile < g.ntiles; tile += gridDim.x) {
     int bi, y0, x0;
     tile_origin(g, tile, bi, y0, x0);
-    __syncthreads();                   // weights staged / the last tile's maps consumed
-    for (int idx = tid; idx < g.nh + kTile; idx += kTile) {
-      const bool halo = idx < g.nh;
-      const int l = halo ? idx : idx - g.nh;
-      const int y = halo ? y0 - g.pad + l / g.hw : y0 + l / kT;
-      const int x = halo ? x0 - g.pad + l % g.hw : x0 + l % kT;
-      float* dst = (halo ? p1h : p2t) + l * K;
-      float p[K];
-      if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
-        float f[C];
-        load_row<C>((halo ? f1 : f2) + (((size_t)bi * g.H + y) * g.W + x) * C, f);
-        project_softmax<C, K>(f, ws, bs, p);
-      } else {
+    if constexpr (BF) tc::cp_async_wait<0>();
+    __syncthreads();  // (A) the features are in; the last tile's maps consumed
+
+    // ---- p1 on the halo and p2 on the tile -> kPP bf16 pieces, 0 outside the image
+    if constexpr (BF) {
+      // Z = F W_s on the tensor cores, 16 pixels x 24 clusters a chunk; the
+      // features are exact in bf16, W_s takes kWP pieces
+      unsigned wb[kWP][kSteps<C>][6];
+      load_w_frags<kWP, C>(reinterpret_cast<const bf16*>(smem + L.w), lane, wb);
+      float bl[3][2];
+      bias_cols(sB, lane, bl);
+      constexpr int nhc = NHP / 16;   // chunks of the halo; the tile's 16 follow
+      for (int q = warp; q < nhc + kTile / 16; q += kWarps) {
+        float z[3][4];
+        project_chunk<kWP, C, CS>(sF + (size_t)16 * q * CS, lane, wb, z);
 #pragma unroll
-        for (int k = 0; k < K; ++k) p[k] = 0.f;
+        for (int h = 0; h < 2; ++h) {
+          const float sum = softmax_row(z, h, bl);
+          const int l = 16 * q + gq + 8 * h;
+          bool in, store = true;
+          bf16* dst;
+          size_t pstride;
+          if (q < nhc) {
+            const int y = y0 - PAD + l / HW, x = x0 - PAD + l % HW;
+            in = y >= 0 && y < g.H && x >= 0 && x < g.W;
+            store = l < NH;
+            dst = sP1 + (size_t)l * kKP;
+            pstride = m1;
+          } else {
+            const int lt = l - NHP;
+            in = y0 + lt / kT < g.H && x0 + lt % kT < g.W;
+            dst = sP2 + (size_t)lt * kKP;
+            pstride = m2;
+          }
+          const float rs = in ? 1.f / sum : 0.f;
+          if (store) {
+#pragma unroll
+            for (int n = 0; n < 3; ++n) {
+              unsigned pc[kPP];
+              split2<kPP>(z[n][2 * h] * rs, z[n][2 * h + 1] * rs, pc);
+#pragma unroll
+              for (int i = 0; i < kPP; ++i)
+                *reinterpret_cast<unsigned*>(dst + i * pstride + 8 * n + 2 * tq) = pc[i];
+            }
+          }
+        }
       }
+    } else {
+      // f32 features: one pixel a thread on the FP32 cores (exact f32)
+      const float* sWf = reinterpret_cast<const float*>(smem + L.w);
+      for (int idx = tid; idx < NH + kTile; idx += kThr) {
+        const bool halo = idx < NH;
+        const int l = halo ? idx : idx - NH;
+        const int y = halo ? y0 - PAD + l / HW : y0 + l / kT;
+        const int x = halo ? x0 - PAD + l % HW : x0 + l % kT;
+        bf16* dst = (halo ? sP1 : sP2) + (size_t)l * kKP;
+        const size_t pstride = halo ? m1 : m2;
+        float p[kK];
+        if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
+          float fr[C];
+          load_row<C>((halo ? f1 : f2) + (((size_t)bi * g.H + y) * g.W + x) * C, fr);
+          project_softmax<C, kK>(fr, sWf, sB, p);
+        } else {
 #pragma unroll
-      for (int k = 0; k < K; k += 4)
-        *reinterpret_cast<float4*>(dst + k) = make_float4(p[k], p[k + 1], p[k + 2], p[k + 3]);
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int l = grp; l < kTile; l += groups) {
-      const int hb = (l / kT) * g.hw + l % kT;    // halo index of pixel l at displacement 0, 0
-      const float* q2 = p2t + l * K;
+          for (int k = 0; k < kK; ++k) p[k] = 0.f;
+        }
 #pragma unroll
-      for (int r = 0; r < kMaxPer; ++r) {
-        if (!has[r]) continue;
-        const float4 a = *reinterpret_cast<const float4*>(p1h + (hb + toff[r]) * K + iofs[r]);
-        const float4 c = *reinterpret_cast<const float4*>(q2 + jofs[r]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float cv[4] = {c.x, c.y, c.z, c.w};
+        for (int k = 0; k < kKP; k += 2) {
+          unsigned pc[kPP] = {0u, 0u};
+          if (k < kK) split2<kPP>(p[k], p[k + 1], pc);
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[r][u * 4 + v] = fmaf(av[u], cv[v], acc[r][u * 4 + v]);
+          for (int i = 0; i < kPP; ++i) *reinterpret_cast<unsigned*>(dst + i * pstride + k) = pc[i];
+        }
       }
     }
+    __syncthreads();  // (B) the maps are complete, the features consumed
+    if constexpr (BF) {
+      if (tile + (int)gridDim.x < g.ntiles) {
+        load_f(tile + gridDim.x);     // lands while the joints run
+        tc::cp_async_commit();
+      }
+    }
+
+    // ---- the joints as an implicit GEMM over the tile's pixels: per tile
+    // row (k = its 16 pixels) A = p1^T of the fragment's two row groups (a
+    // shifted ldmatrix.trans view of the halo map) and B = p2 (three n8
+    // tiles of j); the pieces' products hi hi + hi lo + lo hi. The tile's
+    // sums go into fresh accumulators, added to the block's once a tile:
+    // the tensor cores' f32 accumulation rounds toward zero, so one long
+    // chain into a large accumulator drifts (4e-5 of the largest joint over
+    // ~19 tiles a block at pad 1, twice that over twice the tiles at pad 2)
+    float tacc[MF][3][4];
+#pragma unroll
+    for (int m = 0; m < MF; ++m)
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tacc[m][n][e] = 0.f;
+#pragma unroll 1
+    for (int y = rg; y < kT; y += RG) {
+      unsigned bq[kPP][6];
+#pragma unroll
+      for (int i = 0; i < kPP; ++i) {
+        const bf16* Bp = sP2 + i * m2 + (size_t)(y * kT + lr + 8 * (lj & 1)) * kKP;
+        unsigned r4[4], r2[2];
+        tc::ldsm_x4_trans(tc::smem_addr(Bp + 8 * (lj >> 1)), r4);
+        tc::ldsm_x2_trans(tc::smem_addr(Bp + 16), r2);
+        bq[i][0] = r4[0]; bq[i][1] = r4[1]; bq[i][2] = r4[2]; bq[i][3] = r4[3];
+        bq[i][4] = r2[0]; bq[i][5] = r2[1];
+      }
+      const bf16* Ay = sP1 + (size_t)y * HW * kKP;
+#pragma unroll
+      for (int m = 0; m < MF; ++m) {
+        if (!has[m]) continue;
+        unsigned a[kPP][4];
+#pragma unroll
+        for (int i = 0; i < kPP; ++i) tc::ldsm_x4_trans(tc::smem_addr(Ay + i * m1 + aoff[m]), a[i]);
+#pragma unroll
+        for (int i = 0; i < kPP; ++i)
+#pragma unroll
+          for (int j = 0; j < kPP; ++j) {
+            if (i + j >= kPP) continue;
+#pragma unroll
+            for (int n = 0; n < 3; ++n) tc::mma_bf16(tacc[m][n], a[i], bq[j][2 * n], bq[j][2 * n + 1]);
+          }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MF; ++m)
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] += tacc[m][n][e];
   }
-  if (!active) return;
-  const int nparts = gridDim.x * groups;
-  float* out = part + ((size_t)s * nparts + (size_t)blockIdx.x * groups + grp) * g.td2 * K * K;
+
+  // ---- the block's partial: the row groups' sums added in order through
+  // shared memory (over the maps, once consumed), no atomics
+  constexpr int nel = TD2 * kK * kK;
+  float* out = part + ((size_t)s * gridDim.x + blockIdx.x) * nel;
+  float* red = reinterpret_cast<float*>(smem + L.p);
+  if constexpr (RG > 1) __syncthreads();
+#pragma unroll 1
+  for (int r = 0; r < RG; ++r) {
+    if (rg == r) {
 #pragma unroll
-  for (int r = 0; r < kMaxPer; ++r) {
-    if (!has[r]) continue;
+      for (int m = 0; m < MF; ++m) {
+        if (!has[m]) continue;
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+        for (int hh = 0; hh < 2; ++hh) {
+          const int h = 2 * (fg + FG * m) + hh;
+          const int t = h / 3, i = 8 * (h % 3) + gq;
+          if (h >= 3 * TD2 || i >= kK) continue;
 #pragma unroll
-      for (int v = 0; v < 4; ++v)
-        out[(tix[r] * K + iofs[r] + u) * K + jofs[r] + v] = acc[r][u * 4 + v];
+          for (int n = 0; n < 3; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 8 * n + 2 * tq + e, idx = (t * kK + i) * kK + j;
+              if (j >= kK) continue;
+              float v = acc[m][n][2 * hh + e];
+              if (r > 0) v += red[idx];
+              if (r == RG - 1) out[idx] = v;
+              else red[idx] = v;
+            }
+        }
+      }
+    }
+    if constexpr (RG > 1) __syncthreads();
   }
 }
+
+}  // namespace e1
 
 // out[y][e] = sum_{q < nparts} part[y][q][e], q in order (slab y = blockIdx.y).
 __global__ void __launch_bounds__(kSumThreads)
@@ -322,12 +692,7 @@ __global__ void __launch_bounds__(kSumThreads)
 
 namespace e2 {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 8;
-constexpr int kThr = 32 * kWarps;
 constexpr int kTW = 16;              // tile columns: one m16 fragment of pixels
-constexpr int kKP = 24;              // clusters padded to three n8 tiles (k16 + k8)
 
 template <typename T>
 struct Feat;
@@ -374,19 +739,6 @@ __host__ __device__ inline Lay layout(const G2& g, int C, int np, bool bf) {
   o += (size_t)kWarps * (C + 1) * kKP * 4;
   L.total = o;
   return L;
-}
-
-// x ~= p[0] + p[1] (+ p[2]) for a pair (a, b): each piece is the bf16 rounding
-// of what the earlier pieces left (low half: a)
-template <int N>
-__device__ __forceinline__ void split2(float a, float b, unsigned (&p)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    p[i] = *reinterpret_cast<const unsigned*>(&h);
-    a -= __low2float(h);
-    b -= __high2float(h);
-  }
 }
 
 __device__ __forceinline__ float2 unpack(unsigned u) {
@@ -549,89 +901,19 @@ __global__ void __launch_bounds__(kThr, 1)
       // ---- both views' softmaxes on the halo tile -> NP bf16 pieces
       if constexpr (BF) {
         // Z = F W_s on the tensor cores: 16 halo pixels x 24 clusters a chunk
-        constexpr int KS = C >= 16 ? C / 16 : 1;
-        unsigned wb[NP][KS][6];
-#pragma unroll
-        for (int i = 0; i < NP; ++i)
-#pragma unroll
-          for (int kc = 0; kc < KS; ++kc) {
-            const bf16* wp = sW + (size_t)i * C * kKP;
-            if constexpr (C >= 16) {
-              unsigned r4[4], r2[2];
-              tc::ldsm_x4_trans(tc::smem_addr(wp + (kc * 16 + lr + 8 * (lj & 1)) * kKP + 8 * (lj >> 1)), r4);
-              tc::ldsm_x2_trans(tc::smem_addr(wp + (kc * 16 + lr + 8 * (lj & 1)) * kKP + 16), r2);
-              wb[i][kc][0] = r4[0]; wb[i][kc][1] = r4[1];
-              wb[i][kc][2] = r4[2]; wb[i][kc][3] = r4[3];
-              wb[i][kc][4] = r2[0]; wb[i][kc][5] = r2[1];
-            } else {
-              unsigned r2[2];
-              tc::ldsm_x2_trans(tc::smem_addr(wp + lr * kKP + 8 * (lj & 1)), r2);
-              wb[i][kc][0] = r2[0];
-              wb[i][kc][1] = r2[1];
-              wb[i][kc][2] = tc::ldsm_x1_trans(tc::smem_addr(wp + lr * kKP + 16));
-            }
-          }
-        // this lane's six bias columns (-inf on the padding columns 20-23)
+        unsigned wb[NP][kSteps<C>][6];
+        load_w_frags<NP, C>(sW, lane, wb);
         float bl[3][2];
-#pragma unroll
-        for (int n = 0; n < 3; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * n + 2 * tq + e;
-            bl[n][e] = col < kK ? bias[col] : -CUDART_INF_F;
-          }
+        bias_cols(bias, lane, bl);
         const float hw_inv = 1.f / g.hw;
         const int nch = g.nhp / 16;
         for (int ch = warp; ch < 2 * nch; ch += kWarps) {
           const int v = ch >= nch, q = ch - v * nch;
-          const bf16* F = sF + (size_t)v * g.nhp * CS;
           float z[3][4];
-#pragma unroll
-          for (int n = 0; n < 3; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) z[n][e] = 0.f;
-#pragma unroll
-          for (int kc = 0; kc < KS; ++kc) {
-            if constexpr (C >= 16) {
-              unsigned a[4];
-              tc::ldsm_x4(tc::smem_addr(F + (16 * q + lr + 8 * (lj & 1)) * CS + kc * 16 + 8 * (lj >> 1)), a);
-#pragma unroll
-              for (int i = 0; i < NP; ++i)
-#pragma unroll
-                for (int n = 0; n < 3; ++n) tc::mma_bf16(z[n], a, wb[i][kc][2 * n], wb[i][kc][2 * n + 1]);
-            } else {
-              unsigned a[2];
-              tc::ldsm_x2(tc::smem_addr(F + (16 * q + lr + 8 * (lj & 1)) * CS), a);
-#pragma unroll
-              for (int i = 0; i < NP; ++i)
-#pragma unroll
-                for (int n = 0; n < 3; ++n) tc::mma_bf16_k8(z[n], a[0], a[1], wb[i][kc][n]);
-            }
-          }
-          // softmax over the 20 clusters of a row: a quad holds one pixel's row
+          project_chunk<NP, C, CS>(sF + ((size_t)v * g.nhp + 16 * q) * CS, lane, wb, z);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float m = -CUDART_INF_F;
-#pragma unroll
-            for (int n = 0; n < 3; ++n)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                z[n][2 * h + e] += bl[n][e];
-                m = fmaxf(m, z[n][2 * h + e]);
-              }
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-            float sum = 0.f;
-#pragma unroll
-            for (int n = 0; n < 3; ++n)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float x = __expf(z[n][2 * h + e] - m);
-                z[n][2 * h + e] = x;
-                sum += x;
-              }
-            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            const float sum = softmax_row(z, h, bl);
             const int l = 16 * q + gq + 8 * h;
             const int hy = (int)((l + 0.5f) * hw_inv);           // l / hw for l < 2^16
             const int y = y0 - g.pad + hy, x = x0 - g.pad + l - hy * g.hw;
@@ -1014,16 +1296,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-size_t fwd_smem(int C, const Geo& g) {
-  return sizeof(float) * ((size_t)C * kK + kK + (size_t)g.nh * kK + (size_t)kTile * kK);
-}
-
-// E1: thread groups per block (pixels split among them when items are few).
-int fwd_groups(const Geo& g) {
-  const int nitems = g.td2 * (kK / 4) * (kK / 4);
-  return nitems < kTile ? kTile / nitems : 1;
-}
-
 template <typename K>
 int resident_blocks(K kern, size_t smem, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1033,7 +1305,7 @@ int resident_blocks(K kern, size_t smem, int* blocks) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kTile, smem)) !=
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThr, smem)) !=
       cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -1065,7 +1337,7 @@ int make_g2(const Geo& in, int C, bool bf, e2::G2* out) {
   // cancel, keeps the rounding of the cotangent's second piece
   g.jp = in.pad == 0 ? 3 : 2;
   const int np = bf ? e2::Feat<__nv_bfloat16>::NP : e2::Feat<float>::NP;
-  g.img = 2 * g.jp * g.jrows * e2::kKP + np * C * e2::kKP;
+  g.img = 2 * g.jp * g.jrows * kKP + np * C * kKP;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1097,16 +1369,25 @@ struct Impl {
     }
   }
 
-  // blocks of the grid's x dimension and partials per subhead (E1) / the
-  // block partials and the rows that hold the operand images (E2)
+  // E1's kernel at padding pad, with its warp plan
+  template <typename F>
+  static int with_fwd_kernel(int pad, F&& fn) {
+    if (pad == 0) return fn(e1::iic_joints_kernel<T, C, e1::Pad0>);
+    if (pad == 1) return fn(e1::iic_joints_kernel<T, C, e1::Pad1>);
+    return fn(e1::iic_joints_kernel<T, C, e1::Pad2>);
+  }
+
+  // blocks of the grid's x dimension, one partial each, per subhead (E1) /
+  // the block partials and the rows that hold the operand images (E2)
   static int plan(int mode, const Geo& g, int* nblk, int* nparts) {
     int blocks = 0, rc;
     if (mode == 0) {
-      rc = resident_blocks(iic_joints_kernel<T, C, kK>, fwd_smem(C, g), &blocks);
+      const e1::Lay L = e1::layout(g, C, BF);
+      rc = with_fwd_kernel(g.pad, [&](auto kern) { return resident_blocks(kern, L.total, &blocks); });
       if (rc) return rc;
       *nblk = blocks / g.S > 1 ? blocks / g.S : 1;
       if (*nblk > g.ntiles) *nblk = g.ntiles;
-      *nparts = *nblk * fwd_groups(g);
+      *nparts = *nblk;
     } else {
       e2::G2 g2;
       if ((rc = make_g2(g, C, BF, &g2))) return rc;
@@ -1124,9 +1405,13 @@ struct Impl {
     int nblk = 0, nparts = 0;
     int rc = plan(0, a.g, &nblk, &nparts);
     if (rc) return rc;
-    iic_joints_kernel<T, C, kK><<<dim3(nblk, a.g.S), kTile, fwd_smem(C, a.g), a.stream>>>(
-        static_cast<const T*>(a.f1), static_cast<const T*>(a.f2), static_cast<const float*>(a.w),
-        static_cast<const float*>(a.b), static_cast<float*>(a.part), a.g);
+    with_fwd_kernel(a.g.pad, [&](auto kern) {
+      kern<<<dim3(nblk, a.g.S), kThr, e1::layout(a.g, C, BF).total, a.stream>>>(
+          static_cast<const T*>(a.f1), static_cast<const T*>(a.f2),
+          static_cast<const float*>(a.w), static_cast<const float*>(a.b),
+          static_cast<float*>(a.part), a.g);
+      return 0;
+    });
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n = a.g.td2 * kK * kK;
@@ -1146,13 +1431,13 @@ struct Impl {
     float* part = static_cast<float*>(a.part);
     auto* img = reinterpret_cast<__nv_bfloat16*>(part + (size_t)nblk * a.g.S * (C + 1) * kK);
     auto prep = g2.jp == 3 ? e2::iic_joints_bwd_prep<NP, 3> : e2::iic_joints_bwd_prep<NP, 2>;
-    prep<<<a.g.S, e2::kThr, 0, a.stream>>>(static_cast<const float*>(a.jbar),
+    prep<<<a.g.S, kThr, 0, a.stream>>>(static_cast<const float*>(a.jbar),
                                            static_cast<const float*>(a.w), img, g2, C);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const size_t smem = e2::layout(g2, C, NP, BF).total;
     with_bwd_kernel(g2, [&](auto kern) {
-      kern<<<nblk, e2::kThr, smem, a.stream>>>(
+      kern<<<nblk, kThr, smem, a.stream>>>(
           static_cast<const T*>(a.f1), static_cast<const T*>(a.f2),
           static_cast<const float*>(a.w), static_cast<const float*>(a.b), img,
           static_cast<T*>(a.df1), static_cast<T*>(a.df2), part, g2);

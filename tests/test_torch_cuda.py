@@ -424,6 +424,40 @@ def _loss_cotangent(f1, f2, w, b, S, pad):
     return raw.grad
 
 
+#: (B, H, W, C, S, padding, features) of E1: ragged images (20 x 36 and 17 x
+#: 33 are not whole 16 x 16 tiles), every padding, width and feature dtype,
+#: S = 1 and S * K = 160
+E1_CASES = [(2, 20, 36, 32, 5, 1, torch.bfloat16), (2, 17, 33, 16, 8, 1, torch.bfloat16),
+            (2, 17, 33, 8, 1, 0, torch.bfloat16), (2, 20, 36, 32, 5, 0, torch.bfloat16),
+            (2, 20, 36, 16, 5, 2, torch.bfloat16), (1, 17, 33, 32, 8, 2, torch.bfloat16),
+            (2, 20, 36, 8, 3, 0, torch.float32), (2, 17, 33, 16, 1, 1, torch.float32),
+            (2, 20, 36, 32, 8, 1, torch.float32), (2, 17, 33, 32, 2, 2, torch.float32),
+            (1, 20, 36, 8, 5, 2, torch.float32), (2, 17, 33, 32, 5, 0, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,C,S,pad,dtype", E1_CASES)
+def test_e1_matches_plain_and_repeats_bitwise(B, H, W, C, S, pad, dtype):
+    """E1 (split-bf16 operands on the tensor cores) against its plain
+    version run in float64, within 1e-5 of the largest raw joint; two
+    launches on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    f1, f2 = (torch.randn(B, H, W, C, generator=g, device=dev).to(dtype) for _ in range(2))
+    w = torch.randn(C, S * 20, generator=g, device=dev) * 0.3
+    b = torch.randn(S * 20, generator=g, device=dev) * 0.1
+    kw = dict(num_subheads=S, num_clusters=20, padding=pad)
+    got, again = iic.iic_joints(f1, f2, w, b, **kw), iic.iic_joints(f1, f2, w, b, **kw)
+    ref = iic.iic_joints_plain(f1, f2, w.double(), b.double(), **kw)
+    what = f"E1 {B}x{H}x{W} C={C} S={S} pad={pad} {dtype}"
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got, again), f"{what}: two launches differ"
+    scaled_close(got.double(), ref, tol=1e-5, what=what)
+    torch.cuda.synchronize()
+
+
 #: (B, H, W, C, S, padding, features, cotangent) of E2: ragged images (20 x 36
 #: and 17 x 33 are not whole 16 x 16 or 8 x 16 tiles), every padding, width and
 #: feature dtype, S = 1 and S * K = 160, the loss cotangent at every padding
@@ -582,6 +616,24 @@ def test_backward_yardsticks_compute_c1_c2_functions():
     torch.testing.assert_close(dk, torch.cat([sdk, xdk], 2), **tol)
 
 
+def test_iic_bounds_count_the_split_products():
+    """chip_smoke.py bounds E1 and E2 by their useful FLOP times the fewest
+    products of bf16 pieces their splits need, on the bf16 tensor cores; at
+    the udaiic shapes ([5, 224, 224, 32] bf16, S = 5, K = 20) E1's is
+    operations-bound: 0.0371 ms at padding 1, 0.0128 at 0, 0.0858 at 2."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    f = torch.empty(5, 224, 224, 32, dtype=torch.bfloat16, device="meta")
+    for pad, want in ((1, 0.0371), (0, 0.0128), (2, 0.0858)):
+        nbytes = smoke.iic_work(f, 5, 20, pad)["iic_joints"][0]
+        ms, by = smoke._bound(nbytes, smoke.e1_split_flops(f, 5, 20, pad), smoke.BF16_FLOPS)
+        assert by == "operations" and abs(ms - want) < 1e-4, (pad, ms, by)
+
+
 def test_profile_step_names_the_hand_kernels():
     """profile_step attributes device events to the port's kernels by their
     CUDA function names: K1, K2 and K3 share the tensor-core body and differ
@@ -599,7 +651,8 @@ def test_profile_step_names_the_hand_kernels():
     assert _hand_kernel(ns + "dw1ch_kernel<32>" + params) == "C1 conv_dw_taps"
     assert _hand_kernel(ns + "convbwd_kernel<32>" + params) == "C2 conv3x3_bwd_fused"
     geo = "((anonymous namespace)::Geo)"
-    assert _hand_kernel(ns + "iic_joints_kernel<__nv_bfloat16, 32, 20>" + geo) == "E1 iic_joints"
+    e1 = ns + "e1::iic_joints_kernel<__nv_bfloat16, 32, (anonymous namespace)::e1::Plan<2, 1, 2> >"
+    assert _hand_kernel(e1 + geo) == "E1 iic_joints"
     assert (_hand_kernel(ns + "e2::iic_joints_bwd_kernel<__nv_bfloat16, 32, 2, 2>(float*)")
             == "E2 iic_joints_bwd")
     assert _hand_kernel(ns + "e2::iic_joints_bwd_prep<2, 3>(float const*)") == "E2 iic_joints_bwd"

@@ -1,5 +1,5 @@
-"""The accuracy of E2's split-bf16 operands (ops/csrc/iic.cu), emulated on the
-CPU in float64, before any card runs the kernel.
+"""The accuracy of E1's and E2's split-bf16 operands (ops/csrc/iic.cu),
+emulated on the CPU in float64, before any card runs the kernels.
 
 E2 runs its products on bf16 tensor cores with every f32 operand split into
 bf16 pieces, x ~= x0 + x1 (+ x2), each piece the rounding of what the earlier
@@ -10,10 +10,16 @@ in float64 and the results held to the card tests' tolerances
 bf16 and 1e-5 in f32, dW and db 1e-4) against E2's plain version run in
 float64, at the card tests' ragged shapes on random and on the dense loss's
 own cotangents. A second test shows why the cotangent is centred first.
+E1's scheme (W_s in three pieces on bf16 features, the FP32 cores' exact
+projection on f32 features; p in two pieces) is held to the card tests' 1e-5
+of the largest raw joint against E1's plain version in f32, and the dense
+loss through it to chip_smoke.py's IIC_LOSS_RTOL; a last test shows that p
+in one piece misses the 1e-5.
 
     PYTHONPATH=. python tests/test_torch_split_bf16.py
 
-prints every case's errors (max |err| / max |ref| of df1, df2, dW, db).
+prints every case's errors (max |err| / max |ref| of df1, df2, dW, db; of
+E1's raw joints and the relative error of its loss).
 """
 import numpy as np
 import pytest
@@ -27,6 +33,11 @@ torch.set_num_threads(1)
 K = 20
 TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
 DK_TOL = 1e-4
+#: E1's raw joints against its plain version, in units of the largest raw
+#: joint (tests/test_torch_cuda.py), and the dense loss through them
+#: (chip_smoke.py)
+RAW_TOL = 1e-5
+IIC_LOSS_RTOL = 1e-3
 
 
 
@@ -99,6 +110,71 @@ def e2_split(f1, f2, w, b, jbar, S: int, P: int, sc: dict):
     return df1, df2, dw, dz1.sum((0, 1, 2)) + dz2.sum((0, 1, 2))
 
 
+def e1_scheme(dtype) -> dict:
+    """E1's pieces per operand (0: not rounded): f (features, the
+    projection's A operand), w (its B operand; f32 features project on the
+    FP32 cores), p (softmax maps, both operands of the joints)."""
+    if dtype == torch.bfloat16:
+        return dict(f=0, w=3, p=2)
+    return dict(f=0, w=0, p=2)
+
+
+def e1_split(f1, f2, w, b, S: int, P: int, sc: dict) -> torch.Tensor:
+    """E1's raw joints [S, Td, Td, K, K] with the operand roundings of
+    scheme ``sc``."""
+    B, H, W, C = f1.shape
+    td = 2 * P + 1
+
+    def probs(f):
+        z = mm("bhwc,ck->bhwk", f, w, sc["f"], sc["w"]) + b
+        return torch.softmax(z.reshape(B, H, W, S, K), -1)
+
+    p1 = torch.nn.functional.pad(probs(f1), (0, 0, 0, 0, P, P, P, P))
+    p2 = probs(f2)
+    return torch.stack([torch.stack([
+        mm("bhwsi,bhwsj->sij", p1[:, ty:ty + H, tx:tx + W], p2, sc["p"], sc["p"])
+        for tx in range(td)], 1) for ty in range(td)], 1)
+
+
+#: (B, H, W, C, S, padding, features): the E1 card tests' ragged images,
+#: every padding, width and dtype, S = 1 and S * K = 160
+E1_CASES = [(2, 20, 36, 32, 5, 1, torch.bfloat16), (2, 17, 33, 16, 8, 1, torch.bfloat16),
+            (2, 17, 33, 8, 1, 0, torch.bfloat16), (2, 20, 36, 32, 5, 0, torch.bfloat16),
+            (2, 20, 36, 16, 5, 2, torch.bfloat16), (1, 17, 33, 32, 8, 2, torch.bfloat16),
+            (2, 20, 36, 8, 3, 0, torch.float32), (2, 17, 33, 16, 1, 1, torch.float32),
+            (2, 20, 36, 32, 8, 1, torch.float32), (2, 17, 33, 32, 2, 2, torch.float32),
+            (1, 20, 36, 8, 5, 2, torch.float32), (2, 17, 33, 32, 5, 0, torch.float32)]
+
+
+def _e1_errors(B, H, W, C, S, P, dtype, sc):
+    """(max |err| / max |ref| of the raw joints, relative error of the summed
+    dense loss) of scheme ``sc`` against E1's plain version in f32."""
+    f1, f2, w, b, _ = _inputs(B, H, W, C, S, P, dtype, "randn")
+    got = e1_split(f1, f2, w, b, S, P, sc).double()
+    ref = iic_joints_plain(f1, f2, w, b, num_subheads=S, num_clusters=K, padding=P).double()
+    raw = float((got - ref).abs().max() / ref.abs().max())
+    loss = [float(iid_loss_from_raw_joints(r, padding=P, count=B * H * W).sum()) for r in (got, ref)]
+    return raw, abs(loss[0] - loss[1]) / abs(loss[1])
+
+
+@pytest.mark.parametrize("B,H,W,C,S,P,dtype", E1_CASES)
+def test_e1_operand_split_keeps_the_card_tolerances(B, H, W, C, S, P, dtype):
+    """E1's scheme keeps the raw joints within RAW_TOL and the dense loss
+    within IIC_LOSS_RTOL of the f32 plain version."""
+    raw, loss = _e1_errors(B, H, W, C, S, P, dtype, e1_scheme(dtype))
+    assert raw <= RAW_TOL, f"raw {raw:.2e} > {RAW_TOL}"
+    assert loss <= IIC_LOSS_RTOL, f"loss {loss:.2e} > {IIC_LOSS_RTOL}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_e1_needs_p_in_two_pieces(dtype):
+    """p in one bf16 piece (one product a pair) takes the raw joints beyond
+    RAW_TOL; the kernel's two pieces keep them within."""
+    case = (2, 20, 36, 32, 5, 1, dtype)
+    assert _e1_errors(*case, dict(e1_scheme(dtype), p=1))[0] > RAW_TOL
+    assert _e1_errors(*case, e1_scheme(dtype))[0] <= RAW_TOL
+
+
 def _inputs(B, H, W, C, S, P, dtype, cot, seed=0):
     rng = np.random.default_rng(seed)
     f1, f2 = (torch.from_numpy(rng.standard_normal((B, H, W, C))).float().to(dtype)
@@ -150,7 +226,18 @@ def test_padding_0_loss_needs_more_than_a_two_piece_cotangent(dtype):
 
 
 if __name__ == "__main__":
-    print("max |err| / max |ref| of df1 df2 dW db against the plain version in float64")
+    print("E1: max |err| / max |ref| of the raw joints, relative error of the loss, against "
+          "the plain version in f32")
+    for case in E1_CASES:
+        dtype = case[-1]
+        line = f"{case[:4]} {str(dtype)[6:]} S={case[4]} pad={case[5]}"
+        schemes = [("E1", e1_scheme(dtype)), ("p in 1", dict(e1_scheme(dtype), p=1))]
+        if dtype == torch.bfloat16:
+            schemes.append(("W in 2", dict(e1_scheme(dtype), w=2)))
+        for name, sc in schemes:
+            line += f" | {name} " + " ".join(f"{e:.1e}" for e in _e1_errors(*case, sc))
+        print(line, flush=True)
+    print("E2: max |err| / max |ref| of df1 df2 dW db against the plain version in float64")
     for B, H, W, C, S, P, dtype in CASES:
         for cot in ("randn", "loss"):
             args = _inputs(B, H, W, C, S, P, dtype, cot)
