@@ -14,8 +14,15 @@ Phases, in order; any failure exits non-zero:
    kernel, plain and library
    (cuDNN bf16 channels-last convolution) times from CUDA events;
 4. the SupCon kernels (D1 ``supcon_loss``, D2 ``supcon_dz``) against their
-   plain versions at M = 36, 180 and 256 anchors, d = 256, partition and
-   identity masks, f32 with TF32 off;
+   plain versions at M = 36, 96, 180, 256 and 480 anchors, d = 256,
+   partition and identity masks, f32 with TF32 off, two launches bitwise
+   equal; each timed as the wrapper's eager call (``ms``) and on the
+   device alone (``device_ms``: CUDA events around the replay of a CUDA
+   graph of 20 launches); then (4b) the route: ``sup_con_loss`` value and
+   gradient, fused (D1 + D2) against eager, at 2N = 36 to 4096, wall time
+   of synchronized eager calls and graph-replayed device time, one line per
+   size and mask kind and the sizes where the fused form is no slower on
+   both counts;
 5. the backward kernels (C1 ``conv_dw_taps``, C2 ``conv3x3_bwd_fused``)
    against their plain versions at the shapes of the paths' backward (C1:
    Conv1.conv0 and the Up2 parity taps; C2: the seven convs with Cin >= 8, a
@@ -46,9 +53,11 @@ Phases, in order; any failure exits non-zero:
    per step, encoder: 1 and 3);
 8. the same two trainers with ``-o Data.name=prostate`` (2 classes, 8
    partitions, random 48-slice batches, 96 images per forward, colour
-   jitter 0.1): the same checks, with D1/D2 once per step (the Conv5 hook;
-   the dense hook's 480 anchors take the eager form) and C1/C2 as often as
-   the path implies (decoder: 2 and 9 per step, encoder: 1 and 3);
+   jitter 0.1): the same checks, the dense hook's 480 anchors through D1
+   against the plain SupCon too, with D1/D2 once per hook per step (the
+   route takes every count the card measured no slower fused, phase 4b)
+   and C1/C2 as often as the path implies (decoder: 2 and 9 per step,
+   encoder: 1 and 3);
 9. the dense-IIC kernels (E1 ``iic_joints``, E2 ``iic_joints_bwd``) against
    their plain versions at the Up_conv2 taps of ``semi``'s unlabeled batch
    (f1, f2 [5, 224, 224, 32] bf16, 5 subheads of 20 clusters) at paddings 1
@@ -73,7 +82,9 @@ six), ``max_abs_err`` the largest over the checked shapes, ``ms`` /
 ``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
 one launch each (C1/C2: over the batch-96 shapes only; ``by_batch`` has the
 sums at every checked batch, beside the einsum form's below 96 and, for C2,
-the split form's; E1/E2: at padding 1, with every padding in
+the split form's; D1/D2: over M = 36, 180 and 256, with ``device_ms``
+beside ``ms`` and every anchor count in ``by_anchors``, D1's record also
+holding the route sweep; E1/E2: at padding 1, with every padding in
 ``by_padding``); ``bound_ms`` is
 max(bytes / 3.35 TB/s, operations / peak) with the bf16 tensor peak (989
 TFLOP/s) for the conv kernels and for E1 and E2 (their useful FLOP times the
@@ -499,28 +510,92 @@ def check_bwd_kernels(device) -> dict:
     return recs
 
 
-def check_supcon(device) -> dict:
-    """Phase 4: D1 and D2 vs their plain versions (f32, TF32 off) at the
-    pretrain anchor counts (36: the encoder hook's 2 x 18; 180: the decoder
-    hook's 2 x 18 x 5 points) and the gate's largest (256), d = 256, with
-    partition labels and identity (self) masks."""
+#: anchor counts of phase 4: the pretrain paths' (36: ACDC's encoder hook, 2 x
+#: 18; 96: prostate's, 2 x 48; 180: ACDC's dense hook, 2 x 18 x 5 points; 480:
+#: prostate's, 2 x 48 x 5) and 256, the old gate's largest. The records' sums
+#: are over SUPCON_SUMMED, the shapes every earlier run summed.
+SUPCON_ANCHORS, SUPCON_SUMMED = (36, 96, 180, 256, 480), (36, 180, 256)
+#: phase 4b: the fused form against the eager one, value and gradient
+ROUTE_ANCHORS = (36, 96, 180, 256, 480, 960, 2048, 4096)
+
+
+def _graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device ms of one ``fn()``: CUDA events around the replay of a CUDA
+    graph that holds ``launches`` calls, over ``launches``; the median of
+    ``replays`` replays. The host's launch cost is out of it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[replays // 2]
+
+
+def _wall_ms(fn, iters: int = 20, reps: int = 3) -> float:
+    """Host ms of one ``fn()`` as an eager caller feels it: the host clock
+    around ``iters`` calls that end in a synchronize; the median of ``reps``."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / iters * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def supcon_inputs(M: int, masks: str, device, g, d: int = 256):
+    """Normalized z [M, d] and the pair code of two views of M / 2 items:
+    partition labels (3 partitions) or identity (self) masks."""
     import torch
     from contrastyou_tpu_torch.losses.contrastive import (_expand_masks,
                                                           pair_masks_from_target)
     from contrastyou_tpu_torch.ops import supcon
+    n = M // 2
+    z = torch.nn.functional.normalize(torch.randn(M, d, generator=g, device=device), dim=1)
+    target = torch.arange(n, device=device) % 3 if masks == "partition" else None
+    code = supcon.pair_code(*_expand_masks(
+        *pair_masks_from_target(target, n, device=device), n))
+    return z, code, target
+
+
+def check_supcon(device) -> dict:
+    """Phase 4: D1 and D2 vs their plain versions (f32, TF32 off) at
+    SUPCON_ANCHORS, d = 256, partition labels and identity (self) masks; two
+    launches of each bitwise equal. Per shape the wrapper's time (``ms``,
+    CUDA events around eager calls, host launch cost included) and the
+    kernel's device time (``device_ms``, graph replay); the records sum both
+    over SUPCON_SUMMED and keep every anchor count in ``by_anchors``."""
+    import torch
+    from contrastyou_tpu_torch.ops import supcon
 
     g = torch.Generator(device=device).manual_seed(2)
-    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
-                    bound_by="") for k in supcon.LAUNCHES}
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=None,
+                    bound_ms=0.0, bound_by="", by_anchors={}) for k in supcon.LAUNCHES}
     tau, d = 0.07, 256
-    for M in (36, 180, 256):
+    for M in SUPCON_ANCHORS:
         for masks in ("partition", "self"):
-            n = M // 2
-            z = torch.nn.functional.normalize(
-                torch.randn(M, d, generator=g, device=device), dim=1)
-            target = torch.arange(n, device=device) % 3 if masks == "partition" else None
-            code = supcon.pair_code(*_expand_masks(
-                *pair_masks_from_target(target, n, device=device), n))
+            z, code, _ = supcon_inputs(M, masks, device, g, d)
             got = supcon.supcon_loss(z, code, tau)
             ref = supcon.supcon_loss_plain(z, code, tau)
             loss_rel = abs(float(got[0].mean() - ref[0].mean())) / abs(float(ref[0].mean()))
@@ -529,30 +604,93 @@ def check_supcon(device) -> dict:
             dz = supcon.supcon_dz(z, code, got[1], got[2], gs, tau)
             dz_ref = supcon.supcon_dz_plain(z, code, ref[1], ref[2], gs, tau)
             dz_err, dz_rel = _rel_err(dz, dz_ref)
+            again = supcon.supcon_loss(z, code, tau)
+            twice = (all(torch.equal(a, b) for a, b in zip(got, again))
+                     and torch.equal(dz, supcon.supcon_dz(z, code, got[1], got[2], gs, tau)))
             torch.cuda.synchronize()
+            d1 = lambda: supcon.supcon_loss(z, code, tau)
+            d2 = lambda: supcon.supcon_dz(z, code, got[1], got[2], gs, tau)
             times = {
-                "supcon_loss": (_time_ms(lambda: supcon.supcon_loss(z, code, tau)),
+                "supcon_loss": (_time_ms(d1), _graph_ms(d1),
                                 _time_ms(lambda: supcon.supcon_loss_plain(z, code, tau)),
                                 _bound(M * d * 4 + M * M + 12 * M, 2 * M * M * d, F32_FLOPS),
                                 vec_err),
-                "supcon_dz": (_time_ms(lambda: supcon.supcon_dz(z, code, got[1], got[2], gs, tau)),
+                "supcon_dz": (_time_ms(d2), _graph_ms(d2),
                               _time_ms(lambda: supcon.supcon_dz_plain(z, code, ref[1], ref[2],
                                                                       gs, tau)),
                               _bound(8 * M * d + M * M + 8 * M + 4, 4 * M * M * d, F32_FLOPS),
                               dz_err)}
             print(f"  supcon M={M:3d} {masks:9s} loss rel {loss_rel:.2e} (per anchor "
-                  f"{vec_rel:.2e}) dz max_abs_err {dz_err:.3e} (rel {dz_rel:.2e}); " + "; ".join(
-                      f"{k} kernel {t[0]:.4f} ms plain {t[1]:.4f} ms bound {t[2][0]:.6f} ms"
-                      for k, t in times.items()))
+                  f"{vec_rel:.2e}) dz max_abs_err {dz_err:.3e} (rel {dz_rel:.2e}), twice "
+                  f"bitwise {twice}; " + "; ".join(
+                      f"{k} wrapper {t[0]:.4f} ms device {t[1]:.4f} ms plain {t[2]:.4f} ms "
+                      f"bound {t[3][0]:.6f} ms" for k, t in times.items()))
             if loss_rel > SUPCON_LOSS_RTOL or vec_rel > SUPCON_LOSS_RTOL or dz_rel > SUPCON_DZ_TOL:
                 raise AssertionError(f"SupCon M={M} {masks}: kernel disagrees with plain")
-            for k, (ms, pms, (bms, by), err) in times.items():
+            if not twice:
+                raise AssertionError(f"SupCon M={M} {masks}: two launches differ")
+            for k, (ms, dms, pms, (bms, by), err) in times.items():
                 r = recs[k]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["ms"] += ms
-                r["plain_ms"] += pms
-                _add_bound(r, bms, by)
+                agg = r["by_anchors"].setdefault(
+                    f"M={M}", {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0})
+                for key, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                               ("bound_ms", bms)):
+                    agg[key] += v
+                if M in SUPCON_SUMMED:
+                    r["ms"] += ms
+                    r["device_ms"] += dms
+                    r["plain_ms"] += pms
+                    _add_bound(r, bms, by)
     return recs
+
+
+def route_sweep(device) -> dict:
+    """Phase 4b: ``sup_con_loss`` value and gradient in z, fused (D1 + D2)
+    against eager (``fused=False``), on the same views, d = 256, at
+    ROUTE_ANCHORS with partition and self masks: the wall time of eager calls
+    (host clock, synchronized) and the device time (graph replay). Returns
+    the sizes at which the fused form was no slower on both counts (both
+    mask kinds), and the rows."""
+    import torch
+    from contrastyou_tpu_torch.losses.contrastive import sup_con_loss
+
+    g = torch.Generator(device=device).manual_seed(4)
+    rows, fused_wins, tau = [], [], 0.07
+    for M in ROUTE_ANCHORS:
+        wins = True
+        for masks in ("partition", "self"):
+            z, _, target = supcon_inputs(M, masks, device, g)
+
+            def step(fused):
+                # fresh leaves a call: their autograd nodes take the stream
+                # of the call (a graph capture's, in _graph_ms)
+                f1, f2 = (v.detach().requires_grad_() for v in z.chunk(2))
+                loss = sup_con_loss(f1, f2, target=target, temperature=tau, fused=fused)
+                return (loss.detach(), *torch.autograd.grad(loss, (f1, f2)))
+
+            (lf, *gf), (le, *ge) = step(True), step(False)
+            rel = abs(float(lf - le)) / abs(float(le))
+            grad_rel = max(_rel_err(a, b)[1] for a, b in zip(gf, ge))
+            if rel > SUPCON_LOSS_RTOL * 10 or grad_rel > SUPCON_DZ_TOL:
+                raise AssertionError(f"route M={M} {masks}: fused {float(lf)} vs eager "
+                                     f"{float(le)}, grad rel {grad_rel:.2e}")
+            row = {"anchors": M, "masks": masks,
+                   "fused_wall_ms": _wall_ms(lambda: step(True)),
+                   "eager_wall_ms": _wall_ms(lambda: step(False)),
+                   "fused_device_ms": _graph_ms(lambda: step(True)),
+                   "eager_device_ms": _graph_ms(lambda: step(False))}
+            rows.append(row)
+            wins &= (row["fused_wall_ms"] <= row["eager_wall_ms"]
+                     and row["fused_device_ms"] <= row["eager_device_ms"])
+            print(f"  route 2N={M:4d} {masks:9s} loss rel {rel:.1e} grad rel {grad_rel:.1e}; "
+                  f"fused wall {row['fused_wall_ms']:.4f} ms device "
+                  f"{row['fused_device_ms']:.4f} ms; eager wall {row['eager_wall_ms']:.4f} ms "
+                  f"device {row['eager_device_ms']:.4f} ms")
+        if wins:
+            fused_wins.append(M)
+    print(f"  route: fused no slower on both counts at 2N = {fused_wins} of {ROUTE_ANCHORS}")
+    return {"fused_no_slower_at": fused_wins, "rows": rows}
 
 
 def iic_work(f: "torch.Tensor", S: int, K: int, padding: int) -> dict:
@@ -929,12 +1067,12 @@ def check_hook_losses(run) -> None:
 
 
 #: launches per step of (D1 and D2 each, C1, C2) on each pretraining path:
-#: one D1/D2 pair per hook of at most 256 anchors (the prostate dense hook's
-#: 2 x 48 x 5 = 480 take the eager form); C1 for Conv1.conv0 (and Up2's
-#: taps), C2 for every other narrow conv input the backward reaches
+#: one D1/D2 pair per hook (36 / 180 anchors on ACDC, 96 / 480 on prostate,
+#: all under FUSED_MAX_ANCHORS); C1 for Conv1.conv0 (and Up2's taps), C2 for
+#: every other narrow conv input the backward reaches
 PRETRAIN_LAUNCHES = {
     ("pretrain_decoder", "acdc"): (2, 2, 9), ("pretrain", "acdc"): (1, 1, 3),
-    ("pretrain_decoder", "prostate"): (1, 2, 9), ("pretrain", "prostate"): (1, 1, 3),
+    ("pretrain_decoder", "prostate"): (2, 2, 9), ("pretrain", "prostate"): (1, 1, 3),
 }
 
 
@@ -1041,6 +1179,8 @@ def main() -> int:
     print("kernel vs plain (times per launch, CUDA events):")
     recs = check_kernels(device)
     recs.update(check_supcon(device))
+    print("SupCon route, fused (D1 + D2) vs eager, value and gradient, d = 256:")
+    route = route_sweep(device)
     print("dense-IIC kernels vs plain (f1, f2 [5, 224, 224, 32] bf16, S = 5, K = 20):")
     recs.update(check_iic(device))
     print("backward kernels vs plain (batch 96) and vs the einsum form (batches 5, 10, 36):")
@@ -1068,7 +1208,9 @@ def main() -> int:
                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"],
-                        **{k: r[k] for k in ("by_batch", "by_padding") if k in r}))
+                        **{k: r[k] for k in ("device_ms", "by_batch", "by_padding", "by_anchors")
+                           if k in r}))
+    out[[o["name"] for o in out].index("supcon_loss")]["route_sweep"] = route
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

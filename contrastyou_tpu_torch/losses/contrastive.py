@@ -4,10 +4,11 @@ contrastyou_tpu/losses/contrastive.py).
 ``sup_con_loss`` builds the [2N, 2N] positive / negative masks of two views
 from integer labels (identity masks for SimCLR) and computes either the eager
 form (one similarity matrix, global-max stabiliser, plain torch, as in JAX) or
-the fused form (kernels D1/D2 of ``ops/supcon.py``). The gate follows JAX
-``losses/contrastive.py:83-89``: the fused form for CUDA tensors with at most
-:data:`FUSED_MAX_ANCHORS` anchors and neither ``return_aux`` nor
-``exclude_other_pos``. The self-paced variant is not ported yet.
+the fused form (kernels D1/D2 of ``ops/supcon.py``). The gate has JAX's
+shape (``losses/contrastive.py:83-89``: the fused form for accelerator
+tensors with at most a set number of anchors and neither ``return_aux`` nor
+``exclude_other_pos``), but its number, :data:`FUSED_MAX_ANCHORS`, comes
+from the card, not from the TPU. The self-paced variant is not ported yet.
 """
 from __future__ import annotations
 
@@ -15,14 +16,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.supcon import fused_sup_con_loss
+from ..ops.supcon import MAX_ANCHORS, pair_code, sup_con_from_code
 
 __all__ = ["pair_masks_from_target", "FUSED_MAX_ANCHORS", "fused_route",
            "sup_con_loss"]
 
-#: anchor counts (2N) up to this take the fused kernels on the card (JAX
-#: routes the same counts to its Pallas kernel on the TPU)
-FUSED_MAX_ANCHORS = 256
+#: anchor counts (2N) up to this take the fused kernels on the card: their
+#: capacity, since chip_smoke.py's sweep (phase 4b: value and gradient, d =
+#: 256, partition and self masks, 2N = 36 to 4096) found the fused form no
+#: slower than the eager one, in wall time and in device time, at every
+#: measured size (NVIDIA H100, PERF.md). JAX's 256 was a TPU measurement.
+FUSED_MAX_ANCHORS = MAX_ANCHORS
 
 
 def pair_masks_from_target(target: Optional[torch.Tensor], batch_size: int, *,
@@ -62,16 +66,19 @@ def sup_con_loss(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *,
         pos_mask, neg_mask = (mask == 1).float(), (mask == 0).float()
     else:
         pos_mask, neg_mask = pair_masks_from_target(target, n, device=proj_feat1.device)
-    pos_mask, neg_mask = _expand_masks(pos_mask, neg_mask, n)
+    z = torch.cat([proj_feat1, proj_feat2], 0)
 
     if fused is None:
         fused = fused_route(2 * n, proj_feat1.device, return_aux=return_aux,
                             exclude_other_pos=exclude_other_pos)
     if fused:
-        z = torch.cat([proj_feat1, proj_feat2], 0)
-        return fused_sup_con_loss(z, pos_mask, neg_mask, temperature)
+        # the [2N, 2N] pair code straight from the [N, N] masks: one byte a
+        # pair, no [2N, 2N] float mask
+        code = pair_code(pos_mask, neg_mask).repeat(2, 2)
+        code.fill_diagonal_(0)
+        return sup_con_from_code(z, code, temperature)
 
-    z = torch.cat([proj_feat1, proj_feat2], 0)
+    pos_mask, neg_mask = _expand_masks(pos_mask, neg_mask, n)
     sim_logits = (z @ z.T) / temperature
     sim_logits = sim_logits - sim_logits.max().detach()
     sim_exp = torch.exp(sim_logits)

@@ -19,6 +19,7 @@ CUDA tensor to the kernel, which raises on what it does not take.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -26,14 +27,17 @@ import torch
 from . import _build
 
 __all__ = ["pair_code", "supcon_loss", "supcon_loss_plain", "supcon_dz",
-           "supcon_dz_plain", "fused_sup_con_loss", "LAUNCHES",
-           "reset_launch_counts"]
+           "supcon_dz_plain", "sup_con_from_code", "LAUNCHES", "MAX_ANCHORS",
+           "MAX_DIM", "reset_launch_counts"]
 
 #: launches of each kernel, counted by its wrapper where it launches
 LAUNCHES = {"supcon_loss": 0, "supcon_dz": 0}
 
-#: widest projection the kernels take (four output columns per thread)
+#: widest projection the kernels take (D2: 16 dz columns a lane)
 MAX_DIM = 512
+#: most anchors the kernels take at d <= MAX_DIM: the pair bytes are indexed
+#: in 32 bits, M^2 < 2^31 (``supcon_max_anchors`` reports the same number)
+MAX_ANCHORS = 46340
 
 
 def reset_launch_counts() -> None:
@@ -66,6 +70,12 @@ def supcon_loss_plain(z: torch.Tensor, code: torch.Tensor, temperature: float):
     return loss, lse, pos_count
 
 
+@functools.lru_cache(maxsize=None)
+def _max_anchors(d: int) -> int:
+    """``supcon_max_anchors(d)`` of the library, asked once per width."""
+    return _build.load_library("supcon").supcon_max_anchors(d)
+
+
 def _cuda_check(what: str, z: torch.Tensor, code: torch.Tensor, *f32) -> None:
     M, d = z.shape
     for t in (z, *f32):
@@ -76,8 +86,8 @@ def _cuda_check(what: str, z: torch.Tensor, code: torch.Tensor, *f32) -> None:
         raise ValueError(f"{what}: code must be a uint8 [{M}, {M}] tensor on {z.device}")
     if d > MAX_DIM:
         raise ValueError(f"{what}: projection width {d} > {MAX_DIM}")
-    if M > _build.load_library("supcon").supcon_max_anchors(d):
-        raise ValueError(f"{what}: {M} anchors do not fit the kernel's shared memory")
+    if M > _max_anchors(d):
+        raise ValueError(f"{what}: {M} anchors > {_max_anchors(d)}, the kernels' capacity")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -159,9 +169,9 @@ class _SupCon(torch.autograd.Function):
         return supcon_dz(z, code, lse, pcount, g, ctx.temperature), None, None
 
 
-def fused_sup_con_loss(z: torch.Tensor, pos_mask: torch.Tensor,
-                       neg_mask: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:
-    """z: [M, d] L2-normalized stacked projections (both views); masks:
-    [M, M] 0/1 with the diagonal already removed. Returns the scalar mean
-    per-anchor loss, differentiable in z (D1 forward, D2 backward)."""
-    return _SupCon.apply(z.float(), pair_code(pos_mask, neg_mask), float(temperature))
+def sup_con_from_code(z: torch.Tensor, code: torch.Tensor,
+                      temperature: float = 0.07) -> torch.Tensor:
+    """z: [M, d] L2-normalized stacked projections (both views); code: [M, M]
+    uint8 pair code (:func:`pair_code`, diagonal cleared). Returns the scalar
+    mean per-anchor loss, differentiable in z (D1 forward, D2 backward)."""
+    return _SupCon.apply(z.float(), code.contiguous(), float(temperature))

@@ -10,7 +10,8 @@ different orders and round once to bf16, so they may differ by one bf16 ulp
 value. Shapes are small and deliberately ragged (not multiples of the 8x16
 output tile) to exercise the edge masking. The SupCon kernels (f32) are held
 to loss rtol 1e-5 and dz 1e-4 of its largest value, at anchor counts that are
-not multiples of their 8-row blocks. The backward kernels' weight gradients
+not multiples of their 16-row tiles or 32-column chunks, with rows that have
+no positives, no mask or only negative similarities. The backward kernels' weight gradients
 (f32 on both sides) are held to 1e-4 of the largest |dk|, C2's dx (bf16) as
 the conv kernels are. The dense-IIC kernels (f32 math on bf16 or f32
 features) are held to 1e-5 of the largest raw joint and to DK_TOL of the
@@ -316,6 +317,85 @@ def test_supcon_kernels_match_plain():
         dz_ref = supcon.supcon_dz_plain(z, code, ref[1], ref[2], gs, 0.07)
         scaled_close(dz, dz_ref, tol=1e-4)
     torch.cuda.synchronize()
+
+
+#: (M, d, masks) of D1/D2: ragged anchor counts (not multiples of the 16-row
+#: tile or the 32-column chunk), the prostate dense hook's 480 and a
+#: multi-chunk 2048 (slices of 256 columns), widths 64 / 256 / 512 and one
+#: that is not a multiple of 4 (4-byte copies)
+SUPCON_CASES = [(37, 64, "labels"), (181, 256, "self"), (479, 512, "labels"),
+                (480, 256, "self"), (2048, 256, "labels"), (96, 100, "labels")]
+
+
+def _supcon_inputs(M, d, masks, seed):
+    """z [M, d] and a pair code with three edge rows: row 0 without
+    positives, row 1 without any mask, row 2 masked only where its
+    similarity is negative (its stabiliser is the -0 clamp)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.nn.functional.normalize(torch.randn(M, d, generator=g, device=dev), dim=1)
+    if masks == "labels":
+        y = torch.randint(0, 3, (M,), generator=g, device=dev)
+        pos = (y[:, None] == y[None, :]).float()
+    else:
+        pos = torch.eye(M, device=dev).roll(M // 2, 1)
+    off = 1.0 - torch.eye(M, device=dev)
+    code = supcon.pair_code(pos * off, (1.0 - pos) * off)
+    code[0] &= 2
+    code[1] = 0
+    code[2] *= (z[2] @ z.T < 0).to(torch.uint8)
+    return z, code
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,d,masks", SUPCON_CASES)
+def test_supcon_tiles_match_plain_and_repeat_bitwise(M, d, masks):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    z, code = _supcon_inputs(M, d, masks, seed=M + d)
+    assert int(code[2].sum()) > 0
+    got = supcon.supcon_loss(z, code, 0.07)
+    ref = supcon.supcon_loss_plain(z, code, 0.07)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=0)
+    assert float(got[2][0]) == 0
+    gs = torch.full((1,), 0.5, device=z.device)
+    dz = supcon.supcon_dz(z, code, got[1], got[2], gs, 0.07)
+    dz_ref = supcon.supcon_dz_plain(z, code, ref[1], ref[2], gs, 0.07)
+    scaled_close(dz, dz_ref, tol=1e-4)
+    again = supcon.supcon_loss(z, code, 0.07)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(dz, supcon.supcon_dz(z, code, got[1], got[2], gs, 0.07))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_supcon_refuses_above_its_capacity():
+    """The capacity is the 32-bit pair index's (M^2 < 2^31) at every width
+    the kernels take; one anchor more raises before a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for d in (1, 64, 256, 512):
+        assert supcon._max_anchors(d) == supcon.MAX_ANCHORS
+    assert supcon._max_anchors(supcon.MAX_DIM + 1) == 0
+    dev = torch.device("cuda")
+    M = supcon.MAX_ANCHORS + 1
+    z = torch.zeros(M, 64, device=dev)
+    code = torch.zeros(M, M, dtype=torch.uint8, device=dev)
+    one = torch.zeros(M, device=dev)
+    before = dict(supcon.LAUNCHES)
+    with pytest.raises(ValueError):
+        supcon.supcon_loss(z, code, 0.07)
+    with pytest.raises(ValueError):
+        supcon.supcon_dz(z, code, one, one, torch.ones(1, device=dev), 0.07)
+    with pytest.raises(ValueError):
+        supcon.supcon_loss(torch.zeros(8, supcon.MAX_DIM + 1, device=dev),
+                           torch.zeros(8, 8, dtype=torch.uint8, device=dev), 0.07)
+    assert supcon.LAUNCHES == before
+    del code
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu
@@ -638,7 +718,7 @@ def test_profile_step_names_the_hand_kernels():
     """profile_step attributes device events to the port's kernels by their
     CUDA function names: K1, K2 and K3 share the tensor-core body and differ
     in its KIND template argument; C1, C2, E1 and E2 (with its operand
-    preparation) have kernels of their own."""
+    preparation) have kernels of their own; D1 and D2 share one body."""
     from contrastyou_tpu_torch.profile_step import _hand_kernel
     ns = "void (anonymous namespace)::"
     mma = ns + "tapmma_kernel<{}>((anonymous namespace)::MmaParams)"
@@ -656,4 +736,7 @@ def test_profile_step_names_the_hand_kernels():
     assert (_hand_kernel(ns + "e2::iic_joints_bwd_kernel<__nv_bfloat16, 32, 2, 2>(float*)")
             == "E2 iic_joints_bwd")
     assert _hand_kernel(ns + "e2::iic_joints_bwd_prep<2, 3>(float const*)") == "E2 iic_joints_bwd"
+    args = "((anonymous namespace)::Args, (anonymous namespace)::Geo)"
+    for kind in ("false, 2", "true, 2", "true, 4"):
+        assert _hand_kernel(ns + f"supcon_kernel<{kind}>" + args) == "D1/D2 supcon"
     assert _hand_kernel("void at::native::elementwise_kernel<128, 4>") is None

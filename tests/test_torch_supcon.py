@@ -3,9 +3,10 @@
 JAX package: the Pallas kernels ``fused_sup_con_loss`` in interpret mode and
 the eager ``sup_con_loss``, on the same normalized projections.
 
-Shapes are the pretrain path's: M = 2N = 36 anchors with partition labels
-(the encoder hook on 18 slices) and M = 180 with identity labels (the decoder
-hook, 5 points per slice), d = 256, f32. Tolerances are those of the JAX
+Shapes are the pretrain paths': M = 2N = 36 anchors with partition labels
+(ACDC's encoder hook on 18 slices), M = 180 with identity labels (its decoder
+hook, 5 points per slice), and prostate's M = 96 (8 partitions of 48 slices)
+and M = 480 (its decoder hook), d = 256, f32. Tolerances are those of the JAX
 package's own fused-vs-eager test (tests/test_pallas.py): loss rtol 1e-5 (the
 same f32 sums in another order), dz atol 1e-6 (|dz| <= ~1e-2 here).
 """
@@ -29,8 +30,12 @@ torch.set_num_threads(1)
 
 T = 0.07
 # (label name, N per view, labels): partition labels of 6 scans x 3
-# partitions (the encoder hook), identity labels (the decoder hook)
-CASES = [("partition", 18, np.tile(np.arange(3), 6)), ("self", 90, None)]
+# partitions (ACDC's encoder hook), identity labels (ACDC's decoder hook, 18
+# slices x 5 points); prostate's: 6 scans x 8 partitions of 48 slices, and
+# its decoder hook's 48 x 5 points
+CASES = [("partition", 18, np.tile(np.arange(3), 6)), ("self", 90, None),
+         ("prostate-partition", 48, np.tile(np.arange(8), 6)),
+         ("prostate-self", 240, None)]
 
 
 def _features(n_, d=256, seed=0):
@@ -102,11 +107,25 @@ def test_eager_variants_match_jax():
 
 
 def test_gate_routes_like_jax():
-    """CUDA tensors with 2N <= 256 and neither option take the kernels; the
-    CPU, larger batches and the options take the eager form."""
-    assert FUSED_MAX_ANCHORS == 256
+    """The gate has JAX's shape: CUDA tensors with neither option take the
+    kernels at JAX's fused counts (2N <= 256); the CPU and the options take
+    the eager form. Its number is the card's (below)."""
     assert fused_route(36, "cuda") and fused_route(180, "cuda:0") and fused_route(256, "cuda")
-    assert not fused_route(258, "cuda")
+    assert not fused_route(36, "cpu")
+    assert not fused_route(36, "cuda", return_aux=True)
+    assert not fused_route(36, "cuda", exclude_other_pos=True)
+
+
+def test_gate_routes_as_the_card_measured():
+    """CUDA tensors with neither option take the kernels at every 2N up to
+    their capacity: on the H100 the fused form was no slower than the eager
+    one, in wall and in device time, at every measured 2N from 36 to 4096
+    (chip_smoke.py phase 4b), the prostate dense hook's 480 among them. The
+    CPU, larger batches and the options take the eager form."""
+    assert FUSED_MAX_ANCHORS == supcon.MAX_ANCHORS == 46340
+    for anchors in (36, 96, 180, 256, 480, 960, 2048, 4096, 46340):
+        assert fused_route(anchors, "cuda") and fused_route(anchors, "cuda:0")
+    assert not fused_route(46342, "cuda")
     assert not fused_route(36, "cpu")
     assert not fused_route(36, "cuda", return_aux=True)
     assert not fused_route(36, "cuda", exclude_other_pos=True)
