@@ -72,13 +72,27 @@ Phases, in order; any failure exits non-zero:
    one batch through E1 against the plain version, then warm-up and timed
    steps; every hook loss finite, model and head parameters changed, E1 and
    E2 once per step, K1-K3, C1 and C2 as often per step as on ``semi``,
-   D1/D2 never (run right after phase 6).
+   D1/D2 never (run right after phase 6);
+11. the experiment loop (run right after phase 10): a synthetic ACDC
+   layout written with the port's PNG writer at 256x256 (8 train and 6
+   validation scans of 10 slices, one validation scan of 13) in a temporary
+   directory, then ``main.main`` at full width: 2 epochs x 10 host-fed steps
+   with validation and test over whole scans, checkpoints and inference on
+   ``best`` (``semi/loop``), then a resume to a third epoch on the device
+   cache with TTA inference (``semi/loop/resume``); the files, three finite
+   storage rows, finite dice, the launches the loop implies (its eval
+   forwards' under ``semi/loop/eval``: 8 K1 and 1 K2 each, four a TTA
+   batch); train ms/step inside the loop (host-fed and device-cached), eval
+   and inference ms per scan (with and without TTA), checkpoint save ms and
+   peak memory; then the ragged eval batch (13 slices) through the trained
+   weights in eval mode, one pass and TTA's flips, every K1 and K2 launch
+   against its plain version.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
-``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has all
-six), ``max_abs_err`` the largest over the checked shapes, ``ms`` /
+``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
+path, the loop's three included), ``max_abs_err`` the largest over the checked shapes, ``ms`` /
 ``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
 one launch each (C1/C2: over the batch-96 shapes only; ``by_batch`` has the
 sums at every checked batch, beside the einsum form's below 96 and, for C2,
@@ -97,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -1131,6 +1146,226 @@ def run_pretrain(device, card: str, trainer: str, warmup: int, timed: int,
     return launches
 
 
+#: the loop phase: a synthetic ACDC layout at 256 x 256 (8 train and 6
+#: validation scans of 10 slices, one validation scan of 13 so an eval batch
+#: is ragged), ``semi`` at full width for 2 epochs x 10 steps, then a resume
+#: to a third epoch
+LOOP_SCANS, LOOP_SLICES, LOOP_LONG, LOOP_SIZE = (8, 6), 10, 13, 256
+LOOP_EPOCHS, LOOP_STEPS = 2, 10
+
+
+class _Timings(logging.Handler):
+    """Collects the trainer's ``timing`` log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        if hasattr(record, "timing"):
+            self.records.append(dict(record.timing))
+
+
+@contextlib.contextmanager
+def eval_launches(counts: dict):
+    """Add the launches made inside ``Trainer.eval_epoch`` and
+    ``SemiTrainer.inference`` to ``counts`` (the loop's eval forwards)."""
+    from contrastyou_tpu_torch.engine.trainer import Trainer
+    from contrastyou_tpu_torch.trainers.semi import SemiTrainer
+    saved = Trainer.eval_epoch, SemiTrainer.inference
+
+    def counting(fn):
+        def wrapper(*a, **kw):
+            before = _counts()
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, v in _counts().items():
+                    counts[k] = counts.get(k, 0) + v - before[k]
+        return wrapper
+
+    Trainer.eval_epoch, SemiTrainer.inference = counting(saved[0]), counting(saved[1])
+    try:
+        yield counts
+    finally:
+        Trainer.eval_epoch, SemiTrainer.inference = saved
+
+
+@contextlib.contextmanager
+def checked_forward_kernels(errs: dict):
+    """Route K1 and K2 through wrappers that also run the plain version on
+    the same inputs and record the largest error relative to the plain
+    output's largest magnitude (outputs) and to the largest statistic."""
+    from contrastyou_tpu_torch.ops import convblock as cb
+    k1, k2 = cb.conv3x3_stats, cb.upconv3x3_stats
+
+    def record(name, shape, got, ref):
+        out = _rel_err(got[0], ref[0])[1]
+        stats = max(_rel_err(g, r)[1] for g, r in zip(got[1:], ref[1:])) if got[1] is not None else 0
+        worst = errs.setdefault(name, {"out": 0.0, "stats": 0.0, "shapes": set()})
+        worst["out"], worst["stats"] = max(worst["out"], out), max(worst["stats"], stats)
+        worst["shapes"].add(shape)
+
+    def conv(x, w, skip=None, w_skip=None, stats=True):
+        got = k1(x, w, skip, w_skip, stats)
+        record("conv3x3_stats", tuple(x.shape), got, cb.conv3x3_stats_plain(x, w, skip, w_skip, stats))
+        return got
+
+    def upconv(x, taps):
+        got = k2(x, taps)
+        record("upconv3x3_stats", tuple(x.shape), got, cb.upconv3x3_stats_plain(x, taps))
+        return got
+
+    cb.conv3x3_stats, cb.upconv3x3_stats = conv, upconv
+    try:
+        yield errs
+    finally:
+        cb.conv3x3_stats, cb.upconv3x3_stats = k1, k2
+
+
+def check_eval_kernels(device, data_root, run_dir) -> None:
+    """Phase 11b: the loop's ragged eval batch (the 13-slice scan, padded)
+    through the trained weights in eval mode, one pass and the four flips
+    of TTA: every K1 and K2 launch against its plain version."""
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch.data.creator import get_data
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.checkpoint import load_checkpoint
+    from contrastyou_tpu_torch.engine.steps import build_eval_step
+    from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG
+    from contrastyou_tpu_torch.models.unet import UNet
+
+    loaders = get_data(MAIN_PATH_CONFIG["Data"], {}, {}, root_dir=package.DATA_PATH)
+    batch = next(b for loader in loaders[2:] for b in loader if b["mask"].sum() == LOOP_LONG)
+    ckpt = load_checkpoint(run_dir / "last", map_location=device)
+    model = UNet(max_channel=int(ckpt["host_state"]["config"]["Arch"]["max_channel"]),
+                 momentum=0.01).to(device)
+    model.load_state_dict(ckpt["train_state"]["model"])
+    x, y, mask = (torch.from_numpy(batch[k]).to(device) for k in ("image", "target", "mask"))
+    errs: dict = {}
+    with checked_forward_kernels(errs):
+        for tta in (False, True):
+            loss = build_eval_step(ModelBundle(model, (224, 224, 1)), tta=tta)(model, x, y, mask)[0]
+            if not math.isfinite(float(loss)):
+                raise AssertionError(f"eval loss {float(loss)} (tta={tta})")
+    for name, e in errs.items():
+        print(f"  {name} eval mode vs plain at {sorted(e['shapes'])}: out {e['out']:.2e} "
+              f"(limit {KERNEL_RTOL:.2e}), stats {e['stats']:.2e} (limit {STATS_RTOL:.0e})")
+        if e["out"] > KERNEL_RTOL or e["stats"] > STATS_RTOL:
+            raise AssertionError(f"{name} in eval mode disagrees with its plain version: {e}")
+    if set(errs) != {"conv3x3_stats", "upconv3x3_stats"} or not any(
+            s[0] == LOOP_LONG for e in errs.values() for s in e["shapes"]):
+        raise AssertionError(f"K1/K2 not checked at the eval batch {LOOP_LONG}: {errs}")
+
+
+def run_loop(device, card: str) -> dict:
+    """Phase 11: the experiment loop through ``main.main``: 2 epochs of 10
+    host-fed steps (validation and test over whole scans each epoch,
+    checkpoints, inference on ``best``), then a resume to a third epoch on
+    the device cache with TTA inference; returns each run's launches and
+    the eval forwards' (``semi/loop``, ``semi/loop/resume``,
+    ``semi/loop/eval``)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+            t0 = time.perf_counter()
+            data, run_dir = Path(tmp) / "data", Path(tmp) / "runs" / "loop"
+            synthesize_acdc_like(data, num_train_scans=LOOP_SCANS[0], num_val_scans=LOOP_SCANS[1],
+                                 slices_per_scan=LOOP_SLICES, size=LOOP_SIZE)
+            synthesize_acdc_like(data, num_train_scans=0, num_val_scans=1, slices_per_scan=LOOP_LONG,
+                                 size=LOOP_SIZE, first_scan=sum(LOOP_SCANS) + 1, seed=1)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(Path(tmp) / "runs")
+            print(f"loop: wrote {sum(LOOP_SCANS) + 1} scans at {LOOP_SIZE}^2 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            argv = ["-o", "Trainer.name=semi", f"Trainer.num_batches={LOOP_STEPS}",
+                    "Trainer.save_dir=loop"]
+            torch.cuda.reset_peak_memory_stats()
+            eval_counts: dict = {}
+            by_path = {}
+            with eval_launches(eval_counts):
+                for path, extra in (("semi/loop", [f"Trainer.max_epoch={LOOP_EPOCHS}"]),
+                                    ("semi/loop/resume", [f"Trainer.max_epoch={LOOP_EPOCHS + 1}",
+                                                          "Trainer.device_cache=true",
+                                                          "+Inference.tta=true"])):
+                    _reset_counts()
+                    t0 = time.perf_counter()
+                    if port_main.main(argv + extra) != 0:
+                        raise AssertionError(f"{path}: main returned non-zero")
+                    torch.cuda.synchronize()
+                    by_path[path] = _counts()
+                    print(f"{path}: {time.perf_counter() - t0:.1f} s; launches {by_path[path]}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            by_path["semi/loop/eval"] = {k: eval_counts.get(k, 0) for k in by_path["semi/loop"]}
+            check_loop_outputs(run_dir, timings.records, by_path, card, peak)
+            check_eval_kernels(device, data, run_dir)
+    finally:
+        logger.removeHandler(timings)
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    return by_path
+
+
+def check_loop_outputs(run_dir, records: list, by_path: dict, card: str, peak: float) -> None:
+    """Phase 11a: the run's files, three finite storage rows, finite dice;
+    the launches the loop implies (16 K1, 2 K2, 2 K3, 4 C1, 18 C2 a train
+    step; 8 K1 and 1 K2 an eval forward, four forwards a TTA batch); the
+    loop's times."""
+    import json
+
+    for f in ("storage.csv", "config.yaml", ".success", "inference_result.json",
+              "last/train_state.pt", "last/host_state.pkl", "best/train_state.pt"):
+        if not (run_dir / f).exists():
+            raise AssertionError(f"loop: {f} missing")
+    rows = (run_dir / "storage.csv").read_text().splitlines()
+    header = rows[0].split(",")
+    values = [dict(zip(header, r.split(","))) for r in rows[1:]]
+    result = json.loads((run_dir / "inference_result.json").read_text())
+    dice = [float(v[k]) for v in values for k in v if "/dice/" in k] + list(
+        result["dice"].values())
+    print(f"loop: storage rows {[r.split(',')[0] for r in rows[1:]]}, val DSC_mean "
+          f"{[float(v['val/eval/dice/DSC_mean']) for v in values]}, inference {result['dice']}")
+    if len(values) != LOOP_EPOCHS + 1 or not all(math.isfinite(d) for d in dice):
+        raise AssertionError(f"loop: {len(values)} storage rows, dice {dice}")
+    train = [r for r in records if r["phase"] == "train"]
+    steps = sum(r["steps"] for r in train)
+    forwards = {True: 0, False: 0}
+    for r in records:
+        if r["phase"] in ("val", "test", "inference"):
+            forwards[bool(r.get("tta"))] += r["batches"] * (4 if r.get("tta") else 1)
+    fwd = sum(forwards.values())
+    for r in train:
+        print(f"loop: train epoch {r['epoch']} ({'device cache' if r['device_cache'] else 'host-fed'}"
+              f"): {r['seconds'] / r['steps'] * 1e3:.3f} ms/step inside the loop on {card}")
+    for r in records:
+        if r["phase"] in ("val", "test", "inference"):
+            tta = " with TTA" if r.get("tta") else (" without TTA" if r["phase"] == "inference" else "")
+            print(f"loop: {r['phase']}{tta} epoch {r['epoch']}: {r['batches']} scans, "
+                  f"{r['seconds'] / r['batches'] * 1e3:.3f} ms/scan on {card}")
+    saves = [r["seconds"] * 1e3 for r in records if r["phase"] == "save"]
+    print(f"loop: checkpoint save {min(saves):.1f}-{max(saves):.1f} ms ({len(saves)} saves) on "
+          f"{card}; peak memory {peak:.2f} GiB")
+    total = {k: by_path["semi/loop"][k] + by_path["semi/loop/resume"][k] for k in by_path["semi/loop"]}
+    want = {"conv3x3_stats": 16 * steps + 8 * fwd, "upconv3x3_stats": 2 * steps + fwd,
+            "upconv3x3_dx": 2 * steps, "conv_dw_taps": 4 * steps, "conv3x3_bwd_fused": 18 * steps,
+            **{k: 0 for k in SUPCON_KERNELS + IIC_KERNELS}}
+    want_eval = {"conv3x3_stats": 8 * fwd, "upconv3x3_stats": fwd,
+                 **{k: 0 for k in total if k not in ("conv3x3_stats", "upconv3x3_stats")}}
+    if total != want or by_path["semi/loop/eval"] != want_eval:
+        raise AssertionError(f"loop launches {total} (eval {by_path['semi/loop/eval']}), want "
+                             f"{want} (eval {want_eval}) for {steps} steps, {fwd} eval forwards")
+
+
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
 #: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
@@ -1189,6 +1424,8 @@ def main() -> int:
         check_stages(device, B)
     by_path = {"semi": run_train(device, card)}
     by_path["semi/udaiic"] = run_udaiic(device, card, by_path["semi"])
+    torch.cuda.empty_cache()
+    by_path.update(run_loop(device, card))
     torch.cuda.empty_cache()
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),

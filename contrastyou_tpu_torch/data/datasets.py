@@ -3,14 +3,21 @@ contrastyou_tpu/data/datasets.py): class count, anatomical partition count,
 the scan-grouping pattern of each dataset, the scan names its synthetic
 scans take (contrastyou_tpu/data/synthetic.py ``_LAYOUTS``) and, for the
 binary ACDC sub-tasks, the label remap of contrastyou_tpu/augment/host.py
-``transform_zoo``. It reads no files."""
+``transform_zoo``; and the archive dataset classes (``data_zoo``): each
+archive's folder name, sub-folders, mode prefix and metadata file, over
+:class:`~contrastyou_tpu_torch.data.base.SliceDataset`."""
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["DatasetSpec", "DATASETS", "dataset_spec"]
+from .base import SliceDataset
+
+__all__ = ["DatasetSpec", "DATASETS", "dataset_spec", "ACDCDataset", "ACDCSuperPixelDataset",
+           "ProstateDataset", "ProstateMDDataset", "mmWHSCTDataset", "mmWHSMRDataset",
+           "SpleenDataset", "HippocampusDataset", "data_zoo"]
 
 
 class DatasetSpec(NamedTuple):
@@ -56,3 +63,90 @@ def dataset_spec(name: str) -> DatasetSpec:
         return DATASETS[name]
     except KeyError:
         raise KeyError(f"unknown dataset {name!r}: known are {sorted(DATASETS)}") from None
+
+
+# --- archive datasets (contrastyou_tpu/data/datasets.py:33-124) ------------
+
+class _ArchiveDataset(SliceDataset):
+    """An archive's folder under the data root: sub-folders, mode prefix and
+    ``*_info.npy`` metadata."""
+    folder_name: str
+    sub_folders: Tuple[str, ...] = ("img", "gt")
+    sub_folder_types: Tuple[str, ...] = ("image", "gt")
+    info_name: Optional[str] = None
+    mode_prefix = ""
+
+    def __init__(self, *, root_dir: str, mode: str, transforms=None):
+        root = Path(root_dir) / self.folder_name
+        if not root.exists():
+            raise FileNotFoundError(
+                f"{type(self).__name__}: {root} missing; place the extracted archive there "
+                f"or write a synthetic one (contrastyou_tpu_torch.data.synthetic)")
+        super().__init__(root_dir=str(root), mode=self.mode_prefix + mode,
+                         sub_folders=list(self.sub_folders),
+                         sub_folder_types=list(self.sub_folder_types),
+                         transforms=transforms, info_name=self.info_name)
+
+
+class ACDCDataset(_ArchiveDataset):
+    folder_name = "ACDC_contrast"
+    group_re = _ACDC.group_re
+    partition_num = _ACDC.partition_num
+    info_name = "acdc_info.npy"
+
+
+class ACDCSuperPixelDataset(ACDCDataset):
+    sub_folders = ("img", "gt", "superpixel")
+    sub_folder_types = ("image", "gt", "gt")
+
+
+class ProstateDataset(_ArchiveDataset):
+    folder_name = "PROSTATE"
+    group_re = DATASETS["prostate"].group_re
+    partition_num = DATASETS["prostate"].partition_num
+    info_name = "prostate_info.npy"
+
+
+class ProstateMDDataset(_ArchiveDataset):
+    folder_name = "PROSTATE_md"
+    group_re = DATASETS["prostate_md"].group_re
+    partition_num = DATASETS["prostate_md"].partition_num
+    sub_folders = ("t2", "gt")
+    info_name = "prostate_info.npy"
+
+
+class mmWHSCTDataset(_ArchiveDataset):
+    folder_name = "MMWHS"
+    group_re = _MMWHS.group_re
+    partition_num = _MMWHS.partition_num
+    info_name = "meta_ct.npy"
+    mode_prefix = "ct_"
+
+
+class mmWHSMRDataset(mmWHSCTDataset):
+    info_name = "meta_mr.npy"
+    mode_prefix = "mr_"
+
+
+class SpleenDataset(_ArchiveDataset):
+    folder_name = "Spleen"
+    group_re = DATASETS["spleen"].group_re
+    partition_num = DATASETS["spleen"].partition_num
+    info_name = "spleen_info.npy"
+
+
+class HippocampusDataset(_ArchiveDataset):
+    folder_name = "Hippocampus"
+    group_re = DATASETS["hippocampus"].group_re
+    partition_num = DATASETS["hippocampus"].partition_num
+    info_name = "hippocampus_info.npy"
+
+
+#: ``Data.name`` -> archive dataset class
+data_zoo = {
+    "acdc": ACDCDataset, "acdc_lv": ACDCDataset, "acdc_rv": ACDCDataset,
+    "acdc_myo": ACDCDataset, "acdc_superpixel": ACDCSuperPixelDataset,
+    "prostate": ProstateDataset, "prostate_md": ProstateMDDataset,
+    "mmwhsct": mmWHSCTDataset, "mmwhsmr": mmWHSMRDataset,
+    "spleen": SpleenDataset, "hippocampus": HippocampusDataset,
+}

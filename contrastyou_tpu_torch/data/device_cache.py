@@ -10,6 +10,8 @@ import typing as t
 import numpy as np
 import torch
 
+from .base import normalize_u8
+
 __all__ = ["DeviceDataCache"]
 
 
@@ -50,6 +52,43 @@ class DeviceDataCache:
                    torch.as_tensor(np.asarray(targets), dtype=torch.long, device=device),
                    partition=ids(partition), patient=ids(patient),
                    cycle=ids(cycle), scan_id=sid, scan_names=names, crop=crop)
+
+    @classmethod
+    def from_dataset(cls, dataset, *, crop: int, device) -> "DeviceDataCache":
+        """Stage a :class:`~contrastyou_tpu_torch.data.base.SliceDataset`'s raw
+        (untransformed) slices, centre-padded to the largest slice, with
+        their scan, partition, patient and cycle ids; scans numbered in order
+        of first appearance. The crop is at most the padded slice size."""
+        subs, is_image = dataset._sub_folders, dataset._is_image
+        target_sub = next((s for s, img in zip(subs[1:], is_image[1:]) if not img), None)
+        images, targets, partition, patient, cycle, scan_id = [], [], [], [], [], []
+        scan_names, scan_index = [], {}
+        for i, stem in enumerate(dataset.get_stem_list()):
+            img = normalize_u8(dataset._raw(subs[0], i))
+            images.append(img)
+            targets.append(dataset._raw(target_sub, i).astype(np.int32) if target_sub
+                           else np.zeros(img.shape, np.int32))
+            scan = dataset.get_scan_name(stem)
+            if scan not in scan_index:
+                scan_index[scan] = len(scan_names)
+                scan_names.append(scan)
+            scan_id.append(scan_index[scan])
+            partition.append(dataset.get_partition(stem))
+            pat, cyc = dataset.get_patient_cycle(scan)
+            patient.append(pat)
+            cycle.append(cyc)
+        hmax = max(a.shape[0] for a in images)
+        wmax = max(a.shape[1] for a in images)
+
+        def pad(a):
+            ph, pw = hmax - a.shape[0], wmax - a.shape[1]
+            return np.pad(a, ((ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2)))
+
+        return cls.from_arrays(np.stack([pad(a) for a in images]),
+                               np.stack([pad(a) for a in targets]),
+                               crop=min(crop, hmax, wmax), device=device, scan_id=scan_id,
+                               partition=partition, patient=patient, cycle=cycle,
+                               scan_names=scan_names)
 
     def __len__(self) -> int:
         return self.images.shape[0]

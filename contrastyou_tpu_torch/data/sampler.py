@@ -1,6 +1,6 @@
-"""Index samplers and scan partitions (counterpart of InfiniteRandomSampler
-and ContrastBatchSampler in contrastyou_tpu/data/sampler.py and of the
-partition rule in contrastyou_tpu/data/base.py), host-side numpy."""
+"""Index samplers and scan partitions (counterpart of InfiniteRandomSampler,
+ScanBatchSampler and ContrastBatchSampler in contrastyou_tpu/data/sampler.py
+and of the partition rule in contrastyou_tpu/data/base.py), host-side numpy."""
 from __future__ import annotations
 
 import itertools
@@ -8,7 +8,8 @@ import typing as t
 
 import numpy as np
 
-__all__ = ["partition_index", "InfiniteRandomSampler", "ContrastBatchSampler"]
+__all__ = ["partition_index", "InfiniteRandomSampler", "ScanBatchSampler",
+           "ContrastBatchSampler"]
 
 
 def partition_index(cur_index: int, max_len: int, partition_num: int = 3) -> int:
@@ -29,17 +30,20 @@ def partition_index(cur_index: int, max_len: int, partition_num: int = 3) -> int
 
 class InfiniteRandomSampler:
     """Endless stream of dataset indices, one fresh permutation of
-    ``range(size)`` after another (the same numpy draws as the JAX sampler,
-    so one seed gives the same indices). Single process: the per-process
-    stride of the JAX sampler belongs to data-parallel training."""
+    ``range(size)`` after another, or ``range(size)`` over and over without
+    ``shuffle`` (the same numpy draws as the JAX sampler, so one seed gives
+    the same indices). Single process: the per-process stride of the JAX
+    sampler belongs to data-parallel training."""
 
-    def __init__(self, size: int, seed: int = 0):
+    def __init__(self, size: int, seed: int = 0, shuffle: bool = True):
         self._size = size
+        self._shuffle = shuffle
         self._rng = np.random.default_rng(seed)
 
     def __iter__(self) -> t.Iterator[int]:
         while True:
-            yield from self._rng.permutation(self._size).tolist()
+            yield from (self._rng.permutation(self._size) if self._shuffle
+                        else np.arange(self._size)).tolist()
 
     def batches(self, batch_size: int) -> t.Iterator[t.List[int]]:
         """Consecutive ``batch_size`` runs of the stream (data/loader.py
@@ -47,6 +51,32 @@ class InfiniteRandomSampler:
         it = iter(self)
         while True:
             yield list(itertools.islice(it, batch_size))
+
+
+class ScanBatchSampler:
+    """One index list per scan of ``dataset``, scans in sorted order (or a
+    seeded permutation of them with ``shuffle``), slices in file order."""
+
+    def __init__(self, dataset, shuffle: bool = False, seed: int = 0):
+        scans: t.Dict[str, t.List[int]] = {}
+        for i, stem in enumerate(dataset.get_stem_list()):
+            scans.setdefault(dataset.get_scan_name(stem), []).append(i)
+        self._batches = [scans[k] for k in sorted(scans)]
+        self._shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def max_batch_size(self) -> int:
+        return max(len(b) for b in self._batches)
+
+    def __len__(self) -> int:
+        return len(self._batches)
+
+    def __iter__(self) -> t.Iterator[t.List[int]]:
+        order = (self._rng.permutation(len(self._batches)) if self._shuffle
+                 else range(len(self._batches)))
+        for i in order:
+            yield list(self._batches[i])
 
 
 class ContrastBatchSampler:

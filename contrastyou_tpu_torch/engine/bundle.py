@@ -1,5 +1,5 @@
-"""ModelBundle: a model plus its input shape and the train-mode apply
-(counterpart of contrastyou_tpu/engine/bundle.py)."""
+"""ModelBundle: a model plus its input shape and its train- and eval-mode
+applies (counterpart of contrastyou_tpu/engine/bundle.py)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -26,3 +26,7 @@ class ModelBundle:
         False."""
         return self.model(x, until=until, taps=taps, train=True,
                           update_stats=update_stats)
+
+    def apply_eval(self, x: torch.Tensor, *, until=None, taps: Sequence[str] = ()):
+        """Eval-mode forward with the BN running statistics -> (out, taps)."""
+        return self.model(x, until=until, taps=taps, train=False)

@@ -1,0 +1,94 @@
+"""Checkpoints that restore a whole run (counterpart of
+contrastyou_tpu/engine/checkpoint.py). A checkpoint is a directory:
+
+- ``train_state.pt`` (``torch.save``): the model's ``state_dict`` (BN running
+  statistics included), the optimizer's ``state_dict`` and its update count
+  (RAdam keeps it outside ``state_dict``; the schedule reads it), each hook
+  module's ``state_dict``, the hook states and ``step``;
+- ``host_state.pkl``: ``cur_epoch``, ``best_score``, ``config`` and the
+  metric history (``storage``).
+
+It is written to a temporary directory beside the target, then renamed over
+it. The JAX package's checkpoints (``train_state.msgpack``) are not read.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import shutil
+import tempfile
+from pathlib import Path
+from typing import Any, Dict
+
+import torch
+
+__all__ = ["save_checkpoint", "load_checkpoint", "train_state_dict", "load_train_state",
+           "is_checkpoint"]
+
+TRAIN_STATE, HOST_STATE, JAX_TRAIN_STATE = "train_state.pt", "host_state.pkl", "train_state.msgpack"
+
+
+def is_checkpoint(path) -> bool:
+    """A checkpoint directory of either package (so a JAX run directory is
+    refused by :func:`load_checkpoint` rather than trained over)."""
+    path = Path(path)
+    return (path / TRAIN_STATE).exists() or (path / JAX_TRAIN_STATE).exists()
+
+
+def train_state_dict(state, hooks) -> Dict[str, Any]:
+    """The device state of a :class:`~contrastyou_tpu_torch.engine.state.TrainState`."""
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "optimizer_count": int(getattr(state.optimizer, "count", 0)),
+            "hooks": {h.name: h.state_dict() for h in hooks if isinstance(h, torch.nn.Module)},
+            "hook_states": dict(state.hook_states),
+            "step": int(state.step)}
+
+
+def load_train_state(state, hooks, saved: Dict[str, Any]) -> None:
+    """Restore :func:`train_state_dict`'s output into ``state`` and the hook
+    modules, in place."""
+    state.model.load_state_dict(saved["model"])
+    modules = {h.name: h for h in hooks if isinstance(h, torch.nn.Module)}
+    if set(modules) != set(saved["hooks"]):
+        raise ValueError(f"checkpoint hook modules {sorted(saved['hooks'])}, "
+                         f"run has {sorted(modules)}")
+    for name, sd in saved["hooks"].items():
+        modules[name].load_state_dict(sd)
+    state.optimizer.load_state_dict(saved["optimizer"])
+    if hasattr(state.optimizer, "count"):
+        state.optimizer.count = int(saved["optimizer_count"])
+    state.hook_states.clear()
+    state.hook_states.update(saved["hook_states"])
+    state.step = int(saved["step"])
+
+
+def save_checkpoint(path, *, train_state: Dict[str, Any], host_state: Dict[str, Any]) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=str(path.parent)))
+    try:
+        torch.save(train_state, tmp / TRAIN_STATE)
+        with open(tmp / HOST_STATE, "wb") as f:
+            pickle.dump(dict(host_state), f)
+        if path.exists():
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_checkpoint(path, map_location=None) -> Dict[str, Any]:
+    """-> ``{"train_state": ..., "host_state": ...}`` of a checkpoint
+    directory, tensors on ``map_location``."""
+    path = Path(path)
+    if not (path / TRAIN_STATE).exists():
+        if (path / JAX_TRAIN_STATE).exists():
+            raise ValueError(f"{path} holds a JAX checkpoint ({JAX_TRAIN_STATE}, flax msgpack); "
+                             f"the PyTorch port reads its own {TRAIN_STATE} only")
+        raise FileNotFoundError(f"{path}: no {TRAIN_STATE}")
+    train_state = torch.load(path / TRAIN_STATE, map_location=map_location, weights_only=True)
+    with open(path / HOST_STATE, "rb") as f:
+        host_state = pickle.load(f)
+    return {"train_state": train_state, "host_state": host_state}

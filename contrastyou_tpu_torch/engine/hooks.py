@@ -2,9 +2,10 @@
 contrastyou_tpu/engine/hooks.py).
 
 A hook contributes ``loss(ctx, state) -> (loss, new_state, metrics)``
-inside the differentiated step, and ``post_step(ctx, model, state) -> state``
-after the optimizer update. :class:`StepContext` carries what the step
-computed: both unlabeled logits views, the explicit transform, taps.
+inside the differentiated step, ``post_step(ctx, model, state) -> state``
+after the optimizer update, and ``on_epoch_start(state, epoch) -> state``.
+:class:`StepContext` carries what the step computed: both unlabeled logits
+views, the explicit transform, taps.
 A :class:`ModuleHook` owns parameters (a projection head): it is an
 ``nn.Module`` whose parameters join the optimizer beside the model's.
 """
@@ -73,6 +74,9 @@ class TrainerHook:
         return ctx.labeled_logits.new_zeros(()), state, {}
 
     def post_step(self, ctx: StepContext, model: torch.nn.Module, state: Any) -> Any:
+        return state
+
+    def on_epoch_start(self, state: Any, epoch: int) -> Any:
         return state
 
 

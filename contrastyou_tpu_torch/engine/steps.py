@@ -1,7 +1,8 @@
-"""Train-step builders (counterpart of contrastyou_tpu/engine/steps.py): the
+"""Step builders (counterpart of contrastyou_tpu/engine/steps.py): the
 ``semi`` step — augmentation, two-stage forward, supervised KL, summed hook
-losses, optimizer update, hook post-updates — and the device-cached step
-that also samples its batch on the GPU.
+losses, optimizer update, hook post-updates — the device-cached step that
+also samples its batch on the GPU, and the eval step (running-statistics
+forward, optionally averaged over the four axis flips).
 
 Every random draw is explicit: the step takes a :class:`StepDraws` (the
 unlabeled batch's GeoParams and gammas); the cached step draws those, the
@@ -23,7 +24,7 @@ from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
 __all__ = ["StepDraws", "sample_step_draws", "init_train_state",
-           "build_train_step", "build_cached_train_step"]
+           "build_train_step", "build_cached_train_step", "tta_probs", "build_eval_step"]
 
 
 class StepDraws(NamedTuple):
@@ -139,3 +140,42 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
         return metrics
 
     return cached_step
+
+
+def tta_probs(model: torch.nn.Module, image: torch.Tensor) -> torch.Tensor:
+    """Test-time augmentation: the mean class probability over the four axis
+    flips of the NHWC ``image`` (none, W, H, both), each flipped back."""
+    def probs(dims):
+        x = torch.flip(image, dims) if dims else image
+        p = torch.softmax(model(x, train=False)[0], -1)
+        return torch.flip(p, dims) if dims else p
+
+    return (probs(()) + probs((2,)) + probs((1,)) + probs((1, 2))) / 4.0
+
+
+def build_eval_step(bundle: ModelBundle, *, tta: bool = False) -> Callable:
+    """-> ``eval_step(model, image, target, mask) -> (loss, pred, inter,
+    union)``, under ``torch.no_grad``: the running-statistics forward of
+    ``model`` (the bundle's or an eval model of the same classes), or its
+    flip average with ``tta``; ``loss`` the KL to the one-hot target per
+    pixel, averaged per sample and over the ``mask``-ed samples; ``pred`` the
+    argmax [B,H,W]; per-sample [B, C] dice counts zeroed where ``mask`` is
+    False."""
+    num_classes = bundle.num_classes
+
+    @torch.no_grad()
+    def eval_step(model, image, target, mask):
+        if tta:
+            probs = tta_probs(model, image)
+        else:
+            probs = torch.softmax(model(image, train=False)[0], -1)
+        per_px = kl_div(probs, F.one_hot(target.long(), num_classes).float(),
+                        reduction="none")
+        m = mask.float()
+        loss = (per_px.mean((1, 2)) * m).sum() / m.sum().clamp(min=1.0)
+        pred = probs.argmax(-1)
+        inter, union = slice_intersection_union(pred, target, num_classes=num_classes)
+        mi = mask.long()[:, None]
+        return loss, pred, inter * mi, union * mi
+
+    return eval_step

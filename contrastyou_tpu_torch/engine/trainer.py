@@ -1,0 +1,308 @@
+"""Trainer: the epoch loop around the steps (counterpart of
+contrastyou_tpu/engine/trainer.py): per epoch the hooks' ``on_epoch_start``,
+``num_batches`` train steps, validation and test passes over whole scans,
+one ``storage.csv`` row, the ``last`` checkpoint and, on a higher
+validation ``DSC_mean``, ``best``; ``.success`` at the end. A run resumes
+from a checkpoint with its epoch, best score and metric history.
+
+Input: host-fed by default (the loaders' numpy batches, each step's
+transform draws from a ``torch.Generator``), or with ``device_cache`` the
+train split staged on the device, where each step samples and crops its own
+batch. The generator is reseeded at each epoch from ``(seed, 10_000 +
+epoch)``, as JAX folds ``10_000 + epoch`` into its key, so a resumed
+device-cached run reproduces an unbroken one; the host loaders restart from
+their seeds on resume, as the JAX package's do.
+
+Progress goes to the ``logging`` logger of this module. Each phase's host
+time is logged with ``extra={"timing": {...}}`` (``phase`` train / val /
+test / inference / save, its ``seconds`` and counts), for callers that time
+the loop. The TensorBoard writer, hook figures and the profiler trace of the
+JAX trainer are not ported, nor its TPU knobs (``unroll_steps``, ``profile``).
+"""
+from __future__ import annotations
+
+import logging
+import time
+import typing as t
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import contrastyou_tpu_torch as package
+from ..configure.config import yaml_write
+from ..data.device_cache import DeviceDataCache
+from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
+from ..meters.dice import UniversalDice
+from ..meters.interface import MeterInterface
+from ..meters.storage import Storage
+from .bundle import ModelBundle
+from .checkpoint import load_checkpoint, load_train_state, save_checkpoint, train_state_dict
+from .hooks import TrainerHook, hook_parameters
+from .optim import create_optimizer
+from .steps import (build_cached_train_step, build_eval_step, build_train_step,
+                    init_train_state, sample_step_draws)
+
+__all__ = ["Trainer", "epoch_seed"]
+
+logger = logging.getLogger(__name__)
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The step generator's seed in ``epoch``."""
+    return int(np.random.SeedSequence([int(seed), 10_000 + int(epoch)]).generate_state(1)[0])
+
+
+class Trainer:
+    """Generic trainer; ``trainers/`` subclasses pick the step mode."""
+
+    activate_hooks: bool = True
+
+    def __init__(self, *, model: torch.nn.Module, labeled_loader, unlabeled_loader=None,
+                 val_loader=None, test_loader=None, save_dir: str = "tmp",
+                 max_epoch: int = 100, num_batches: int = 100,
+                 config: t.Optional[t.Mapping] = None, two_stage: bool = True,
+                 disable_bn: bool = False, accumulate_iter: int = 1,
+                 enable_scale: bool = False, seed: int = 10, device_cache: bool = False,
+                 unroll_steps: int = 1, profile: bool = False, **kwargs):
+        del enable_scale, kwargs  # bf16 needs no loss scaling; other keys are the JAX trainer's
+        for key, value, default in (("Trainer.two_stage", two_stage, True),
+                                    ("Trainer.accumulate_iter", accumulate_iter, 1),
+                                    ("Trainer.unroll_steps", unroll_steps, 1),
+                                    ("Trainer.profile", bool(profile), False)):
+            if value != default:
+                raise NotImplementedError(f"{key}={value!r} is not ported (only {default!r})")
+        self._model = model
+        self._labeled_loader, self._unlabeled_loader = labeled_loader, unlabeled_loader
+        self._val_loader, self._test_loader = val_loader, test_loader
+        save_dir = Path(save_dir)
+        if not save_dir.is_absolute():
+            save_dir = Path(package.RUN_PATH) / save_dir
+        save_dir.mkdir(parents=True, exist_ok=True)
+        self._save_dir = str(save_dir)
+        self._max_epoch, self._num_batches = int(max_epoch), int(num_batches)
+        self._config = dict(config) if config else {}
+        self._disable_bn = bool(disable_bn)
+        self._seed = int(seed)
+        self._device_cache = bool(device_cache)
+        self._hooks: t.List[TrainerHook] = []
+        self._cur_epoch = 0
+        self._best_score = -np.inf
+        self._initialized = False
+        self._storage = Storage(self._save_dir)
+        if self._config:
+            yaml_write(self._config, self._save_dir, "config.yaml")
+
+    # --- hooks ------------------------------------------------------------
+    def register_hooks(self, *hooks: TrainerHook) -> None:
+        if self._initialized:
+            raise RuntimeError("register hooks before init()")
+        self._hooks.extend(hooks)
+
+    # --- initialization ---------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return next(self._model.parameters()).device
+
+    def init(self) -> None:
+        self._bundle = ModelBundle(self._model, self._labeled_loader.item_shape)
+        self._active_hooks = list(self._hooks) if self.activate_hooks else []
+        self._optimizer, self._schedule = create_optimizer(
+            list(self._model.parameters()) + hook_parameters(self._active_hooks),
+            self._config.get("Optim", {}), self._config.get("Scheduler", {}),
+            max_epoch=self._max_epoch, steps_per_epoch=self._num_batches)
+        self._state = init_train_state(self._bundle, self._active_hooks, self._optimizer)
+        self._build_steps()
+        self._initialized = True
+
+    @property
+    def num_classes(self) -> int:
+        return self._bundle.num_classes
+
+    def _build_steps(self) -> None:
+        kw = dict(disable_bn=self._disable_bn)
+        if self._device_cache:
+            crop = int(self._bundle.input_shape[0])
+            self._labeled_cache = DeviceDataCache.from_dataset(
+                self._labeled_loader.dataset, crop=crop, device=self.device)
+            unlabeled_cache = DeviceDataCache.from_dataset(
+                self._unlabeled_loader.dataset, crop=crop, device=self.device)
+            self._train_step = build_cached_train_step(
+                self._bundle, self._active_hooks, labeled_cache=self._labeled_cache,
+                unlabeled_cache=unlabeled_cache,
+                labeled_batch=self._labeled_loader.batch_size,
+                unlabeled_batch=self._unlabeled_loader.batch_size, **kw)
+        else:
+            self._train_step = build_train_step(self._bundle, self._active_hooks, **kw)
+        self._eval_step = build_eval_step(self._bundle)
+
+    def _train_iterators(self):
+        """The train loaders' iterators, made once per run."""
+        if not hasattr(self, "_labeled_iter"):
+            self._labeled_iter = iter(self._labeled_loader)
+            self._unlabeled_iter = iter(self._unlabeled_loader)
+        return self._labeled_iter, self._unlabeled_iter
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _host_batch(self, labeled: dict, unlabeled: dict) -> dict:
+        dev = self._to_device
+        return {"labeled_image": dev(labeled["image"]),
+                "labeled_target": dev(labeled["target"]).long(),
+                "unlabeled_image": dev(unlabeled["image"]),
+                **{f"unlabeled_{k}": dev(unlabeled[k]).long()
+                   for k in ("partition", "scan_id", "patient", "cycle")}}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --- training ---------------------------------------------------------
+    def start_training(self) -> float:
+        if not self._initialized:
+            raise RuntimeError("call init() first")
+        for epoch in range(self._cur_epoch, self._max_epoch):
+            self._cur_epoch = epoch
+            for hook in self._active_hooks:
+                self._state.hook_states[hook.name] = hook.on_epoch_start(
+                    self._state.hook_states[hook.name], epoch)
+            with self._storage:
+                stages = {"tra": self.tra_epoch(epoch)}
+                cur_score = None
+                if self._val_loader is not None:
+                    stages["val"], cur_score = self.eval_epoch(self._val_loader, epoch, "val")
+                if self._test_loader is not None:
+                    stages["test"], _ = self.eval_epoch(self._test_loader, epoch, "test")
+                self._storage.add_from_meter_interface(epoch=epoch, **stages)
+            # the best score is updated before ``last`` is written (JAX writes
+            # ``last`` first, so a run resumed from it forgets this epoch's best)
+            improved = cur_score is not None and cur_score > self._best_score
+            if improved:
+                self._best_score = float(cur_score)
+            self.save_to("last")
+            if improved:
+                self.save_to("best")
+            tra = stages["tra"]["tra"]
+            logger.info("epoch %d/%d: sup %.5f reg %.5f sup DSC_mean %.4f, val DSC_mean %s",
+                        epoch + 1, self._max_epoch, tra["sup_loss"], tra["reg_loss"],
+                        tra["sup_dice"]["DSC_mean"],
+                        "-" if cur_score is None else f"{cur_score:.4f}")
+        package.success(self._save_dir)
+        return self._best_score
+
+    def tra_epoch(self, epoch: int) -> dict:
+        meters = MeterInterface(default_focus="tra")
+        meters.register_meter("sup_loss", AverageValueMeter())
+        meters.register_meter("reg_loss", AverageValueMeter())
+        dice = meters.register_meter("sup_dice", UniversalDice(
+            self.num_classes, report_axis=range(1, self.num_classes)))
+        hook_meters = {}
+        for hook in self._active_hooks:
+            with meters.focus_on(hook.name):
+                hook_meters[hook.name] = meters.register_meter(
+                    "metrics", AverageValueDictionaryMeter())
+        generator = torch.Generator(device=self.device).manual_seed(
+            epoch_seed(self._seed, epoch))
+        if not self._device_cache:
+            labeled_iter, unlabeled_iter = self._train_iterators()
+        t0 = time.perf_counter()
+        with meters:
+            for _ in range(self._num_batches):
+                if self._device_cache:
+                    metrics = self._train_step(self._state, generator, epoch)
+                    dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
+                                    group_ids=metrics.pop("labeled_scan_id"),
+                                    id_table=self._labeled_cache.scan_names)
+                else:
+                    labeled, unlabeled = next(labeled_iter), next(unlabeled_iter)
+                    batch = self._host_batch(labeled, unlabeled)
+                    draws = sample_step_draws(generator, batch["unlabeled_image"].shape[0])
+                    metrics = self._train_step(self._state, batch, draws, epoch)
+                    dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
+                                    group_name=labeled["scan"])
+                meters.add("sup_loss", metrics["sup_loss"])
+                meters.add("reg_loss", metrics["reg_loss"])
+                for hook in self._active_hooks:
+                    prefix = hook.name + "/"
+                    hook_meters[hook.name].add(**{k[len(prefix):]: v for k, v in metrics.items()
+                                                  if k.startswith(prefix)})
+        self._sync()
+        seconds = time.perf_counter() - t0
+        stats = dict(meters.statistics())
+        stats["tra"]["lr"] = float(self._schedule(int(self._state.step)))
+        logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s)", epoch,
+                    self._num_batches, seconds, seconds / self._num_batches * 1e3,
+                    "device cache" if self._device_cache else "host-fed",
+                    extra={"timing": {"phase": "train", "epoch": epoch,
+                                      "steps": self._num_batches, "seconds": seconds,
+                                      "device_cache": self._device_cache}})
+        return stats
+
+    # --- evaluation -------------------------------------------------------
+    def _inference_state(self) -> torch.nn.Module:
+        """The model evaluated (a teacher hook's, once such hooks are ported)."""
+        return self._state.model
+
+    def _eval_batches(self, loader) -> t.Iterator[t.Tuple[dict, tuple]]:
+        """(host batch, its (image, target, mask) on the device)."""
+        for batch in loader:
+            yield batch, (self._to_device(batch["image"]), self._to_device(batch["target"]),
+                          self._to_device(batch["mask"]))
+
+    def eval_epoch(self, loader, epoch: int, stage: str = "eval") -> t.Tuple[dict, float]:
+        num_classes = self.num_classes
+        meters = MeterInterface(default_focus="eval")
+        meters.register_meter("loss", AverageValueMeter())
+        dice = meters.register_meter("dice", UniversalDice(
+            num_classes, report_axis=range(1, num_classes)))
+        model = self._inference_state()
+        t0, n = time.perf_counter(), 0
+        with meters:
+            for batch, tensors in self._eval_batches(loader):
+                loss, _, inter, union = self._eval_step(model, *tensors)
+                meters.add("loss", loss)
+                dice.add_counts(inter, union, group_name=batch["scan"])
+                n += 1
+        stats = dict(meters.statistics())
+        self._log_eval(stage, epoch, n, time.perf_counter() - t0)
+        return stats, float(stats["eval"]["dice"]["DSC_mean"])
+
+    def _log_eval(self, stage: str, epoch: int, batches: int, seconds: float, **extra) -> None:
+        logger.info("%s epoch %d: %d batches in %.3f s", stage, epoch, batches, seconds,
+                    extra={"timing": {"phase": stage, "epoch": epoch, "batches": batches,
+                                      "seconds": seconds, **extra}})
+
+    # --- checkpointing ----------------------------------------------------
+    def save_to(self, name: str = "last") -> str:
+        path = Path(self._save_dir) / name
+        t0 = time.perf_counter()
+        save_checkpoint(path, train_state=train_state_dict(self._state, self._active_hooks),
+                        host_state={"cur_epoch": self._cur_epoch + 1,
+                                    "best_score": float(self._best_score),
+                                    "config": self._config,
+                                    "storage": self._storage.state_dict()})
+        seconds = time.perf_counter() - t0
+        logger.info("saved %s in %.3f s", path, seconds,
+                    extra={"timing": {"phase": "save", "name": name, "seconds": seconds}})
+        return str(path)
+
+    def resume_from_path(self, path: str) -> None:
+        if not self._initialized:
+            raise RuntimeError("init() before resume")
+        ckpt = load_checkpoint(path, map_location=self.device)
+        load_train_state(self._state, self._active_hooks, ckpt["train_state"])
+        host = ckpt["host_state"]
+        self._cur_epoch = int(host["cur_epoch"])
+        self._best_score = float(host["best_score"])
+        self._storage.load_state_dict(host["storage"])
+        logger.info("resumed from %s at epoch %d", path, self._cur_epoch)
+
+    # --- accessors --------------------------------------------------------
+    @property
+    def save_dir(self) -> str:
+        return self._save_dir
+
+    @property
+    def cur_epoch(self) -> int:
+        return self._cur_epoch

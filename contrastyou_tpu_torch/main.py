@@ -1,8 +1,8 @@
-"""Entry point of the PyTorch port: ``semi`` training or contrastive
-pretraining on one device.
+"""Entry point of the PyTorch port: a ``semi`` experiment, or contrastive
+pretraining, on one device.
 
-    python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/consistency.yaml \\
-        -o Trainer.name=semi Trainer.num_batches=20
+    python -m contrastyou_tpu_torch.main -o Trainer.name=semi Trainer.max_epoch=2 \\
+        Trainer.num_batches=10 Trainer.save_dir=<run>
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/udaiic.yaml \\
         -o Trainer.name=semi
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/pretrain.yaml \\
@@ -14,34 +14,54 @@ in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
 so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
 ``semi`` + ``udaiic`` base; from the ``semi`` base the same run is
 ``-o Trainer.name=semi ~ConsistencyParameters`` plus the four
-``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml). It runs
-``Trainer.num_batches`` steps (one epoch) on a synthetic split made with numpy
-from ``RandomSeed`` — dataset files, the epoch loop, evaluation and
-checkpoints are not ported yet, and their keys (:data:`UNPORTED_KEYS`)
-raise when set. The hooks come from the config's hook
-sections (``hooks/creator.py``; a section without a port raises). Both
-trainers take the class count of ``Data.name``; pretraining also its
-partition count and contrastive sampler (``-o Data.name=prostate``: 8
-partitions, 2 classes, random 48-slice batches, 96 images per forward).
+``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml). The
+hooks come from the config's hook sections (``hooks/creator.py``; a section
+without a port raises).
+
+``semi`` runs the root ``main.py``'s experiment (:func:`run_semi`): the
+dataset ``Data.name`` from ``$CONTRASTYOU_DATA_PATH`` (its on-disk layout,
+e.g. the one ``data/synthetic.py`` writes), split into labeled, unlabeled,
+validation and test scans; ``Trainer.max_epoch`` epochs of
+``Trainer.num_batches`` steps, each followed by validation and test over
+whole scans, written to ``storage.csv`` with ``config.yaml``, the ``last``
+and ``best`` checkpoints and ``.success`` in ``Trainer.save_dir`` (under
+``$CONTRASTYOU_RUN_PATH`` when relative); then inference on ``best``
+(``inference_result.json``; ``+Inference.tta=true`` averages the four axis
+flips). It resumes from ``trainer_checkpoint`` or else from
+``<save_dir>/last``. ``-o Trainer.device_cache=true`` stages the train
+split on the device. The pretraining trainers run ``Trainer.num_batches``
+steps (one epoch) on synthetic numpy scans (:func:`build_pretrain_run`);
+their loop is not ported yet. Keys the port does not implement
+(:data:`UNPORTED_KEYS`) raise when set. Both trainers take the class count
+of ``Data.name``; pretraining also its partition count and contrastive
+sampler (``-o Data.name=prostate``: 8 partitions, 2 classes, random
+48-slice batches, 96 images per forward). :func:`build_semi_run` builds the
+``semi`` step on a synthetic split in memory, for ``profile_step`` and
+``chip_smoke.py``.
 
 The run is on the CUDA card; ``-o Trainer.device=cpu`` asks for the CPU.
 Without a card and without that request it raises.
 """
 from __future__ import annotations
 
+import logging
 import sys
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+import contrastyou_tpu_torch as package
 from .configure.config import ConfigParser, merge, parse_value
+from .data.creator import get_data
 from .data.datasets import DatasetSpec, dataset_spec
 from .data.device_cache import DeviceDataCache
 from .data.sampler import partition_index
 from .engine.bundle import ModelBundle
+from .engine.checkpoint import is_checkpoint
 from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
 from .engine.state import TrainState
@@ -49,6 +69,7 @@ from .engine.steps import build_cached_train_step, init_train_state
 from .hooks.creator import create_hook_from_config
 from .hooks.infonce import INFONCEHook
 from .models.unet import UNet
+from .trainers import trainer_zoo
 from .trainers.pretrain import (build_pretrain_step, contrastive_batches,
                                 feature_until_from_hooks, frozen_after,
                                 jitter_strength, sample_pretrain_draws)
@@ -56,7 +77,8 @@ from .trainers.pretrain import (build_pretrain_step, contrastive_batches,
 __all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "PRETRAIN_DECODER_CONFIG",
            "PRETRAIN_ENCODER_CONFIG", "UNPORTED_KEYS", "refuse_unported_keys",
            "resolve_device", "synthetic_split", "synthetic_scans", "SemiRun",
-           "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config", "main"]
+           "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config",
+           "find_checkpoint", "run_semi", "main"]
 
 #: config/base.yaml
 _BASE = {
@@ -164,11 +186,11 @@ def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
 
 #: config keys the port parses but does not implement yet, with the value
 #: that means "not used": another value raises rather than train something
-#: else (JAX: ``optax.MultiSteps``, ``get_arch`` and the checkpoint keys of
-#: the root main.py)
+#: else (JAX: ``optax.MultiSteps``, ``get_arch``, the warm-start keys of the
+#: root main.py, and the TPU trainer's unrolled steps and profiler trace)
 UNPORTED_KEYS = {("Trainer", "accumulate_iter"): 1, ("Arch", "name"): "unet",
                  ("Arch", "checkpoint"): None, ("Arch", "pretrained_path"): None,
-                 ("trainer_checkpoint",): None}
+                 ("Trainer", "unroll_steps"): 1, ("Trainer", "profile"): False}
 
 
 def refuse_unported_keys(config: Mapping) -> None:
@@ -349,25 +371,57 @@ def parse_config(argv, base: Optional[Mapping] = None) -> dict:
     return config
 
 
+def find_checkpoint(save_dir) -> Optional[str]:
+    """``<save_dir>/last`` when it holds a checkpoint."""
+    last = Path(save_dir) / "last"
+    return str(last) if is_checkpoint(last) else None
+
+
+def run_semi(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16):
+    """The ``semi`` experiment of ``config`` (see the module docstring) ->
+    its trainer, after training and inference."""
+    refuse_unported_keys(config)
+    seed = int(config.get("RandomSeed", 10))
+    data = config["Data"]
+    labeled, unlabeled, val, test = get_data(
+        data, config.get("LabeledLoader", {}), config.get("UnlabeledLoader", {}),
+        root_dir=package.DATA_PATH, order_num=int(data.get("order_num", 0)))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = _model(config, device, dtype, None, gen, dataset_spec(str(data["name"])).train_classes)
+    trainer = trainer_zoo[config["Trainer"].get("name") or "semi"](
+        model=model, labeled_loader=labeled, unlabeled_loader=unlabeled, val_loader=val,
+        test_loader=test, config=config, seed=seed,
+        **{k: v for k, v in config["Trainer"].items() if k not in ("name", "device")})
+    trainer.register_hooks(*_hooks(config, model, device, dtype, gen, is_pretrain=False))
+    trainer.init()
+    resume = config.get("trainer_checkpoint") or find_checkpoint(trainer.save_dir)
+    if resume:
+        trainer.resume_from_path(resume)
+    best = trainer.start_training()
+    best_ckpt = Path(trainer.save_dir) / "best"
+    trainer.inference(checkpoint=str(best_ckpt) if best_ckpt.exists() else None)
+    logging.getLogger(__name__).info("training finished, best score: %s", best)
+    return trainer
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     config = parse_config(argv)
     device = resolve_device(config["Trainer"].get("device"))
     name = config["Trainer"].get("name")
-    pretrain = name in ("pretrain", "pretrain_decoder")
-    run = (build_pretrain_run if pretrain else build_semi_run)(config, device=device)
+    if name not in ("pretrain", "pretrain_decoder"):
+        run_semi(config, device=device)
+        return 0
+    run = build_pretrain_run(config, device=device)
     n = int(config["Trainer"]["num_batches"])
     t0 = time.perf_counter()
     for i in range(n):
         m = run.step(run.state, run.generator)
         if i % 10 == 0 or i == n - 1:
-            if pretrain:
-                print(f"step {i}: " + " ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
-            else:
-                print(f"step {i}: sup {float(m['sup_loss']):.4f} "
-                      f"reg {float(m['reg_loss']):.6f} total {float(m['total_loss']):.4f}")
+            print(f"step {i}: " + " ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
     dt = time.perf_counter() - t0
-    print(f"{n} {name or 'semi'} steps on {device} in {dt:.2f} s")
+    print(f"{n} {name} steps on {device} in {dt:.2f} s")
     return 0
 
 

@@ -10,7 +10,9 @@ checkpoints. The forward takes and returns NHWC tensors like the JAX model:
 Routing: the levels at most 64 channels wide (Conv1, Conv2, Up_conv3, Up2,
 Up_conv2 at the reference widths) run through the hand-written kernels of
 ``ops/convblock.py``; the levels from 128 channels up use ``F.conv2d``, as the
-JAX package leaves them to XLA.
+JAX package leaves them to XLA. Below the reference widths (``max_channel``
+< 128, for small CPU runs) every level is at most 64 wide and takes the
+kernels' path; on the card the kernels then refuse the narrow channel counts.
 
 BatchNorm follows JAX ``unet.py:185-206``: train mode normalizes with the
 batch mean and BIASED variance and updates the running statistics as
@@ -159,8 +161,8 @@ class UNet(nn.Module):
                  max_channel: int = 256, momentum: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if max_channel % 16 or max_channel < 128:
-            raise ValueError(f"max_channel must be a multiple of 16 >= 128, got {max_channel}")
+        if max_channel % 16 or max_channel < 16:
+            raise ValueError(f"max_channel must be a multiple of 16 >= 16, got {max_channel}")
         self.input_dim, self.num_classes = input_dim, num_classes
         self.max_channel, self.dtype = max_channel, dtype
         cd = self.get_channel_dim

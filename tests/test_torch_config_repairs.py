@@ -57,7 +57,7 @@ def test_acdc_subtask_targets_are_remapped_as_jax(name):
 @pytest.mark.parametrize("key,value", [("Trainer.accumulate_iter", "4"), ("Arch.name", "unet2"),
                                        ("Arch.checkpoint", "ckpt.pth"),
                                        ("Arch.pretrained_path", "enc.npz"),
-                                       ("trainer_checkpoint", "last.pth")])
+                                       ("Trainer.unroll_steps", "2")])
 def test_unported_keys_raise(key, value):
     """A non-default value of a key the port does not implement raises
     ``NotImplementedError`` naming it, in both run builders, before anything

@@ -169,6 +169,39 @@ def test_k1_k2_refuse_what_they_do_not_take():
     assert cb.LAUNCHES == before
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("grad_mode", ["no_grad", "inference_mode"])
+def test_k1_k2_eval_forwards_take_flips_and_refuse_strided_views(grad_mode):
+    """The eval step's forwards: K1 and K2 through their autograd Functions
+    under ``no_grad`` / ``inference_mode`` at the ragged eval batch 13, on
+    flipped inputs (``torch.flip`` copies, so contiguous) against the plain
+    versions; a strided view of the same data raises instead of being read
+    with strides the kernels do not expect."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+
+    x, w, u, k3 = r(13, 24, 24, 32), r(3, 3, 32, 64), r(13, 12, 12, 64), r(3, 3, 64, 32)
+    mode = torch.no_grad if grad_mode == "no_grad" else torch.inference_mode
+    with mode():
+        for dims in ((), (2,), (1,), (1, 2)):
+            xf, uf = (torch.flip(x, dims), torch.flip(u, dims)) if dims else (x, u)
+            got = cb.conv3x3_bn_stats(xf, w)
+            scaled_close(got[0], cb.conv3x3_stats_plain(xf, w)[0], tol=TOL, what=f"K1 {dims}")
+            up = cb.upconv3x3_bn_stats(uf, k3)
+            scaled_close(up[0], cb.upconv3x3_stats_plain(uf, cb.parity_taps(k3))[0], tol=TOL,
+                         what=f"K2 {dims}")
+        before = dict(cb.LAUNCHES)
+        for bad in (lambda: cb.conv3x3_stats(x.transpose(1, 2), w),
+                    lambda: cb.upconv3x3_stats(u.transpose(1, 2), cb.parity_taps(k3))):
+            with pytest.raises(ValueError, match="contiguous"):
+                bad()
+        assert cb.LAUNCHES == before
+
+
 #: (B, H, W, cotangent channels, Cin) of K3, on dx's grid (g is 2H x 2W):
 #: ragged tilings of the 16 x 16 (Cin 32) and 8 x 16 (Cin 64) tiles, B = 1
 #: to 11, both channel counts on each side, the path's 112 x 112 and 224 x 224
