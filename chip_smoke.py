@@ -1366,6 +1366,253 @@ def check_loop_outputs(run_dir, records: list, by_path: dict, card: str, peak: f
                              f"{want} (eval {want_eval}) for {steps} steps, {fwd} eval forwards")
 
 
+#: the chain phase: a synthetic ACDC layout at 256 x 256 (12 train scans, so
+#: the pretrain split holds the 6 scans that ``scan_sample_num`` 6 needs, and
+#: 4 validation scans, all of 10 slices); ``pretrain_decoder`` for 2 epochs x
+#: 10 steps and a resume to a third, then ``ft`` from its ``last`` for 2 x 10
+CHAIN_SCANS, CHAIN_SLICES, CHAIN_SIZE = (12, 4), 10, 256
+CHAIN_EPOCHS, CHAIN_STEPS = 2, 10
+#: launches per train step of (D1 and D2 each, K1, K2, K3, C1, C2) on each
+#: loop of the chain: ``ft`` is one pass of ``semi``'s two (5 labeled slices)
+CHAIN_LAUNCHES = {"pretrain_decoder/loop": {"supcon_loss": 2, "supcon_dz": 2,
+                                            "conv_dw_taps": 2, "conv3x3_bwd_fused": 9},
+                  "ft/loop": {"conv3x3_stats": 8, "upconv3x3_stats": 1, "upconv3x3_dx": 1,
+                              "conv_dw_taps": 2, "conv3x3_bwd_fused": 9}}
+
+
+@contextlib.contextmanager
+def warm_start_snapshot(seen: dict):
+    """Record the ft trainer's parameters, buffers and optimizer right before
+    its first epoch, i.e. right after the ``Arch.checkpoint`` warm start."""
+    from contrastyou_tpu_torch.trainers.ft import FineTuneTrainer
+    saved = FineTuneTrainer.start_training
+
+    def start(self):
+        seen["params"] = {k: p.detach().clone() for k, p in self._model.named_parameters()}
+        seen["buffers"] = {k: b.clone() for k, b in self._model.named_buffers()}
+        seen["optimizer"] = (len(self._state.optimizer.state), self._state.optimizer.count,
+                             self._state.step)
+        return saved(self)
+
+    FineTuneTrainer.start_training = start
+    try:
+        yield seen
+    finally:
+        FineTuneTrainer.start_training = saved
+
+
+def check_ft_step(device, config, weights) -> None:
+    """Phase 12b: one ``ft`` step (5 labeled slices of the run's loader) on
+    the fine-tuned weights, its loss and gradients through the kernels and
+    under ``plain_kernels()``: the kernel path's distance to an f32 step may
+    be at most ``STAGE_FACTOR`` times the plain bf16 path's plus
+    ``STAGE_ATOL`` of the largest value (whole-network bf16 moves these
+    gradients by tens of percent from f32 in either path)."""
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch.data.creator import get_data
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.optim import create_optimizer
+    from contrastyou_tpu_torch.engine.steps import build_train_step, init_train_state
+    from contrastyou_tpu_torch.models.unet import UNet
+
+    labeled = get_data(config["Data"], config["LabeledLoader"], {}, root_dir=package.DATA_PATH)[0]
+    host = next(iter(labeled))
+    batch = {"labeled_image": torch.from_numpy(host["image"]).to(device),
+             "labeled_target": torch.from_numpy(host["target"]).to(device).long()}
+
+    def step(dtype):
+        model = UNet(max_channel=int(config["Arch"]["max_channel"]),
+                     momentum=float(config["Arch"]["momentum"]), dtype=dtype).to(device)
+        model.load_state_dict(weights)
+        bundle = ModelBundle(model, (224, 224, 1))
+        opt, _ = create_optimizer(model.parameters(), config["Optim"], config["Scheduler"],
+                                  max_epoch=2, steps_per_epoch=CHAIN_STEPS)
+        m = build_train_step(bundle, [], mode="ft")(init_train_state(bundle, [], opt), batch, None)
+        return {"loss": m["sup_loss"].reshape(1),
+                **{k: p.grad.clone() for k, p in model.named_parameters()}}
+
+    _reset_counts()
+    got = step(torch.bfloat16)
+    launches = _counts()
+    with plain_kernels():
+        plain, ref = step(torch.bfloat16), step(torch.float32)
+    worst, loss_err = 0.0, None
+    for k in ref:
+        ek, ep = _rel_err(got[k], ref[k])[1], _rel_err(plain[k], ref[k])[1]
+        worst = max(worst, ek / (ep + STAGE_ATOL))
+        if k == "loss":
+            loss_err = (ek, ep)
+        if ek > STAGE_FACTOR * ep + STAGE_ATOL or not bool(torch.isfinite(got[k]).all()):
+            raise AssertionError(f"ft step {k}: kernel path {ek:.3e} from f32, plain bf16 {ep:.3e}")
+    print(f"chain: one ft step (batch {len(host['image'])}) through the kernels vs plain_kernels(), "
+          f"each against f32: loss {loss_err[0]:.2e} vs {loss_err[1]:.2e}; over the loss and "
+          f"{len(ref) - 1} gradients the kernel path's error is at most {worst:.2f}x the plain "
+          f"bf16 path's (+{STAGE_ATOL}; limit {STAGE_FACTOR}x)")
+    want = CHAIN_LAUNCHES["ft/loop"]
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"ft step launches {launches}, want {want}")
+
+
+def run_chain(device, card: str) -> dict:
+    """Phase 12: the contrastive pretrain -> fine-tune chain through
+    ``main.main`` at full width: ``pretrain_decoder`` for 2 epochs and a
+    resume to a third (``pretrain_decoder/loop``), then ``ft`` with
+    ``Arch.checkpoint=<pretrain>/last`` for 2 epochs with validation, test
+    and inference (``ft/loop``; its eval forwards also under
+    ``ft/loop/eval``). Checks the files, finite losses and dice, the frozen
+    ``_Deconv_1x1``, the warm start (parameters bit-equal to the
+    checkpoint's, fresh BN buffers and optimizer) and the launches per
+    step; then one ft step against ``plain_kernels()`` (phase 12b)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+    from contrastyou_tpu_torch.engine.checkpoint import load_checkpoint
+
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    by_path, records = {}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
+            t0 = time.perf_counter()
+            data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+            synthesize_acdc_like(data, num_train_scans=CHAIN_SCANS[0], num_val_scans=CHAIN_SCANS[1],
+                                 slices_per_scan=CHAIN_SLICES, size=CHAIN_SIZE)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(runs)
+            print(f"chain: wrote {sum(CHAIN_SCANS)} scans at {CHAIN_SIZE}^2 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            pre_argv = ["-o", "Trainer.name=pretrain_decoder", f"Trainer.num_batches={CHAIN_STEPS}",
+                        "Trainer.save_dir=pre"]
+            ft_argv = ["-o", "Trainer.name=ft", f"Trainer.num_batches={CHAIN_STEPS}",
+                       f"Trainer.max_epoch={CHAIN_EPOCHS}", "Trainer.save_dir=ft",
+                       f"Arch.checkpoint={runs / 'pre' / 'last'}"]
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            timings.records.clear()
+            t0 = time.perf_counter()
+            for epochs in (CHAIN_EPOCHS, CHAIN_EPOCHS + 1):
+                if port_main.main(pre_argv + [f"Trainer.max_epoch={epochs}"]) != 0:
+                    raise AssertionError("pretrain_decoder/loop: main returned non-zero")
+            torch.cuda.synchronize()
+            by_path["pretrain_decoder/loop"] = _counts()
+            records["pretrain_decoder/loop"] = list(timings.records)
+            print(f"pretrain_decoder/loop: {time.perf_counter() - t0:.1f} s; launches "
+                  f"{by_path['pretrain_decoder/loop']}")
+            seen: dict = {}
+            eval_counts: dict = {}
+            _reset_counts()
+            timings.records.clear()
+            t0 = time.perf_counter()
+            with warm_start_snapshot(seen), eval_launches(eval_counts):
+                if port_main.main(ft_argv) != 0:
+                    raise AssertionError("ft/loop: main returned non-zero")
+            torch.cuda.synchronize()
+            by_path["ft/loop"] = _counts()
+            by_path["ft/loop/eval"] = {k: eval_counts.get(k, 0) for k in by_path["ft/loop"]}
+            records["ft/loop"] = list(timings.records)
+            print(f"ft/loop: {time.perf_counter() - t0:.1f} s; launches {by_path['ft/loop']}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            pre_ckpt = load_checkpoint(runs / "pre" / "last", map_location=device)
+            check_chain_outputs(device, runs, pre_ckpt, seen, records, by_path, card, peak)
+            ft_ckpt = load_checkpoint(runs / "ft" / "last", map_location=device)
+            check_ft_step(device, ft_ckpt["host_state"]["config"], ft_ckpt["train_state"]["model"])
+    finally:
+        logger.removeHandler(timings)
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    return by_path
+
+
+def check_chain_outputs(device, runs, pre_ckpt, seen, records, by_path, card, peak) -> None:
+    """Phase 12a: files, rows, finite losses and dice, the frozen layer, the
+    warm start, launches per step and the loops' times."""
+    import json
+
+    import torch
+    from contrastyou_tpu_torch import main as port_main
+
+    pre, ft = runs / "pre", runs / "ft"
+    for run, present, absent in ((pre, ("storage.csv", ".success", "last/train_state.pt"),
+                                  ("best", "inference_result.json")),
+                                 (ft, ("storage.csv", ".success", "last/train_state.pt",
+                                       "best/train_state.pt", "inference_result.json"), ())):
+        for f in present:
+            if not (run / f).exists():
+                raise AssertionError(f"chain: {run.name}/{f} missing")
+        for f in absent:
+            if (run / f).exists():
+                raise AssertionError(f"chain: {run.name}/{f} written")
+    rows = {}
+    for run, n in ((pre, CHAIN_EPOCHS + 1), (ft, CHAIN_EPOCHS)):
+        lines = (run / "storage.csv").read_text().splitlines()
+        header = lines[0].split(",")
+        rows[run.name] = [dict(zip(header, r.split(","))) for r in lines[1:]]
+        values = [float(v) if v else math.nan for r in rows[run.name] for k, v in r.items()
+                  if "loss" in k or "dice" in k]
+        if len(rows[run.name]) != n or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"chain: {run.name} storage rows {rows[run.name]}")
+    result = json.loads((ft / "inference_result.json").read_text())
+    if not all(math.isfinite(v) for v in list(result["dice"].values()) + [result["loss"]]):
+        raise AssertionError(f"chain: ft inference {result}")
+    print(f"chain: pretrain reg_loss {[float(r['tra/pretrain/reg_loss/value']) for r in rows['pre']]}; "
+          f"ft sup_loss {[float(r['tra/tra/sup_loss/value']) for r in rows['ft']]}, val DSC_mean "
+          f"{[float(r['val/eval/dice/DSC_mean']) for r in rows['ft']]}, inference {result['dice']}")
+
+    cfg = pre_ckpt["host_state"]["config"]
+    fresh = port_main._model(cfg, device, torch.bfloat16, None,
+                             torch.Generator(device=device).manual_seed(int(cfg["RandomSeed"])), 4)
+    saved, init = pre_ckpt["train_state"]["model"], fresh.state_dict()
+    if not all(torch.equal(saved[k], init[k]) for k in ("_Deconv_1x1.weight", "_Deconv_1x1.bias")):
+        raise AssertionError("chain: the frozen _Deconv_1x1 changed in pretraining")
+    if torch.equal(saved["_Up_conv2.conv.3.weight"], init["_Up_conv2.conv.3.weight"]):
+        raise AssertionError("chain: pretraining left Up_conv2 unchanged")
+    params_equal = all(torch.equal(v, saved[k]) for k, v in seen["params"].items())
+    buffers_fresh = all(torch.equal(v, init[k]) for k, v in seen["buffers"].items())
+    print(f"chain: warm start: {len(seen['params'])} parameter tensors bit-equal to the "
+          f"checkpoint's: {params_equal}; {len(seen['buffers'])} BN buffers fresh: "
+          f"{buffers_fresh}; optimizer (state entries, count, step) {seen['optimizer']}")
+    if not (params_equal and buffers_fresh and seen["optimizer"] == (0, 0, 0)):
+        raise AssertionError("chain: the ft warm start is not the checkpoint's parameters "
+                             "over fresh BN statistics and a fresh optimizer")
+
+    for path, recs in records.items():
+        train = [r for r in recs if r["phase"] == "train"]
+        steps = sum(r["steps"] for r in train)
+        for r in train:
+            print(f"{path}: train epoch {r['epoch']}: {r['seconds'] / r['steps'] * 1e3:.3f} "
+                  f"ms/step inside the loop on {card}")
+        for r in recs:
+            if r["phase"] in ("val", "test", "inference"):
+                print(f"{path}: {r['phase']} epoch {r['epoch']}: {r['batches']} scans, "
+                      f"{r['seconds'] / r['batches'] * 1e3:.3f} ms/scan on {card}")
+        saves = [r["seconds"] * 1e3 for r in recs if r["phase"] == "save"]
+        print(f"{path}: checkpoint save {min(saves):.1f}-{max(saves):.1f} ms ({len(saves)} saves) "
+              f"on {card}")
+        fwd = sum(r["batches"] for r in recs if r["phase"] in ("val", "test", "inference"))
+        want = {k: n * steps for k, n in CHAIN_LAUNCHES[path].items()}
+        if path == "ft/loop":
+            want["conv3x3_stats"] += 8 * fwd
+            want["upconv3x3_stats"] += fwd
+            want.update({k: 0 for k in SUPCON_KERNELS + IIC_KERNELS})
+            want_eval = {k: 0 for k in by_path[path]}
+            want_eval.update(conv3x3_stats=8 * fwd, upconv3x3_stats=fwd)
+            if by_path["ft/loop/eval"] != want_eval:
+                raise AssertionError(f"ft/loop eval launches {by_path['ft/loop/eval']}, "
+                                     f"want {want_eval}")
+        else:
+            want.update({k: 0 for k in IIC_KERNELS})
+        got = by_path[path]
+        if any(got[k] != n for k, n in want.items()) or min(got[k] for k in CONV_KERNELS) <= 0:
+            raise AssertionError(f"{path} launches {got}, want {want} for {steps} steps and "
+                                 f"{fwd} eval forwards, every conv kernel > 0")
+    print(f"chain: peak memory {peak:.2f} GiB on {card}")
+
+
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
 #: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
@@ -1426,6 +1673,8 @@ def main() -> int:
     by_path["semi/udaiic"] = run_udaiic(device, card, by_path["semi"])
     torch.cuda.empty_cache()
     by_path.update(run_loop(device, card))
+    torch.cuda.empty_cache()
+    by_path.update(run_chain(device, card))
     torch.cuda.empty_cache()
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),

@@ -10,6 +10,8 @@ contrastyou_tpu/engine/checkpoint.py). A checkpoint is a directory:
 
 It is written to a temporary directory beside the target, then renamed over
 it. The JAX package's checkpoints (``train_state.msgpack``) are not read.
+:func:`extract_model_params` takes the model's parameters alone out of a
+checkpoint, for a warm start (``Arch.checkpoint``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Any, Dict
 import torch
 
 __all__ = ["save_checkpoint", "load_checkpoint", "train_state_dict", "load_train_state",
-           "is_checkpoint"]
+           "is_checkpoint", "extract_model_params", "load_model_params"]
 
 TRAIN_STATE, HOST_STATE, JAX_TRAIN_STATE = "train_state.pt", "host_state.pkl", "train_state.msgpack"
 
@@ -92,3 +94,34 @@ def load_checkpoint(path, map_location=None) -> Dict[str, Any]:
     with open(path / HOST_STATE, "rb") as f:
         host_state = pickle.load(f)
     return {"train_state": train_state, "host_state": host_state}
+
+
+def extract_model_params(path, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The parameters of ``model`` (``named_parameters``) out of the
+    checkpoint directory ``path``, on the model's device: as JAX restores the
+    ``params`` subtree alone, the BN running statistics (buffers of the saved
+    ``state_dict``), the optimizer and the hooks are left out. A saved tensor
+    of another shape than the model's raises, naming it (JAX's train step
+    refuses it at its first trace)."""
+    template = dict(model.named_parameters())
+    device = next(iter(template.values())).device
+    saved = load_checkpoint(path, map_location=device)["train_state"]["model"]
+    missing = sorted(set(template) - set(saved))
+    if missing:
+        raise KeyError(f"{path}: no saved {missing}")
+    for name, p in template.items():
+        if saved[name].shape != p.shape:
+            raise ValueError(f"{path}: {name} is {list(saved[name].shape)} in the checkpoint, "
+                             f"{list(p.shape)} in the model (another class count or width?)")
+    return {name: saved[name] for name in template}
+
+
+@torch.no_grad()
+def load_model_params(model: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Copy :func:`extract_model_params`'s output into ``model``'s
+    parameters, in place; its buffers (BN statistics) stay as they are."""
+    own = dict(model.named_parameters())
+    if set(own) != set(params):
+        raise KeyError(f"parameters {sorted(set(own) ^ set(params))} on one side only")
+    for name, p in own.items():
+        p.copy_(params[name])

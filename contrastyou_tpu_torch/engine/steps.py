@@ -1,16 +1,18 @@
 """Step builders (counterpart of contrastyou_tpu/engine/steps.py): the
 ``semi`` step — augmentation, two-stage forward, supervised KL, summed hook
-losses, optimizer update, hook post-updates — the device-cached step that
-also samples its batch on the GPU, and the eval step (running-statistics
-forward, optionally averaged over the four axis flips).
+losses, optimizer update, hook post-updates — and the ``ft`` step (the
+labeled forward alone under the supervised KL and the hooks), the
+device-cached step that also samples its batch on the GPU, and the eval step
+(running-statistics forward, optionally averaged over the four axis flips).
 
-Every random draw is explicit: the step takes a :class:`StepDraws` (the
-unlabeled batch's GeoParams and gammas); the cached step draws those, the
-sample indices and the crop offsets from a ``torch.Generator``.
+Every random draw is explicit: the ``semi`` step takes a :class:`StepDraws`
+(the unlabeled batch's GeoParams and gammas; ``ft`` takes none); the cached
+step draws those, the sample indices and the crop offsets from a
+``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -45,45 +47,50 @@ def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
 
 
 def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
-                     disable_bn: bool = False) -> Callable:
-    """-> ``step(state, batch, draws, epoch=0) -> metrics`` for the ``semi``
-    mode.
+                     disable_bn: bool = False, mode: str = "semi") -> Callable:
+    """-> ``step(state, batch, draws, epoch=0) -> metrics`` for ``mode``
+    ``semi`` or ``ft``.
 
-    ``batch``: ``labeled_image`` [B,H,W,1], ``labeled_target`` [B,H,W] int,
-    ``unlabeled_image`` [Bu,H,W,1], optional group ids. Two-stage BN (the
-    reference config's ``Trainer.two_stage``; the one-pass form is not
-    ported): one forward over the labeled batch, one over the unlabeled batch
-    and its transformed copy (``disable_bn`` keeps the second from updating
-    the BN running statistics). The metrics stay on the device."""
+    ``batch``: ``labeled_image`` [B,H,W,1], ``labeled_target`` [B,H,W] int;
+    under ``semi`` also ``unlabeled_image`` [Bu,H,W,1] and optional group
+    ids. ``semi`` runs two-stage BN (the reference config's
+    ``Trainer.two_stage``; the one-pass form is not ported): one forward over
+    the labeled batch, one over the unlabeled batch and its transformed copy
+    (``disable_bn`` keeps the second from updating the BN running
+    statistics). ``ft`` runs the labeled forward alone and takes no draws
+    (``draws`` None). The metrics stay on the device."""
+    if mode not in ("semi", "ft"):
+        raise ValueError(f"mode {mode!r}: semi or ft")
     hooks = tuple(hooks)
     taps = combined_taps(hooks)
     num_classes = bundle.num_classes
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             draws: StepDraws, epoch: int = 0) -> Dict[str, torch.Tensor]:
+             draws: Optional[StepDraws], epoch: int = 0) -> Dict[str, torch.Tensor]:
         state.model.train()
         labeled_image = batch["labeled_image"]
         labeled_target = batch["labeled_target"]
-        unlabeled_image = batch["unlabeled_image"]
-        nu = unlabeled_image.shape[0]
-        unlabeled_image_tf = transform_image(unlabeled_image, draws.geo, draws.gammas)
         ctx = StepContext(labeled_image=labeled_image, labeled_target=labeled_target,
-                          unlabeled_image=unlabeled_image,
-                          unlabeled_image_tf=unlabeled_image_tf,
-                          geo_params=draws.geo, epoch=epoch, bundle=bundle,
-                          label_group=batch.get("unlabeled_scan_id"),
-                          partition_group=batch.get("unlabeled_partition"),
-                          patient_group=batch.get("unlabeled_patient"),
-                          cycle_group=batch.get("unlabeled_cycle"))
+                          epoch=epoch, bundle=bundle)
         labeled_logits, labeled_taps = bundle.apply_train(labeled_image, taps=taps)
-        u_logits, u_taps = bundle.apply_train(
-            torch.cat([unlabeled_image, unlabeled_image_tf], 0), taps=taps,
-            update_stats=not disable_bn)
         ctx.labeled_logits, ctx.labeled_taps = labeled_logits, labeled_taps
-        ctx.unlabeled_logits, ctx.unlabeled_tf_logits = u_logits[:nu], u_logits[nu:]
-        ctx.unlabeled_logits_tf = transform_logits(ctx.unlabeled_logits, draws.geo)
-        ctx.unlabeled_taps = {k: v[:nu] for k, v in u_taps.items()}
-        ctx.unlabeled_tf_taps = {k: v[nu:] for k, v in u_taps.items()}
+        if mode == "semi":
+            unlabeled_image = batch["unlabeled_image"]
+            nu = unlabeled_image.shape[0]
+            ctx.unlabeled_image = unlabeled_image
+            ctx.unlabeled_image_tf = transform_image(unlabeled_image, draws.geo, draws.gammas)
+            ctx.geo_params = draws.geo
+            ctx.label_group = batch.get("unlabeled_scan_id")
+            ctx.partition_group = batch.get("unlabeled_partition")
+            ctx.patient_group = batch.get("unlabeled_patient")
+            ctx.cycle_group = batch.get("unlabeled_cycle")
+            u_logits, u_taps = bundle.apply_train(
+                torch.cat([unlabeled_image, ctx.unlabeled_image_tf], 0), taps=taps,
+                update_stats=not disable_bn)
+            ctx.unlabeled_logits, ctx.unlabeled_tf_logits = u_logits[:nu], u_logits[nu:]
+            ctx.unlabeled_logits_tf = transform_logits(ctx.unlabeled_logits, draws.geo)
+            ctx.unlabeled_taps = {k: v[:nu] for k, v in u_taps.items()}
+            ctx.unlabeled_tf_taps = {k: v[nu:] for k, v in u_taps.items()}
 
         onehot = F.one_hot(labeled_target.long(), num_classes).float()
         probs = torch.softmax(labeled_logits, -1)
@@ -117,25 +124,28 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
 
 
 def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
-                            labeled_cache, unlabeled_cache,
+                            labeled_cache, unlabeled_cache=None,
                             labeled_batch: int = 5, unlabeled_batch: int = 5,
                             **kwargs) -> Callable:
     """-> ``cached_step(state, generator, epoch=0) -> metrics``: one ``semi`` step
     whose batch is sampled and cropped on the device from the two
-    :class:`~contrastyou_tpu_torch.data.device_cache.DeviceDataCache` s; the
-    metrics also carry ``labeled_scan_id`` [B]."""
-    step = build_train_step(bundle, hooks, **kwargs)
+    :class:`~contrastyou_tpu_torch.data.device_cache.DeviceDataCache` s, or
+    without an ``unlabeled_cache`` one ``ft`` step on the labeled cache's
+    batch alone; the metrics also carry ``labeled_scan_id`` [B]."""
+    semi = unlabeled_cache is not None
+    step = build_train_step(bundle, hooks, mode="semi" if semi else "ft", **kwargs)
 
     def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0):
         lab = labeled_cache.sample(generator, labeled_batch)
-        unl = unlabeled_cache.sample(generator, unlabeled_batch)
-        batch = {"labeled_image": lab["image"], "labeled_target": lab["target"],
-                 "unlabeled_image": unl["image"],
-                 "unlabeled_partition": unl["partition"],
-                 "unlabeled_scan_id": unl["scan_id"],
-                 "unlabeled_patient": unl["patient"],
-                 "unlabeled_cycle": unl["cycle"]}
-        metrics = step(state, batch, sample_step_draws(generator, unlabeled_batch), epoch)
+        batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
+        draws = None
+        if semi:
+            unl = unlabeled_cache.sample(generator, unlabeled_batch)
+            batch.update(unlabeled_image=unl["image"], unlabeled_partition=unl["partition"],
+                         unlabeled_scan_id=unl["scan_id"], unlabeled_patient=unl["patient"],
+                         unlabeled_cycle=unl["cycle"])
+            draws = sample_step_draws(generator, unlabeled_batch)
+        metrics = step(state, batch, draws, epoch)
         metrics["labeled_scan_id"] = lab["scan_id"]
         return metrics
 

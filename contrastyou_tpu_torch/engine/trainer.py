@@ -1,9 +1,16 @@
 """Trainer: the epoch loop around the steps (counterpart of
 contrastyou_tpu/engine/trainer.py): per epoch the hooks' ``on_epoch_start``,
-``num_batches`` train steps, validation and test passes over whole scans,
+``num_batches`` train steps (``train_mode`` ``semi``, or ``ft``: the labeled
+batch alone), validation and test passes over whole scans,
 one ``storage.csv`` row, the ``last`` checkpoint and, on a higher
 validation ``DSC_mean``, ``best``; ``.success`` at the end. A run resumes
 from a checkpoint with its epoch, best score and metric history.
+
+Warm starts leave the optimizer, RAdam's update count and the hooks fresh:
+:meth:`Trainer.load_pretrained` (``Arch.pretrained_path``, an npz archive of
+flax-keyed paths merged into the model, BN statistics included, at
+:meth:`Trainer.init`) and :meth:`Trainer.load_model_params`
+(``Arch.checkpoint``: the parameters alone, the BN statistics stay fresh).
 
 Input: host-fed by default (the loaders' numpy batches, each step's
 transform draws from a ``torch.Generator``), or with ``device_cache`` the
@@ -36,8 +43,10 @@ from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.dice import UniversalDice
 from ..meters.interface import MeterInterface
 from ..meters.storage import Storage
+from ..utils.torch_convert import load_pretrained
 from .bundle import ModelBundle
-from .checkpoint import load_checkpoint, load_train_state, save_checkpoint, train_state_dict
+from .checkpoint import (load_checkpoint, load_model_params, load_train_state, save_checkpoint,
+                         train_state_dict)
 from .hooks import TrainerHook, hook_parameters
 from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_train_step,
@@ -48,15 +57,17 @@ __all__ = ["Trainer", "epoch_seed"]
 logger = logging.getLogger(__name__)
 
 
-def epoch_seed(seed: int, epoch: int) -> int:
-    """The step generator's seed in ``epoch``."""
-    return int(np.random.SeedSequence([int(seed), 10_000 + int(epoch)]).generate_state(1)[0])
+def epoch_seed(seed: int, epoch: int, offset: int = 10_000) -> int:
+    """The step generator's seed in ``epoch`` (JAX folds ``offset + epoch``
+    into its key: 10_000 in training, 20_000 in pretraining)."""
+    return int(np.random.SeedSequence([int(seed), offset + int(epoch)]).generate_state(1)[0])
 
 
 class Trainer:
     """Generic trainer; ``trainers/`` subclasses pick the step mode."""
 
     activate_hooks: bool = True
+    train_mode: str = "semi"        # "semi" | "ft"
 
     def __init__(self, *, model: torch.nn.Module, labeled_loader, unlabeled_loader=None,
                  val_loader=None, test_loader=None, save_dir: str = "tmp",
@@ -86,6 +97,7 @@ class Trainer:
         self._seed = int(seed)
         self._device_cache = bool(device_cache)
         self._hooks: t.List[TrainerHook] = []
+        self._pretrained_path: t.Optional[str] = None
         self._cur_epoch = 0
         self._best_score = -np.inf
         self._initialized = False
@@ -106,18 +118,48 @@ class Trainer:
 
     def init(self) -> None:
         self._bundle = ModelBundle(self._model, self._labeled_loader.item_shape)
+        if self._pretrained_path is not None:
+            loaded, skipped = load_pretrained(self._model, self._pretrained_path)
+            logger.info("pretrained warm start from %s: %d tensors loaded, %d of another "
+                        "shape skipped", self._pretrained_path, len(loaded), len(skipped))
+        # activate_hooks False (ft) drops every hook; no loss-free hook that
+        # JAX keeps (``always_active``) is ported
         self._active_hooks = list(self._hooks) if self.activate_hooks else []
         self._optimizer, self._schedule = create_optimizer(
-            list(self._model.parameters()) + hook_parameters(self._active_hooks),
+            self._trainable_parameters() + hook_parameters(self._active_hooks),
             self._config.get("Optim", {}), self._config.get("Scheduler", {}),
             max_epoch=self._max_epoch, steps_per_epoch=self._num_batches)
         self._state = init_train_state(self._bundle, self._active_hooks, self._optimizer)
         self._build_steps()
         self._initialized = True
 
+    def _trainable_parameters(self) -> t.List[torch.nn.Parameter]:
+        """The model parameters the optimizer updates (pretraining freezes some)."""
+        return list(self._model.parameters())
+
+    # --- warm starts -------------------------------------------------------
+    def load_pretrained(self, path: str) -> None:
+        """Schedule the ``Arch.pretrained_path`` warm start (applied by
+        :meth:`init`)."""
+        if self._initialized:
+            raise RuntimeError("load_pretrained before init()")
+        self._pretrained_path = str(path)
+
+    def load_model_params(self, params: t.Mapping[str, torch.Tensor]) -> None:
+        """Warm-start the model's parameters after :meth:`init`
+        (``Arch.checkpoint``,
+        :func:`~contrastyou_tpu_torch.engine.checkpoint.extract_model_params`)."""
+        if not self._initialized:
+            raise RuntimeError("init() before load_model_params")
+        load_model_params(self._model, params)
+
     @property
     def num_classes(self) -> int:
         return self._bundle.num_classes
+
+    @property
+    def _semi(self) -> bool:
+        return self.train_mode == "semi"
 
     def _build_steps(self) -> None:
         kw = dict(disable_bn=self._disable_bn)
@@ -125,34 +167,39 @@ class Trainer:
             crop = int(self._bundle.input_shape[0])
             self._labeled_cache = DeviceDataCache.from_dataset(
                 self._labeled_loader.dataset, crop=crop, device=self.device)
-            unlabeled_cache = DeviceDataCache.from_dataset(
+            unlabeled_cache = (DeviceDataCache.from_dataset(
                 self._unlabeled_loader.dataset, crop=crop, device=self.device)
+                if self._semi else None)
             self._train_step = build_cached_train_step(
                 self._bundle, self._active_hooks, labeled_cache=self._labeled_cache,
                 unlabeled_cache=unlabeled_cache,
                 labeled_batch=self._labeled_loader.batch_size,
-                unlabeled_batch=self._unlabeled_loader.batch_size, **kw)
+                unlabeled_batch=self._unlabeled_loader.batch_size if self._semi else 0, **kw)
         else:
-            self._train_step = build_train_step(self._bundle, self._active_hooks, **kw)
+            self._train_step = build_train_step(self._bundle, self._active_hooks,
+                                                mode=self.train_mode, **kw)
         self._eval_step = build_eval_step(self._bundle)
 
     def _train_iterators(self):
-        """The train loaders' iterators, made once per run."""
+        """The train loaders' iterators, made once per run (``ft`` reads no
+        unlabeled batch)."""
         if not hasattr(self, "_labeled_iter"):
             self._labeled_iter = iter(self._labeled_loader)
-            self._unlabeled_iter = iter(self._unlabeled_loader)
+            self._unlabeled_iter = iter(self._unlabeled_loader) if self._semi else None
         return self._labeled_iter, self._unlabeled_iter
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _host_batch(self, labeled: dict, unlabeled: dict) -> dict:
+    def _host_batch(self, labeled: dict, unlabeled: t.Optional[dict]) -> dict:
         dev = self._to_device
-        return {"labeled_image": dev(labeled["image"]),
-                "labeled_target": dev(labeled["target"]).long(),
-                "unlabeled_image": dev(unlabeled["image"]),
-                **{f"unlabeled_{k}": dev(unlabeled[k]).long()
-                   for k in ("partition", "scan_id", "patient", "cycle")}}
+        batch = {"labeled_image": dev(labeled["image"]),
+                 "labeled_target": dev(labeled["target"]).long()}
+        if unlabeled is not None:
+            batch["unlabeled_image"] = dev(unlabeled["image"])
+            batch.update({f"unlabeled_{k}": dev(unlabeled[k]).long()
+                          for k in ("partition", "scan_id", "patient", "cycle")})
+        return batch
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -215,9 +262,11 @@ class Trainer:
                                     group_ids=metrics.pop("labeled_scan_id"),
                                     id_table=self._labeled_cache.scan_names)
                 else:
-                    labeled, unlabeled = next(labeled_iter), next(unlabeled_iter)
+                    labeled = next(labeled_iter)
+                    unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
                     batch = self._host_batch(labeled, unlabeled)
-                    draws = sample_step_draws(generator, batch["unlabeled_image"].shape[0])
+                    draws = (sample_step_draws(generator, batch["unlabeled_image"].shape[0])
+                             if unlabeled is not None else None)
                     metrics = self._train_step(self._state, batch, draws, epoch)
                     dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
                                     group_name=labeled["scan"])

@@ -1,43 +1,51 @@
-"""Entry point of the PyTorch port: a ``semi`` experiment, or contrastive
-pretraining, on one device.
+"""Entry point of the PyTorch port: a ``semi`` or ``ft`` experiment, or
+contrastive pretraining, on one device.
 
     python -m contrastyou_tpu_torch.main -o Trainer.name=semi Trainer.max_epoch=2 \\
         Trainer.num_batches=10 Trainer.save_dir=<run>
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/udaiic.yaml \\
         -o Trainer.name=semi
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/pretrain.yaml \\
-        config/hooks/infonce.yaml
+        config/hooks/infonce.yaml -o Trainer.save_dir=<pretrain>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=ft \\
+        Arch.checkpoint=<RUN_PATH>/<pretrain>/last Trainer.save_dir=<ft>
 
 takes the argv of the root ``main.py``. Without ``-p`` the base is the
 in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
-(``semi``), :data:`PRETRAIN_DECODER_CONFIG` or :data:`PRETRAIN_ENCODER_CONFIG`,
-so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
+(``semi``), config/base.yaml alone (``ft``), :data:`PRETRAIN_DECODER_CONFIG`
+or :data:`PRETRAIN_ENCODER_CONFIG`, so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
 ``semi`` + ``udaiic`` base; from the ``semi`` base the same run is
 ``-o Trainer.name=semi ~ConsistencyParameters`` plus the four
 ``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml). The
 hooks come from the config's hook sections (``hooks/creator.py``; a section
 without a port raises).
 
-``semi`` runs the root ``main.py``'s experiment (:func:`run_semi`): the
-dataset ``Data.name`` from ``$CONTRASTYOU_DATA_PATH`` (its on-disk layout,
-e.g. the one ``data/synthetic.py`` writes), split into labeled, unlabeled,
-validation and test scans; ``Trainer.max_epoch`` epochs of
-``Trainer.num_batches`` steps, each followed by validation and test over
-whole scans, written to ``storage.csv`` with ``config.yaml``, the ``last``
-and ``best`` checkpoints and ``.success`` in ``Trainer.save_dir`` (under
-``$CONTRASTYOU_RUN_PATH`` when relative); then inference on ``best``
-(``inference_result.json``; ``+Inference.tta=true`` averages the four axis
-flips). It resumes from ``trainer_checkpoint`` or else from
-``<save_dir>/last``. ``-o Trainer.device_cache=true`` stages the train
-split on the device. The pretraining trainers run ``Trainer.num_batches``
-steps (one epoch) on synthetic numpy scans (:func:`build_pretrain_run`);
-their loop is not ported yet. Keys the port does not implement
-(:data:`UNPORTED_KEYS`) raise when set. Both trainers take the class count
+Every trainer runs the root ``main.py``'s experiment (:func:`run_experiment`):
+the dataset ``Data.name`` from ``$CONTRASTYOU_DATA_PATH`` (its on-disk
+layout, e.g. the one ``data/synthetic.py`` writes), split into labeled,
+unlabeled, validation and test scans; ``Trainer.max_epoch`` epochs of
+``Trainer.num_batches`` steps written to ``storage.csv`` with
+``config.yaml``, the ``last`` checkpoint and ``.success`` in
+``Trainer.save_dir`` (under ``$CONTRASTYOU_RUN_PATH`` when relative). ``semi``
+and ``ft`` (the labeled batch alone, no hook) follow each epoch with
+validation and test over whole scans, keep ``best`` and end with inference
+on it (``inference_result.json``; ``+Inference.tta=true`` averages the four
+axis flips); ``-o Trainer.device_cache=true`` stages their train split on
+the device. ``pretrain`` / ``pretrain_decoder`` train on contrastive
+batches of half the train scans, host-fed, with neither validation nor
+inference. A run resumes from ``trainer_checkpoint`` or else from
+``<save_dir>/last``. Warm starts: ``Arch.pretrained_path`` (an npz archive
+of flax-keyed paths, merged into the fresh model before ``init``) and
+``Arch.checkpoint`` (a checkpoint directory whose model parameters, not its
+BN statistics, replace the model's after ``init``); a missing one raises
+before anything is built. Keys the port does not implement
+(:data:`UNPORTED_KEYS`) raise when set. Every trainer takes the class count
 of ``Data.name``; pretraining also its partition count and contrastive
-sampler (``-o Data.name=prostate``: 8 partitions, 2 classes, random
-48-slice batches, 96 images per forward). :func:`build_semi_run` builds the
-``semi`` step on a synthetic split in memory, for ``profile_step`` and
-``chip_smoke.py``.
+sampler. :func:`build_semi_run` and :func:`build_pretrain_run` build the
+``semi`` and pretraining steps on synthetic scans in memory, for
+``profile_step`` and ``chip_smoke.py`` (``-o Data.name=prostate``: 8
+partitions, 2 classes, random 48-slice batches, 96 images per forward; on
+disk the prostate and spleen transforms are not ported).
 
 The run is on the CUDA card; ``-o Trainer.device=cpu`` asks for the CPU.
 Without a card and without that request it raises.
@@ -46,7 +54,6 @@ from __future__ import annotations
 
 import logging
 import sys
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, List, Mapping, Optional
@@ -61,7 +68,7 @@ from .data.datasets import DatasetSpec, dataset_spec
 from .data.device_cache import DeviceDataCache
 from .data.sampler import partition_index
 from .engine.bundle import ModelBundle
-from .engine.checkpoint import is_checkpoint
+from .engine.checkpoint import extract_model_params, is_checkpoint, load_model_params
 from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
 from .engine.state import TrainState
@@ -70,15 +77,17 @@ from .hooks.creator import create_hook_from_config
 from .hooks.infonce import INFONCEHook
 from .models.unet import UNet
 from .trainers import trainer_zoo
-from .trainers.pretrain import (build_pretrain_step, contrastive_batches,
+from .trainers.pretrain import (build_pretrain_step, contrastive_sampler,
                                 feature_until_from_hooks, frozen_after,
-                                jitter_strength, sample_pretrain_draws)
+                                get_contrastive_loader, jitter_strength,
+                                sample_pretrain_draws)
+from .utils.torch_convert import load_pretrained
 
 __all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "PRETRAIN_DECODER_CONFIG",
            "PRETRAIN_ENCODER_CONFIG", "UNPORTED_KEYS", "refuse_unported_keys",
-           "resolve_device", "synthetic_split", "synthetic_scans", "SemiRun",
-           "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config",
-           "find_checkpoint", "run_semi", "main"]
+           "check_warm_start", "resolve_device", "synthetic_split", "synthetic_scans",
+           "SemiRun", "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config",
+           "find_checkpoint", "run_experiment", "main"]
 
 #: config/base.yaml
 _BASE = {
@@ -122,9 +131,10 @@ PRETRAIN_ENCODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
                       "contrast_ons": "partition", "spatial_size": 1},
     "Trainer": {"name": "pretrain"}})
 
-_DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG,
+_DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG, "ft": _BASE,
              "pretrain": PRETRAIN_ENCODER_CONFIG,
              "pretrain_decoder": PRETRAIN_DECODER_CONFIG}
+PRETRAIN_TRAINERS = ("pretrain", "pretrain_decoder")
 
 #: the class count of ACDC (the synthetic split's default) and the reference
 #: crop of the slices
@@ -186,10 +196,9 @@ def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
 
 #: config keys the port parses but does not implement yet, with the value
 #: that means "not used": another value raises rather than train something
-#: else (JAX: ``optax.MultiSteps``, ``get_arch``, the warm-start keys of the
-#: root main.py, and the TPU trainer's unrolled steps and profiler trace)
+#: else (JAX: ``optax.MultiSteps``, ``get_arch``, and the TPU trainer's
+#: unrolled steps and profiler trace)
 UNPORTED_KEYS = {("Trainer", "accumulate_iter"): 1, ("Arch", "name"): "unet",
-                 ("Arch", "checkpoint"): None, ("Arch", "pretrained_path"): None,
                  ("Trainer", "unroll_steps"): 1, ("Trainer", "profile"): False}
 
 
@@ -203,6 +212,27 @@ def refuse_unported_keys(config: Mapping) -> None:
         if node is not None and node != default:
             raise NotImplementedError(f"{'.'.join(path)}={node!r} is not ported yet "
                                       f"(only {default!r})")
+
+
+def check_warm_start(config: Mapping) -> None:
+    """Raise ``FileNotFoundError`` naming the path when ``Arch.checkpoint``
+    is not a checkpoint directory or ``Arch.pretrained_path`` not a file."""
+    arch = config.get("Arch", {})
+    checkpoint, pretrained = arch.get("checkpoint"), arch.get("pretrained_path")
+    if checkpoint and not is_checkpoint(checkpoint):
+        raise FileNotFoundError(f"Arch.checkpoint={checkpoint}: no checkpoint there")
+    if pretrained and not Path(pretrained).is_file():
+        raise FileNotFoundError(f"Arch.pretrained_path={pretrained}: no such file")
+
+
+def _warm_start(config: Mapping, model: UNet) -> None:
+    """The config's warm starts applied to ``model`` alone (the run builders
+    make their optimizer after it)."""
+    arch = config["Arch"]
+    if arch.get("pretrained_path"):
+        load_pretrained(model, arch["pretrained_path"])
+    if arch.get("checkpoint"):
+        load_model_params(model, extract_model_params(arch["checkpoint"], model))
 
 
 def _model(config: Mapping, device, dtype, max_channel, generator,
@@ -249,11 +279,13 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     remap applied to the targets). Weights and data are made from
     ``RandomSeed``."""
     refuse_unported_keys(config)
+    check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
     trainer = config["Trainer"]
     spec = dataset_spec(str(config["Data"]["name"]))
     gen = torch.Generator(device=device).manual_seed(seed)
     model = _model(config, device, dtype, max_channel, gen, spec.train_classes)
+    _warm_start(config, model)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=False)
     optimizer, _ = create_optimizer(
@@ -306,6 +338,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     datasets of 3 partitions and to 8 per partition above (64 for prostate),
     enough for the ``cur // (cut + 1)`` rule to fill every partition."""
     refuse_unported_keys(config)
+    check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
     trainer = config["Trainer"]
     data_name = str(config["Data"]["name"])
@@ -314,6 +347,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
         slices_per_scan = 10 if spec.partition_num <= 3 else 8 * spec.partition_num
     gen = torch.Generator(device=device).manual_seed(seed)
     model = _model(config, device, dtype, max_channel, gen, spec.train_classes)
+    _warm_start(config, model)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=True)
     others = [h.name for h in hooks if not isinstance(h, INFONCEHook)]
@@ -334,11 +368,12 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
         scan_id=scans["scan_id"], partition=scans["partition"],
         patient=scans["patient"], cycle=scans["cycle"], scan_names=scans["scan_names"])
     clp = config.get("ContrastiveLoaderParams", {})
-    batches, pad_to = contrastive_batches(
+    sampler, pad_to = contrastive_sampler(
         data_name, [scans["scan_names"][s] for s in scans["scan_id"]], scans["partition"],
         partition_num=spec.partition_num,
         scan_sample_num=int(clp.get("scan_sample_num", 6)),
         partition_sample_num=int(clp.get("partition_sample_num", 1)), seed=seed)
+    batches = iter(sampler)
     step = build_pretrain_step(bundle, hooks, until=until)
     grids = sorted({h.grid for h in hooks if h.grid is not None})
     strength = jitter_strength(data_name)
@@ -377,29 +412,45 @@ def find_checkpoint(save_dir) -> Optional[str]:
     return str(last) if is_checkpoint(last) else None
 
 
-def run_semi(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16):
-    """The ``semi`` experiment of ``config`` (see the module docstring) ->
-    its trainer, after training and inference."""
+def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16):
+    """The experiment of ``config`` (see the module docstring) -> its
+    trainer, after training and, but for pretraining, inference."""
     refuse_unported_keys(config)
+    check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
     data = config["Data"]
+    name = config["Trainer"].get("name") or "semi"
+    is_pretrain = name in PRETRAIN_TRAINERS
     labeled, unlabeled, val, test = get_data(
         data, config.get("LabeledLoader", {}), config.get("UnlabeledLoader", {}),
-        root_dir=package.DATA_PATH, order_num=int(data.get("order_num", 0)))
+        root_dir=package.DATA_PATH, pretrain=is_pretrain,
+        order_num=int(data.get("order_num", 0)))
     gen = torch.Generator(device=device).manual_seed(seed)
     model = _model(config, device, dtype, None, gen, dataset_spec(str(data["name"])).train_classes)
-    trainer = trainer_zoo[config["Trainer"].get("name") or "semi"](
-        model=model, labeled_loader=labeled, unlabeled_loader=unlabeled, val_loader=val,
-        test_loader=test, config=config, seed=seed,
-        **{k: v for k, v in config["Trainer"].items() if k not in ("name", "device")})
-    trainer.register_hooks(*_hooks(config, model, device, dtype, gen, is_pretrain=False))
+    kwargs = dict(model=model, labeled_loader=labeled, unlabeled_loader=unlabeled,
+                  val_loader=val, test_loader=test, config=config, seed=seed,
+                  **{k: v for k, v in config["Trainer"].items() if k not in ("name", "device")})
+    if is_pretrain:
+        clp = {k: v for k, v in config.get("ContrastiveLoaderParams", {}).items()
+               if k != "num_workers"}
+        kwargs.update(contrast_loader=get_contrastive_loader(
+            labeled.dataset, data_name=str(data["name"]), seed=seed, **clp),
+            val_loader=None, test_loader=None)
+    trainer = trainer_zoo[name](**kwargs)
+    trainer.register_hooks(*_hooks(config, model, device, dtype, gen, is_pretrain=is_pretrain))
+    arch = config["Arch"]
+    if arch.get("pretrained_path"):
+        trainer.load_pretrained(arch["pretrained_path"])
     trainer.init()
+    if arch.get("checkpoint"):
+        trainer.load_model_params(extract_model_params(arch["checkpoint"], model))
     resume = config.get("trainer_checkpoint") or find_checkpoint(trainer.save_dir)
     if resume:
         trainer.resume_from_path(resume)
     best = trainer.start_training()
-    best_ckpt = Path(trainer.save_dir) / "best"
-    trainer.inference(checkpoint=str(best_ckpt) if best_ckpt.exists() else None)
+    if not is_pretrain:
+        best_ckpt = Path(trainer.save_dir) / "best"
+        trainer.inference(checkpoint=str(best_ckpt) if best_ckpt.exists() else None)
     logging.getLogger(__name__).info("training finished, best score: %s", best)
     return trainer
 
@@ -408,20 +459,7 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     config = parse_config(argv)
-    device = resolve_device(config["Trainer"].get("device"))
-    name = config["Trainer"].get("name")
-    if name not in ("pretrain", "pretrain_decoder"):
-        run_semi(config, device=device)
-        return 0
-    run = build_pretrain_run(config, device=device)
-    n = int(config["Trainer"]["num_batches"])
-    t0 = time.perf_counter()
-    for i in range(n):
-        m = run.step(run.state, run.generator)
-        if i % 10 == 0 or i == n - 1:
-            print(f"step {i}: " + " ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
-    dt = time.perf_counter() - t0
-    print(f"{n} {name} steps on {device} in {dt:.2f} s")
+    run_experiment(config, device=resolve_device(config["Trainer"].get("device")))
     return 0
 
 

@@ -1,0 +1,13 @@
+"""Fine-tune trainer (counterpart of contrastyou_tpu/trainers/ft.py): the
+labeled batch alone under the supervised KL, every hook dropped; validation,
+test and inference as :class:`~contrastyou_tpu_torch.trainers.semi.SemiTrainer`'s."""
+from __future__ import annotations
+
+from .semi import SemiTrainer
+
+__all__ = ["FineTuneTrainer"]
+
+
+class FineTuneTrainer(SemiTrainer):
+    train_mode = "ft"
+    activate_hooks = False

@@ -1,23 +1,37 @@
-"""Contrastive pretraining step (counterpart of contrastyou_tpu/trainers/pretrain.py):
-two independently augmented views of one contrastive batch, one forward over
-both cut at the deepest tapped layer, a loss made only of hook terms, and the
-RAdam update of the model layers up to that layer and of the hooks' heads.
+"""Contrastive pretraining (counterpart of contrastyou_tpu/trainers/pretrain.py).
 
-Every random draw is explicit, in a :class:`PretrainDraws`:
+The step: two independently augmented views of one contrastive batch, one
+forward over both cut at the deepest tapped layer, a loss made only of hook
+terms, and the RAdam update of the model layers up to that layer and of the
+hooks' heads. Every random draw is explicit, in a :class:`PretrainDraws`:
 :func:`sample_pretrain_draws` makes them from a ``torch.Generator``; a test
 hands in the JAX step's.
+
+The trainers (:class:`PretrainEncoderTrainer`, :class:`PretrainDecoderTrainer`)
+run it on the experiment loop: per epoch ``num_batches`` host-fed steps over
+the contrastive loader (:func:`get_contrastive_loader`), one ``storage.csv``
+row and the ``last`` checkpoint; no validation, no test, no ``best``;
+``.success`` at the end. The step generator is reseeded at each epoch from
+``(seed, 20_000 + epoch)``, as JAX folds ``20_000 + epoch`` into its key.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
+import logging
+import time
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+import contrastyou_tpu_torch as package
+from ..data.loader import BatchLoader
 from ..data.sampler import ContrastBatchSampler, InfiniteRandomSampler
 from ..engine.bundle import ModelBundle
 from ..engine.hooks import StepContext, TrainerHook, combined_taps
 from ..engine.state import TrainState
-from ..hooks.infonce import draw_points
+from ..engine.trainer import Trainer, epoch_seed
+from ..hooks.infonce import INFONCEHook, draw_points
+from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
+from ..meters.interface import MeterInterface
 from ..models._base import arch_order
 from ..models.masks import trainable_mask
 from ..models.unet import UNet
@@ -26,19 +40,24 @@ from ..ops.affine import (GeoParams, apply_gamma, apply_geometric, sample_gammas
 from ..ops.intensity import color_jitter as apply_jitter
 
 __all__ = ["PRETRAIN_BATCH_SIZE_MAX", "feature_until_from_hooks", "frozen_after",
-           "jitter_strength", "contrastive_batches", "PretrainDraws",
-           "sample_pretrain_draws", "build_pretrain_step"]
+           "jitter_strength", "contrastive_sampler", "get_contrastive_loader",
+           "PretrainDraws", "sample_pretrain_draws", "build_pretrain_step",
+           "PretrainEncoderTrainer", "PretrainDecoderTrainer"]
+
+logger = logging.getLogger(__name__)
 
 PRETRAIN_BATCH_SIZE_MAX = 50
+#: JAX folds ``PRETRAIN_SEED_OFFSET + epoch`` into the pretrain step's key
+PRETRAIN_SEED_OFFSET = 20_000
 
 
-def contrastive_batches(data_name: str, slice_scans: Sequence[str],
+def contrastive_sampler(data_name: str, slice_scans: Sequence[str],
                         partitions: Sequence[int], *, partition_num: int,
                         scan_sample_num: int = 6, partition_sample_num: int = 1,
                         seed: int = 0, batch_size_max: int = PRETRAIN_BATCH_SIZE_MAX
-                        ) -> Tuple[Iterator[List[int]], int]:
-    """Endless index batches of the contrastive loader and their size
-    (trainers/pretrain.py ``get_contrastive_loader``). ACDC and spleen:
+                        ) -> Tuple[Iterable[List[int]], int]:
+    """The endless index batches of the contrastive loader and their size
+    (JAX trainers/pretrain.py ``get_contrastive_loader``). ACDC and spleen:
     ``scan_sample_num`` scans x every partition (:class:`ContrastBatchSampler`;
     a short batch is padded to the size by the caller). Otherwise
     consecutive runs of an :class:`InfiniteRandomSampler` over all slices, of
@@ -49,9 +68,23 @@ def contrastive_batches(data_name: str, slice_scans: Sequence[str],
         sampler = ContrastBatchSampler(slice_scans, partitions,
                                        scan_sample_num=scan_sample_num,
                                        partition_sample_num=partition_sample_num, seed=seed)
-        return iter(sampler), min(sampler.batch_size, batch_size_max)
+        return sampler, min(sampler.batch_size, batch_size_max)
     size = min(scan_sample_num * partition_num * partition_sample_num, batch_size_max)
     return InfiniteRandomSampler(len(partitions), seed=seed).batches(size), size
+
+
+def get_contrastive_loader(dataset, *, data_name: str, scan_sample_num: int = 6,
+                           partition_sample_num: int = 1, seed: int = 0,
+                           batch_size_max: int = PRETRAIN_BATCH_SIZE_MAX) -> BatchLoader:
+    """The endless contrastive loader over ``dataset``
+    (:func:`contrastive_sampler`'s batches, a short one padded to the size
+    with ``mask`` False), item transforms seeded with ``seed``."""
+    stems = dataset.get_stem_list()
+    sampler, size = contrastive_sampler(
+        data_name, [dataset.get_scan_name(s) for s in stems], dataset.get_partition_list(),
+        partition_num=dataset.partition_num, scan_sample_num=scan_sample_num,
+        partition_sample_num=partition_sample_num, seed=seed, batch_size_max=batch_size_max)
+    return BatchLoader(dataset, batch_sampler=sampler, pad_to=size, seed=seed)
 
 
 def feature_until_from_hooks(*hooks: TrainerHook,
@@ -175,3 +208,101 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         return metrics
 
     return step
+
+
+class PretrainEncoderTrainer(Trainer):
+    """Contrastive pretraining on the experiment loop (JAX
+    ``PretrainEncoderTrainer``): InfoNCE hooks only, the forward cut at
+    their deepest tap (:attr:`forward_until`) and every later layer frozen.
+    ``contrast_loader`` feeds the steps (by default the labeled loader); the
+    JAX trainer's optional ``monitor_loader`` pass is not ported. The
+    ``device_cache`` key is ignored, as in JAX: pretraining is host-fed."""
+
+    train_mode = "pretrain"
+    activate_hooks = True
+
+    def __init__(self, *, contrast_loader=None, monitor_loader=None, **kwargs):
+        if monitor_loader is not None:
+            raise NotImplementedError("the pretrain trainers' monitor_loader is not ported")
+        if contrast_loader is not None:
+            kwargs.setdefault("labeled_loader", contrast_loader)
+        super().__init__(**kwargs)
+        self._contrast_loader = contrast_loader or self._labeled_loader
+
+    @property
+    def forward_until(self) -> str:
+        return feature_until_from_hooks(*self._hooks)
+
+    def init(self) -> None:
+        others = [h.name for h in self._hooks if not isinstance(h, INFONCEHook)]
+        if others or not self._hooks:
+            raise NotImplementedError(f"the port pretrains with InfoNCE hooks only; got "
+                                      f"{others or 'no hook'}")
+        super().init()
+
+    def _trainable_parameters(self) -> List[torch.nn.Parameter]:
+        trainable = frozen_after(self.forward_until)
+        return [p for name, p in self._model.named_parameters() if trainable(name)]
+
+    def _build_steps(self) -> None:
+        self._train_step = build_pretrain_step(self._bundle, self._active_hooks,
+                                               until=self.forward_until)
+
+    def start_training(self) -> float:
+        if not self._initialized:
+            raise RuntimeError("call init() first")
+        for epoch in range(self._cur_epoch, self._max_epoch):
+            self._cur_epoch = epoch
+            with self._storage:
+                tra = self.tra_epoch(epoch)
+                self._storage.add_from_meter_interface(epoch=epoch, tra=tra)
+            self.save_to("last")
+            logger.info("pretrain epoch %d/%d: reg %.5f", epoch + 1, self._max_epoch,
+                        tra["pretrain"]["reg_loss"])
+        package.success(self._save_dir)
+        return 0.0
+
+    def _device_contrast_batch(self, batch: dict) -> dict:
+        dev = self._to_device
+        return {"image": dev(batch["image"]),
+                **{k: dev(batch[k]).long() for k in ("partition", "scan_id", "patient", "cycle")}}
+
+    def tra_epoch(self, epoch: int) -> dict:
+        meters = MeterInterface(default_focus="pretrain")
+        meters.register_meter("reg_loss", AverageValueMeter())
+        hook_meters = {}
+        for hook in self._active_hooks:
+            with meters.focus_on(hook.name):
+                hook_meters[hook.name] = meters.register_meter(
+                    "metrics", AverageValueDictionaryMeter())
+        if not hasattr(self, "_contrast_iter"):
+            self._contrast_iter = iter(self._contrast_loader)
+        generator = torch.Generator(device=self.device).manual_seed(
+            epoch_seed(self._seed, epoch, PRETRAIN_SEED_OFFSET))
+        strength = jitter_strength(str(self._config.get("Data", {}).get("name", "")))
+        grids = sorted({h.grid for h in self._active_hooks if h.grid is not None})
+        t0 = time.perf_counter()
+        with meters:
+            for _ in range(self._num_batches):
+                batch = self._device_contrast_batch(next(self._contrast_iter))
+                draws = sample_pretrain_draws(generator, batch["image"].shape[0],
+                                              color_jitter=strength, point_grids=grids)
+                metrics = self._train_step(self._state, batch, draws, epoch)
+                meters.add("reg_loss", metrics["reg_loss"])
+                for hook in self._active_hooks:
+                    prefix = hook.name + "/"
+                    hook_meters[hook.name].add(**{k[len(prefix):]: v for k, v in metrics.items()
+                                                  if k.startswith(prefix)})
+        self._sync()
+        seconds = time.perf_counter() - t0
+        logger.info("pretrain epoch %d: %d steps in %.3f s (%.3f ms/step, host-fed)", epoch,
+                    self._num_batches, seconds, seconds / self._num_batches * 1e3,
+                    extra={"timing": {"phase": "train", "epoch": epoch,
+                                      "steps": self._num_batches, "seconds": seconds,
+                                      "device_cache": False}})
+        return dict(meters.statistics())
+
+
+class PretrainDecoderTrainer(PretrainEncoderTrainer):
+    """Decoder hooks (JAX ``PretrainDecoderTrainer``): the same loop; the
+    decoder taps set the cut."""

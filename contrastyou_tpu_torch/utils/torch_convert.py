@@ -22,6 +22,12 @@ and the cluster heads of the discrete-MI hooks, whose S subheads flax vmaps:
                                  (DenseClusterHead)
 
 Values are numpy arrays on the flax side and tensors on the torch side.
+
+The ``Arch.pretrained_path`` warm start reads a local npz archive of
+flax-keyed paths (``params/Conv1/conv0/kernel``, ``batch_stats/...``;
+:func:`save_npz_tree` / :func:`load_npz_tree`) and overlays each leaf whose
+path exists and whose shape matches onto the model (:func:`merge_pretrained`,
+:func:`load_pretrained`), BN running statistics included.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ import torch
 
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_to_head_state_dict",
            "head_state_dict_to_flax", "flax_to_cluster_head_state_dict",
-           "cluster_head_state_dict_to_flax"]
+           "cluster_head_state_dict_to_flax", "save_npz_tree", "load_npz_tree",
+           "merge_pretrained", "load_pretrained"]
 
 CONV_BLOCKS = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5",
                "Up_conv5", "Up_conv4", "Up_conv3", "Up_conv2")
@@ -151,3 +158,77 @@ def cluster_head_state_dict_to_flax(sd: t.Mapping[str, torch.Tensor], *, dense: 
     sub, layer = CLUSTER_LAYERS[dense]
     return {sub: {layer: {"kernel": np.ascontiguousarray(w),
                           "bias": sd["bias"].detach().float().cpu().numpy()}}}
+
+
+def save_npz_tree(path: str, tree: t.Mapping) -> None:
+    """Flatten a nested dict of arrays to ``a/b/c`` keys and save it as npz."""
+    flat: dict = {}
+
+    def rec(prefix, node):
+        if isinstance(node, t.Mapping):
+            for k, v in node.items():
+                rec(f"{prefix}/{k}" if prefix else str(k), v)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    rec("", tree)
+    np.savez(path, **flat)
+
+
+def load_npz_tree(path: str) -> dict:
+    """Inverse of :func:`save_npz_tree`."""
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = out
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return out
+
+
+def merge_pretrained(init_tree: t.Mapping, archive_tree: t.Mapping, _prefix: str = ""
+                     ) -> t.Tuple[dict, t.List[str], t.List[str]]:
+    """Overlay ``archive_tree``'s leaves onto ``init_tree`` where the path
+    exists and the shape matches (torch ``load_state_dict(strict=False)``
+    with a shape check) -> (merged, loaded paths, skipped paths: present but
+    of another shape); the other leaves keep their values."""
+    merged: dict = {}
+    loaded: t.List[str] = []
+    skipped: t.List[str] = []
+    for k, v in init_tree.items():
+        path = f"{_prefix}/{k}" if _prefix else str(k)
+        if isinstance(v, t.Mapping):
+            sub = archive_tree.get(k, {}) if isinstance(archive_tree, t.Mapping) else {}
+            m, lo, sk = merge_pretrained(v, sub, path)
+            merged[k] = m
+            loaded += lo
+            skipped += sk
+        elif (isinstance(archive_tree, t.Mapping) and k in archive_tree
+              and np.shape(archive_tree[k]) == np.shape(v)):
+            merged[k] = np.asarray(archive_tree[k])
+            loaded.append(path)
+        else:
+            merged[k] = v
+            if isinstance(archive_tree, t.Mapping) and k in archive_tree:
+                skipped.append(path)
+    return merged, loaded, skipped
+
+
+def _sorted(tree: t.Mapping) -> dict:
+    return {k: _sorted(v) if isinstance(v, t.Mapping) else v for k, v in sorted(tree.items())}
+
+
+def load_pretrained(model: torch.nn.Module, path: str) -> t.Tuple[t.List[str], t.List[str]]:
+    """The ``Arch.pretrained_path`` warm start of a U-Net, in place: the
+    archive's ``params`` and ``batch_stats`` merged into the model's own
+    (:func:`merge_pretrained`, each tree on its own, as JAX's trainer does)
+    -> (loaded, skipped) paths, the ``params`` ones first, each in the
+    sorted key order of a flax tree."""
+    tree = load_npz_tree(path)
+    current = _sorted(state_dict_to_flax(model.state_dict()))
+    params, lo_p, sk_p = merge_pretrained(current["params"], tree.get("params", {}))
+    stats, lo_s, sk_s = merge_pretrained(current["batch_stats"], tree.get("batch_stats", {}))
+    model.load_state_dict(flax_to_state_dict(params, stats))
+    return lo_p + lo_s, sk_p + sk_s

@@ -1,7 +1,8 @@
 """Config faults of the port repaired against the JAX package: the class
-count and label remap of every ``Data.name``, and config keys that the port
+count and label remap of every ``Data.name``, config keys that the port
 parses but does not implement (they raise instead of training something
-else)."""
+else), and warm-start keys that name a missing file (they raise before
+anything is built)."""
 import re
 from pathlib import Path
 
@@ -9,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+import contrastyou_tpu_torch as package
 from contrastyou_tpu.augment.host import LabelRemap, transform_zoo
 from contrastyou_tpu_torch.data.datasets import DATASETS, dataset_spec
-from contrastyou_tpu_torch.main import (UNPORTED_KEYS, build_pretrain_run, build_semi_run,
+from contrastyou_tpu_torch.main import (UNPORTED_KEYS, build_pretrain_run, build_semi_run, main,
                                         parse_config, synthetic_split)
 
 OPT = Path(__file__).resolve().parents[1] / "opt"
@@ -55,8 +57,6 @@ def test_acdc_subtask_targets_are_remapped_as_jax(name):
 
 
 @pytest.mark.parametrize("key,value", [("Trainer.accumulate_iter", "4"), ("Arch.name", "unet2"),
-                                       ("Arch.checkpoint", "ckpt.pth"),
-                                       ("Arch.pretrained_path", "enc.npz"),
                                        ("Trainer.unroll_steps", "2")])
 def test_unported_keys_raise(key, value):
     """A non-default value of a key the port does not implement raises
@@ -68,3 +68,23 @@ def test_unported_keys_raise(key, value):
         cfg = parse_config(["-o", f"Trainer.name={trainer}", f"+{key}={value}"])
         with pytest.raises(NotImplementedError, match=re.escape(key)):
             build(cfg, **size, **SMALL)
+
+
+@pytest.mark.parametrize("key,name", [("Arch.checkpoint", "pretrain/last"),
+                                      ("Arch.pretrained_path", "enc.npz")])
+def test_missing_warm_start_raises(key, name, tmp_path, monkeypatch):
+    """A warm start from a checkpoint directory or npz archive that is not
+    there raises ``FileNotFoundError`` naming the path, in both run builders
+    and in the entry point, before a model is built or a run directory made."""
+    missing = str(tmp_path / name)
+    monkeypatch.setattr(package, "RUN_PATH", str(tmp_path / "runs"))
+    monkeypatch.setattr(package, "DATA_PATH", str(tmp_path / "data"))
+    for trainer, build, size in (("semi", build_semi_run, dict(raw_size=40, n_slices=8)),
+                                 ("pretrain", build_pretrain_run, dict(raw_size=36, n_scans=6))):
+        cfg = parse_config(["-o", f"Trainer.name={trainer}", f"+{key}={missing}"])
+        with pytest.raises(FileNotFoundError, match=re.escape(missing)):
+            build(cfg, **size, **SMALL)
+    for trainer in ("ft", "pretrain_decoder"):
+        with pytest.raises(FileNotFoundError, match=re.escape(missing)):
+            main(["-o", f"Trainer.name={trainer}", "Trainer.device=cpu", f"+{key}={missing}"])
+    assert not (tmp_path / "runs").exists()

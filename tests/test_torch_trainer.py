@@ -10,7 +10,7 @@ checkpoint}.py, trainers/semi.py, main.py) held against the JAX package.
   by at most their number). bf16: as accurate as JAX bf16, measured against
   JAX f32 (at most twice JAX bf16's distance plus 1% of the largest value,
   the convention of tests/test_torch_unet.py).
-- A whole f32 run on the CPU through ``run_semi`` (2 epochs): JAX's
+- A whole f32 run on the CPU through ``run_experiment`` (2 epochs): JAX's
   ``Trainer.eval_epoch`` on the port's last weights and ``SemiTrainer
   .inference`` on its best weights (converted back with
   ``utils/torch_convert.py``) give the port's validation and inference
@@ -170,7 +170,7 @@ def test_run_matches_jax_eval_and_inference(paths, tmp_path):
     """f32, max_channel 128 (the JAX U-Net's least width)."""
     cfg = port_main.parse_config(["-o", "Trainer.name=semi", "Trainer.max_epoch=2",
                                   "Arch.max_channel=128", "Trainer.save_dir=f32", *SMALL])
-    trainer = port_main.run_semi(cfg, device=torch.device("cpu"), dtype=torch.float32)
+    trainer = port_main.run_experiment(cfg, device=torch.device("cpu"), dtype=torch.float32)
     run = paths / "f32"
     rows = _csv_rows(run / "storage.csv")
     assert len(rows) == 2 and trainer.cur_epoch >= 1
