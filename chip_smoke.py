@@ -86,13 +86,31 @@ Phases, in order; any failure exits non-zero:
    and inference ms per scan (with and without TTA), checkpoint save ms and
    peak memory; then the ragged eval batch (13 slices) through the trained
    weights in eval mode, one pass and TTA's flips, every K1 and K2 launch
-   against its plain version.
+   against its plain version;
+12. the pretrain -> fine-tune chain (``run_chain``);
+13. the mean-teacher family (run right after phase 11): ``main.main``
+   with ``Trainer.name=mt`` on phase 11's layout, 2 epochs x 10 host-fed
+   steps with validation and test on the teacher, inference on ``best``,
+   a resume to a third epoch on the device cache (``mt/loop``): the files,
+   finite rows and dice, every eval pass on the teacher, the teacher apart
+   from the student, the launches the loop implies (24 K1, 3 K2, 2 K3, 4
+   C1, 18 C2 a step); ``ft`` with EvalEMAParameters for one epoch
+   (``ft/ema``): ``ema_step`` the steps taken, eval on the EMA; then 2+5
+   full-width MT, UAMT and ICT steps through ``build_semi_run`` (ms/step
+   beside ``semi``'s, launches, peak memory: forwards 3 / 7 / 5 of 8 K1
+   and 1 K2 each, two backward passes each) and each hook's loss of one
+   step through the kernels against ``plain_kernels()``, both against f32
+   (MT also with ``update_bn``, its teacher in eval mode), every K1 and K2
+   call checked against its plain version by call site: the teacher in
+   train mode, in eval mode, with frozen statistics (UAMT's noisy passes,
+   ICT's second), ICT's student pass over the 10 mixed images.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
-path, the loop's three included), ``max_abs_err`` the largest over the checked shapes, ``ms`` /
+path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop`` and
+``ft/ema``), ``max_abs_err`` the largest over the checked shapes, ``ms`` /
 ``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
 one launch each (C1/C2: over the batch-96 shapes only; ``by_batch`` has the
 sums at every checked batch, beside the einsum form's below 96 and, for C2,
@@ -155,6 +173,9 @@ IIC_LOSS_RTOL = 1e-3
 #: of 20 clusters (config/hooks/udaiic.yaml), the udaiic padding first
 IIC_SHAPE, IIC_S, IIC_K, IIC_PADDINGS = (5, 224, 224, 32), 5, 20, (1, 0, 2)
 UDAIIC_WARMUP, UDAIIC_TIMED = 3, 5
+#: wall ms per step of the paths timed in this call (phase 13 prints its
+#: steps beside semi's)
+STEP_MS: dict = {}
 
 
 def _card() -> str:
@@ -1017,7 +1038,7 @@ def run_train(device, card: str) -> dict:
     losses = [float(m["total_loss"]) for m in metrics]
     changed = sum(int(not torch.equal(before[k], v.detach()))
                   for k, v in run.state.model.named_parameters())
-    ms = dt / TIMED_STEPS * 1e3
+    ms = STEP_MS["semi"] = dt / TIMED_STEPS * 1e3
     print(f"train: {WARMUP_STEPS}+{TIMED_STEPS} steps, losses {losses}")
     print(f"train: {changed}/{len(before)} parameter tensors changed; launches {launches}")
     print(f"train: {ms:.3f} ms/step, {run.batch_slices * 1e3 / ms:.2f} slices/s "
@@ -1192,17 +1213,19 @@ def eval_launches(counts: dict):
 
 
 @contextlib.contextmanager
-def checked_forward_kernels(errs: dict):
+def checked_forward_kernels(errs: dict, site=None):
     """Route K1 and K2 through wrappers that also run the plain version on
     the same inputs and record the largest error relative to the plain
-    output's largest magnitude (outputs) and to the largest statistic."""
+    output's largest magnitude (outputs) and to the largest statistic, by
+    kernel name, or by (name, ``site()``) when a call-site function is given."""
     from contrastyou_tpu_torch.ops import convblock as cb
     k1, k2 = cb.conv3x3_stats, cb.upconv3x3_stats
 
     def record(name, shape, got, ref):
         out = _rel_err(got[0], ref[0])[1]
         stats = max(_rel_err(g, r)[1] for g, r in zip(got[1:], ref[1:])) if got[1] is not None else 0
-        worst = errs.setdefault(name, {"out": 0.0, "stats": 0.0, "shapes": set()})
+        key = name if site is None else (name, site())
+        worst = errs.setdefault(key, {"out": 0.0, "stats": 0.0, "shapes": set()})
         worst["out"], worst["stats"] = max(worst["out"], out), max(worst["stats"], stats)
         worst["shapes"].add(shape)
 
@@ -1259,6 +1282,15 @@ def check_eval_kernels(device, data_root, run_dir) -> None:
         raise AssertionError(f"K1/K2 not checked at the eval batch {LOOP_LONG}: {errs}")
 
 
+def write_loop_layout(root) -> None:
+    """Phase 11's synthetic ACDC layout under ``root``."""
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+    synthesize_acdc_like(root, num_train_scans=LOOP_SCANS[0], num_val_scans=LOOP_SCANS[1],
+                         slices_per_scan=LOOP_SLICES, size=LOOP_SIZE)
+    synthesize_acdc_like(root, num_train_scans=0, num_val_scans=1, slices_per_scan=LOOP_LONG,
+                         size=LOOP_SIZE, first_scan=sum(LOOP_SCANS) + 1, seed=1)
+
+
 def run_loop(device, card: str) -> dict:
     """Phase 11: the experiment loop through ``main.main``: 2 epochs of 10
     host-fed steps (validation and test over whole scans each epoch,
@@ -1272,7 +1304,6 @@ def run_loop(device, card: str) -> dict:
     import torch
     import contrastyou_tpu_torch as package
     from contrastyou_tpu_torch import main as port_main
-    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
 
     saved_paths = package.DATA_PATH, package.RUN_PATH
     timings = _Timings()
@@ -1282,10 +1313,7 @@ def run_loop(device, card: str) -> dict:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
             t0 = time.perf_counter()
             data, run_dir = Path(tmp) / "data", Path(tmp) / "runs" / "loop"
-            synthesize_acdc_like(data, num_train_scans=LOOP_SCANS[0], num_val_scans=LOOP_SCANS[1],
-                                 slices_per_scan=LOOP_SLICES, size=LOOP_SIZE)
-            synthesize_acdc_like(data, num_train_scans=0, num_val_scans=1, slices_per_scan=LOOP_LONG,
-                                 size=LOOP_SIZE, first_scan=sum(LOOP_SCANS) + 1, seed=1)
+            write_loop_layout(data)
             package.DATA_PATH, package.RUN_PATH = str(data), str(Path(tmp) / "runs")
             print(f"loop: wrote {sum(LOOP_SCANS) + 1} scans at {LOOP_SIZE}^2 in "
                   f"{time.perf_counter() - t0:.1f} s")
@@ -1316,11 +1344,18 @@ def run_loop(device, card: str) -> dict:
     return by_path
 
 
-def check_loop_outputs(run_dir, records: list, by_path: dict, card: str, peak: float) -> None:
-    """Phase 11a: the run's files, three finite storage rows, finite dice;
-    the launches the loop implies (16 K1, 2 K2, 2 K3, 4 C1, 18 C2 a train
-    step; 8 K1 and 1 K2 an eval forward, four forwards a TTA batch); the
-    loop's times."""
+#: launches per train step of ``semi`` (2 forwards, 2 backward passes)
+SEMI_STEP_LAUNCHES = {"conv3x3_stats": 16, "upconv3x3_stats": 2, "upconv3x3_dx": 2,
+                      "conv_dw_taps": 4, "conv3x3_bwd_fused": 18}
+
+
+def check_loop_outputs(run_dir, records: list, by_path: dict, card: str, peak: float,
+                       path: str = "semi/loop", per_step: dict = SEMI_STEP_LAUNCHES) -> None:
+    """Phase 11a (and 13a): the run's files, three finite storage rows,
+    finite dice; the launches the loop implies (``per_step`` a train step,
+    on ``semi`` 16 K1, 2 K2, 2 K3, 4 C1, 18 C2; 8 K1 and 1 K2 an eval
+    forward, four forwards a TTA batch); the loop's times. ``by_path``
+    holds ``path``, ``path/resume`` and ``path/eval``."""
     import json
 
     for f in ("storage.csv", "config.yaml", ".success", "inference_result.json",
@@ -1333,10 +1368,10 @@ def check_loop_outputs(run_dir, records: list, by_path: dict, card: str, peak: f
     result = json.loads((run_dir / "inference_result.json").read_text())
     dice = [float(v[k]) for v in values for k in v if "/dice/" in k] + list(
         result["dice"].values())
-    print(f"loop: storage rows {[r.split(',')[0] for r in rows[1:]]}, val DSC_mean "
+    print(f"{path}: storage rows {[r.split(',')[0] for r in rows[1:]]}, val DSC_mean "
           f"{[float(v['val/eval/dice/DSC_mean']) for v in values]}, inference {result['dice']}")
     if len(values) != LOOP_EPOCHS + 1 or not all(math.isfinite(d) for d in dice):
-        raise AssertionError(f"loop: {len(values)} storage rows, dice {dice}")
+        raise AssertionError(f"{path}: {len(values)} storage rows, dice {dice}")
     train = [r for r in records if r["phase"] == "train"]
     steps = sum(r["steps"] for r in train)
     forwards = {True: 0, False: 0}
@@ -1345,24 +1380,25 @@ def check_loop_outputs(run_dir, records: list, by_path: dict, card: str, peak: f
             forwards[bool(r.get("tta"))] += r["batches"] * (4 if r.get("tta") else 1)
     fwd = sum(forwards.values())
     for r in train:
-        print(f"loop: train epoch {r['epoch']} ({'device cache' if r['device_cache'] else 'host-fed'}"
+        print(f"{path}: train epoch {r['epoch']} ({'device cache' if r['device_cache'] else 'host-fed'}"
               f"): {r['seconds'] / r['steps'] * 1e3:.3f} ms/step inside the loop on {card}")
     for r in records:
         if r["phase"] in ("val", "test", "inference"):
             tta = " with TTA" if r.get("tta") else (" without TTA" if r["phase"] == "inference" else "")
-            print(f"loop: {r['phase']}{tta} epoch {r['epoch']}: {r['batches']} scans, "
+            print(f"{path}: {r['phase']}{tta} epoch {r['epoch']}: {r['batches']} scans, "
                   f"{r['seconds'] / r['batches'] * 1e3:.3f} ms/scan on {card}")
     saves = [r["seconds"] * 1e3 for r in records if r["phase"] == "save"]
-    print(f"loop: checkpoint save {min(saves):.1f}-{max(saves):.1f} ms ({len(saves)} saves) on "
+    print(f"{path}: checkpoint save {min(saves):.1f}-{max(saves):.1f} ms ({len(saves)} saves) on "
           f"{card}; peak memory {peak:.2f} GiB")
-    total = {k: by_path["semi/loop"][k] + by_path["semi/loop/resume"][k] for k in by_path["semi/loop"]}
-    want = {"conv3x3_stats": 16 * steps + 8 * fwd, "upconv3x3_stats": 2 * steps + fwd,
-            "upconv3x3_dx": 2 * steps, "conv_dw_taps": 4 * steps, "conv3x3_bwd_fused": 18 * steps,
-            **{k: 0 for k in SUPCON_KERNELS + IIC_KERNELS}}
+    total = {k: by_path[path][k] + by_path[f"{path}/resume"][k] for k in by_path[path]}
+    want = {k: n * steps for k, n in per_step.items()}
+    want["conv3x3_stats"] += 8 * fwd
+    want["upconv3x3_stats"] += fwd
+    want.update({k: 0 for k in SUPCON_KERNELS + IIC_KERNELS})
     want_eval = {"conv3x3_stats": 8 * fwd, "upconv3x3_stats": fwd,
                  **{k: 0 for k in total if k not in ("conv3x3_stats", "upconv3x3_stats")}}
-    if total != want or by_path["semi/loop/eval"] != want_eval:
-        raise AssertionError(f"loop launches {total} (eval {by_path['semi/loop/eval']}), want "
+    if total != want or by_path[f"{path}/eval"] != want_eval:
+        raise AssertionError(f"{path} launches {total} (eval {by_path[f'{path}/eval']}), want "
                              f"{want} (eval {want_eval}) for {steps} steps, {fwd} eval forwards")
 
 
@@ -1613,6 +1649,330 @@ def check_chain_outputs(device, runs, pre_ckpt, seen, records, by_path, card, pe
     print(f"chain: peak memory {peak:.2f} GiB on {card}")
 
 
+#: phase 13: the mean-teacher family. Overrides of the in-code ``mt`` base
+#: that make the UAMT and ICT presets (config/hooks/uamt.yaml, ict.yaml)
+MT_OVERRIDES = {
+    "mt": [],
+    "uamt": ["~MeanTeacherParameters", "+UAMeanTeacherParameters.weight=10",
+             "+UAMeanTeacherParameters.alpha=0.99", "+UAMeanTeacherParameters.weight_decay=0.000001",
+             "+UAMeanTeacherParameters.update_bn=false", "+UAMeanTeacherParameters.hard_clip=false"],
+    "ict": ["~MeanTeacherParameters", "+ICTMeanTeacherParameters.weight=10",
+            "+ICTMeanTeacherParameters.alpha=0.99", "+ICTMeanTeacherParameters.weight_decay=0.000001",
+            "+ICTMeanTeacherParameters.update_bn=false"],
+}
+#: (forwards, backward passes) of a train step: the student's two, plus the
+#: teacher's one (MT), one clean and four noisy (UAMT), two and the
+#: student's mixed pass over both views (ICT). ICT's loss reads no logits
+#: of the student's unlabeled pass, so that pass has no backward and the
+#: mixed pass's takes its place: two backward passes on every path
+MT_PASSES = {"mt": (3, 2), "uamt": (7, 2), "ict": (5, 2)}
+MT_WARMUP, MT_TIMED = 2, 5
+
+
+def mt_step_launches(name: str) -> dict:
+    """K1 8 and K2 1 a forward; K3 1, C1 2 and C2 9 a backward pass."""
+    f, b = MT_PASSES[name]
+    return {"conv3x3_stats": 8 * f, "upconv3x3_stats": f, "upconv3x3_dx": b,
+            "conv_dw_taps": 2 * b, "conv3x3_bwd_fused": 9 * b}
+
+
+def _mt_config(name: str, *extra: str):
+    from contrastyou_tpu_torch.main import parse_config
+    return parse_config(["-o", "Trainer.name=mt", *MT_OVERRIDES[name], *extra])
+
+
+@contextlib.contextmanager
+def mt_call_sites(stack: list):
+    """Name the call site of each forward in ``stack`` while it runs: the
+    teacher's (train- or eval-mode BN, running statistics updated or
+    frozen) and ICT's student pass over the mixed images."""
+    from contrastyou_tpu_torch.hooks import mt
+    teacher = mt.MeanTeacherTrainerHook.__dict__["_teacher_apply"]
+    ict_loss = mt.ICTMeanTeacherTrainerHook.loss
+
+    def apply(ctx, state, image, **kw):
+        stack.append("teacher, " + ("train-mode BN" if kw.get("train") else "eval-mode BN")
+                     + ("" if kw.get("update_stats", True) else ", statistics frozen"))
+        try:
+            return teacher.__func__(ctx, state, image, **kw)
+        finally:
+            stack.pop()
+
+    def loss(self, ctx, state):
+        stack.append("ICT student, mixed views")
+        try:
+            return ict_loss(self, ctx, state)
+        finally:
+            stack.pop()
+
+    mt.MeanTeacherTrainerHook._teacher_apply = staticmethod(apply)
+    mt.ICTMeanTeacherTrainerHook.loss = loss
+    try:
+        yield stack
+    finally:
+        mt.MeanTeacherTrainerHook._teacher_apply = teacher
+        mt.ICTMeanTeacherTrainerHook.loss = ict_loss
+
+
+def check_mt_loss(run, name: str, errs: dict) -> None:
+    """Phase 13b: one train step of ``run``'s weights, teacher and hook on
+    one batch and its draws, through the kernels (K1 and K2 checked against
+    their plain versions at every call, by call site, into ``errs``), under
+    ``plain_kernels()`` and in f32: the hook's loss through the kernels is at
+    most ``STAGE_FACTOR`` times the plain bf16 path's distance to f32 plus
+    ``STAGE_ATOL``."""
+    import copy
+
+    import numpy as np
+    import torch
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.optim import create_optimizer
+    from contrastyou_tpu_torch.engine.state import TrainState
+    from contrastyou_tpu_torch.engine.steps import build_train_step, sample_step_draws
+    from contrastyou_tpu_torch.models.unet import UNet
+
+    hook = run.hooks[0]
+    model0 = run.state.model
+    weights = {k: v.detach().clone() for k, v in model0.state_dict().items()}
+    hook_state = copy.deepcopy(run.state.hook_states[hook.name])
+    device = model0._Deconv_1x1.weight.device
+    gen = torch.Generator(device=device).manual_seed(5)
+    lab, unl = run.labeled_cache.sample(gen, 5), run.unlabeled_cache.sample(gen, 5)
+    batch = {"labeled_image": lab["image"], "labeled_target": lab["target"],
+             "unlabeled_image": unl["image"]}
+    draws = sample_step_draws(gen, 5, [hook], host_rng=np.random.default_rng(5),
+                              shape=tuple(unl["image"].shape))
+    stack: list = []
+
+    def step(dtype):
+        model = UNet(max_channel=model0.max_channel, momentum=model0._Conv1.conv[1].momentum,
+                     dtype=dtype).to(device)
+        model.load_state_dict(weights)
+        bundle = ModelBundle(model, tuple(unl["image"].shape[1:]))
+        opt, _ = create_optimizer(model.parameters(), {"name": "RAdam", "lr": 1e-7}, {},
+                                  max_epoch=1, steps_per_epoch=1)
+        state = TrainState(model, opt, {hook.name: copy.deepcopy(hook_state)})
+        m = build_train_step(bundle, [hook])(state, batch, draws, 1)
+        return {k: m[k].reshape(1) for k in (f"{hook.name}/loss", "sup_loss")}
+
+    with mt_call_sites(stack), checked_forward_kernels(errs, lambda: stack[-1] if stack else
+                                                       "student"):
+        got = step(torch.bfloat16)
+    with plain_kernels():
+        plain, ref = step(torch.bfloat16), step(torch.float32)
+    for k in ref:
+        ek, ep = _rel_err(got[k], ref[k])[1], _rel_err(plain[k], ref[k])[1]
+        print(f"  {name}: {k} {float(got[k]):.6e} through the kernels, {float(plain[k]):.6e} "
+              f"plain bf16, {float(ref[k]):.6e} f32: error {ek:.2e} vs {ep:.2e}")
+        if ek > STAGE_FACTOR * ep + STAGE_ATOL or not math.isfinite(float(got[k])):
+            raise AssertionError(f"{name} {k}: kernel path {ek:.3e} from f32, plain bf16 {ep:.3e}")
+
+
+def run_mt_steps(device, card: str) -> dict:
+    """Phase 13b: warm-up and timed full-width steps through
+    ``build_semi_run`` in turns, ``semi`` (+ consistency), MT, UAMT, ICT,
+    ``semi`` again (launches, ms/step, peak memory above what the process
+    held before the run), then each mean-teacher hook's loss through the
+    kernels against the plain path and f32 (and MT with ``update_bn``, its
+    teacher in eval mode), K1 and K2 checked against their plain versions at
+    the teacher's and ICT's call sites."""
+    import gc
+
+    import torch
+    from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG, build_semi_run
+
+    by_path, errs, semi_ms = {}, {}, []
+    for name in ("semi", *MT_PASSES, "semi"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        run = build_semi_run(MAIN_PATH_CONFIG if name == "semi" else _mt_config(name),
+                             device=device)
+        hook = run.hooks[0]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        metrics = run.run(MT_WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics += run.run(MT_TIMED)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        steps = MT_WARMUP + MT_TIMED
+        ms = dt / MT_TIMED * 1e3
+        keys = [k for k in metrics[0] if k.startswith(hook.name)] + ["sup_loss", "total_loss"]
+        losses = [{k: round(float(m[k]), 6) for k in keys} for m in metrics]
+        print(f"{name}: {MT_WARMUP}+{MT_TIMED} steps, losses {losses}")
+        print(f"{name}: {ms:.3f} ms/step, {run.batch_slices * 1e3 / ms:.2f} slices/s on {card}; "
+              f"peak memory {peak:.2f} GiB above the {base / 2**30:.2f} GiB held before the run")
+        if not all(math.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"{name}: non-finite loss: {losses}")
+        per_step = SEMI_STEP_LAUNCHES if name == "semi" else mt_step_launches(name)
+        want = {k: n * steps for k, n in per_step.items()}
+        want.update({k: 0 for k in SUPCON_KERNELS + IIC_KERNELS})
+        if launches != want:
+            raise AssertionError(f"{name} launches {launches}, want {want}")
+        if name == "semi":
+            semi_ms.append(ms)
+            del run
+            continue
+        by_path[name] = launches
+        STEP_MS[name] = ms
+        state = run.state.hook_states[hook.name]
+        student = dict(run.state.model.named_parameters())
+        apart = sum(int(not torch.equal(v, student[k])) for k, v in state["teacher_params"].items())
+        print(f"{name}: teacher after {state['ema_step']} EMA steps, {apart}/{len(student)} "
+              f"tensors apart from the student; launches {launches}")
+        if state["ema_step"] != steps or apart == 0:
+            raise AssertionError(f"{name}: ema_step {state['ema_step']} of {steps} steps, "
+                                 f"{apart} teacher tensors apart from the student")
+        check_mt_loss(run, name, errs)
+        if name == "mt":
+            check_mt_loss(build_semi_run(_mt_config("mt", "MeanTeacherParameters.update_bn=true"),
+                                         device=device), "mt, update_bn", errs)
+        del run
+    semi = sum(semi_ms) / len(semi_ms)
+    print(f"phase 13 steps against semi in turns ({', '.join(f'{v:.3f}' for v in semi_ms)} "
+          f"ms/step, before and after) on {card}: "
+          + ", ".join(f"{k} {STEP_MS[k] / semi:.2f}x" for k in MT_PASSES))
+    sites = {}
+    for (kernel, site), e in sorted(errs.items()):
+        sites.setdefault(site, set()).add(kernel)
+        print(f"  {kernel} @ {site} vs plain at {sorted(e['shapes'])}: out {e['out']:.2e} "
+              f"(limit {KERNEL_RTOL:.2e}), stats {e['stats']:.2e} (limit {STATS_RTOL:.0e})")
+        if e["out"] > KERNEL_RTOL or e["stats"] > STATS_RTOL:
+            raise AssertionError(f"{kernel} at {site} disagrees with its plain version: {e}")
+    need = {"teacher, train-mode BN", "teacher, eval-mode BN",
+            "teacher, train-mode BN, statistics frozen", "ICT student, mixed views"}
+    missing = [s for s in need if sites.get(s) != {"conv3x3_stats", "upconv3x3_stats"}]
+    ict_batch = {shape[0] for (k, s), e in errs.items() if s == "ICT student, mixed views"
+                 for shape in e["shapes"]}
+    if missing or ict_batch != {10}:
+        raise AssertionError(f"K1/K2 not checked at {missing} (ICT's mixed batch {ict_batch})")
+    return by_path
+
+
+@contextlib.contextmanager
+def eval_models(seen: list):
+    """Record, at each ``Trainer._inference_state`` call, the eval hook's
+    name, whether the model returned is the student, and whether its
+    parameters are the hook's ``eval_params`` bit for bit."""
+    import torch
+    from contrastyou_tpu_torch.engine.trainer import Trainer
+    saved = Trainer._inference_state
+
+    def wrapper(self):
+        model = saved(self)
+        hook = self._inference_hook
+        want = hook.eval_params(self._state.hook_states[hook.name]) if hook else None
+        seen.append((hook.name if hook else None, model is self._state.model,
+                     want is not None and all(torch.equal(p, want[k])
+                                              for k, p in model.named_parameters())))
+        return model
+
+    Trainer._inference_state = wrapper
+    try:
+        yield seen
+    finally:
+        Trainer._inference_state = saved
+
+
+#: ``ft`` with EvalEMAParameters on phase 11's layout: one epoch of 10 steps
+FT_EMA_ARGV = ["-o", "Trainer.name=ft", "+EvalEMAParameters.alpha=0.99",
+               f"Trainer.num_batches={LOOP_STEPS}", "Trainer.max_epoch=1", "Trainer.save_dir=ftema"]
+
+
+def run_mt_loop(device, card: str) -> dict:
+    """Phase 13a: ``main.main`` with ``Trainer.name=mt`` on phase 11's
+    layout: 2 epochs x 10 host-fed steps with validation and test on the
+    teacher, inference on ``best``, a resume to a third epoch on the device
+    cache (``mt/loop``, ``mt/loop/resume``, ``mt/loop/eval``); then ``ft``
+    with EvalEMAParameters for one epoch (``ft/ema``): its EMA's
+    ``ema_step`` the steps taken, eval on the EMA."""
+    import gc
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+    from contrastyou_tpu_torch.engine.checkpoint import load_checkpoint
+
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    by_path: dict = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mt_") as tmp:
+            data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+            write_loop_layout(data)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(runs)
+            argv = ["-o", "Trainer.name=mt", f"Trainer.num_batches={LOOP_STEPS}",
+                    "Trainer.save_dir=mt"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eval_counts: dict = {}
+            seen: list = []
+            with eval_launches(eval_counts), eval_models(seen):
+                for path, extra in (("mt/loop", [f"Trainer.max_epoch={LOOP_EPOCHS}"]),
+                                    ("mt/loop/resume", [f"Trainer.max_epoch={LOOP_EPOCHS + 1}",
+                                                        "Trainer.device_cache=true"])):
+                    _reset_counts()
+                    t0 = time.perf_counter()
+                    if port_main.main(argv + extra) != 0:
+                        raise AssertionError(f"{path}: main returned non-zero")
+                    torch.cuda.synchronize()
+                    by_path[path] = _counts()
+                    print(f"{path}: {time.perf_counter() - t0:.1f} s; launches {by_path[path]}")
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            print(f"mt/loop: peak memory above the {base / 2**30:.2f} GiB held before the run:")
+            by_path["mt/loop/eval"] = {k: eval_counts.get(k, 0) for k in by_path["mt/loop"]}
+            check_loop_outputs(runs / "mt", timings.records, by_path, card, peak, path="mt/loop",
+                               per_step=mt_step_launches("mt"))
+            last = load_checkpoint(runs / "mt" / "last", map_location=device)["train_state"]
+            teacher, model = last["hook_states"]["mt"]["teacher_params"], last["model"]
+            apart = sum(int(not torch.equal(v, model[k])) for k, v in teacher.items())
+            print(f"mt/loop: eval models {sorted(set(seen))} over {len(seen)} passes; teacher "
+                  f"{apart}/{len(teacher)} tensors apart from the student after "
+                  f"{last['hook_states']['mt']['ema_step']} EMA steps")
+            if set(seen) != {("mt", False, True)} or apart == 0:
+                raise AssertionError(f"mt/loop: eval models {set(seen)}, {apart} tensors apart")
+
+            seen.clear()
+            _reset_counts()
+            timings.records.clear()
+            t0 = time.perf_counter()
+            with eval_models(seen):
+                if port_main.main(FT_EMA_ARGV) != 0:
+                    raise AssertionError("ft/ema: main returned non-zero")
+            torch.cuda.synchronize()
+            by_path["ft/ema"] = _counts()
+            ema = load_checkpoint(runs / "ftema" / "last")["train_state"]["hook_states"]
+            fwd = sum(r["batches"] for r in timings.records
+                      if r["phase"] in ("val", "test", "inference"))
+            train = [r for r in timings.records if r["phase"] == "train"]
+            print(f"ft/ema: {time.perf_counter() - t0:.1f} s, hooks {sorted(ema)}, ema_step "
+                  f"{ema['ema_eval']['ema_step']}; eval models {sorted(set(seen))}; "
+                  f"{train[0]['seconds'] / train[0]['steps'] * 1e3:.3f} ms/step inside the loop "
+                  f"on {card}; launches {by_path['ft/ema']}")
+            want = {k: n * LOOP_STEPS for k, n in CHAIN_LAUNCHES["ft/loop"].items()}
+            want["conv3x3_stats"] += 8 * fwd
+            want["upconv3x3_stats"] += fwd
+            if (sorted(ema) != ["ema_eval"] or ema["ema_eval"]["ema_step"] != LOOP_STEPS
+                    or set(seen) != {("ema_eval", False, True)}
+                    or any(by_path["ft/ema"][k] != n for k, n in want.items())):
+                raise AssertionError(f"ft/ema: hook states {sorted(ema)}, eval models {set(seen)}, "
+                                     f"launches {by_path['ft/ema']} (want {want})")
+    finally:
+        logger.removeHandler(timings)
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    return by_path
+
+
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
 #: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
@@ -1674,6 +2034,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(run_loop(device, card))
     torch.cuda.empty_cache()
+    print("mean-teacher family (phase 13):")
+    t0 = time.perf_counter()
+    by_path.update(run_mt_loop(device, card))
+    torch.cuda.empty_cache()
+    by_path.update(run_mt_steps(device, card))
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
     by_path.update(run_chain(device, card))
     torch.cuda.empty_cache()
     for trainer, data, warmup, timed in (

@@ -4,7 +4,8 @@ contrastyou_tpu/engine/checkpoint.py). A checkpoint is a directory:
 - ``train_state.pt`` (``torch.save``): the model's ``state_dict`` (BN running
   statistics included), the optimizer's ``state_dict`` and its update count
   (RAdam keeps it outside ``state_dict``; the schedule reads it), each hook
-  module's ``state_dict``, the hook states and ``step``;
+  module's ``state_dict``, the hook states (a mean teacher's or an EMA's:
+  two dicts of tensors and the int ``ema_step``) and ``step``;
 - ``host_state.pkl``: ``cur_epoch``, ``best_score``, ``config`` and the
   metric history (``storage``).
 

@@ -5,7 +5,11 @@ A hook contributes ``loss(ctx, state) -> (loss, new_state, metrics)``
 inside the differentiated step, ``post_step(ctx, model, state) -> state``
 after the optimizer update, and ``on_epoch_start(state, epoch) -> state``.
 :class:`StepContext` carries what the step computed: both unlabeled logits
-views, the explicit transform, taps.
+views, the explicit transform, taps, and the hook's own random draws
+(``draw``, made before the step; ``ctx.hook_draws[name]``). A hook may
+offer an eval model (``eval_params`` / ``eval_batch_stats``: a teacher or
+an EMA of the student); ``always_active`` hooks run under trainers that
+drop the others (``ft``).
 A :class:`ModuleHook` owns parameters (a projection head): it is an
 ``nn.Module`` whose parameters join the optimizer beside the model's.
 """
@@ -47,6 +51,8 @@ class StepContext:
     # sampled feature positions of the dense hooks: (H, W) -> (ys, xs) [B, P]
     point_draws: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = field(
         default_factory=dict)
+    # each drawing hook's random draws, by hook name
+    hook_draws: Dict[str, Any] = field(default_factory=dict)
     epoch: int = 0
     bundle: Any = None
 
@@ -61,6 +67,10 @@ class TrainerHook:
 
     #: layer names this hook needs from the model forward
     taps: Tuple[str, ...] = ()
+    #: whether the hook needs the unlabeled branch
+    requires_unlabeled: bool = True
+    #: kept by trainers that drop the regularizer hooks (a loss-free EMA)
+    always_active: bool = False
 
     def __init__(self, *, hook_name: str, weight: float = 1.0):
         self.name = hook_name
@@ -68,6 +78,13 @@ class TrainerHook:
 
     def init_state(self, bundle) -> Any:
         return {}
+
+    def draw(self, generator: torch.Generator, host_rng, shape: Tuple[int, ...]) -> Any:
+        """This hook's random draws for one step whose unlabeled batch has
+        ``shape``, from the step's ``generator`` (on its device) or the
+        numpy ``host_rng``; None (the default) draws nothing and leaves both
+        generators as they were."""
+        return None
 
     def loss(self, ctx: StepContext, state: Any
              ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
@@ -78,6 +95,16 @@ class TrainerHook:
 
     def on_epoch_start(self, state: Any, epoch: int) -> Any:
         return state
+
+    def eval_params(self, state: Any) -> Optional[Dict[str, torch.Tensor]]:
+        """Parameters to evaluate with in place of the student's (keyed as
+        ``named_parameters``), or None."""
+        return None
+
+    def eval_batch_stats(self, state: Any) -> Optional[Dict[str, torch.Tensor]]:
+        """BN running statistics to go with :meth:`eval_params` (keyed as
+        ``named_buffers``), or None for the student's."""
+        return None
 
 
 class ModuleHook(torch.nn.Module, TrainerHook):

@@ -6,13 +6,14 @@ device-cached step that also samples its batch on the GPU, and the eval step
 (running-statistics forward, optionally averaged over the four axis flips).
 
 Every random draw is explicit: the ``semi`` step takes a :class:`StepDraws`
-(the unlabeled batch's GeoParams and gammas; ``ft`` takes none); the cached
-step draws those, the sample indices and the crop offsets from a
-``torch.Generator``.
+(the unlabeled batch's GeoParams and gammas and each drawing hook's draws;
+``ft`` takes none); the cached step draws those, the sample indices and the
+crop offsets from a ``torch.Generator``, and the hooks' host-side draws
+(ICT's mixup) from a numpy generator.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,11 +33,19 @@ __all__ = ["StepDraws", "sample_step_draws", "init_train_state",
 class StepDraws(NamedTuple):
     geo: GeoParams          # transform of the unlabeled batch
     gammas: torch.Tensor    # [Bu] gamma of the unlabeled batch
+    hooks: Optional[Dict[str, Any]] = None   # each drawing hook's draws, by name
 
 
-def sample_step_draws(generator: torch.Generator, batch: int) -> StepDraws:
-    return StepDraws(sample_geo_params(generator, batch),
-                     sample_gammas(generator, batch))
+def sample_step_draws(generator: torch.Generator, batch: int,
+                      hooks: Sequence[TrainerHook] = (), *, host_rng=None,
+                      shape: Optional[Tuple[int, ...]] = None) -> StepDraws:
+    """The transform of an unlabeled batch of ``batch`` slices, then each
+    hook's :meth:`~contrastyou_tpu_torch.engine.hooks.TrainerHook.draw` for
+    the unlabeled batch's ``shape`` (hooks that draw nothing leave the
+    generators as they were)."""
+    geo, gammas = sample_geo_params(generator, batch), sample_gammas(generator, batch)
+    drawn = {h.name: h.draw(generator, host_rng, shape) for h in hooks}
+    return StepDraws(geo, gammas, {k: v for k, v in drawn.items() if v is not None})
 
 
 def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
@@ -80,6 +89,7 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
             ctx.unlabeled_image = unlabeled_image
             ctx.unlabeled_image_tf = transform_image(unlabeled_image, draws.geo, draws.gammas)
             ctx.geo_params = draws.geo
+            ctx.hook_draws = dict(draws.hooks or {})
             ctx.label_group = batch.get("unlabeled_scan_id")
             ctx.partition_group = batch.get("unlabeled_partition")
             ctx.patient_group = batch.get("unlabeled_patient")
@@ -127,15 +137,18 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
                             labeled_cache, unlabeled_cache=None,
                             labeled_batch: int = 5, unlabeled_batch: int = 5,
                             **kwargs) -> Callable:
-    """-> ``cached_step(state, generator, epoch=0) -> metrics``: one ``semi`` step
-    whose batch is sampled and cropped on the device from the two
-    :class:`~contrastyou_tpu_torch.data.device_cache.DeviceDataCache` s, or
-    without an ``unlabeled_cache`` one ``ft`` step on the labeled cache's
-    batch alone; the metrics also carry ``labeled_scan_id`` [B]."""
+    """-> ``cached_step(state, generator, epoch=0, host_rng=None) -> metrics``:
+    one ``semi`` step whose batch is sampled and cropped on the device from
+    the two :class:`~contrastyou_tpu_torch.data.device_cache.DeviceDataCache` s,
+    the hooks' draws made after the transform's (host-side ones from the
+    numpy ``host_rng``), or without an ``unlabeled_cache`` one ``ft`` step
+    on the labeled cache's batch alone; the metrics also carry
+    ``labeled_scan_id`` [B]."""
     semi = unlabeled_cache is not None
     step = build_train_step(bundle, hooks, mode="semi" if semi else "ft", **kwargs)
 
-    def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0):
+    def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0,
+                    host_rng=None):
         lab = labeled_cache.sample(generator, labeled_batch)
         batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
         draws = None
@@ -144,7 +157,8 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
             batch.update(unlabeled_image=unl["image"], unlabeled_partition=unl["partition"],
                          unlabeled_scan_id=unl["scan_id"], unlabeled_patient=unl["patient"],
                          unlabeled_cycle=unl["cycle"])
-            draws = sample_step_draws(generator, unlabeled_batch)
+            draws = sample_step_draws(generator, unlabeled_batch, hooks, host_rng=host_rng,
+                                      shape=tuple(unl["image"].shape))
         metrics = step(state, batch, draws, epoch)
         metrics["labeled_scan_id"] = lab["scan_id"]
         return metrics

@@ -18,7 +18,14 @@ train split staged on the device, where each step samples and crops its own
 batch. The generator is reseeded at each epoch from ``(seed, 10_000 +
 epoch)``, as JAX folds ``10_000 + epoch`` into its key, so a resumed
 device-cached run reproduces an unbroken one; the host loaders restart from
-their seeds on resume, as the JAX package's do.
+their seeds on resume, as the JAX package's do. The hooks' host-side draws
+(ICT's mixup) come from a numpy generator reseeded from ``(seed, 30_000 +
+epoch)``.
+
+Evaluation and inference run on the student, or on the model of the hook
+given to :meth:`Trainer.set_model4inference` (a mean teacher, an EMA of
+the student): its parameters and BN statistics (the student's when it
+offers none) copied into an eval copy of the model before each pass.
 
 Progress goes to the ``logging`` logger of this module. Each phase's host
 time is logged with ``extra={"timing": {...}}`` (``phase`` train / val /
@@ -28,6 +35,7 @@ JAX trainer are not ported, nor its TPU knobs (``unroll_steps``, ``profile``).
 """
 from __future__ import annotations
 
+import copy
 import logging
 import time
 import typing as t
@@ -52,9 +60,12 @@ from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_train_step,
                     init_train_state, sample_step_draws)
 
-__all__ = ["Trainer", "epoch_seed"]
+__all__ = ["Trainer", "epoch_seed", "HOOK_DRAW_SEED_OFFSET"]
 
 logger = logging.getLogger(__name__)
+
+#: offset of the hooks' host generator's per-epoch seed
+HOOK_DRAW_SEED_OFFSET = 30_000
 
 
 def epoch_seed(seed: int, epoch: int, offset: int = 10_000) -> int:
@@ -97,6 +108,8 @@ class Trainer:
         self._seed = int(seed)
         self._device_cache = bool(device_cache)
         self._hooks: t.List[TrainerHook] = []
+        self._inference_hook: t.Optional[TrainerHook] = None
+        self._eval_model: t.Optional[torch.nn.Module] = None
         self._pretrained_path: t.Optional[str] = None
         self._cur_epoch = 0
         self._best_score = -np.inf
@@ -111,6 +124,11 @@ class Trainer:
             raise RuntimeError("register hooks before init()")
         self._hooks.extend(hooks)
 
+    def set_model4inference(self, hook: TrainerHook) -> None:
+        """Evaluate and infer with ``hook``'s eval model (its
+        ``eval_params``)."""
+        self._inference_hook = hook
+
     # --- initialization ---------------------------------------------------
     @property
     def device(self) -> torch.device:
@@ -122,13 +140,17 @@ class Trainer:
             loaded, skipped = load_pretrained(self._model, self._pretrained_path)
             logger.info("pretrained warm start from %s: %d tensors loaded, %d of another "
                         "shape skipped", self._pretrained_path, len(loaded), len(skipped))
-        # activate_hooks False (ft) drops every hook; no loss-free hook that
-        # JAX keeps (``always_active``) is ported
-        self._active_hooks = list(self._hooks) if self.activate_hooks else []
+        # activate_hooks False (ft) drops the regularizer hooks; loss-free
+        # ones (``always_active``: the EMA eval model) stay
+        self._active_hooks = (list(self._hooks) if self.activate_hooks else
+                              [h for h in self._hooks if h.always_active])
         self._optimizer, self._schedule = create_optimizer(
             self._trainable_parameters() + hook_parameters(self._active_hooks),
             self._config.get("Optim", {}), self._config.get("Scheduler", {}),
             max_epoch=self._max_epoch, steps_per_epoch=self._num_batches)
+        if self._inference_hook is not None and self._inference_hook not in self._active_hooks:
+            raise RuntimeError(f"the eval model's hook {self._inference_hook.name!r} is not "
+                               f"active under {type(self).__name__}")
         self._state = init_train_state(self._bundle, self._active_hooks, self._optimizer)
         self._build_steps()
         self._initialized = True
@@ -251,13 +273,14 @@ class Trainer:
                     "metrics", AverageValueDictionaryMeter())
         generator = torch.Generator(device=self.device).manual_seed(
             epoch_seed(self._seed, epoch))
+        host_rng = np.random.default_rng(epoch_seed(self._seed, epoch, HOOK_DRAW_SEED_OFFSET))
         if not self._device_cache:
             labeled_iter, unlabeled_iter = self._train_iterators()
         t0 = time.perf_counter()
         with meters:
             for _ in range(self._num_batches):
                 if self._device_cache:
-                    metrics = self._train_step(self._state, generator, epoch)
+                    metrics = self._train_step(self._state, generator, epoch, host_rng)
                     dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
                                     group_ids=metrics.pop("labeled_scan_id"),
                                     id_table=self._labeled_cache.scan_names)
@@ -265,8 +288,11 @@ class Trainer:
                     labeled = next(labeled_iter)
                     unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
                     batch = self._host_batch(labeled, unlabeled)
-                    draws = (sample_step_draws(generator, batch["unlabeled_image"].shape[0])
-                             if unlabeled is not None else None)
+                    draws = None
+                    if unlabeled is not None:
+                        shape = tuple(batch["unlabeled_image"].shape)
+                        draws = sample_step_draws(generator, shape[0], self._active_hooks,
+                                                  host_rng=host_rng, shape=shape)
                     metrics = self._train_step(self._state, batch, draws, epoch)
                     dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
                                     group_name=labeled["scan"])
@@ -289,9 +315,30 @@ class Trainer:
         return stats
 
     # --- evaluation -------------------------------------------------------
+    @torch.no_grad()
     def _inference_state(self) -> torch.nn.Module:
-        """The model evaluated (a teacher hook's, once such hooks are ported)."""
-        return self._state.model
+        """The model evaluated: the student, or the eval model of the
+        inference hook, its parameters and BN statistics (or, when it offers
+        none, the student's) copied into the trainer's eval copy."""
+        hook = self._inference_hook
+        if hook is None:
+            return self._state.model
+        hook_state = self._state.hook_states[hook.name]
+        params = hook.eval_params(hook_state)
+        if params is None:
+            return self._state.model
+        stats = hook.eval_batch_stats(hook_state)
+        if stats is None:
+            stats = dict(self._state.model.named_buffers())
+        if self._eval_model is None:
+            self._eval_model = copy.deepcopy(self._state.model).requires_grad_(False)
+            for p in self._eval_model.parameters():
+                p.grad = None
+        for name, p in self._eval_model.named_parameters():
+            p.copy_(params[name])
+        for name, b in self._eval_model.named_buffers():
+            b.copy_(stats[name])
+        return self._eval_model
 
     def _eval_batches(self, loader) -> t.Iterator[t.Tuple[dict, tuple]]:
         """(host batch, its (image, target, mask) on the device)."""

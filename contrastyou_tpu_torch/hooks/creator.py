@@ -2,9 +2,12 @@
 hooks are selected by the presence of their config section, with the
 reference's key names, in the JAX factory's order. A hook section the JAX
 factory knows but the port has no hook for raises NotImplementedError naming
-it, so no preset trains without the regularizer it asks for."""
+it, so no preset trains without the regularizer it asks for. Given the
+trainer, the factory also picks its eval model: an ``EvalEMAParameters`` EMA
+over a mean teacher, as JAX does."""
 from __future__ import annotations
 
+import logging
 from typing import Callable, List, Mapping
 
 from ..models.unet import UNet
@@ -12,20 +15,24 @@ from .consistency import ConsistencyTrainerHook
 from .discretemi import DiscreteIMSATTrainHook, DiscreteMITrainHook
 from .infonce import INFONCEHook
 from .midl import IIDSegmentationTrainerHook, IMSATTrainHook
+from .mt import (EMAEvalTrainerHook, ICTMeanTeacherTrainerHook, MeanTeacherTrainerHook,
+                 UAMeanTeacherTrainerHook)
 
 __all__ = ["ntuple", "PORTED_SECTIONS", "UNPORTED_SECTIONS", "create_infonce_hooks",
            "create_discrete_mi_consistency_hooks", "create_hook_from_config"]
 
+logger = logging.getLogger(__name__)
+
 #: hook sections this factory builds, in the JAX factory's order
-PORTED_SECTIONS = ("InfonceParams", "DiscreteMIConsistencyParams", "IIDSegParameters",
-                   "IMSATParameters", "IMSATFeatureParameters", "ConsistencyParameters")
+PORTED_SECTIONS = ("InfonceParams", "DiscreteMIConsistencyParams", "MeanTeacherParameters",
+                   "UAMeanTeacherParameters", "ICTMeanTeacherParameters", "IIDSegParameters",
+                   "IMSATParameters", "IMSATFeatureParameters", "ConsistencyParameters",
+                   "EvalEMAParameters")
 #: hook sections of the JAX factory without a port yet (plus every
 #: ``*CrossCorrelationParameters*`` section)
-UNPORTED_SECTIONS = ("SPInfonceParams", "MeanTeacherParameters", "UAMeanTeacherParameters",
-                     "ICTMeanTeacherParameters", "DifferentiableMeanTeacherParameters",
+UNPORTED_SECTIONS = ("SPInfonceParams", "DifferentiableMeanTeacherParameters",
                      "EntropyMinParameters", "OrthogonalParameters", "PsuedoLabelParams",
-                     "MixUpParams", "DAEParameters", "InfonceSuperPixelParams",
-                     "EvalEMAParameters")
+                     "MixUpParams", "DAEParameters", "InfonceSuperPixelParams")
 
 
 def ntuple(n: int) -> Callable:
@@ -70,9 +77,12 @@ def create_discrete_mi_consistency_hooks(*, feature_names, mi_weights, dense_pad
 
 
 def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int],
-                            is_pretrain: bool = False, proj_bf16: bool = False) -> List:
+                            is_pretrain: bool = False, proj_bf16: bool = False,
+                            trainer=None) -> List:
     """The hook list of a reference-style config. ``channel_dim`` gives a
-    tapped layer's width; ``proj_bf16`` runs the dense InfoNCE heads in bf16."""
+    tapped layer's width; ``proj_bf16`` runs the dense InfoNCE heads in bf16.
+    With a ``trainer``, its eval model: the ``EvalEMAParameters`` hook, else
+    the mean-teacher one, when the config has either."""
     unported = [k for k in config
                 if k in UNPORTED_SECTIONS or "CrossCorrelationParameters" in str(k)]
     if unported:
@@ -91,6 +101,26 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
         not_pretrain("DiscreteMIConsistencyParams")
         hooks += create_discrete_mi_consistency_hooks(
             channel_dim=channel_dim, **config["DiscreteMIConsistencyParams"])
+    mt_hook = None
+    if "MeanTeacherParameters" in config:
+        not_pretrain("MeanTeacherParameters")
+        params = dict(config["MeanTeacherParameters"])
+        num_teachers = int(params.pop("num_teachers", 1))
+        if num_teachers > 1:
+            raise NotImplementedError(f"num_teachers={num_teachers}: only one mean teacher "
+                                      f"is supported")
+        mt_hook = MeanTeacherTrainerHook(name="mt", **params)
+        hooks.append(mt_hook)
+    if "UAMeanTeacherParameters" in config:
+        not_pretrain("UAMeanTeacherParameters")
+        mt_hook = UAMeanTeacherTrainerHook(name="uamt",
+                                           max_epoch=int(config["Trainer"]["max_epoch"]),
+                                           **config["UAMeanTeacherParameters"])
+        hooks.append(mt_hook)
+    if "ICTMeanTeacherParameters" in config:
+        not_pretrain("ICTMeanTeacherParameters")
+        mt_hook = ICTMeanTeacherTrainerHook(name="ict", **config["ICTMeanTeacherParameters"])
+        hooks.append(mt_hook)
     if "IIDSegParameters" in config:
         p = config["IIDSegParameters"]
         hooks.append(IIDSegmentationTrainerHook(hook_name="iidseg", weight=float(p["weight"]),
@@ -108,4 +138,13 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
     if "ConsistencyParameters" in config:
         hooks.append(ConsistencyTrainerHook(
             name="consistency", weight=float(config["ConsistencyParameters"]["weight"])))
+    ema_hook = None
+    if "EvalEMAParameters" in config:
+        ema_hook = EMAEvalTrainerHook(**config["EvalEMAParameters"])
+        hooks.append(ema_hook)
+    # an explicit EvalEMAParameters wins over the mean teacher
+    eval_hook = ema_hook or mt_hook
+    if trainer is not None and eval_hook is not None:
+        trainer.set_model4inference(eval_hook)
+        logger.info("eval model: %s", eval_hook.name)
     return hooks

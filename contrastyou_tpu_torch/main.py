@@ -9,16 +9,23 @@ contrastive pretraining, on one device.
         config/hooks/infonce.yaml -o Trainer.save_dir=<pretrain>
     python -m contrastyou_tpu_torch.main -o Trainer.name=ft \\
         Arch.checkpoint=<RUN_PATH>/<pretrain>/last Trainer.save_dir=<ft>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=mt Trainer.save_dir=<mt>
 
 takes the argv of the root ``main.py``. Without ``-p`` the base is the
 in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
-(``semi``), config/base.yaml alone (``ft``), :data:`PRETRAIN_DECODER_CONFIG`
+(``semi``), config/base.yaml alone (``ft``), :data:`MT_CONFIG` (``mt``:
+config/hooks/mt.yaml's mean teacher), :data:`PRETRAIN_DECODER_CONFIG`
 or :data:`PRETRAIN_ENCODER_CONFIG`, so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
 ``semi`` + ``udaiic`` base; from the ``semi`` base the same run is
 ``-o Trainer.name=semi ~ConsistencyParameters`` plus the four
-``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml). The
+``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml; UAMT
+and ICT are ``-o Trainer.name=mt ~MeanTeacherParameters`` plus the
+``+UAMeanTeacherParameters.*`` or ``+ICTMeanTeacherParameters.*`` keys of
+config/hooks/uamt.yaml or ict.yaml). The
 hooks come from the config's hook sections (``hooks/creator.py``; a section
-without a port raises).
+without a port raises); ``mt`` evaluates and infers on the teacher, and an
+``EvalEMAParameters`` section adds an EMA of the student that ``semi`` and
+``ft`` evaluate on.
 
 Every trainer runs the root ``main.py``'s experiment (:func:`run_experiment`):
 the dataset ``Data.name`` from ``$CONTRASTYOU_DATA_PATH`` (its on-disk
@@ -83,7 +90,7 @@ from .trainers.pretrain import (build_pretrain_step, contrastive_sampler,
                                 sample_pretrain_draws)
 from .utils.torch_convert import load_pretrained
 
-__all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "PRETRAIN_DECODER_CONFIG",
+__all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "MT_CONFIG", "PRETRAIN_DECODER_CONFIG",
            "PRETRAIN_ENCODER_CONFIG", "UNPORTED_KEYS", "refuse_unported_keys",
            "check_warm_start", "resolve_device", "synthetic_split", "synthetic_scans",
            "SemiRun", "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config",
@@ -120,6 +127,12 @@ MAIN_PATH_CONFIG = merge(_BASE, {"ConsistencyParameters": {"weight": 10}})
 UDAIIC_CONFIG = merge(_BASE, {"DiscreteMIConsistencyParams": {
     "feature_names": ["Conv5", "Up_conv2"], "mi_weights": [0.1, 0.05],
     "dense_paddings": [1], "consistency_weight": 1}})
+#: config/base.yaml merged with config/hooks/mt.yaml (``Trainer.name`` stays
+#: null; ``-o Trainer.name=mt`` picks this base): the mean teacher, no
+#: consistency hook
+MT_CONFIG = merge(_BASE, {"MeanTeacherParameters": {
+    "weight": 10, "alpha": 0.99, "weight_decay": 0.000001, "update_bn": False,
+    "num_teachers": 1, "hard_clip": False}})
 #: config/base.yaml + config/pretrain.yaml + config/hooks/infonce.yaml
 PRETRAIN_DECODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
     "InfonceParams": {"feature_names": ["Conv5", "Up_conv2"], "weights": [1.0, 1.0],
@@ -131,7 +144,7 @@ PRETRAIN_ENCODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
                       "contrast_ons": "partition", "spatial_size": 1},
     "Trainer": {"name": "pretrain"}})
 
-_DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG, "ft": _BASE,
+_DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG, "ft": _BASE, "mt": MT_CONFIG,
              "pretrain": PRETRAIN_ENCODER_CONFIG,
              "pretrain_decoder": PRETRAIN_DECODER_CONFIG}
 PRETRAIN_TRAINERS = ("pretrain", "pretrain_decoder")
@@ -244,12 +257,14 @@ def _model(config: Mapping, device, dtype, max_channel, generator,
     return model.init_weights(generator)
 
 
-def _hooks(config: Mapping, model: UNet, device, dtype, generator, *, is_pretrain: bool):
+def _hooks(config: Mapping, model: UNet, device, dtype, generator, *, is_pretrain: bool,
+           trainer=None):
     """The config's hooks on ``device``, their heads drawn from ``generator``
-    in hook order."""
+    in hook order (``trainer``: see ``create_hook_from_config``)."""
     hooks = create_hook_from_config(
         config, channel_dim=model.get_channel_dim, is_pretrain=is_pretrain,
-        proj_bf16=dtype == torch.bfloat16 and torch.device(device).type == "cuda")
+        proj_bf16=dtype == torch.bfloat16 and torch.device(device).type == "cuda",
+        trainer=trainer)
     for h in hooks:
         if isinstance(h, torch.nn.Module):
             h.to(device).projector.init_weights(generator)
@@ -259,15 +274,16 @@ def _hooks(config: Mapping, model: UNet, device, dtype, generator, *, is_pretrai
 @dataclass
 class SemiRun:
     state: TrainState
-    step: Callable                  # step(state, generator) -> metrics
+    step: Callable                  # step(state, generator, epoch, host_rng) -> metrics
     generator: torch.Generator
     batch_slices: int               # slices per step (labeled + unlabeled)
     labeled_cache: DeviceDataCache
     unlabeled_cache: DeviceDataCache
     hooks: List
+    host_rng: np.random.Generator   # the hooks' host-side draws
 
     def run(self, n: int):
-        return [self.step(self.state, self.generator) for _ in range(n)]
+        return [self.step(self.state, self.generator, 0, self.host_rng) for _ in range(n)]
 
 
 def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
@@ -309,7 +325,7 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
         bundle, hooks, labeled_cache=lab, unlabeled_cache=unl,
         labeled_batch=nl, unlabeled_batch=nu,
         disable_bn=bool(trainer.get("disable_bn", False)))
-    return SemiRun(state, step, gen, nl + nu, lab, unl, hooks)
+    return SemiRun(state, step, gen, nl + nu, lab, unl, hooks, np.random.default_rng(seed))
 
 
 @dataclass
@@ -437,7 +453,8 @@ def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
             labeled.dataset, data_name=str(data["name"]), seed=seed, **clp),
             val_loader=None, test_loader=None)
     trainer = trainer_zoo[name](**kwargs)
-    trainer.register_hooks(*_hooks(config, model, device, dtype, gen, is_pretrain=is_pretrain))
+    trainer.register_hooks(*_hooks(config, model, device, dtype, gen, is_pretrain=is_pretrain,
+                                   trainer=trainer))
     arch = config["Arch"]
     if arch.get("pretrained_path"):
         trainer.load_pretrained(arch["pretrained_path"])

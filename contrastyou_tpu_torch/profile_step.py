@@ -3,8 +3,12 @@
     python -m contrastyou_tpu_torch.profile_step pretrain_decoder [--steps 5]
     python -m contrastyou_tpu_torch.profile_step pretrain_decoder -o Data.name=prostate
     python -m contrastyou_tpu_torch.profile_step semi --udaiic
+    python -m contrastyou_tpu_torch.profile_step mt [-o ~MeanTeacherParameters \
+        +UAMeanTeacherParameters.weight=10 ...]
 
-For ``semi``, ``pretrain_decoder`` or ``pretrain`` at the reference config
+For ``semi``, ``mt`` (the mean teacher; UAMT and ICT by the overrides of
+README's "mean teacher without PyYAML"), ``pretrain_decoder`` or
+``pretrain`` at the reference config
 (full width, 224x224, bf16), with trailing ``-o`` overrides as the entry
 point takes them (``Data.name=prostate``: 96 images per forward; for
 ``semi`` 2 classes); ``--udaiic`` starts ``semi`` from the in-code
@@ -61,7 +65,7 @@ def _build(trainer: str, device, overrides=(), *, udaiic: bool = False, **size):
         config = main.parse_config(argv, main.UDAIIC_CONFIG)
     else:
         config = main.parse_config(argv)
-    build = main.build_semi_run if trainer == "semi" else main.build_pretrain_run
+    build = main.build_semi_run if trainer in ("semi", "mt") else main.build_pretrain_run
     return build(config, device=device, **size)
 
 
@@ -71,7 +75,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("trainer", choices=("semi", "pretrain_decoder", "pretrain"))
+    ap.add_argument("trainer", choices=("semi", "mt", "pretrain_decoder", "pretrain"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--shapes", action="store_true",
@@ -86,7 +90,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     card = _card()
     run = _build(args.trainer, device, args.overrides, udaiic=args.udaiic)
-    name = f"{args.trainer}/udaiic" if args.udaiic else args.trainer
+    name = (f"{args.trainer}/udaiic" if args.udaiic else
+            "/".join([args.trainer] + [h.name for h in run.hooks if args.trainer == "mt"]))
     run.run(3)
     torch.cuda.synchronize()
     for r in range(args.rounds):

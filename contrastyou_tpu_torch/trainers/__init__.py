@@ -1,11 +1,12 @@
 """Trainers of the port (counterpart of contrastyou_tpu/trainers):
 ``trainer_zoo`` maps ``Trainer.name`` to the ported epoch-loop trainers."""
 from .ft import FineTuneTrainer
+from .mt import MTTrainer
 from .pretrain import PretrainDecoderTrainer, PretrainEncoderTrainer
 from .semi import SemiTrainer
 
-trainer_zoo = {"semi": SemiTrainer, "ft": FineTuneTrainer,
+trainer_zoo = {"semi": SemiTrainer, "ft": FineTuneTrainer, "mt": MTTrainer,
                "pretrain": PretrainEncoderTrainer, "pretrain_decoder": PretrainDecoderTrainer}
 
-__all__ = ["SemiTrainer", "FineTuneTrainer", "PretrainEncoderTrainer",
+__all__ = ["SemiTrainer", "FineTuneTrainer", "MTTrainer", "PretrainEncoderTrainer",
            "PretrainDecoderTrainer", "trainer_zoo"]

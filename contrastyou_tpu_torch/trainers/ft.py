@@ -1,6 +1,8 @@
 """Fine-tune trainer (counterpart of contrastyou_tpu/trainers/ft.py): the
-labeled batch alone under the supervised KL, every hook dropped; validation,
-test and inference as :class:`~contrastyou_tpu_torch.trainers.semi.SemiTrainer`'s."""
+labeled batch alone under the supervised KL, every regularizer hook dropped
+(an ``always_active`` one, the EMA eval model of ``EvalEMAParameters``,
+stays and is evaluated); validation, test and inference as
+:class:`~contrastyou_tpu_torch.trainers.semi.SemiTrainer`'s."""
 from __future__ import annotations
 
 from .semi import SemiTrainer

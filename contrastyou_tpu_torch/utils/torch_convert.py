@@ -21,6 +21,13 @@ and the cluster heads of the discrete-MI hooks, whose S subheads flax vmaps:
                              <-> Vmap_DenseSubHead_0/Conv_0/kernel [S,1,1,C,K], /bias [S,K]
                                  (DenseClusterHead)
 
+and the mean-teacher hook states, whose U-Nets are flax trees in JAX and
+``state_dict`` halves in the port:
+
+  teacher_params / teacher_batch_stats / ema_step  (MT, UAMT, ICT)
+  ema_params / ema_batch_stats / ema_step          (EvalEMAParameters)
+  <-> {named_parameters}, {named_buffers}, int
+
 Values are numpy arrays on the flax side and tensors on the torch side.
 
 The ``Arch.pretrained_path`` warm start reads a local npz archive of
@@ -36,7 +43,8 @@ import typing as t
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_to_head_state_dict",
+__all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_to_hook_state",
+           "hook_state_to_flax", "flax_to_head_state_dict",
            "head_state_dict_to_flax", "flax_to_cluster_head_state_dict",
            "cluster_head_state_dict_to_flax", "save_npz_tree", "load_npz_tree",
            "merge_pretrained", "load_pretrained"]
@@ -101,6 +109,36 @@ def state_dict_to_flax(sd: t.Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(a)
     return out
+
+
+#: the U-Net halves of each mean-teacher hook state: (params, batch_stats)
+HOOK_STATE_TREES = (("teacher_params", "teacher_batch_stats"), ("ema_params", "ema_batch_stats"))
+_BUFFERS = (".running_mean", ".running_var")
+
+
+def flax_to_hook_state(state: t.Mapping) -> dict:
+    """A JAX mean-teacher or EMA hook state (flax trees and ``ema_step``) ->
+    the port's: the parameters and the BN running statistics as two dicts
+    keyed as the model's ``named_parameters`` / ``named_buffers`` (f32
+    tensors), ``ema_step`` an int."""
+    for p_key, s_key in HOOK_STATE_TREES:
+        if p_key in state:
+            sd = flax_to_state_dict(state[p_key], state[s_key])
+            return {p_key: {k: v for k, v in sd.items() if not k.endswith(_BUFFERS)},
+                    s_key: {k: v for k, v in sd.items() if k.endswith(_BUFFERS)},
+                    "ema_step": int(np.asarray(state["ema_step"]))}
+    raise KeyError(f"not a mean-teacher hook state: {sorted(state)}")
+
+
+def hook_state_to_flax(state: t.Mapping) -> dict:
+    """Inverse of :func:`flax_to_hook_state` (numpy leaves, ``ema_step``
+    int32)."""
+    for p_key, s_key in HOOK_STATE_TREES:
+        if p_key in state:
+            tree = state_dict_to_flax({**state[p_key], **state[s_key]})
+            return {p_key: tree["params"], s_key: tree["batch_stats"],
+                    "ema_step": np.int32(state["ema_step"])}
+    raise KeyError(f"not a mean-teacher hook state: {sorted(state)}")
 
 
 def flax_to_head_state_dict(params: t.Mapping) -> dict:

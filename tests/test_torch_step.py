@@ -313,8 +313,9 @@ def test_udaiic_override_form_equals_the_config():
     assert got == merge(UDAIIC_CONFIG, {"Trainer": {"name": "semi"}})
 
 
-@pytest.mark.parametrize("section", ["MeanTeacherParameters", "EntropyMinParameters",
-                                     "SPInfonceParams", "FeatureCrossCorrelationParameters"])
+@pytest.mark.parametrize("section", ["DifferentiableMeanTeacherParameters",
+                                     "EntropyMinParameters", "SPInfonceParams",
+                                     "FeatureCrossCorrelationParameters"])
 def test_unported_hook_sections_raise(section):
     """A hook section without a port fails the run instead of training
     without it, in semi and in pretraining."""
