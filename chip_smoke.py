@@ -103,14 +103,35 @@ Phases, in order; any failure exits non-zero:
    (MT also with ``update_bn``, its teacher in eval mode), every K1 and K2
    call checked against its plain version by call site: the teacher in
    train mode, in eval mode, with frozen statistics (UAMT's noisy passes,
-   ICT's second), ICT's student pass over the 10 mixed images.
+   ICT's second), ICT's student pass over the 10 mixed images;
+14. self-paced and superpixel InfoNCE and the resize datasets on disk (run
+   after phase 12): one data root in a temporary directory with an
+   ``acdc_superpixel`` layout (12 train and 2 validation ACDC scans of 6
+   slices at 224x224, maps from ``generate_superpixels``, one process per CPU), a
+   spleen archive (512x512) and a prostate archive (256-384 px, 8
+   partitions), all written by the port; (14a) one full-width ``semi`` step
+   at spleen's 256x256 crop with every K1-K3, C1 and C2 launch held against
+   its plain version; (14b) D1/D2 against their plain versions on the pair
+   code of a superpixel batch (180 anchors, the positions of one
+   superpixel id positives across slices); (14c) ``main.main`` at full
+   width for 2 epochs x 10 host-fed steps on each path of ``P14_PATHS``:
+   ``spinfonce`` (config/hooks/spinfonce.yaml's section, begin = end = 100,
+   soft), ``superpixel`` (``pretrain_decoder`` with
+   infonce_dense_superpixel.yaml's section), ``spleen/semi`` (1 epoch with
+   validation, test and inference), ``prostate/pretrain_decoder`` (48-slice
+   batches read and resized from disk) and ``semi/superpixel`` (the dense
+   hook under ``semi``): the files, finite ``storage.csv`` values
+   (``sp_weight`` in (0, 1] and ``age_param`` 100 on ``spinfonce``), the
+   launches per step of ``P14_LAUNCHES`` plus 8 K1 and 1 K2 an eval forward,
+   and ms/step inside the loop.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
-path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop`` and
-``ft/ema``), ``max_abs_err`` the largest over the checked shapes, ``ms`` /
+path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
+``ft/ema`` and phase 14's five), ``max_abs_err`` the largest over the
+checked shapes and call sites (phase 14's included), ``ms`` /
 ``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
 one launch each (C1/C2: over the batch-96 shapes only; ``by_batch`` has the
 sums at every checked batch, beside the einsum form's below 96 and, for C2,
@@ -131,6 +152,7 @@ import contextlib
 import json
 import logging
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1075,13 +1097,14 @@ def check_hook_losses(run) -> None:
     import torch
     from contrastyou_tpu_torch.engine.bundle import ModelBundle
     from contrastyou_tpu_torch.engine.hooks import StepContext
+    from contrastyou_tpu_torch.engine.steps import point_grids
     from contrastyou_tpu_torch.trainers.pretrain import sample_pretrain_draws
 
     gen = torch.Generator(device=run.cache.device).manual_seed(3)
     n = run.batch_slices
     idx = torch.arange(n, device=run.cache.device) % len(run.cache)
     batch = run.cache.sample_at(idx, *run.cache.draw_offsets(gen, n))
-    grids = sorted({h.grid for h in run.hooks if h.grid is not None})
+    grids = point_grids(run.hooks)
     draws = sample_pretrain_draws(gen, n, point_grids=grids)
     taps = tuple(h.taps[0] for h in run.hooks)
     with torch.no_grad():
@@ -1973,6 +1996,283 @@ def run_mt_loop(device, card: str) -> dict:
     return by_path
 
 
+#: phase 14: self-paced and superpixel InfoNCE and the resize datasets on disk.
+#: One data root: an ``acdc_superpixel`` layout (ACDC at 224 x 224, 12 train
+#: scans so the pretrain split holds the 6 scans of an 18-slice batch, 2
+#: validation scans, 6 slices each; superpixel maps by the port's SLIC), a
+#: spleen archive (native 512 x 512, 4 train and 3 validation scans) and a
+#: prostate archive (native 256-384 px, 4 train and 2 validation scans of up
+#: to 24 slices, 8 partitions from ``prostate_info.npy``)
+SPX_SCANS, SPX_SLICES, SPX_SIZE = (12, 2), 6, 224
+P14_STEPS, P14_EPOCHS = 10, 2
+#: the five paths: (name, argv of ``main.main``, epochs)
+P14_SP = ["+SPInfonceParams.feature_names=Conv5", "+SPInfonceParams.weights=1",
+          "+SPInfonceParams.contrast_ons=partition", "+SPInfonceParams.begin_values=100",
+          "+SPInfonceParams.end_values=100", "+SPInfonceParams.mode=soft"]
+P14_SPX = ["+InfonceSuperPixelParams.feature_names=Up_conv2",
+           "+InfonceSuperPixelParams.weights=1.0", "+InfonceSuperPixelParams.spatial_size=16",
+           "Data.name=acdc_superpixel"]
+P14_PATHS = [
+    ("spinfonce", ["Trainer.name=pretrain", "~InfonceParams", *P14_SP], P14_EPOCHS),
+    ("superpixel", ["Trainer.name=pretrain_decoder", "~InfonceParams", *P14_SPX], P14_EPOCHS),
+    ("spleen/semi", ["Trainer.name=semi", "Data.name=spleen"], 1),
+    ("prostate/pretrain_decoder", ["Trainer.name=pretrain_decoder", "Data.name=prostate"],
+     P14_EPOCHS),
+    ("semi/superpixel", ["Trainer.name=semi", *P14_SPX], P14_EPOCHS)]
+#: launches per train step on each path (every eval forward adds 8 K1, 1 K2):
+#: the self-paced loss is eager (no D1/D2); the superpixel hook one D1/D2
+#: pair (pretraining: 18 slices x 5 points x 2 views = 180 anchors; semi: 50)
+P14_LAUNCHES = {
+    "spinfonce": {"conv3x3_stats": 4, "conv_dw_taps": 1, "conv3x3_bwd_fused": 3},
+    "superpixel": {"conv3x3_stats": 8, "upconv3x3_stats": 1, "upconv3x3_dx": 1,
+                   "conv_dw_taps": 2, "conv3x3_bwd_fused": 9, "supcon_loss": 1,
+                   "supcon_dz": 1},
+    "spleen/semi": SEMI_STEP_LAUNCHES,
+    "prostate/pretrain_decoder": {"conv3x3_stats": 8, "upconv3x3_stats": 1,
+                                  "upconv3x3_dx": 1, "conv_dw_taps": 2,
+                                  "conv3x3_bwd_fused": 9, "supcon_loss": 2, "supcon_dz": 2},
+    "semi/superpixel": dict(SEMI_STEP_LAUNCHES, supcon_loss=1, supcon_dz=1)}
+
+
+def write_phase14_data(root) -> None:
+    """Phase 14's layouts under ``root`` (see above); the superpixel maps of
+    both modes from ``generate_superpixels`` (one process per CPU)."""
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like, synthesize_dataset
+    from contrastyou_tpu_torch.postprocess.superpixel import generate_superpixels
+
+    t0 = time.perf_counter()
+    synthesize_acdc_like(root, num_train_scans=SPX_SCANS[0], num_val_scans=SPX_SCANS[1],
+                         slices_per_scan=SPX_SLICES, size=SPX_SIZE)
+    synthesize_dataset(root, "spleen", num_train_scans=4, num_val_scans=3, max_slices=10)
+    synthesize_dataset(root, "prostate", num_train_scans=4, num_val_scans=2, max_slices=24)
+    t1 = time.perf_counter()
+    maps = sum(generate_superpixels(root / "ACDC_contrast", mode=mode)
+               for mode in ("train", "val"))
+    print(f"phase 14: wrote the ACDC, spleen and prostate layouts in {t1 - t0:.1f} s, "
+          f"{maps} superpixel maps ({SPX_SIZE}^2, {len(os.sched_getaffinity(0))} processes) in "
+          f"{time.perf_counter() - t1:.1f} s")
+
+
+@contextlib.contextmanager
+def checked_conv_kernels(errs: dict):
+    """Route K1, K2, K3, C1 and C2 through wrappers that also run each
+    kernel's plain version on the same inputs and keep, by kernel, the
+    largest error relative to the plain output's largest magnitude (bf16
+    outputs, limit KERNEL_RTOL; BN statistics, STATS_RTOL; weight
+    gradients, DK_RTOL) and the shapes seen. The kernel launches are the
+    step's own."""
+    from contrastyou_tpu_torch.ops import convblock as cb
+    names = (*CONV_KERNELS, *BWD_KERNELS)
+    saved = {k: getattr(cb, k) for k in names}
+
+    def record(name, shape, pairs):
+        worst = errs.setdefault(name, {"err": 0.0, "rel": 0.0, "shapes": set()})
+        for got, ref, limit in pairs:
+            if got is None:
+                continue
+            err, rel = _rel_err(got, ref)
+            worst["err"] = max(worst["err"], err)
+            worst["rel"] = max(worst["rel"], rel / limit)
+        worst["shapes"].add(shape)
+
+    def conv(x, w, skip=None, w_skip=None, stats=True):
+        got = saved["conv3x3_stats"](x, w, skip, w_skip, stats)
+        ref = cb.conv3x3_stats_plain(x, w, skip, w_skip, stats)
+        record("conv3x3_stats", tuple(x.shape), [(got[0], ref[0], KERNEL_RTOL),
+                                                 (got[1], ref[1], STATS_RTOL),
+                                                 (got[2], ref[2], STATS_RTOL)])
+        return got
+
+    def upconv(x, taps):
+        got = saved["upconv3x3_stats"](x, taps)
+        ref = cb.upconv3x3_stats_plain(x, taps)
+        record("upconv3x3_stats", tuple(x.shape), [(got[0], ref[0], KERNEL_RTOL),
+                                                   (got[1], ref[1], STATS_RTOL),
+                                                   (got[2], ref[2], STATS_RTOL)])
+        return got
+
+    def upconv_dx(g, taps):
+        got = saved["upconv3x3_dx"](g, taps)
+        record("upconv3x3_dx", tuple(g.shape),
+               [(got, cb.upconv3x3_dx_plain(g, taps), KERNEL_RTOL)])
+        return got
+
+    def dw(x, g, up2=False):
+        got = saved["conv_dw_taps"](x, g, up2)
+        record("conv_dw_taps", tuple(x.shape), [(got, cb.conv_dw_taps_plain(x, g, up2), DK_RTOL)])
+        return got
+
+    def bwd(x, w, g):
+        got = saved["conv3x3_bwd_fused"](x, w, g)
+        ref = cb.conv3x3_bwd_fused_plain(x, w, g)
+        record("conv3x3_bwd_fused", tuple(x.shape), [(got[0], ref[0], KERNEL_RTOL),
+                                                     (got[1], ref[1], DK_RTOL)])
+        return got
+
+    for k, f in zip(names, (conv, upconv, upconv_dx, dw, bwd)):
+        setattr(cb, k, f)
+    try:
+        yield errs
+    finally:
+        for k, f in saved.items():
+            setattr(cb, k, f)
+
+
+def check_spleen_kernels(device, recs: dict) -> None:
+    """Phase 14a: one full-width ``semi`` step at spleen's 256 x 256 crop
+    (``build_semi_run``, 2 classes, 320 x 320 slices in memory) with every
+    K1-K3, C1 and C2 launch held against its plain version."""
+    from contrastyou_tpu_torch.main import build_semi_run, parse_config
+
+    run = build_semi_run(parse_config(["-o", "Trainer.name=semi", "Data.name=spleen"]),
+                         device=device, raw_size=320, crop=256)
+    errs: dict = {}
+    with checked_conv_kernels(errs):
+        m = run.step(run.state, run.generator)
+    if not math.isfinite(float(m["total_loss"])):
+        raise AssertionError(f"spleen step: total loss {float(m['total_loss'])}")
+    for name in (*CONV_KERNELS, *BWD_KERNELS):
+        e = errs.get(name)
+        # inputs at 256^2 or 128^2 (Up2's input); ACDC's are 224^2 and 112^2
+        if e is None or not any(s[1] in (128, 256) for s in e["shapes"]):
+            raise AssertionError(f"{name} not checked at spleen's shapes: {errs}")
+        print(f"  {name} at spleen's shapes {sorted(e['shapes'])}: max_abs_err {e['err']:.3e} "
+              f"({e['rel']:.2f} of its limit)")
+        if e["rel"] > 1.0:
+            raise AssertionError(f"{name} disagrees with its plain version at spleen's shapes")
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], e["err"])
+
+
+def check_superpixel_supcon(device, data_root, recs: dict) -> None:
+    """Phase 14b: D1 and D2 against their plain versions on the pair code
+    of a superpixel batch: the first contrastive batch of the
+    ``acdc_superpixel`` pretrain split (18 slices), its maps pooled to the
+    16 x 16 grid, 5 positions a slice, two views -> 2N = 180 anchors whose
+    positives are the positions of one superpixel id (many a row, across
+    slices); z random and L2-normalized, d = 256, f32."""
+    import torch
+    from contrastyou_tpu_torch.data.creator import get_data
+    from contrastyou_tpu_torch.engine.steps import draw_points
+    from contrastyou_tpu_torch.hooks.infonce import majority_pool_labels
+    from contrastyou_tpu_torch.losses.contrastive import _expand_masks, pair_masks_from_target
+    from contrastyou_tpu_torch.ops import supcon
+    from contrastyou_tpu_torch.trainers.pretrain import get_contrastive_loader
+
+    labeled = get_data({"name": "acdc_superpixel"}, {}, {}, root_dir=str(data_root),
+                       pretrain=True)[0]
+    batch = next(iter(get_contrastive_loader(labeled.dataset, data_name="acdc_superpixel")))
+    maps = torch.from_numpy(batch["superpixel"]).to(device)
+    g = torch.Generator(device=device).manual_seed(14)
+    ys, xs = draw_points(g, maps.shape[0], (16, 16))
+    pooled = majority_pool_labels(maps, 16, 16)
+    labels = pooled[torch.arange(maps.shape[0], device=device)[:, None], ys, xs].reshape(-1)
+    n = labels.numel()
+    code = supcon.pair_code(*_expand_masks(*pair_masks_from_target(labels, n, device=device), n))
+    z = torch.nn.functional.normalize(torch.randn(2 * n, 256, generator=g, device=device), dim=1)
+    tau = 0.07
+    got, ref = supcon.supcon_loss(z, code, tau), supcon.supcon_loss_plain(z, code, tau)
+    gs = torch.ones(1, device=device)
+    dz = supcon.supcon_dz(z, code, got[1], got[2], gs, tau)
+    dz_ref = supcon.supcon_dz_plain(z, code, ref[1], ref[2], gs, tau)
+    loss_err, loss_rel = _rel_err(got[0], ref[0])
+    dz_err, dz_rel = _rel_err(dz, dz_ref)
+    positives = (code == 1).sum(1).float()
+    ids = len(set(labels.tolist()))
+    print(f"  superpixel SupCon: {maps.shape[0]} slices, {2 * n} anchors, {ids} superpixel ids,"
+          f" positives a row {int(positives.min())}-{int(positives.max())} (mean "
+          f"{float(positives.mean()):.1f}); D1 max_abs_err {loss_err:.3e} (rel {loss_rel:.2e}), "
+          f"D2 max_abs_err {dz_err:.3e} (rel {dz_rel:.2e})")
+    if 2 * n != 180 or loss_rel > SUPCON_LOSS_RTOL or dz_rel > SUPCON_DZ_TOL:
+        raise AssertionError("D1/D2 disagree with their plain versions on superpixel masks")
+    recs["supcon_loss"]["max_abs_err"] = max(recs["supcon_loss"]["max_abs_err"], loss_err)
+    recs["supcon_dz"]["max_abs_err"] = max(recs["supcon_dz"]["max_abs_err"], dz_err)
+
+
+def check_phase14_run(path, run_dir, records: list, launches: dict, eval_counts: dict,
+                      card: str) -> None:
+    """Phase 14c: one path's files, finite storage values (the self-paced
+    hook's ``sp_weight`` and ``age_param`` among them), launches (per step x
+    steps, plus 8 K1 and 1 K2 per eval forward), and its ms/step."""
+    csv_lines = (run_dir / "storage.csv").read_text().splitlines()
+    header = csv_lines[0].split(",")
+    rows = [{k: float(v) for k, v in zip(header, line.split(",")) if k and v}
+            for line in csv_lines[1:]]
+    if not (run_dir / ".success").exists() or not all(
+            math.isfinite(v) for row in rows for v in row.values()):
+        raise AssertionError(f"{path}: no .success or a non-finite value in storage.csv")
+    losses = {k.split("/metrics/")[-1] if "/metrics/" in k else k: v for k, v in rows[-1].items()
+              if k.endswith("loss") or "sp_weight" in k or "age_param" in k}
+    if path == "spinfonce":
+        sp = [v for row in rows for k, v in row.items() if k.endswith("/sp_weight")]
+        age = [v for row in rows for k, v in row.items() if k.endswith("/age_param")]
+        if len(sp) != len(rows) or not all(0.0 < v <= 1.0 for v in sp) or age != [100.0] * len(rows):
+            raise AssertionError(f"spinfonce: sp_weight {sp}, age_param {age}")
+    train = [r for r in records if r["phase"] == "train"]
+    steps = sum(r["steps"] for r in train)
+    fwd = sum(r["batches"] for r in records if r["phase"] in ("val", "test", "inference"))
+    want = {k: n * steps for k, n in P14_LAUNCHES[path].items()}
+    want["conv3x3_stats"] += 8 * fwd
+    if fwd:
+        want["upconv3x3_stats"] = want.get("upconv3x3_stats", 0) + fwd
+    want = {k: want.get(k, 0) for k in launches}
+    ms = [r["seconds"] / r["steps"] * 1e3 for r in train]
+    print(f"{path}: {len(rows)} storage rows, last {losses}; train "
+          f"{', '.join(f'{m:.3f}' for m in ms)} ms/step inside the loop on {card}; "
+          f"{fwd} eval forwards; launches {launches}")
+    if launches != want or eval_counts.get("conv3x3_stats", 0) != 8 * fwd:
+        raise AssertionError(f"{path}: launches {launches} (eval {eval_counts}), want {want}")
+    STEP_MS[path] = ms[-1]
+
+
+def run_phase14(device, card: str, recs: dict, extra=()) -> dict:
+    """Phase 14: the layouts, the kernels at the new call sites (14a spleen's
+    convs, 14b D1/D2 on superpixel masks), then each path of P14_PATHS
+    through ``main.main`` with the counts set to 0 just before it and read
+    just after (14c)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    by_path: dict = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p14_") as tmp:
+            data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+            write_phase14_data(data)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(runs)
+            print("phase 14a: conv kernels vs plain at spleen's 256^2 shapes:")
+            check_spleen_kernels(device, recs)
+            print("phase 14b: D1/D2 vs plain on superpixel masks:")
+            check_superpixel_supcon(device, data, recs)
+            for path, argv, epochs in P14_PATHS:
+                save = path.replace("/", "_")
+                eval_counts: dict = {}
+                timings.records.clear()
+                torch.cuda.empty_cache()
+                _reset_counts()
+                t0 = time.perf_counter()
+                with eval_launches(eval_counts):
+                    if port_main.main(["-o", *argv, f"Trainer.max_epoch={epochs}",
+                                       f"Trainer.num_batches={P14_STEPS}",
+                                       f"Trainer.save_dir={save}", *extra]) != 0:
+                        raise AssertionError(f"{path}: main returned non-zero")
+                torch.cuda.synchronize()
+                by_path[path] = _counts()
+                print(f"{path}: {time.perf_counter() - t0:.1f} s")
+                check_phase14_run(path, runs / save, timings.records, by_path[path],
+                                  eval_counts, card)
+    finally:
+        logger.removeHandler(timings)
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    return by_path
+
+
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
 #: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
@@ -2043,6 +2343,11 @@ def main() -> int:
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
     by_path.update(run_chain(device, card))
     torch.cuda.empty_cache()
+    print("self-paced and superpixel InfoNCE, the resize datasets on disk (phase 14):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase14(device, card, recs))
+    torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

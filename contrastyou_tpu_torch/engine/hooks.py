@@ -5,7 +5,9 @@ A hook contributes ``loss(ctx, state) -> (loss, new_state, metrics)``
 inside the differentiated step, ``post_step(ctx, model, state) -> state``
 after the optimizer update, and ``on_epoch_start(state, epoch) -> state``.
 :class:`StepContext` carries what the step computed: both unlabeled logits
-views, the explicit transform, taps, and the hook's own random draws
+views, the explicit transform, taps, the unlabeled batch's superpixel map
+(when the dataset has one), the dense hooks' sampled positions
+(``point_draws``), and the hook's own random draws
 (``draw``, made before the step; ``ctx.hook_draws[name]``). A hook may
 offer an eval model (``eval_params`` / ``eval_batch_stats``: a teacher or
 an EMA of the student); ``always_active`` hooks run under trainers that
@@ -46,6 +48,8 @@ class StepContext:
     partition_group: Optional[torch.Tensor] = None
     patient_group: Optional[torch.Tensor] = None
     cycle_group: Optional[torch.Tensor] = None
+    # the unlabeled batch's superpixel id map [B, H, W] (acdc_superpixel), if any
+    superpixel: Optional[torch.Tensor] = None
     # the explicit transform
     geo_params: Optional[GeoParams] = None
     # sampled feature positions of the dense hooks: (H, W) -> (ys, xs) [B, P]
@@ -71,6 +75,12 @@ class TrainerHook:
     requires_unlabeled: bool = True
     #: kept by trainers that drop the regularizer hooks (a loss-free EMA)
     always_active: bool = False
+    #: whether the hook reads the unlabeled batch's superpixel map, which
+    #: only the host-fed loop carries
+    needs_superpixel: bool = False
+    #: the feature grid a dense hook samples positions on (the step draws
+    #: them, one draw per grid); None for a hook that samples none
+    grid: Optional[Tuple[int, int]] = None
 
     def __init__(self, *, hook_name: str, weight: float = 1.0):
         self.name = hook_name

@@ -6,10 +6,11 @@ device-cached step that also samples its batch on the GPU, and the eval step
 (running-statistics forward, optionally averaged over the four axis flips).
 
 Every random draw is explicit: the ``semi`` step takes a :class:`StepDraws`
-(the unlabeled batch's GeoParams and gammas and each drawing hook's draws;
-``ft`` takes none); the cached step draws those, the sample indices and the
-crop offsets from a ``torch.Generator``, and the hooks' host-side draws
-(ICT's mixup) from a numpy generator.
+(the unlabeled batch's GeoParams and gammas, each drawing hook's draws and
+the dense hooks' sampled positions; ``ft`` takes none); the cached step
+draws those, the sample indices and the crop offsets from a
+``torch.Generator``, and the hooks' host-side draws (ICT's mixup) from a
+numpy generator.
 """
 from __future__ import annotations
 
@@ -26,14 +27,40 @@ from .bundle import ModelBundle
 from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
-__all__ = ["StepDraws", "sample_step_draws", "init_train_state",
-           "build_train_step", "build_cached_train_step", "tta_probs", "build_eval_step"]
+__all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_step_draws",
+           "init_train_state", "build_train_step", "build_cached_train_step", "tta_probs",
+           "build_eval_step"]
 
 
 class StepDraws(NamedTuple):
     geo: GeoParams          # transform of the unlabeled batch
     gammas: torch.Tensor    # [Bu] gamma of the unlabeled batch
     hooks: Optional[Dict[str, Any]] = None   # each drawing hook's draws, by name
+    #: the dense hooks' sampled positions: grid -> (ys, xs) [Bu, P]
+    points: Optional[Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+#: positions a dense hook samples per image
+POINT_NUMS = 5
+
+
+def draw_points(generator: torch.Generator, batch: int,
+                grid: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per image, :data:`POINT_NUMS` distinct rows and distinct columns of the
+    ``grid`` -> (ys, xs) [batch, POINT_NUMS] long, on the generator's device."""
+    if min(grid) < POINT_NUMS:
+        raise ValueError(f"grid {grid}: fewer than {POINT_NUMS} rows or columns to sample")
+    dev = generator.device
+
+    def distinct(n):
+        return torch.rand(batch, n, generator=generator, device=dev).argsort(1)[:, :POINT_NUMS]
+
+    return distinct(grid[0]), distinct(grid[1])
+
+
+def point_grids(hooks: Sequence[TrainerHook]) -> list:
+    """The distinct grids of the dense (decoder) hooks, sorted."""
+    return sorted({h.grid for h in hooks if h.grid is not None})
 
 
 def sample_step_draws(generator: torch.Generator, batch: int,
@@ -42,10 +69,13 @@ def sample_step_draws(generator: torch.Generator, batch: int,
     """The transform of an unlabeled batch of ``batch`` slices, then each
     hook's :meth:`~contrastyou_tpu_torch.engine.hooks.TrainerHook.draw` for
     the unlabeled batch's ``shape`` (hooks that draw nothing leave the
-    generators as they were)."""
+    generators as they were), then one :func:`draw_points` per distinct grid
+    of the dense hooks, shared by the hooks on that grid as JAX's share one
+    key (a run without dense hooks draws none)."""
     geo, gammas = sample_geo_params(generator, batch), sample_gammas(generator, batch)
     drawn = {h.name: h.draw(generator, host_rng, shape) for h in hooks}
-    return StepDraws(geo, gammas, {k: v for k, v in drawn.items() if v is not None})
+    points = {g: draw_points(generator, batch, g) for g in point_grids(hooks)}
+    return StepDraws(geo, gammas, {k: v for k, v in drawn.items() if v is not None}, points)
 
 
 def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
@@ -61,9 +91,10 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     ``semi`` or ``ft``.
 
     ``batch``: ``labeled_image`` [B,H,W,1], ``labeled_target`` [B,H,W] int;
-    under ``semi`` also ``unlabeled_image`` [Bu,H,W,1] and optional group
-    ids. ``semi`` runs two-stage BN (the reference config's
-    ``Trainer.two_stage``; the one-pass form is not ported): one forward over
+    under ``semi`` also ``unlabeled_image`` [Bu,H,W,1], optional group ids
+    and ``unlabeled_superpixel`` [Bu,H,W]. ``semi`` runs two-stage BN (the
+    reference config's ``Trainer.two_stage``; the one-pass form is not
+    ported): one forward over
     the labeled batch, one over the unlabeled batch and its transformed copy
     (``disable_bn`` keeps the second from updating the BN running
     statistics). ``ft`` runs the labeled forward alone and takes no draws
@@ -90,6 +121,8 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
             ctx.unlabeled_image_tf = transform_image(unlabeled_image, draws.geo, draws.gammas)
             ctx.geo_params = draws.geo
             ctx.hook_draws = dict(draws.hooks or {})
+            ctx.point_draws = dict(draws.points or {})
+            ctx.superpixel = batch.get("unlabeled_superpixel")
             ctx.label_group = batch.get("unlabeled_scan_id")
             ctx.partition_group = batch.get("unlabeled_partition")
             ctx.patient_group = batch.get("unlabeled_patient")
@@ -145,6 +178,11 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     on the labeled cache's batch alone; the metrics also carry
     ``labeled_scan_id`` [B]."""
     semi = unlabeled_cache is not None
+    needs_map = [h.name for h in hooks if h.needs_superpixel]
+    if needs_map:
+        raise ValueError(f"hooks {needs_map} read the superpixel map, which the device "
+                         f"cache does not carry: train them host-fed "
+                         f"(Trainer.device_cache=false)")
     step = build_train_step(bundle, hooks, mode="semi" if semi else "ft", **kwargs)
 
     def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0,

@@ -60,12 +60,22 @@ from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_train_step,
                     init_train_state, sample_step_draws)
 
-__all__ = ["Trainer", "epoch_seed", "HOOK_DRAW_SEED_OFFSET"]
+__all__ = ["Trainer", "epoch_seed", "hook_metrics", "HOOK_DRAW_SEED_OFFSET"]
 
 logger = logging.getLogger(__name__)
 
 #: offset of the hooks' host generator's per-epoch seed
 HOOK_DRAW_SEED_OFFSET = 30_000
+
+
+def hook_metrics(metrics: dict, hook_name: str) -> dict:
+    """The step metrics ``<hook_name>/...`` of one hook, keyed and ordered
+    as the JAX trainers hand them to their meters (and so as
+    ``storage.csv``'s columns): without the name's first path component
+    only, so ``infonce/Conv5/self/loss`` is kept as ``Conv5/self/loss``, in
+    sorted order (a jitted step returns its metrics dict sorted)."""
+    return {k.split("/", 1)[1]: metrics[k] for k in sorted(metrics)
+            if k.startswith(hook_name + "/")}
 
 
 def epoch_seed(seed: int, epoch: int, offset: int = 10_000) -> int:
@@ -221,6 +231,8 @@ class Trainer:
             batch["unlabeled_image"] = dev(unlabeled["image"])
             batch.update({f"unlabeled_{k}": dev(unlabeled[k]).long()
                           for k in ("partition", "scan_id", "patient", "cycle")})
+            if "superpixel" in unlabeled:
+                batch["unlabeled_superpixel"] = dev(unlabeled["superpixel"]).long()
         return batch
 
     def _sync(self) -> None:
@@ -299,9 +311,7 @@ class Trainer:
                 meters.add("sup_loss", metrics["sup_loss"])
                 meters.add("reg_loss", metrics["reg_loss"])
                 for hook in self._active_hooks:
-                    prefix = hook.name + "/"
-                    hook_meters[hook.name].add(**{k[len(prefix):]: v for k, v in metrics.items()
-                                                  if k.startswith(prefix)})
+                    hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
         self._sync()
         seconds = time.perf_counter() - t0
         stats = dict(meters.statistics())

@@ -13,26 +13,30 @@ from typing import Callable, List, Mapping
 from ..models.unet import UNet
 from .consistency import ConsistencyTrainerHook
 from .discretemi import DiscreteIMSATTrainHook, DiscreteMITrainHook
-from .infonce import INFONCEHook
+from .infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
 from .midl import IIDSegmentationTrainerHook, IMSATTrainHook
 from .mt import (EMAEvalTrainerHook, ICTMeanTeacherTrainerHook, MeanTeacherTrainerHook,
                  UAMeanTeacherTrainerHook)
 
 __all__ = ["ntuple", "PORTED_SECTIONS", "UNPORTED_SECTIONS", "create_infonce_hooks",
+           "create_sp_infonce_hooks", "create_superpixel_hooks",
            "create_discrete_mi_consistency_hooks", "create_hook_from_config"]
 
 logger = logging.getLogger(__name__)
 
 #: hook sections this factory builds, in the JAX factory's order
-PORTED_SECTIONS = ("InfonceParams", "DiscreteMIConsistencyParams", "MeanTeacherParameters",
-                   "UAMeanTeacherParameters", "ICTMeanTeacherParameters", "IIDSegParameters",
-                   "IMSATParameters", "IMSATFeatureParameters", "ConsistencyParameters",
-                   "EvalEMAParameters")
+PORTED_SECTIONS = ("InfonceParams", "SPInfonceParams", "DiscreteMIConsistencyParams",
+                   "MeanTeacherParameters", "UAMeanTeacherParameters",
+                   "ICTMeanTeacherParameters", "IIDSegParameters", "IMSATParameters",
+                   "IMSATFeatureParameters", "ConsistencyParameters",
+                   "InfonceSuperPixelParams", "EvalEMAParameters")
 #: hook sections of the JAX factory without a port yet (plus every
 #: ``*CrossCorrelationParameters*`` section)
-UNPORTED_SECTIONS = ("SPInfonceParams", "DifferentiableMeanTeacherParameters",
-                     "EntropyMinParameters", "OrthogonalParameters", "PsuedoLabelParams",
-                     "MixUpParams", "DAEParameters", "InfonceSuperPixelParams")
+UNPORTED_SECTIONS = ("DifferentiableMeanTeacherParameters", "EntropyMinParameters",
+                     "OrthogonalParameters", "PsuedoLabelParams", "MixUpParams",
+                     "DAEParameters")
+#: the fixed grid of the dense self-paced hooks (JAX ``create_sp_infonce_hooks``)
+SP_DENSE_GRID = (16, 16)
 
 
 def ntuple(n: int) -> Callable:
@@ -57,6 +61,40 @@ def create_infonce_hooks(*, feature_names, weights, contrast_ons, spatial_size,
                         proj_bf16=proj_bf16)
             for f, w, c, ss in zip(pg(feature_names), pg(weights), pg(contrast_ons),
                                    pg(spatial_size))]
+
+
+def create_sp_infonce_hooks(*, feature_names, weights, contrast_ons, max_epoch: int,
+                            channel_dim: Callable[[str], int], begin_values=1e10,
+                            end_values=1e10, mode: str = "soft", p: float = 0.5,
+                            correct_grad=False,
+                            proj_bf16: bool = False) -> List[SelfPacedINFONCEHook]:
+    """One :class:`SelfPacedINFONCEHook` per feature name, named
+    ``spinfonce/<layer>/<contrast_on>``, from the ``SPInfonceParams``
+    section with JAX's defaults; a decoder hook samples the fixed
+    :data:`SP_DENSE_GRID`."""
+    n = 1 if isinstance(feature_names, str) else len(feature_names)
+    pg = ntuple(n)
+    return [SelfPacedINFONCEHook(
+        name=f"spinfonce/{f}/{c}", feature_name=f, in_dim=channel_dim(f), weight=float(w),
+        contrast_on=c, mode=mode, p=float(p), begin_value=float(b), end_value=float(e),
+        max_epoch=int(max_epoch), correct_grad=bool(g),
+        spatial_size=None if f in UNet.encoder_names else SP_DENSE_GRID, proj_bf16=proj_bf16)
+        for f, w, c, b, e, g in zip(pg(feature_names), pg(weights), pg(contrast_ons),
+                                    pg(begin_values), pg(end_values), pg(correct_grad))]
+
+
+def create_superpixel_hooks(*, feature_names, weights, spatial_size,
+                            channel_dim: Callable[[str], int],
+                            proj_bf16: bool = False) -> List[SuperPixelInfoNCEHook]:
+    """One :class:`SuperPixelInfoNCEHook` per (decoder) feature name, named
+    ``infonce/<layer>/superpixel``, from the ``InfonceSuperPixelParams``
+    section."""
+    n = 1 if isinstance(feature_names, str) else len(feature_names)
+    pg = ntuple(n)
+    return [SuperPixelInfoNCEHook(name=f"infonce/{f}/superpixel", feature_name=f,
+                                  in_dim=channel_dim(f), weight=float(w), contrast_on="self",
+                                  spatial_size=(ss, ss), proj_bf16=proj_bf16)
+            for f, w, ss in zip(pg(feature_names), pg(weights), pg(spatial_size))]
 
 
 def create_discrete_mi_consistency_hooks(*, feature_names, mi_weights, dense_paddings=None,
@@ -97,6 +135,10 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
     if "InfonceParams" in config:
         hooks += create_infonce_hooks(channel_dim=channel_dim, proj_bf16=proj_bf16,
                                       **config["InfonceParams"])
+    if "SPInfonceParams" in config:
+        hooks += create_sp_infonce_hooks(channel_dim=channel_dim, proj_bf16=proj_bf16,
+                                         max_epoch=int(config["Trainer"]["max_epoch"]),
+                                         **config["SPInfonceParams"])
     if "DiscreteMIConsistencyParams" in config:
         not_pretrain("DiscreteMIConsistencyParams")
         hooks += create_discrete_mi_consistency_hooks(
@@ -138,6 +180,11 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
     if "ConsistencyParameters" in config:
         hooks.append(ConsistencyTrainerHook(
             name="consistency", weight=float(config["ConsistencyParameters"]["weight"])))
+    if "InfonceSuperPixelParams" in config:
+        p = config["InfonceSuperPixelParams"]
+        hooks += create_superpixel_hooks(channel_dim=channel_dim, proj_bf16=proj_bf16,
+                                         feature_names=p["feature_names"],
+                                         weights=p["weights"], spatial_size=p["spatial_size"])
     ema_hook = None
     if "EvalEMAParameters" in config:
         ema_hook = EMAEvalTrainerHook(**config["EvalEMAParameters"])

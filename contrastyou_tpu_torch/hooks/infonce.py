@@ -3,30 +3,34 @@ tap a named layer on both views, align the first view's features with the
 batch transform, project and L2-normalize, and take the SupCon loss over the
 positive pairs ``contrast_on`` defines. An encoder hook pools its tap to one
 vector per image; a decoder (dense) hook projects to a grid and samples
-:data:`POINT_NUMS` positions per image, the same positions in both views,
-each its own positive pair.
+``engine.steps.POINT_NUMS`` positions per image, the same positions in both
+views, each its own positive pair.
 
-The positions are explicit draws (``ctx.point_draws``, :func:`draw_points`),
-so a test can replay the JAX hook's. The self-paced and superpixel variants
-are not ported yet.
+The positions are explicit draws (``ctx.point_draws``, one
+``engine.steps.draw_points`` per grid, shared by the hooks on it), so a test
+can replay the JAX hook's. :class:`SelfPacedINFONCEHook` weights the pairs by
+the self-paced loss, its age parameter ramped with the epoch;
+:class:`SuperPixelInfoNCEHook` (dense only) labels each sampled position with
+the superpixel id that holds most of its feature cell
+(:func:`majority_pool_labels`), so positions of one superpixel, in any image
+of the batch, are positives.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
 from ..engine.hooks import ModuleHook, StepContext
-from ..losses.contrastive import sup_con_loss
+from ..losses.contrastive import self_paced_sup_con_loss, sup_con_loss
 from ..models.projectors import DenseProjectionHead, ProjectionHead
 from ..models.unet import UNet
 
-__all__ = ["POINT_NUMS", "TEMPERATURE", "contrast_labels", "sample_points", "draw_points",
-           "INFONCEHook"]
+__all__ = ["TEMPERATURE", "contrast_labels", "majority_pool_labels", "sample_points",
+           "INFONCEHook", "SelfPacedINFONCEHook", "SuperPixelInfoNCEHook"]
 
 ENCODER_NAMES = UNet.encoder_names
-#: positions a dense hook samples per image, and the SupCon temperature
-POINT_NUMS = 5
+#: the SupCon temperature
 TEMPERATURE = 0.07
 
 
@@ -43,23 +47,35 @@ def contrast_labels(ctx: StepContext, contrast_on: str) -> Optional[torch.Tensor
     raise NotImplementedError(contrast_on)
 
 
+def majority_pool_labels(ids: torch.Tensor, fh: int, fw: int, *,
+                         num_ids: int = 256) -> torch.Tensor:
+    """Integer id map [B, H, W] -> [B, fh, fw] long: each cell of the
+    feature grid takes the id most frequent in its window of ``H // fh`` x
+    ``W // fw`` pixels (rows and columns past ``fh`` / ``fw`` windows are
+    left out), the smallest id on a tie; ids outside ``[0, num_ids)`` are
+    not counted (a cell without any counts 0). One histogram per cell,
+    counted by ``scatter_add`` over ``cell * num_ids + id``, not JAX's
+    one-hot [B, fh, ph, fw, pw, num_ids] tensor."""
+    B, H, W = ids.shape
+    ph, pw = max(H // fh, 1), max(W // fw, 1)
+    r = ids[:, :fh * ph, :fw * pw].long()
+    dev = ids.device
+    cell = ((torch.arange(B, device=dev)[:, None, None] * fh
+             + torch.arange(fh * ph, device=dev)[None, :, None] // ph) * fw
+            + torch.arange(fw * pw, device=dev)[None, None, :] // pw)
+    valid = (r >= 0) & (r < num_ids)
+    counts = torch.zeros(B * fh * fw * num_ids, dtype=torch.int32, device=dev)
+    counts.scatter_add_(0, (cell * num_ids + r.clamp(0, num_ids - 1)).reshape(-1),
+                        valid.reshape(-1).int())
+    # argmax returns the first of equal maxima: the smallest id, as jnp.argmax
+    return counts.view(B, fh, fw, num_ids).argmax(-1)
+
+
 def sample_points(features: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Features [B, H, W, D] at positions ``ys``/``xs`` [B, P] -> [B*P, D]."""
     B, P = ys.shape
     b = torch.arange(B, device=features.device)[:, None]
     return features[b, ys, xs].reshape(B * P, features.shape[-1])
-
-
-def draw_points(generator: torch.Generator, batch: int,
-                grid: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per image, :data:`POINT_NUMS` distinct rows and distinct columns of the
-    ``grid`` -> (ys, xs) [batch, POINT_NUMS] long, on the generator's device."""
-    dev = generator.device
-
-    def distinct(n):
-        return torch.rand(batch, n, generator=generator, device=dev).argsort(1)[:, :POINT_NUMS]
-
-    return distinct(grid[0]), distinct(grid[1])
 
 
 class INFONCEHook(ModuleHook):
@@ -101,12 +117,85 @@ class INFONCEHook(ModuleHook):
         B = feat.shape[0]
         return proj[:B], proj[B:]
 
-    def loss(self, ctx: StepContext, state):
+    def _points(self, ctx: StepContext):
+        """This hook's grid's sampled positions (ys, xs) [B, P]."""
+        if self.grid not in ctx.point_draws:
+            raise KeyError(f"{self.name}: no point draws for grid {self.grid} in the step")
+        return ctx.point_draws[self.grid]
+
+    def _pairs_and_labels(self, ctx: StepContext):
         f1, f2 = self._projected_pair(ctx)
         if self._is_encoder:
-            labels = contrast_labels(ctx, self._contrast_on)
-        else:
-            ys, xs = ctx.point_draws[self.grid]
-            f1, f2 = sample_points(f1, ys, xs), sample_points(f2, ys, xs)
-            labels = None
+            return f1, f2, contrast_labels(ctx, self._contrast_on)
+        ys, xs = self._points(ctx)
+        # each point its own positive (SimCLR labels)
+        return sample_points(f1, ys, xs), sample_points(f2, ys, xs), None
+
+    def loss(self, ctx: StepContext, state):
+        f1, f2, labels = self._pairs_and_labels(ctx)
         return sup_con_loss(f1, f2, target=labels, temperature=TEMPERATURE), state, {}
+
+
+class SelfPacedINFONCEHook(INFONCEHook):
+    """InfoNCE under the self-paced loss (``mode`` ``hard`` or ``soft``
+    weights), its age parameter ``gamma = begin + (end - begin) * (epoch /
+    max_epoch) ** p`` in f32, as JAX computes it. Metrics ``sp_weight`` (the
+    mean weight over the positive pairs) and ``age_param`` (gamma)."""
+
+    def __init__(self, *, name: str, feature_name: str, in_dim: int, weight: float = 1.0,
+                 spatial_size: Optional[Sequence[int]] = None, contrast_on: str = "partition",
+                 mode: str = "soft", p: float = 0.5, begin_value: float = 1e6,
+                 end_value: float = 1e6, correct_grad: bool = False, max_epoch: int = 100,
+                 proj_bf16: bool = False):
+        super().__init__(name=name, feature_name=feature_name, in_dim=in_dim, weight=weight,
+                         spatial_size=spatial_size, contrast_on=contrast_on,
+                         proj_bf16=proj_bf16)
+        if mode not in ("hard", "soft"):
+            raise ValueError(f"{name}: mode {mode!r}, hard or soft")
+        self._mode = mode
+        self._p = float(p)
+        self._begin, self._end = float(begin_value), float(end_value)
+        self._correct_grad = bool(correct_grad)
+        self._max_epoch = int(max_epoch)
+
+    def gamma(self, epoch: int, device=None) -> torch.Tensor:
+        """The age parameter of ``epoch``, an f32 scalar."""
+        ramp = (torch.tensor(epoch, dtype=torch.float32, device=device)
+                / self._max_epoch) ** self._p
+        return self._begin + (self._end - self._begin) * ramp
+
+    def loss(self, ctx: StepContext, state):
+        f1, f2, labels = self._pairs_and_labels(ctx)
+        gamma = self.gamma(ctx.epoch, f1.device)
+        loss, metrics = self_paced_sup_con_loss(
+            f1, f2, target=labels, gamma=gamma, temperature=TEMPERATURE,
+            weight_update=self._mode, correct_grad=self._correct_grad)
+        return loss, state, {"sp_weight": metrics["downgrade_ratio"], "age_param": gamma}
+
+
+class SuperPixelInfoNCEHook(INFONCEHook):
+    """Dense InfoNCE whose positives are the sampled positions of one
+    superpixel: the batch's superpixel map (``ctx.superpixel``, the
+    ``acdc_superpixel`` dataset's ``superpixel`` folder) is warped by the
+    batch transform (nearest), pooled to the projected grid by
+    :func:`majority_pool_labels` and read at the shared point draws."""
+
+    needs_superpixel = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        if self._is_encoder:
+            raise ValueError(f"{self.name}: superpixel InfoNCE needs decoder features")
+
+    def loss(self, ctx: StepContext, state):
+        if ctx.superpixel is None:
+            raise ValueError(f"{self.name}: the batch has no 'superpixel' map; use the "
+                             f"acdc_superpixel dataset")
+        f1, f2 = self._projected_pair(ctx)
+        ys, xs = self._points(ctx)
+        sp_tf = ctx.affine_transformer(ctx.superpixel.float()[..., None], order=0)
+        pooled = majority_pool_labels(sp_tf[..., 0].long(), f1.shape[1], f1.shape[2])
+        labels = sample_points(pooled[..., None], ys, xs)[:, 0]
+        loss = sup_con_loss(sample_points(f1, ys, xs), sample_points(f2, ys, xs),
+                            target=labels, temperature=TEMPERATURE)
+        return loss, state, {}

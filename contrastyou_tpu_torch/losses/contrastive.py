@@ -8,7 +8,10 @@ the fused form (kernels D1/D2 of ``ops/supcon.py``). The gate has JAX's
 shape (``losses/contrastive.py:83-89``: the fused form for accelerator
 tensors with at most a set number of anchors and neither ``return_aux`` nor
 ``exclude_other_pos``), but its number, :data:`FUSED_MAX_ANCHORS`, comes
-from the card, not from the TPU. The self-paced variant is not ported yet.
+from the card, not from the TPU. ``self_paced_sup_con_loss`` (JAX
+``losses/contrastive.py:111-157``) is eager plain torch, as in JAX: JAX has
+no kernel for it. :class:`SupConLoss` and :class:`SelfPacedSupConLoss` are
+the callable wrappers.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from ..ops.supcon import MAX_ANCHORS, pair_code, sup_con_from_code
 
 __all__ = ["pair_masks_from_target", "FUSED_MAX_ANCHORS", "fused_route",
-           "sup_con_loss"]
+           "sup_con_loss", "self_paced_sup_con_loss", "SupConLoss", "SelfPacedSupConLoss"]
 
 #: anchor counts (2N) up to this take the fused kernels on the card: their
 #: capacity, since chip_smoke.py's sweep (phase 4b: value and gradient, d =
@@ -45,6 +48,19 @@ def _expand_masks(pos_mask: torch.Tensor, neg_mask: torch.Tensor, n: int):
     return pos_mask.repeat(2, 2) * off_diag, neg_mask.repeat(2, 2) * off_diag
 
 
+def _pair_masks(target, mask, n: int, device):
+    """[N, N] (pos, neg) masks from ``mask`` (1 positive, 0 negative) or labels."""
+    if mask is not None:
+        return (mask == 1).float(), (mask == 0).float()
+    return pair_masks_from_target(target, n, device=device)
+
+
+def _sim_logits(z: torch.Tensor, temperature: float) -> torch.Tensor:
+    """[2N, 2N] similarities over ``temperature``, less their (constant) max."""
+    sim_logits = (z @ z.T) / temperature
+    return sim_logits - sim_logits.max().detach()
+
+
 def fused_route(anchors: int, device, *, return_aux: bool = False,
                 exclude_other_pos: bool = False) -> bool:
     """Whether :func:`sup_con_loss` takes the fused kernels by default."""
@@ -62,10 +78,7 @@ def sup_con_loss(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *,
     :func:`fused_route`; True takes the fused function on any device (its
     plain versions on the CPU)."""
     n = proj_feat1.shape[0]
-    if mask is not None:
-        pos_mask, neg_mask = (mask == 1).float(), (mask == 0).float()
-    else:
-        pos_mask, neg_mask = pair_masks_from_target(target, n, device=proj_feat1.device)
+    pos_mask, neg_mask = _pair_masks(target, mask, n, proj_feat1.device)
     z = torch.cat([proj_feat1, proj_feat2], 0)
 
     if fused is None:
@@ -79,8 +92,7 @@ def sup_con_loss(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *,
         return sup_con_from_code(z, code, temperature)
 
     pos_mask, neg_mask = _expand_masks(pos_mask, neg_mask, n)
-    sim_logits = (z @ z.T) / temperature
-    sim_logits = sim_logits - sim_logits.max().detach()
+    sim_logits = _sim_logits(z, temperature)
     sim_exp = torch.exp(sim_logits)
     pos_count = pos_mask.sum(1)
     neg_count = neg_mask.sum(1)
@@ -98,3 +110,84 @@ def sup_con_loss(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *,
         return loss, {"sim_logits": sim_logits, "sim_exp": sim_exp,
                       "pos_mask": pos_mask, "neg_mask": neg_mask}
     return loss
+
+
+def self_paced_sup_con_loss(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *, gamma,
+                            target: Optional[torch.Tensor] = None,
+                            mask: Optional[torch.Tensor] = None,
+                            temperature: float = 0.07, weight_update: str = "hard",
+                            correct_grad: bool = False, return_aux: bool = False):
+    """Self-paced SupCon: each pair's loss ``l_ij = -log_frac`` is weighted
+    ``1{l_ij <= gamma}`` (``hard``) or ``max(1 - l_ij / gamma, 0)`` (``soft``)
+    on the positive pairs, the weights held constant (``sp_mask``); ``gamma``
+    a float or a scalar tensor. Returns (loss, metrics): ``downgrade_ratio``,
+    the mean weight over the positive pairs, and with ``return_aux`` the
+    similarities and masks. ``correct_grad`` divides the loss by the ratio
+    where the ratio is above 0 (at 0 the loss, itself 0, is left as it is)."""
+    if weight_update not in ("hard", "soft"):
+        raise ValueError(f"weight_update {weight_update!r}: hard or soft")
+    n = proj_feat1.shape[0]
+    pos_mask, neg_mask = _expand_masks(*_pair_masks(target, mask, n, proj_feat1.device), n)
+    sim_logits = _sim_logits(torch.cat([proj_feat1, proj_feat2], 0), temperature)
+    sim_exp = torch.exp(sim_logits)
+    pos_count = pos_mask.sum(1)
+    pos_sum = (sim_exp * pos_mask).sum(1, keepdim=True)
+    neg_sum = (sim_exp * neg_mask).sum(1, keepdim=True)
+    log_frac = sim_logits - torch.log(pos_sum + neg_sum + 1e-16)
+
+    l_ij = -log_frac
+    if weight_update == "hard":
+        weight = (l_ij <= gamma).float()
+    else:
+        weight = torch.clamp(1.0 - l_ij / gamma, min=0.0)
+    sp_mask = torch.maximum(weight, 1.0 - pos_mask).detach()
+    downgrade_ratio = (sp_mask * pos_mask).sum() / torch.clamp(pos_mask.sum(), min=1.0)
+
+    per_anchor = (log_frac * sp_mask * pos_mask).sum(1) / torch.clamp(pos_count, min=1.0)
+    loss = -per_anchor.mean()
+    if correct_grad:
+        # the ratio is constant to autograd; dividing by 1 where it is 0 keeps
+        # the value of JAX's ``where(ratio > 0, loss / ratio, loss)`` with a
+        # finite gradient
+        loss = loss / torch.where(downgrade_ratio > 0, downgrade_ratio,
+                                  torch.ones_like(downgrade_ratio))
+    metrics = {"downgrade_ratio": downgrade_ratio}
+    if return_aux:
+        metrics.update(sim_logits=sim_logits, pos_mask=pos_mask, sp_mask=sp_mask)
+    return loss, metrics
+
+
+class SupConLoss:
+    """:func:`sup_con_loss` with its temperature and ``exclude_other_pos`` bound."""
+
+    def __init__(self, temperature: float = 0.07, exclude_other_pos: bool = False):
+        self._t, self._exclude = temperature, exclude_other_pos
+
+    def __call__(self, proj_feat1, proj_feat2, target=None, mask=None):
+        return sup_con_loss(proj_feat1, proj_feat2, target=target, mask=mask,
+                            temperature=self._t, exclude_other_pos=self._exclude)
+
+
+class SelfPacedSupConLoss:
+    """:func:`self_paced_sup_con_loss` holding its age parameter gamma
+    (:meth:`set_gamma`, 1e6 until set); a call may pass its own."""
+
+    def __init__(self, temperature: float = 0.07, weight_update: str = "hard",
+                 correct_grad: bool = False):
+        self._t = temperature
+        self._weight_update = weight_update
+        self._correct_grad = correct_grad
+        self._gamma = 1e6
+
+    def set_gamma(self, gamma: float) -> None:
+        self._gamma = float(gamma)
+
+    @property
+    def age_param(self) -> float:
+        return self._gamma
+
+    def __call__(self, proj_feat1, proj_feat2, target=None, mask=None, gamma=None):
+        return self_paced_sup_con_loss(
+            proj_feat1, proj_feat2, target=target, mask=mask,
+            gamma=self._gamma if gamma is None else gamma, temperature=self._t,
+            weight_update=self._weight_update, correct_grad=self._correct_grad)

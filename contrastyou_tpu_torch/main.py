@@ -10,6 +10,13 @@ contrastive pretraining, on one device.
     python -m contrastyou_tpu_torch.main -o Trainer.name=ft \\
         Arch.checkpoint=<RUN_PATH>/<pretrain>/last Trainer.save_dir=<ft>
     python -m contrastyou_tpu_torch.main -o Trainer.name=mt Trainer.save_dir=<mt>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=pretrain ~InfonceParams \
+        +SPInfonceParams.feature_names=Conv5 +SPInfonceParams.weights=1 \
+        +SPInfonceParams.contrast_ons=partition Trainer.save_dir=<spinfonce>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=pretrain_decoder ~InfonceParams \
+        +InfonceSuperPixelParams.feature_names=Up_conv2 \
+        +InfonceSuperPixelParams.weights=1.0 +InfonceSuperPixelParams.spatial_size=16 \
+        Data.name=acdc_superpixel Trainer.save_dir=<superpixel>
 
 takes the argv of the root ``main.py``. Without ``-p`` the base is the
 in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
@@ -48,11 +55,17 @@ BN statistics, replace the model's after ``init``); a missing one raises
 before anything is built. Keys the port does not implement
 (:data:`UNPORTED_KEYS`) raise when set. Every trainer takes the class count
 of ``Data.name``; pretraining also its partition count and contrastive
-sampler. :func:`build_semi_run` and :func:`build_pretrain_run` build the
-``semi`` and pretraining steps on synthetic scans in memory, for
+sampler. Every ``Data.name`` reads from disk, the resize datasets
+(prostate, prostate_md, spleen) included. The self-paced
+(``SPInfonceParams``, config/hooks/spinfonce.yaml) and superpixel
+(``InfonceSuperPixelParams``, config/hooks/infonce_dense_superpixel.yaml,
+on ``Data.name=acdc_superpixel``, whose ``superpixel`` maps
+``postprocess/superpixel.py`` writes) InfoNCE hooks run under both
+pretraining trainers and ``semi`` (host-fed: the device cache carries no
+superpixel map). :func:`build_semi_run` and :func:`build_pretrain_run`
+build the ``semi`` and pretraining steps on synthetic scans in memory, for
 ``profile_step`` and ``chip_smoke.py`` (``-o Data.name=prostate``: 8
-partitions, 2 classes, random 48-slice batches, 96 images per forward; on
-disk the prostate and spleen transforms are not ported).
+partitions, 2 classes, random 48-slice batches, 96 images per forward).
 
 The run is on the CUDA card; ``-o Trainer.device=cpu`` asks for the CPU.
 Without a card and without that request it raises.
@@ -79,12 +92,11 @@ from .engine.checkpoint import extract_model_params, is_checkpoint, load_model_p
 from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
 from .engine.state import TrainState
-from .engine.steps import build_cached_train_step, init_train_state
+from .engine.steps import build_cached_train_step, init_train_state, point_grids
 from .hooks.creator import create_hook_from_config
-from .hooks.infonce import INFONCEHook
 from .models.unet import UNet
 from .trainers import trainer_zoo
-from .trainers.pretrain import (build_pretrain_step, contrastive_sampler,
+from .trainers.pretrain import (build_pretrain_step, check_pretrain_hooks, contrastive_sampler,
                                 feature_until_from_hooks, frozen_after,
                                 get_contrastive_loader, jitter_strength,
                                 sample_pretrain_draws)
@@ -366,10 +378,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     _warm_start(config, model)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=True)
-    others = [h.name for h in hooks if not isinstance(h, INFONCEHook)]
-    if others or not hooks:
-        raise NotImplementedError(f"the port pretrains with InfoNCE hooks only; got "
-                                  f"{others or 'no hook'}")
+    check_pretrain_hooks(hooks)
     until = feature_until_from_hooks(*hooks)
     trainable = frozen_after(until)
     params = [p for name, p in model.named_parameters() if trainable(name)]
@@ -391,7 +400,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
         partition_sample_num=int(clp.get("partition_sample_num", 1)), seed=seed)
     batches = iter(sampler)
     step = build_pretrain_step(bundle, hooks, until=until)
-    grids = sorted({h.grid for h in hooks if h.grid is not None})
+    grids = point_grids(hooks)
     strength = jitter_strength(data_name)
 
     def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0):

@@ -28,8 +28,9 @@ from ..data.sampler import ContrastBatchSampler, InfiniteRandomSampler
 from ..engine.bundle import ModelBundle
 from ..engine.hooks import StepContext, TrainerHook, combined_taps
 from ..engine.state import TrainState
-from ..engine.trainer import Trainer, epoch_seed
-from ..hooks.infonce import INFONCEHook, draw_points
+from ..engine.steps import draw_points, point_grids
+from ..engine.trainer import Trainer, epoch_seed, hook_metrics
+from ..hooks.infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
 from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.interface import MeterInterface
 from ..models._base import arch_order
@@ -41,7 +42,8 @@ from ..ops.intensity import color_jitter as apply_jitter
 
 __all__ = ["PRETRAIN_BATCH_SIZE_MAX", "feature_until_from_hooks", "frozen_after",
            "jitter_strength", "contrastive_sampler", "get_contrastive_loader",
-           "PretrainDraws", "sample_pretrain_draws", "build_pretrain_step",
+           "PRETRAIN_HOOK_TYPES", "check_pretrain_hooks", "PretrainDraws",
+           "sample_pretrain_draws", "build_pretrain_step",
            "PretrainEncoderTrainer", "PretrainDecoderTrainer"]
 
 logger = logging.getLogger(__name__)
@@ -105,6 +107,21 @@ def frozen_after(until: str,
     return trainable_mask(elements=elements, enable=False, start=until, include_start=False)
 
 
+#: the hook types the pretraining trainers take, matched by exact type: the
+#: InfoNCE hook and its self-paced and superpixel variants
+PRETRAIN_HOOK_TYPES = (INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook)
+
+
+def check_pretrain_hooks(hooks: Sequence[TrainerHook]) -> None:
+    """Raise ``NotImplementedError`` naming the hooks that are not of
+    :data:`PRETRAIN_HOOK_TYPES`, or when there is none."""
+    others = [h.name for h in hooks if type(h) not in PRETRAIN_HOOK_TYPES]
+    if others or not hooks:
+        raise NotImplementedError(
+            f"the port pretrains with {[t.__name__ for t in PRETRAIN_HOOK_TYPES]} hooks only; "
+            f"got {others or 'no hook'}")
+
+
 def jitter_strength(data_name: str) -> float:
     """Per-dataset pretrain colour jitter: ACDC [0.5, 1.5], prostate [0.9,
     1.1], none elsewhere."""
@@ -151,8 +168,9 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                         until: str) -> Callable:
     """-> ``step(state, batch, draws, epoch=0) -> metrics``.
 
-    ``batch``: ``image`` [B,H,W,1] and the group ids ``partition``,
-    ``scan_id``, ``patient``, ``cycle`` [B]. View 1 is geometry then gamma
+    ``batch``: ``image`` [B,H,W,1], the group ids ``partition``,
+    ``scan_id``, ``patient``, ``cycle`` [B] and, for the superpixel hook,
+    ``superpixel`` [B,H,W]. View 1 is geometry then gamma
     (``g1``, ``gammas1``), view 2 the same with ``g2`` then the hooks'
     transform (``gammas_int`` then ``geo``); colour jitter follows each
     view's first gamma when drawn. One forward over the 2B images (BN
@@ -185,6 +203,7 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                           partition_group=batch.get("partition"),
                           patient_group=batch.get("patient"),
                           cycle_group=batch.get("cycle"),
+                          superpixel=batch.get("superpixel"),
                           geo_params=draws.geo, point_draws=draws.points,
                           epoch=epoch, bundle=bundle)
         reg_loss = out.new_zeros(())
@@ -234,10 +253,7 @@ class PretrainEncoderTrainer(Trainer):
         return feature_until_from_hooks(*self._hooks)
 
     def init(self) -> None:
-        others = [h.name for h in self._hooks if not isinstance(h, INFONCEHook)]
-        if others or not self._hooks:
-            raise NotImplementedError(f"the port pretrains with InfoNCE hooks only; got "
-                                      f"{others or 'no hook'}")
+        check_pretrain_hooks(self._hooks)
         super().init()
 
     def _trainable_parameters(self) -> List[torch.nn.Parameter]:
@@ -264,8 +280,11 @@ class PretrainEncoderTrainer(Trainer):
 
     def _device_contrast_batch(self, batch: dict) -> dict:
         dev = self._to_device
-        return {"image": dev(batch["image"]),
-                **{k: dev(batch[k]).long() for k in ("partition", "scan_id", "patient", "cycle")}}
+        out = {"image": dev(batch["image"]),
+               **{k: dev(batch[k]).long() for k in ("partition", "scan_id", "patient", "cycle")}}
+        if "superpixel" in batch:
+            out["superpixel"] = dev(batch["superpixel"]).long()
+        return out
 
     def tra_epoch(self, epoch: int) -> dict:
         meters = MeterInterface(default_focus="pretrain")
@@ -280,7 +299,7 @@ class PretrainEncoderTrainer(Trainer):
         generator = torch.Generator(device=self.device).manual_seed(
             epoch_seed(self._seed, epoch, PRETRAIN_SEED_OFFSET))
         strength = jitter_strength(str(self._config.get("Data", {}).get("name", "")))
-        grids = sorted({h.grid for h in self._active_hooks if h.grid is not None})
+        grids = point_grids(self._active_hooks)
         t0 = time.perf_counter()
         with meters:
             for _ in range(self._num_batches):
@@ -290,9 +309,7 @@ class PretrainEncoderTrainer(Trainer):
                 metrics = self._train_step(self._state, batch, draws, epoch)
                 meters.add("reg_loss", metrics["reg_loss"])
                 for hook in self._active_hooks:
-                    prefix = hook.name + "/"
-                    hook_meters[hook.name].add(**{k[len(prefix):]: v for k, v in metrics.items()
-                                                  if k.startswith(prefix)})
+                    hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
         self._sync()
         seconds = time.perf_counter() - t0
         logger.info("pretrain epoch %d: %d steps in %.3f s (%.3f ms/step, host-fed)", epoch,

@@ -21,6 +21,7 @@ from contrastyou_tpu.data import synthesize_acdc_like as jsynthesize
 from contrastyou_tpu.data.datasets import data_zoo as jdata_zoo
 from contrastyou_tpu.data.device_cache import DeviceDataCache as JCache
 from contrastyou_tpu.data.sampler import InfiniteRandomSampler as JInfinite
+from contrastyou_tpu.data import synthetic as jsynthetic
 from contrastyou_tpu.data.synthetic import synthesize_dataset
 from contrastyou_tpu_torch.augment.host import transform_zoo
 from contrastyou_tpu_torch.data.creator import get_data, split_dataset
@@ -28,6 +29,7 @@ from contrastyou_tpu_torch.data.datasets import ACDCDataset, data_zoo
 from contrastyou_tpu_torch.data.device_cache import DeviceDataCache
 from contrastyou_tpu_torch.data.png import _SIGNATURE, _chunk, read_png, write_png
 from contrastyou_tpu_torch.data.sampler import InfiniteRandomSampler, ScanBatchSampler
+from contrastyou_tpu_torch.data import synthetic as port_synthetic
 from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
 
 SIZE = 64
@@ -161,6 +163,44 @@ def test_synthetic_writer_first_scan_numbers_a_longer_scan(tmp_path):
     assert [len(b) for b in ScanBatchSampler(ds)] == [3, 5]
 
 
+
+@pytest.mark.parametrize("name", ["acdc", "acdc_lv", "prostate", "prostate_md", "mmwhsct",
+                                  "mmwhsmr", "spleen", "hippocampus"])
+def test_dataset_writer_gives_jax_files(tmp_path, name):
+    """The port's ``synthesize_dataset`` against JAX's at the same seed, for
+    every archive layout (``acdc_lv`` for the ACDC family's ordering name):
+    the same layout table entry (names, native size and slice-count ranges,
+    folders, classes), then the same files, PNG pixels equal, the
+    ``*_info.npy`` dict and the ordering JSON equal."""
+    key = "acdc" if name.startswith("acdc") else name
+    ours, ref = port_synthetic._LAYOUTS[key], jsynthetic._LAYOUTS[key]
+    assert set(ours) == set(ref)
+    for field in ("sizes", "slices", "info", "modes", "subs", "classes"):
+        assert ours[field] == ref[field], field
+    for i, sl in itertools.product((1, 12, 123), (0, 7, 42)):
+        assert ours["stem"](i, sl) == ref["stem"](i, sl)
+        assert ours["scan_key"](i) == ref["scan_key"](i)
+    kw = dict(num_train_scans=2, num_val_scans=2, seed=3, max_slices=4)
+    jroot = synthesize_dataset(tmp_path / "j", name, **kw)
+    proot = port_synthetic.synthesize_dataset(tmp_path / "p", name, **kw)
+    assert proot.relative_to(tmp_path / "p") == jroot.relative_to(tmp_path / "j")
+    jfiles = sorted(f.relative_to(jroot) for f in jroot.rglob("*") if f.is_file())
+    pfiles = sorted(f.relative_to(proot) for f in proot.rglob("*") if f.is_file())
+    assert pfiles == jfiles
+    suffixes = [f.suffix for f in jfiles]
+    assert suffixes.count(".npy") == 1 and suffixes.count(".json") == 1
+    assert suffixes.count(".png") == len(jfiles) - 2 == 2 * 4 * 4
+    for f in jfiles:
+        if f.suffix == ".png":
+            ours, ref = np.asarray(Image.open(proot / f)), np.asarray(Image.open(jroot / f))
+            assert ours.dtype == ref.dtype and ours.shape == ref.shape, f
+            np.testing.assert_array_equal(ours, ref, err_msg=str(f))
+        elif f.suffix == ".npy":
+            ours = np.load(proot / f, allow_pickle=True).item()
+            assert ours == np.load(jroot / f, allow_pickle=True).item() and ours, f
+        else:
+            assert (proot / f).read_text() == (jroot / f).read_text(), f
+
 # --- datasets, splits, loaders --------------------------------------------
 
 def _items_equal(a: dict, b: dict, what=""):
@@ -211,10 +251,18 @@ def test_archive_layouts_match_jax(tmp_path, name):
         assert a.batch_size == b.batch_size
 
 
-def test_resize_datasets_raise_by_name():
-    for name in ("prostate", "prostate_md", "spleen"):
-        with pytest.raises(NotImplementedError, match=name):
-            transform_zoo[name]()
+@pytest.mark.parametrize("name", ["prostate", "prostate_md", "spleen"])
+def test_resize_datasets_raise_by_name(tmp_path, name):
+    """Named for the refusal it held until the resize transforms were
+    ported; now each resize dataset builds from a JAX-written archive and
+    its first train item (resized, spleen also cropped) equals JAX's."""
+    synthesize_dataset(tmp_path, name, num_train_scans=2, num_val_scans=1, max_slices=3)
+    spec, jspec = transform_zoo[name](), jtransform_zoo[name]()
+    ours = data_zoo[name](root_dir=str(tmp_path), mode="train", transforms=spec.train)
+    ref = jdata_zoo[name](root_dir=str(tmp_path), mode="train", transforms=jspec.train)
+    item = ours[(0, np.random.default_rng(0))]
+    _items_equal(item, ref[(0, np.random.default_rng(0))], name)
+    assert item["image"].shape == spec.crop_size + (1,)
 
 
 def _batches(loader, n=None):

@@ -37,6 +37,7 @@ import torch
 from contrastyou_tpu.engine import ModelBundle as JBundle
 from contrastyou_tpu.engine import init_train_state as jinit
 from contrastyou_tpu.engine.optim import create_optimizer as jcreate
+from contrastyou_tpu.hooks.creator import create_hook_from_config as jcreate_from_config
 from contrastyou_tpu.hooks.creator import create_infonce_hooks as jcreate_hooks
 from contrastyou_tpu.models import UNet as JUNet
 from contrastyou_tpu.models import trainable_mask as jtrainable_mask
@@ -50,7 +51,7 @@ from contrastyou_tpu_torch.engine.bundle import ModelBundle
 from contrastyou_tpu_torch.engine.hooks import hook_parameters
 from contrastyou_tpu_torch.engine.optim import create_optimizer
 from contrastyou_tpu_torch.engine.steps import init_train_state
-from contrastyou_tpu_torch.hooks.creator import create_infonce_hooks
+from contrastyou_tpu_torch.hooks.creator import create_hook_from_config, create_infonce_hooks
 from contrastyou_tpu_torch.main import (PRETRAIN_DECODER_CONFIG, PRETRAIN_ENCODER_CONFIG,
                                         build_pretrain_run, main, parse_config,
                                         resolve_device)
@@ -105,11 +106,15 @@ def _recording(tx):
     return optax.GradientTransformation(init, update)
 
 
-def _jax_step(hook_kw, batch, key, data_name="acdc", jitter=JITTER, num_classes=4):
+def _jax_step(hook_kw, batch, key, data_name="acdc", jitter=JITTER, num_classes=4,
+              sections=None, epoch=0):
+    """JAX's step; its hooks from ``create_infonce_hooks(**hook_kw)``, or
+    with ``sections`` from its factory over those hook sections."""
     bundle = JBundle.create(JUNet(max_channel=128, momentum=0.1, dtype=jnp.float32,
                                   num_classes=num_classes),
                             jax.random.PRNGKey(0), (S, S, 1))
-    hooks = jcreate_hooks(data_name=data_name, **hook_kw)
+    hooks = (jcreate_from_config(_hook_config(sections, data_name), is_pretrain=True)
+             if sections else jcreate_hooks(data_name=data_name, **hook_kw))
     until = max((h.taps[0] for h in hooks), key=JUNet.arch_elements.index)
 
     def labels(trainables):
@@ -125,8 +130,16 @@ def _jax_step(hook_kw, batch, key, data_name="acdc", jitter=JITTER, num_classes=
     before = jax.tree.map(np.asarray, (state.params, state.batch_stats, state.hook_params))
     step = jbuild(bundle, tx, hooks, until=until, color_jitter=jitter)
     new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, key,
-                        jnp.int32(0))
+                        jnp.int32(epoch))
     return hooks, before, jax.tree.map(np.asarray, new), jax.tree.map(np.asarray, metrics)
+
+
+#: Trainer.max_epoch of the hook configs (the self-paced hooks' ramp)
+MAX_EPOCH = 10
+
+
+def _hook_config(sections, data_name="acdc"):
+    return {**sections, "Data": {"name": data_name}, "Trainer": {"max_epoch": MAX_EPOCH}}
 
 
 def _geo(key, b):
@@ -182,17 +195,24 @@ def test_pretrain_step_matches_jax(trainer):
 
 
 def _check_step_against_jax(trainer, batch, data_name="acdc", num_classes=4, jitter=JITTER,
-                            tol=L2_TOL):
+                            tol=L2_TOL, sections=None, epoch=0, grid=(16, 16)):
     """One port step against the JAX step on ``batch``: metrics, gradients,
-    updates, frozen layers and BN statistics (tolerances above)."""
+    updates, frozen layers and BN statistics (tolerances above). The hooks:
+    ``HOOKS[trainer]``'s InfoNCE hooks, or both factories over the hook
+    ``sections``; the dense hooks sample ``grid``."""
     key = jax.random.PRNGKey(7)
     n = len(batch["image"])
     jhooks, (params, stats, hparams), jnew, jm = _jax_step(
-        HOOKS[trainer], batch, key, data_name=data_name, jitter=jitter, num_classes=num_classes)
+        HOOKS[trainer], batch, key, data_name=data_name, jitter=jitter, num_classes=num_classes,
+        sections=sections, epoch=epoch)
 
     model = UNet(max_channel=128, momentum=0.1, dtype=torch.float32, num_classes=num_classes)
     model.load_state_dict(flax_to_state_dict(params, stats))
-    hooks = create_infonce_hooks(channel_dim=model.get_channel_dim, **HOOKS[trainer])
+    hooks = (create_hook_from_config(_hook_config(sections, data_name),
+                                     channel_dim=model.get_channel_dim, is_pretrain=True)
+             if sections else create_infonce_hooks(channel_dim=model.get_channel_dim,
+                                                   **HOOKS[trainer]))
+    assert [h.name for h in hooks] == [h.name for h in jhooks]
     for h in hooks:
         h.projector.load_state_dict(flax_to_head_state_dict(hparams[h.name]))
     until = feature_until_from_hooks(*hooks)
@@ -205,7 +225,7 @@ def _check_step_against_jax(trainer, batch, data_name="acdc", num_classes=4, jit
     state = init_train_state(bundle, hooks, opt)
     step = build_pretrain_step(bundle, hooks, until=until)
     m = step(state, {k: torch.tensor(v) for k, v in batch.items()},
-             _replayed_draws(key, n, (16, 16), jitter))
+             _replayed_draws(key, n, grid, jitter), epoch)
 
     assert set(m) == set(jm)
     for k in jm:

@@ -314,7 +314,7 @@ def test_udaiic_override_form_equals_the_config():
 
 
 @pytest.mark.parametrize("section", ["DifferentiableMeanTeacherParameters",
-                                     "EntropyMinParameters", "SPInfonceParams",
+                                     "EntropyMinParameters", "OrthogonalParameters",
                                      "FeatureCrossCorrelationParameters"])
 def test_unported_hook_sections_raise(section):
     """A hook section without a port fails the run instead of training
