@@ -123,15 +123,37 @@ Phases, in order; any failure exits non-zero:
    hook under ``semi``): the files, finite ``storage.csv`` values
    (``sp_weight`` in (0, 1] and ``age_param`` 100 on ``spinfonce``), the
    launches per step of ``P14_LAUNCHES`` plus 8 K1 and 1 K2 an eval forward,
-   and ms/step inside the loop.
+   and ms/step inside the loop;
+15. the simple hooks, MixUp and the cross-correlation block (run after
+   phase 14): an ACDC layout (12 train and 2 validation scans of 6 slices
+   at 224x224) in a temporary directory; (15a) MixUp's extra forward at
+   full width (5 labeled slices and their second view, mixed: batch 10,
+   running statistics left alone) and its backward with every K1, K2, K3,
+   C1 and C2 launch held against its plain version, and an ``ft`` step with
+   the hook ending with the BN running statistics of the step without it,
+   bit for bit, and a ``semi/simple`` step with the orthogonal hook and one
+   without it from the same weights, batch and draws, whose Deconv_1x1
+   gradients differ by the hook's weight times the plain gradient of its
+   loss; (15b) ``pretrain_cc``'s Conv5 InfoNCE hook (36 anchors)
+   through D1 against the plain SupCon; (15c) ``main.main`` at full width
+   for 2 epochs x 10 host-fed steps on each path of ``P15_PATHS``:
+   ``semi/simple`` (entmin + pseudolabel + orthogonal + dae under ``semi``;
+   the DAE conv and Deconv_1x1 must move), ``mixup`` (``Trainer.name=
+   mixup``), ``semi/ccblocks`` (ccblocks2.yaml's section), ``pretrain_cc``
+   (``pretrain_decoder`` with infonce_encoder.yaml's and ccblocks2.yaml's
+   sections) and ``pretrain_clusters`` (ccblocks_imsat.yaml's; the logged
+   imsat weight must move between epochs): the files, finite
+   ``storage.csv`` values, the launches per step of ``P15_LAUNCHES`` plus 8
+   K1 and 1 K2 an eval forward, and ms/step inside the loop.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
 path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
-``ft/ema`` and phase 14's five), ``max_abs_err`` the largest over the
-checked shapes and call sites (phase 14's included), ``ms`` /
+``ft/ema`` and the five of phases 14 and 15 each), ``max_abs_err`` the
+largest over the checked shapes and call sites (phases 14-15's included),
+``ms`` /
 ``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
 one launch each (C1/C2: over the batch-96 shapes only; ``by_batch`` has the
 sums at every checked batch, beside the einsum form's below 96 and, for C2,
@@ -1092,10 +1114,12 @@ def plain_supcon():
 
 
 def check_hook_losses(run) -> None:
-    """Phase 7a / 8: the hook losses of one contrastive batch through D1 against
-    the same losses through the plain SupCon, on the same forward."""
+    """Phase 7a / 8 / 15b: the InfoNCE hook losses of one contrastive batch
+    through D1 against the same losses through the plain SupCon, on the same
+    forward (other hooks of the run left out)."""
     import torch
     from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.hooks.infonce import INFONCEHook
     from contrastyou_tpu_torch.engine.hooks import StepContext
     from contrastyou_tpu_torch.engine.steps import point_grids
     from contrastyou_tpu_torch.trainers.pretrain import sample_pretrain_draws
@@ -1104,9 +1128,10 @@ def check_hook_losses(run) -> None:
     n = run.batch_slices
     idx = torch.arange(n, device=run.cache.device) % len(run.cache)
     batch = run.cache.sample_at(idx, *run.cache.draw_offsets(gen, n))
-    grids = point_grids(run.hooks)
+    hooks = [h for h in run.hooks if isinstance(h, INFONCEHook)]
+    grids = point_grids(hooks)
     draws = sample_pretrain_draws(gen, n, point_grids=grids)
-    taps = tuple(h.taps[0] for h in run.hooks)
+    taps = tuple(h.taps[0] for h in hooks)
     with torch.no_grad():
         x = torch.cat([batch["image"], batch["image"]], 0)
         _, feats = run.state.model(x, until=run.until, taps=taps, update_stats=False)
@@ -1115,7 +1140,7 @@ def check_hook_losses(run) -> None:
                           partition_group=batch["partition"], geo_params=draws.geo,
                           point_draws=draws.points,
                           bundle=ModelBundle(run.state.model, tuple(x.shape[1:])))
-        for h in run.hooks:
+        for h in hooks:
             got = float(h.loss(ctx, {})[0])
             with plain_supcon():
                 ref = float(h.loss(ctx, {})[0])
@@ -2273,6 +2298,306 @@ def run_phase14(device, card: str, recs: dict, extra=()) -> dict:
     return by_path
 
 
+#: phase 15: the simple hooks, MixUp and the cross-correlation block on an
+#: on-disk ACDC layout at 224 x 224 (12 train scans, so the pretrain split
+#: holds the 6 scans of an 18-slice batch, 2 validation scans, 6 slices
+#: each), each path through ``main.main`` for 2 epochs x 10 host-fed steps
+P15_SCANS, P15_SLICES, P15_SIZE = (12, 2), 6, 224
+P15_STEPS, P15_EPOCHS = 10, 2
+#: config/hooks/ccblocks2.yaml and ccblocks_imsat.yaml in the override form
+#: (the card's machine has no PyYAML)
+P15_CC = ["+CrossCorrelationParameters.feature_name=Up_conv2",
+          "+CrossCorrelationParameters.train_encoder=true",
+          "+CrossCorrelationParameters.num_clusters=20",
+          "+CrossCorrelationParameters.head_type=mlp",
+          "+CrossCorrelationParameters.num_subheads=1", "+CrossCorrelationParameters.save=false",
+          "+CrossCorrelationParameters.hooks.cc.weight=0.1",
+          "+CrossCorrelationParameters.hooks.cc.kernel_size=5",
+          "+CrossCorrelationParameters.hooks.cc.diff_power=0.75"]
+P15_RR = ["+CrossCorrelationParameters.hooks.rr.weight=1",
+          "+CrossCorrelationParameters.hooks.rr.symmetric=true",
+          "+CrossCorrelationParameters.hooks.rr.lamda=1.5",
+          "+CrossCorrelationParameters.hooks.rr.alpha=0.5"]
+P15_IMSAT = ["+CrossCorrelationParameters.hooks.imsat.weight=0.1",
+             "+CrossCorrelationParameters.hooks.imsat.use_dynamic=true"]
+#: config/hooks/infonce_encoder.yaml's section over the decoder pretrain base
+P15_INFONCE_ENCODER = ["InfonceParams.feature_names=Conv5", "InfonceParams.weights=1.0",
+                       "InfonceParams.contrast_ons=partition", "InfonceParams.spatial_size=1"]
+#: the five paths, (name, argv of ``main.main``): entmin + pseudolabel +
+#: orthogonal + dae stacked under ``semi``; ``Trainer.name=mixup`` (its
+#: in-code base is base.yaml + mixup.yaml); ccblocks2 under ``semi``; the
+#: ``pretrain_cc`` preset (infonce_encoder + ccblocks2 under
+#: ``pretrain_decoder``); the ``pretrain_clusters`` preset (ccblocks_imsat)
+P15_PATHS = [
+    ("semi/simple", ["Trainer.name=semi", "~ConsistencyParameters",
+                     "+EntropyMinParameters.weight=0.001", "+PsuedoLabelParams.weight=0.1",
+                     "+OrthogonalParameters.weight=0.001", "+DAEParameters.weight=0.1"]),
+    ("mixup", ["Trainer.name=mixup"]),
+    ("semi/ccblocks", ["Trainer.name=semi", "~ConsistencyParameters", *P15_CC, *P15_RR]),
+    ("pretrain_cc", ["Trainer.name=pretrain_decoder", *P15_INFONCE_ENCODER, *P15_CC, *P15_RR]),
+    ("pretrain_clusters", ["Trainer.name=pretrain_decoder", "~InfonceParams", *P15_CC,
+                           *P15_IMSAT])]
+#: launches per train step (every eval forward adds 8 K1, 1 K2): MixUp's
+#: labeled and mixed forwards (batches 5 and 10) and their backward, as
+#: ``semi``'s two passes; the pretrain paths cut at Up_conv2, with one D1/D2
+#: pair for the Conv5 InfoNCE hook of ``pretrain_cc`` (36 anchors)
+P15_DECODER = {"conv3x3_stats": 8, "upconv3x3_stats": 1, "upconv3x3_dx": 1, "conv_dw_taps": 2,
+               "conv3x3_bwd_fused": 9}
+P15_LAUNCHES = {"semi/simple": SEMI_STEP_LAUNCHES, "mixup": SEMI_STEP_LAUNCHES,
+                "semi/ccblocks": SEMI_STEP_LAUNCHES,
+                "pretrain_cc": dict(P15_DECODER, supcon_loss=1, supcon_dz=1),
+                "pretrain_clusters": P15_DECODER}
+
+
+def check_mixup_kernels(device, recs: dict) -> None:
+    """Phase 15a: the MixUp hook's extra forward at full width (5 labeled
+    slices and their second view, mixed: batch 10, running statistics left
+    alone) and its backward, every K1, K2, K3, C1 and C2 launch held against
+    its plain version; then one ``ft`` step with the hook and one without,
+    from the same weights, batch and draws: the same BN running statistics,
+    bit for bit."""
+    import numpy as np
+    import torch
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.hooks import StepContext
+    from contrastyou_tpu_torch.engine.steps import build_train_step, sample_ft_draws
+    from contrastyou_tpu_torch.main import MIXUP_CONFIG, build_semi_run
+
+    def fresh():
+        run = build_semi_run(MIXUP_CONFIG, device=device, n_slices=10)
+        return run, ModelBundle(run.state.model, (P15_SIZE, P15_SIZE, 1))
+
+    run, bundle = fresh()
+    g = torch.Generator(device=device).manual_seed(15)
+    lab = run.labeled_cache.sample(g, 5)
+    hook = run.hooks[0]
+    draws = sample_ft_draws(g, [hook], host_rng=np.random.default_rng(15),
+                            shape=tuple(lab["image"].shape))
+    model = run.state.model.train()
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    ctx = StepContext(labeled_image=lab["image"], labeled_target=lab["target"],
+                      labeled_logits=torch.zeros(1, 1, 1, model.num_classes, device=device),
+                      bundle=bundle, hook_draws=draws.hooks)
+    errs: dict = {}
+    with checked_conv_kernels(errs):
+        loss = hook.loss(ctx, {})[0]
+        loss.backward()
+    torch.cuda.synchronize()
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"mixup loss {loss.item()}")
+    if any(not torch.equal(v, stats[k]) for k, v in model.named_buffers()):
+        raise AssertionError("the mixed forward moved the BN running statistics")
+    for name in (*CONV_KERNELS, *BWD_KERNELS):
+        e = errs.get(name)
+        if e is None or any(s[0] != 10 for s in e["shapes"]):
+            raise AssertionError(f"{name} not checked at MixUp's batch 10: {errs}")
+        print(f"  {name} at MixUp's batch-10 shapes ({len(e['shapes'])}): max_abs_err "
+              f"{e['err']:.3e} ({e['rel']:.2f} of its limit)")
+        if e["rel"] > 1.0:
+            raise AssertionError(f"{name} disagrees with its plain version at MixUp's shapes")
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], e["err"])
+    batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
+    after = []
+    for hooks in ([hook], []):
+        r, b = fresh()
+        build_train_step(b, hooks, mode="ft")(r.state, batch, draws)
+        after.append(dict(r.state.model.named_buffers()))
+    same = all(torch.equal(v, after[1][k]) for k, v in after[0].items())
+    print(f"  BN running statistics after an ft step with MixUp equal those without: {same}")
+    if not same:
+        raise AssertionError("MixUp's forward changed the step's BN running statistics")
+
+
+def check_orth_reaches_the_weight(device, **sizes) -> None:
+    """Phase 15a: one ``semi/simple`` step with the orthogonal hook and one
+    without it, from the same weights, batch and draws: the two steps'
+    ``Deconv_1x1`` gradients differ by the hook's weight times the gradient
+    of the prototypes' (Gram - I)^2 at the starting weight, computed plainly
+    in f32, to 1e-2 in L2. ``sizes``: :func:`build_semi_run`'s size
+    arguments."""
+    import torch
+    from contrastyou_tpu_torch.main import build_semi_run, parse_config
+
+    orth_arg = "+OrthogonalParameters.weight=0.001"
+    argv = dict(P15_PATHS)["semi/simple"]
+    runs = [build_semi_run(parse_config(["-o", *(a for a in argv if keep or a != orth_arg)]),
+                           device=device, n_slices=10, **sizes) for keep in (True, False)]
+    orth = [h for h in runs[0].hooks if h.name == "orth"]
+    if len(orth) != 1 or any(h.name == "orth" for h in runs[1].hooks):
+        raise AssertionError(f"hooks {[h.name for h in runs[0].hooks]}, "
+                             f"{[h.name for h in runs[1].hooks]}")
+    starts = [run.state.model._Deconv_1x1.weight.detach().clone() for run in runs]
+    w0 = starts[0]
+    metrics, grads = [], []
+    for run in runs:
+        metrics.append(run.step(run.state, run.generator, 0, run.host_rng))
+        grads.append(run.state.model._Deconv_1x1.weight.grad.detach().float())
+    same = (torch.equal(starts[0], starts[1])
+            and torch.equal(metrics[0]["sup_loss"], metrics[1]["sup_loss"]))
+    w = w0.reshape(w0.shape[0], -1).float().requires_grad_()
+    protos = w / w.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    eye = torch.eye(w.shape[0], device=w.device)
+    ((protos @ protos.T - eye) ** 2).mean().backward()
+    want = orth[0].weight * w.grad.reshape(w0.shape)
+    err = float((grads[0] - grads[1] - want).norm() / want.norm())
+    print(f"  orth: the Deconv_1x1 gradient with the hook less the one without it vs "
+          f"{orth[0].weight} x the plain d(orth)/dW: L2 {err:.3e}; same sup loss {same}")
+    if not same or not err <= 1e-2:
+        raise AssertionError(f"the orthogonal hook's gradient did not reach Deconv_1x1: "
+                             f"L2 {err}, same sup loss {same}")
+
+
+def check_pretrain_cc_supcon(device) -> None:
+    """Phase 15b: ``pretrain_cc``'s InfoNCE hook (Conv5, 36 anchors) on one
+    batch through D1 against the plain SupCon (``check_hook_losses``, the
+    cross-correlation hook beside it left out)."""
+    from contrastyou_tpu_torch.main import build_pretrain_run, parse_config
+
+    argv = dict(P15_PATHS)["pretrain_cc"]
+    run = build_pretrain_run(parse_config(["-o", *argv]), device=device)
+    check_hook_losses(run)
+
+
+@contextlib.contextmanager
+def start_snapshot(seen: dict):
+    """Record each trainer's model and hook-module parameters right before
+    its first epoch, by ``save_dir``."""
+    from contrastyou_tpu_torch.engine.trainer import Trainer
+    from contrastyou_tpu_torch.trainers.pretrain import PretrainEncoderTrainer
+    saved = Trainer.start_training, PretrainEncoderTrainer.start_training
+
+    def wrap(fn):
+        def start(self):
+            seen[self.save_dir] = {
+                "model": {k: p.detach().clone() for k, p in self._model.named_parameters()},
+                "hooks": {h.name: {k: v.clone() for k, v in h.state_dict().items()}
+                          for h in self._active_hooks if hasattr(h, "state_dict")}}
+            return fn(self)
+        return start
+
+    Trainer.start_training = wrap(saved[0])
+    PretrainEncoderTrainer.start_training = wrap(saved[1])
+    try:
+        yield seen
+    finally:
+        Trainer.start_training, PretrainEncoderTrainer.start_training = saved
+
+
+def check_phase15_run(path, run_dir, records: list, launches: dict, eval_counts: dict,
+                      start: dict, card: str) -> None:
+    """Phase 15c: one path's files (``inference_result.json`` but for
+    pretraining), finite ``storage.csv`` values, the launches (per step x
+    steps, plus 8 K1 and 1 K2 per eval forward), what the path must move
+    (``semi/simple``: the DAE conv and Deconv_1x1; ``pretrain_clusters``:
+    the logged imsat weight between epochs), and its ms/step."""
+    from contrastyou_tpu_torch.engine.checkpoint import load_checkpoint
+
+    pretrain = path.startswith("pretrain")
+    csv_lines = (run_dir / "storage.csv").read_text().splitlines()
+    header = csv_lines[0].split(",")
+    rows = [{k: float(v) for k, v in zip(header, line.split(",")) if k and v}
+            for line in csv_lines[1:]]
+    files = [".success", "last/train_state.pt"] + ([] if pretrain else ["inference_result.json"])
+    missing = [f for f in files if not (run_dir / f).exists()]
+    if missing or len(rows) != P15_EPOCHS or not all(
+            math.isfinite(v) for row in rows for v in row.values()):
+        raise AssertionError(f"{path}: missing {missing}, {len(rows)} rows, or a non-finite "
+                             f"value in storage.csv")
+    losses = {k.split("/metrics/")[-1] if "/metrics/" in k else k: v for k, v in rows[-1].items()
+              if k.startswith("tra/") and (k.endswith("loss") or "/metrics/" in k)}
+    saved = load_checkpoint(run_dir / "last", map_location="cpu")["train_state"]
+    if path == "semi/simple":
+        moved = {k: not torch_equal(saved["hooks"]["dae"][k], start["hooks"]["dae"][k])
+                 for k in start["hooks"]["dae"]}
+        moved["_Deconv_1x1.weight"] = not torch_equal(saved["model"]["_Deconv_1x1.weight"],
+                                                      start["model"]["_Deconv_1x1.weight"])
+        print(f"{path}: moved {moved}")
+        if not all(moved.values()):
+            raise AssertionError(f"{path}: the DAE conv or Deconv_1x1 did not move: {moved}")
+    if path == "pretrain_clusters":
+        weights = [row["tra/cc_Up_conv2/metrics/imsat_weight"] for row in rows]
+        state = float(saved["hook_states"]["cc_Up_conv2"]["imsat_weight"])
+        print(f"{path}: imsat weight by epoch {weights}, in the checkpoint {state}")
+        if len(set(weights)) != len(weights) or state in weights:
+            raise AssertionError(f"{path}: the imsat weight did not move: {weights}, {state}")
+    train = [r for r in records if r["phase"] == "train"]
+    steps = sum(r["steps"] for r in train)
+    fwd = sum(r["batches"] for r in records if r["phase"] in ("val", "test", "inference"))
+    want = {k: n * steps for k, n in P15_LAUNCHES[path].items()}
+    want["conv3x3_stats"] += 8 * fwd
+    want["upconv3x3_stats"] += fwd
+    want = {k: want.get(k, 0) for k in launches}
+    ms = [r["seconds"] / r["steps"] * 1e3 for r in train]
+    print(f"{path}: {len(rows)} storage rows, last {losses}; train "
+          f"{', '.join(f'{m:.3f}' for m in ms)} ms/step inside the loop on {card}; "
+          f"{fwd} eval forwards; launches {launches}")
+    if launches != want or eval_counts.get("conv3x3_stats", 0) != 8 * fwd:
+        raise AssertionError(f"{path}: launches {launches} (eval {eval_counts}), want {want}")
+    STEP_MS[path] = ms[-1]
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def run_phase15(device, card: str, recs: dict, extra=()) -> dict:
+    """Phase 15: the layout, the kernels at the new call sites (15a MixUp's
+    batch-10 forward and backward, 15b D1 on ``pretrain_cc``'s anchors),
+    then each path of P15_PATHS through ``main.main`` with the counts set to
+    0 just before it and read just after (15c)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    by_path: dict = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p15_") as tmp:
+            data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+            t0 = time.perf_counter()
+            synthesize_acdc_like(data, num_train_scans=P15_SCANS[0], num_val_scans=P15_SCANS[1],
+                                 slices_per_scan=P15_SLICES, size=P15_SIZE)
+            print(f"phase 15: wrote the ACDC layout in {time.perf_counter() - t0:.1f} s")
+            package.DATA_PATH, package.RUN_PATH = str(data), str(runs)
+            print("phase 15a: MixUp's extra forward and backward vs plain (batch 10):")
+            check_mixup_kernels(device, recs)
+            check_orth_reaches_the_weight(device)
+            torch.cuda.empty_cache()
+            print("phase 15b: pretrain_cc's InfoNCE hook through D1 vs the plain SupCon:")
+            check_pretrain_cc_supcon(device)
+            torch.cuda.empty_cache()
+            for path, argv in P15_PATHS:
+                save = path.replace("/", "_")
+                eval_counts: dict = {}
+                starts: dict = {}
+                timings.records.clear()
+                torch.cuda.empty_cache()
+                _reset_counts()
+                t0 = time.perf_counter()
+                with eval_launches(eval_counts), start_snapshot(starts):
+                    if port_main.main(["-o", *argv, f"Trainer.max_epoch={P15_EPOCHS}",
+                                       f"Trainer.num_batches={P15_STEPS}",
+                                       f"Trainer.save_dir={save}", *extra]) != 0:
+                        raise AssertionError(f"{path}: main returned non-zero")
+                torch.cuda.synchronize()
+                by_path[path] = _counts()
+                print(f"{path}: {time.perf_counter() - t0:.1f} s")
+                check_phase15_run(path, runs / save, timings.records, by_path[path],
+                                  eval_counts, starts[str(runs / save)], card)
+    finally:
+        logger.removeHandler(timings)
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    return by_path
+
+
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
 #: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
@@ -2348,6 +2673,11 @@ def main() -> int:
     by_path.update(run_phase14(device, card, recs))
     torch.cuda.empty_cache()
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    print("the simple hooks, MixUp and the cross-correlation block (phase 15):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase15(device, card, recs))
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

@@ -12,8 +12,9 @@ views, the explicit transform, taps, the unlabeled batch's superpixel map
 offer an eval model (``eval_params`` / ``eval_batch_stats``: a teacher or
 an EMA of the student); ``always_active`` hooks run under trainers that
 drop the others (``ft``).
-A :class:`ModuleHook` owns parameters (a projection head): it is an
-``nn.Module`` whose parameters join the optimizer beside the model's.
+A :class:`ModuleHook` owns parameters (a projection head, the DAE's conv):
+it is an ``nn.Module`` whose parameters join the optimizer beside the
+model's.
 """
 from __future__ import annotations
 
@@ -81,6 +82,9 @@ class TrainerHook:
     #: the feature grid a dense hook samples positions on (the step draws
     #: them, one draw per grid); None for a hook that samples none
     grid: Optional[Tuple[int, int]] = None
+    #: whether the hook reads the aligned first view T(f(x)), which the
+    #: pretrain step builds only for such hooks
+    reads_logits_tf: bool = False
 
     def __init__(self, *, hook_name: str, weight: float = 1.0):
         self.name = hook_name
@@ -123,6 +127,15 @@ class ModuleHook(torch.nn.Module, TrainerHook):
     def __init__(self, *, hook_name: str, weight: float = 1.0):
         torch.nn.Module.__init__(self)
         TrainerHook.__init__(self, hook_name=hook_name, weight=weight)
+        #: the hook's head (a subclass sets it), or None
+        self.projector: Optional[torch.nn.Module] = None
+
+    def init_weights(self, generator: torch.Generator) -> "ModuleHook":
+        """Random weights of the hook's ``projector``, if any, from
+        ``generator``."""
+        if self.projector is not None:
+            self.projector.init_weights(generator)
+        return self
 
 
 def hook_parameters(hooks: Sequence[TrainerHook]) -> list:

@@ -7,10 +7,10 @@ device-cached step that also samples its batch on the GPU, and the eval step
 
 Every random draw is explicit: the ``semi`` step takes a :class:`StepDraws`
 (the unlabeled batch's GeoParams and gammas, each drawing hook's draws and
-the dense hooks' sampled positions; ``ft`` takes none); the cached step
-draws those, the sample indices and the crop offsets from a
-``torch.Generator``, and the hooks' host-side draws (ICT's mixup) from a
-numpy generator.
+the dense hooks' sampled positions; ``ft`` the drawing hooks' draws alone,
+:func:`sample_ft_draws`); the cached step draws those, the sample indices
+and the crop offsets from a ``torch.Generator``, and the hooks' host-side
+draws (ICT's and MixUp's ``lam`` and permutation) from a numpy generator.
 """
 from __future__ import annotations
 
@@ -27,14 +27,14 @@ from .bundle import ModelBundle
 from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
-__all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_step_draws",
-           "init_train_state", "build_train_step", "build_cached_train_step", "tta_probs",
-           "build_eval_step"]
+__all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_hook_draws",
+           "sample_step_draws", "sample_ft_draws", "init_train_state", "build_train_step",
+           "build_cached_train_step", "tta_probs", "build_eval_step"]
 
 
 class StepDraws(NamedTuple):
-    geo: GeoParams          # transform of the unlabeled batch
-    gammas: torch.Tensor    # [Bu] gamma of the unlabeled batch
+    geo: Optional[GeoParams]          # transform of the unlabeled batch (None: ft)
+    gammas: Optional[torch.Tensor]    # [Bu] gamma of the unlabeled batch (None: ft)
     hooks: Optional[Dict[str, Any]] = None   # each drawing hook's draws, by name
     #: the dense hooks' sampled positions: grid -> (ys, xs) [Bu, P]
     points: Optional[Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]]] = None
@@ -63,19 +63,41 @@ def point_grids(hooks: Sequence[TrainerHook]) -> list:
     return sorted({h.grid for h in hooks if h.grid is not None})
 
 
+def sample_hook_draws(generator: torch.Generator, hooks: Sequence[TrainerHook] = (), *,
+                      host_rng=None, shape: Optional[Tuple[int, ...]] = None,
+                      labeled_shape: Optional[Tuple[int, ...]] = None) -> Dict[str, Any]:
+    """Each hook's :meth:`~contrastyou_tpu_torch.engine.hooks.TrainerHook.draw`,
+    in hook order, for the batch it reads: the unlabeled batch's ``shape``,
+    or ``labeled_shape`` for a hook that reads no unlabeled batch (MixUp).
+    Hooks that draw nothing leave the generators as they were and are left
+    out."""
+    drawn = {h.name: h.draw(generator, host_rng, shape if h.requires_unlabeled else labeled_shape)
+             for h in hooks}
+    return {k: v for k, v in drawn.items() if v is not None}
+
+
 def sample_step_draws(generator: torch.Generator, batch: int,
                       hooks: Sequence[TrainerHook] = (), *, host_rng=None,
-                      shape: Optional[Tuple[int, ...]] = None) -> StepDraws:
-    """The transform of an unlabeled batch of ``batch`` slices, then each
-    hook's :meth:`~contrastyou_tpu_torch.engine.hooks.TrainerHook.draw` for
-    the unlabeled batch's ``shape`` (hooks that draw nothing leave the
-    generators as they were), then one :func:`draw_points` per distinct grid
-    of the dense hooks, shared by the hooks on that grid as JAX's share one
-    key (a run without dense hooks draws none)."""
+                      shape: Optional[Tuple[int, ...]] = None,
+                      labeled_shape: Optional[Tuple[int, ...]] = None) -> StepDraws:
+    """The transform of an unlabeled batch of ``batch`` slices, then the
+    hooks' draws (:func:`sample_hook_draws`), then one :func:`draw_points`
+    per distinct grid of the dense hooks, shared by the hooks on that grid as
+    JAX's share one key (a run without dense hooks draws none)."""
     geo, gammas = sample_geo_params(generator, batch), sample_gammas(generator, batch)
-    drawn = {h.name: h.draw(generator, host_rng, shape) for h in hooks}
+    drawn = sample_hook_draws(generator, hooks, host_rng=host_rng, shape=shape,
+                              labeled_shape=labeled_shape)
     points = {g: draw_points(generator, batch, g) for g in point_grids(hooks)}
-    return StepDraws(geo, gammas, {k: v for k, v in drawn.items() if v is not None}, points)
+    return StepDraws(geo, gammas, drawn, points)
+
+
+def sample_ft_draws(generator: torch.Generator, hooks: Sequence[TrainerHook] = (), *,
+                    host_rng=None, shape: Tuple[int, ...]) -> StepDraws:
+    """The draws of an ``ft`` step on a labeled batch of ``shape``: the
+    hooks' alone (no transform; a run without drawing hooks draws
+    nothing)."""
+    return StepDraws(None, None, sample_hook_draws(generator, hooks, host_rng=host_rng,
+                                                   shape=shape, labeled_shape=shape), {})
 
 
 def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
@@ -97,8 +119,9 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     ported): one forward over
     the labeled batch, one over the unlabeled batch and its transformed copy
     (``disable_bn`` keeps the second from updating the BN running
-    statistics). ``ft`` runs the labeled forward alone and takes no draws
-    (``draws`` None). The metrics stay on the device."""
+    statistics). ``ft`` runs the labeled forward alone; its ``draws``
+    (:func:`sample_ft_draws`, or None) carry the drawing hooks' draws only.
+    The metrics stay on the device."""
     if mode not in ("semi", "ft"):
         raise ValueError(f"mode {mode!r}: semi or ft")
     hooks = tuple(hooks)
@@ -114,13 +137,14 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                           epoch=epoch, bundle=bundle)
         labeled_logits, labeled_taps = bundle.apply_train(labeled_image, taps=taps)
         ctx.labeled_logits, ctx.labeled_taps = labeled_logits, labeled_taps
+        if draws is not None:
+            ctx.hook_draws = dict(draws.hooks or {})
         if mode == "semi":
             unlabeled_image = batch["unlabeled_image"]
             nu = unlabeled_image.shape[0]
             ctx.unlabeled_image = unlabeled_image
             ctx.unlabeled_image_tf = transform_image(unlabeled_image, draws.geo, draws.gammas)
             ctx.geo_params = draws.geo
-            ctx.hook_draws = dict(draws.hooks or {})
             ctx.point_draws = dict(draws.points or {})
             ctx.superpixel = batch.get("unlabeled_superpixel")
             ctx.label_group = batch.get("unlabeled_scan_id")
@@ -175,8 +199,8 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     the two :class:`~contrastyou_tpu_torch.data.device_cache.DeviceDataCache` s,
     the hooks' draws made after the transform's (host-side ones from the
     numpy ``host_rng``), or without an ``unlabeled_cache`` one ``ft`` step
-    on the labeled cache's batch alone; the metrics also carry
-    ``labeled_scan_id`` [B]."""
+    on the labeled cache's batch alone, with the hooks' draws; the metrics
+    also carry ``labeled_scan_id`` [B]."""
     semi = unlabeled_cache is not None
     needs_map = [h.name for h in hooks if h.needs_superpixel]
     if needs_map:
@@ -189,14 +213,17 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
                     host_rng=None):
         lab = labeled_cache.sample(generator, labeled_batch)
         batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
-        draws = None
+        labeled_shape = tuple(lab["image"].shape)
         if semi:
             unl = unlabeled_cache.sample(generator, unlabeled_batch)
             batch.update(unlabeled_image=unl["image"], unlabeled_partition=unl["partition"],
                          unlabeled_scan_id=unl["scan_id"], unlabeled_patient=unl["patient"],
                          unlabeled_cycle=unl["cycle"])
             draws = sample_step_draws(generator, unlabeled_batch, hooks, host_rng=host_rng,
-                                      shape=tuple(unl["image"].shape))
+                                      shape=tuple(unl["image"].shape),
+                                      labeled_shape=labeled_shape)
+        else:
+            draws = sample_ft_draws(generator, hooks, host_rng=host_rng, shape=labeled_shape)
         metrics = step(state, batch, draws, epoch)
         metrics["labeled_scan_id"] = lab["scan_id"]
         return metrics

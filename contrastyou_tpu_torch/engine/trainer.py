@@ -19,8 +19,8 @@ batch. The generator is reseeded at each epoch from ``(seed, 10_000 +
 epoch)``, as JAX folds ``10_000 + epoch`` into its key, so a resumed
 device-cached run reproduces an unbroken one; the host loaders restart from
 their seeds on resume, as the JAX package's do. The hooks' host-side draws
-(ICT's mixup) come from a numpy generator reseeded from ``(seed, 30_000 +
-epoch)``.
+(ICT's and MixUp's ``lam`` and permutation) come from a numpy generator
+reseeded from ``(seed, 30_000 + epoch)``.
 
 Evaluation and inference run on the student, or on the model of the hook
 given to :meth:`Trainer.set_model4inference` (a mean teacher, an EMA of
@@ -58,7 +58,7 @@ from .checkpoint import (load_checkpoint, load_model_params, load_train_state, s
 from .hooks import TrainerHook, hook_parameters
 from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_train_step,
-                    init_train_state, sample_step_draws)
+                    init_train_state, sample_ft_draws, sample_step_draws)
 
 __all__ = ["Trainer", "epoch_seed", "hook_metrics", "HOOK_DRAW_SEED_OFFSET"]
 
@@ -300,11 +300,15 @@ class Trainer:
                     labeled = next(labeled_iter)
                     unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
                     batch = self._host_batch(labeled, unlabeled)
-                    draws = None
+                    labeled_shape = tuple(batch["labeled_image"].shape)
                     if unlabeled is not None:
                         shape = tuple(batch["unlabeled_image"].shape)
                         draws = sample_step_draws(generator, shape[0], self._active_hooks,
-                                                  host_rng=host_rng, shape=shape)
+                                                  host_rng=host_rng, shape=shape,
+                                                  labeled_shape=labeled_shape)
+                    else:
+                        draws = sample_ft_draws(generator, self._active_hooks,
+                                                host_rng=host_rng, shape=labeled_shape)
                     metrics = self._train_step(self._state, batch, draws, epoch)
                     dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
                                     group_name=labeled["scan"])

@@ -1,8 +1,9 @@
 """Config-keyed hook factory (counterpart of contrastyou_tpu/hooks/creator.py):
 hooks are selected by the presence of their config section, with the
-reference's key names, in the JAX factory's order. A hook section the JAX
-factory knows but the port has no hook for raises NotImplementedError naming
-it, so no preset trains without the regularizer it asks for. Given the
+reference's key names, in the JAX factory's order and under its hook names.
+A hook section the JAX factory knows but the port has no hook for (the
+differentiable mean teacher) raises NotImplementedError naming it, so no
+preset trains without the regularizer it asks for. Given the
 trainer, the factory also picks its eval model: an ``EvalEMAParameters`` EMA
 over a mean teacher, as JAX does."""
 from __future__ import annotations
@@ -11,12 +12,18 @@ import logging
 from typing import Callable, List, Mapping
 
 from ..models.unet import UNet
+from .autoencoder import DenoisingAutoEncoderTrainerHook
+from .ccblock import create_cross_correlation_hook
 from .consistency import ConsistencyTrainerHook
 from .discretemi import DiscreteIMSATTrainHook, DiscreteMITrainHook
+from .entmin import EntropyMinTrainerHook
 from .infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
 from .midl import IIDSegmentationTrainerHook, IMSATTrainHook
+from .mixup import MixUpTrainHook
 from .mt import (EMAEvalTrainerHook, ICTMeanTeacherTrainerHook, MeanTeacherTrainerHook,
                  UAMeanTeacherTrainerHook)
+from .orthogonal import OrthogonalTrainerHook
+from .pseudolabel import PseudoLabelTrainerHook
 
 __all__ = ["ntuple", "PORTED_SECTIONS", "UNPORTED_SECTIONS", "create_infonce_hooks",
            "create_sp_infonce_hooks", "create_superpixel_hooks",
@@ -24,17 +31,16 @@ __all__ = ["ntuple", "PORTED_SECTIONS", "UNPORTED_SECTIONS", "create_infonce_hoo
 
 logger = logging.getLogger(__name__)
 
-#: hook sections this factory builds, in the JAX factory's order
+#: hook sections this factory builds, in the JAX factory's order (plus every
+#: key containing ``CrossCorrelationParameters``, after ``IMSATFeatureParameters``)
 PORTED_SECTIONS = ("InfonceParams", "SPInfonceParams", "DiscreteMIConsistencyParams",
                    "MeanTeacherParameters", "UAMeanTeacherParameters",
-                   "ICTMeanTeacherParameters", "IIDSegParameters", "IMSATParameters",
-                   "IMSATFeatureParameters", "ConsistencyParameters",
-                   "InfonceSuperPixelParams", "EvalEMAParameters")
-#: hook sections of the JAX factory without a port yet (plus every
-#: ``*CrossCorrelationParameters*`` section)
-UNPORTED_SECTIONS = ("DifferentiableMeanTeacherParameters", "EntropyMinParameters",
-                     "OrthogonalParameters", "PsuedoLabelParams", "MixUpParams",
-                     "DAEParameters")
+                   "ICTMeanTeacherParameters", "EntropyMinParameters", "OrthogonalParameters",
+                   "IIDSegParameters", "PsuedoLabelParams", "IMSATParameters",
+                   "IMSATFeatureParameters", "ConsistencyParameters", "MixUpParams",
+                   "DAEParameters", "InfonceSuperPixelParams", "EvalEMAParameters")
+#: hook sections of the JAX factory without a port yet
+UNPORTED_SECTIONS = ("DifferentiableMeanTeacherParameters",)
 #: the fixed grid of the dense self-paced hooks (JAX ``create_sp_infonce_hooks``)
 SP_DENSE_GRID = (16, 16)
 
@@ -120,9 +126,10 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
     """The hook list of a reference-style config. ``channel_dim`` gives a
     tapped layer's width; ``proj_bf16`` runs the dense InfoNCE heads in bf16.
     With a ``trainer``, its eval model: the ``EvalEMAParameters`` hook, else
-    the mean-teacher one, when the config has either."""
-    unported = [k for k in config
-                if k in UNPORTED_SECTIONS or "CrossCorrelationParameters" in str(k)]
+    the mean-teacher one, when the config has either. The DAE hook takes
+    the model's class count (``channel_dim("Deconv_1x1")``, JAX's
+    ``OPT.num_classes``)."""
+    unported = [k for k in config if k in UNPORTED_SECTIONS]
     if unported:
         raise NotImplementedError(f"hook section(s) {unported} are not ported to "
                                   f"contrastyou_tpu_torch; ported: {list(PORTED_SECTIONS)}")
@@ -163,10 +170,19 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
         not_pretrain("ICTMeanTeacherParameters")
         mt_hook = ICTMeanTeacherTrainerHook(name="ict", **config["ICTMeanTeacherParameters"])
         hooks.append(mt_hook)
+    if "EntropyMinParameters" in config:
+        hooks.append(EntropyMinTrainerHook(
+            name="entropy", weight=float(config["EntropyMinParameters"]["weight"])))
+    if "OrthogonalParameters" in config:
+        hooks.append(OrthogonalTrainerHook(
+            hook_name="orth", weight=float(config["OrthogonalParameters"]["weight"])))
     if "IIDSegParameters" in config:
         p = config["IIDSegParameters"]
         hooks.append(IIDSegmentationTrainerHook(hook_name="iidseg", weight=float(p["weight"]),
                                                 mi_lambda=float(p.get("mi_lambda", 1.0))))
+    if "PsuedoLabelParams" in config:
+        hooks.append(PseudoLabelTrainerHook(
+            name="plab", weight=float(config["PsuedoLabelParams"]["weight"])))
     if "IMSATParameters" in config:
         hooks.append(IMSATTrainHook(hook_name="imsat",
                                     weight=float(config["IMSATParameters"]["weight"])))
@@ -177,9 +193,22 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
             in_dim=channel_dim(p["feature_name"]), weight=float(p["weight"]),
             num_clusters=int(p["num_clusters"]), num_subheads=3,
             cons_weight=float(p["cons_weight"])))
+    num_classes = channel_dim("Deconv_1x1")
+    for key in [k for k in config if "CrossCorrelationParameters" in str(k)]:
+        p = config[key]
+        hooks.append(create_cross_correlation_hook(
+            in_dim=channel_dim(p["feature_name"]), num_classes=num_classes, **p))
     if "ConsistencyParameters" in config:
         hooks.append(ConsistencyTrainerHook(
             name="consistency", weight=float(config["ConsistencyParameters"]["weight"])))
+    if "MixUpParams" in config:
+        p = config["MixUpParams"]
+        hooks.append(MixUpTrainHook(hook_name="mixup", weight=float(p["weight"]),
+                                    enable_bn=bool(p.get("enable_bn", True))))
+    if "DAEParameters" in config:
+        hooks.append(DenoisingAutoEncoderTrainerHook(
+            hook_name="dae", weight=float(config["DAEParameters"]["weight"]),
+            num_classes=num_classes))
     if "InfonceSuperPixelParams" in config:
         p = config["InfonceSuperPixelParams"]
         hooks += create_superpixel_hooks(channel_dim=channel_dim, proj_bf16=proj_bf16,

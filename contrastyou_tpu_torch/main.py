@@ -10,6 +10,9 @@ contrastive pretraining, on one device.
     python -m contrastyou_tpu_torch.main -o Trainer.name=ft \\
         Arch.checkpoint=<RUN_PATH>/<pretrain>/last Trainer.save_dir=<ft>
     python -m contrastyou_tpu_torch.main -o Trainer.name=mt Trainer.save_dir=<mt>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=mixup Trainer.save_dir=<mixup>
+    python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/ccblocks2.yaml \
+        -o Trainer.name=semi Trainer.save_dir=<ccblocks>
     python -m contrastyou_tpu_torch.main -o Trainer.name=pretrain ~InfonceParams \
         +SPInfonceParams.feature_names=Conv5 +SPInfonceParams.weights=1 \
         +SPInfonceParams.contrast_ons=partition Trainer.save_dir=<spinfonce>
@@ -21,16 +24,24 @@ contrastive pretraining, on one device.
 takes the argv of the root ``main.py``. Without ``-p`` the base is the
 in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
 (``semi``), config/base.yaml alone (``ft``), :data:`MT_CONFIG` (``mt``:
-config/hooks/mt.yaml's mean teacher), :data:`PRETRAIN_DECODER_CONFIG`
+config/hooks/mt.yaml's mean teacher), :data:`MIXUP_CONFIG` (``mixup``:
+config/hooks/mixup.yaml), :data:`PRETRAIN_DECODER_CONFIG`
 or :data:`PRETRAIN_ENCODER_CONFIG`, so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
 ``semi`` + ``udaiic`` base; from the ``semi`` base the same run is
 ``-o Trainer.name=semi ~ConsistencyParameters`` plus the four
 ``+DiscreteMIConsistencyParams.*`` keys of config/hooks/udaiic.yaml; UAMT
 and ICT are ``-o Trainer.name=mt ~MeanTeacherParameters`` plus the
 ``+UAMeanTeacherParameters.*`` or ``+ICTMeanTeacherParameters.*`` keys of
-config/hooks/uamt.yaml or ict.yaml). The
+config/hooks/uamt.yaml or ict.yaml; entropy minimization, pseudo-labels,
+prototype orthogonality and the DAE are ``-o Trainer.name=semi`` plus
+``+EntropyMinParameters.weight=...``, ``+PsuedoLabelParams.weight=...``,
+``+OrthogonalParameters.weight=...`` or ``+DAEParameters.weight=...``; the
+cross-correlation block the ``+CrossCorrelationParameters.*`` keys of
+config/hooks/ccblocks2.yaml or ccblocks_imsat.yaml, under ``semi`` or the
+pretraining trainers). The
 hooks come from the config's hook sections (``hooks/creator.py``; a section
-without a port raises); ``mt`` evaluates and infers on the teacher, and an
+without a port raises); ``mt`` evaluates and infers on the teacher,
+``mixup`` trains on the labeled batch alone with the MixUp hook, and an
 ``EvalEMAParameters`` section adds an EMA of the student that ``semi`` and
 ``ft`` evaluate on.
 
@@ -97,12 +108,13 @@ from .hooks.creator import create_hook_from_config
 from .models.unet import UNet
 from .trainers import trainer_zoo
 from .trainers.pretrain import (build_pretrain_step, check_pretrain_hooks, contrastive_sampler,
-                                feature_until_from_hooks, frozen_after,
+                                feature_until_from_hooks, frozen_encoder,
                                 get_contrastive_loader, jitter_strength,
-                                sample_pretrain_draws)
+                                pretrain_trainable, sample_pretrain_draws)
 from .utils.torch_convert import load_pretrained
 
-__all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "MT_CONFIG", "PRETRAIN_DECODER_CONFIG",
+__all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "MT_CONFIG", "MIXUP_CONFIG",
+           "PRETRAIN_DECODER_CONFIG",
            "PRETRAIN_ENCODER_CONFIG", "UNPORTED_KEYS", "refuse_unported_keys",
            "check_warm_start", "resolve_device", "synthetic_split", "synthetic_scans",
            "SemiRun", "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config",
@@ -145,6 +157,10 @@ UDAIIC_CONFIG = merge(_BASE, {"DiscreteMIConsistencyParams": {
 MT_CONFIG = merge(_BASE, {"MeanTeacherParameters": {
     "weight": 10, "alpha": 0.99, "weight_decay": 0.000001, "update_bn": False,
     "num_teachers": 1, "hard_clip": False}})
+#: config/base.yaml merged with config/hooks/mixup.yaml (``Trainer.name``
+#: mixup): labeled steps with the MixUp hook
+MIXUP_CONFIG = merge(_BASE, {"Trainer": {"name": "mixup"},
+                             "MixUpParams": {"weight": 0.1, "enable_bn": True}})
 #: config/base.yaml + config/pretrain.yaml + config/hooks/infonce.yaml
 PRETRAIN_DECODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
     "InfonceParams": {"feature_names": ["Conv5", "Up_conv2"], "weights": [1.0, 1.0],
@@ -157,7 +173,7 @@ PRETRAIN_ENCODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
     "Trainer": {"name": "pretrain"}})
 
 _DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG, "ft": _BASE, "mt": MT_CONFIG,
-             "pretrain": PRETRAIN_ENCODER_CONFIG,
+             "mixup": MIXUP_CONFIG, "pretrain": PRETRAIN_ENCODER_CONFIG,
              "pretrain_decoder": PRETRAIN_DECODER_CONFIG}
 PRETRAIN_TRAINERS = ("pretrain", "pretrain_decoder")
 
@@ -279,7 +295,7 @@ def _hooks(config: Mapping, model: UNet, device, dtype, generator, *, is_pretrai
         trainer=trainer)
     for h in hooks:
         if isinstance(h, torch.nn.Module):
-            h.to(device).projector.init_weights(generator)
+            h.to(device).init_weights(generator)
     return hooks
 
 
@@ -358,10 +374,12 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
                        raw_size: int = 256, crop: int = CROP, n_scans: int = 12,
                        slices_per_scan: Optional[int] = None,
                        max_channel: Optional[int] = None) -> PretrainRun:
-    """``pretrain`` / ``pretrain_decoder``: model, InfoNCE hooks with their
-    projection heads, RAdam over the layers up to the deepest tap plus the
-    heads, synthetic scans of ``Data.name``'s layout resident on the device,
-    its contrastive batch sampler and the pretrain step. Weights and data are
+    """``pretrain`` / ``pretrain_decoder``: model, InfoNCE and
+    cross-correlation hooks with their heads, RAdam over the layers up to
+    the deepest tap (without the encoder when
+    ``CrossCorrelationParameters.train_encoder`` is false) plus the heads,
+    synthetic scans of ``Data.name``'s layout resident on the device, its
+    contrastive batch sampler and the pretrain step. Weights and data are
     made from ``RandomSeed``. ``slices_per_scan`` defaults to 10 for
     datasets of 3 partitions and to 8 per partition above (64 for prostate),
     enough for the ``cur // (cut + 1)`` rule to fill every partition."""
@@ -380,7 +398,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=True)
     check_pretrain_hooks(hooks)
     until = feature_until_from_hooks(*hooks)
-    trainable = frozen_after(until)
+    trainable = pretrain_trainable(until, frozen_encoder(config))
     params = [p for name, p in model.named_parameters() if trainable(name)]
     optimizer, _ = create_optimizer(
         params + hook_parameters(hooks), config["Optim"], config.get("Scheduler"),

@@ -1,6 +1,7 @@
 """Projection heads of the contrastive hooks and cluster heads of the
-discrete-MI hooks (counterpart of the ``ProjectionHead`` /
-``DenseProjectionHead`` / ``ClusterHead`` / ``DenseClusterHead`` of
+discrete-MI and cross-correlation hooks (counterpart of the
+``ProjectionHead`` / ``DenseProjectionHead`` / ``ClusterHead`` /
+``DenseClusterHead`` / ``CrossCorrelationProjector`` of
 contrastyou_tpu/models/projectors.py), on NHWC tensors.
 
 Projection-head parameters carry the flax names (``Dense_0``, ``Dense_1``;
@@ -8,7 +9,9 @@ Projection-head parameters carry the flax names (``Dense_0``, ``Dense_1``;
 Dense layers are ``nn.Linear`` ([out, in] weights), the 1x1 convs
 ``nn.Conv2d`` ([out, in, 1, 1]); both run as matrix products over the channel
 axis. A cluster head keeps its S subheads as one stacked ``weight`` [S, C, K]
-and ``bias`` [S, K], the layout of flax's vmapped subheads.
+and ``bias`` [S, K], the layout of flax's vmapped subheads; the ``mlp`` form
+puts ``hidden_weight`` [S, C, D] and ``hidden_bias`` [S, D] before it (then
+``weight`` is [S, D, K]).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch.nn as nn
 from .pooling import adaptive_avg_pool2d
 
 __all__ = ["l2_normalize", "ProjectionHead", "DenseProjectionHead", "ClusterHead",
-           "DenseClusterHead"]
+           "DenseClusterHead", "CrossCorrelationProjector"]
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -47,9 +50,10 @@ def _init(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(w / math.sqrt(m.weight[0].numel()))
             m.bias.zero_()
         elif isinstance(m, _ClusterHeadBase):
-            w = torch.randn(m.weight.shape, generator=generator, device=generator.device)
-            m.weight.copy_(w / math.sqrt(m.weight.shape[1]))
-            m.bias.zero_()
+            for w, b in m.layers():
+                w.copy_(torch.randn(w.shape, generator=generator, device=generator.device)
+                        / math.sqrt(w.shape[1]))
+                b.zero_()
 
 
 def _leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
@@ -119,17 +123,25 @@ class DenseProjectionHead(nn.Module):
         return l2_normalize(x.float())
 
 
+#: hidden width of the dense heads' ``mlp`` form (the cross-correlation
+#: block's, JAX hooks/ccblock.py)
+MLP_HIDDEN = 64
+
+
 class _ClusterHeadBase(nn.Module):
     """S linear subheads of K clusters on C channels, stacked: ``weight`` [S,
-    C, K], ``bias`` [S, K]; softmax over K with temperature ``T``. Only the
-    linear, unnormalized head is ported (the one every discrete-MI hook
-    builds); the ``mlp`` form waits."""
+    C, K], ``bias`` [S, K]; softmax over K with temperature ``T``. The
+    normalized form is not ported."""
 
     def __init__(self, in_dim: int, num_clusters: int, num_subheads: int, T: float = 1.0):
         super().__init__()
         self.num_clusters, self.num_subheads, self.T = num_clusters, num_subheads, float(T)
         self.weight = nn.Parameter(torch.empty(num_subheads, in_dim, num_clusters))
         self.bias = nn.Parameter(torch.zeros(num_subheads, num_clusters))
+
+    def layers(self):
+        """(weight, bias) of each layer, input first."""
+        return [(self.weight, self.bias)]
 
     def init_weights(self, generator: torch.Generator):
         _init(self, generator)
@@ -148,13 +160,56 @@ class ClusterHead(_ClusterHeadBase):
 
 class DenseClusterHead(_ClusterHeadBase):
     """Per-pixel cluster distributions: a 1x1 projection per subhead and the
-    softmax -> [S, B, H, W, K]."""
+    softmax -> [S, B, H, W, K]. ``head_type`` ``linear``, or ``mlp``: a
+    hidden layer of :data:`MLP_HIDDEN` (``hidden_weight`` [S, C, D],
+    ``hidden_bias`` [S, D]) and leaky ReLU 0.01 first, ``weight`` then [S,
+    D, K]. The mlp form computes in the promotion of the input's and the
+    parameters' dtypes (f32 for bf16 taps), as flax's ``nn.Conv`` does
+    without a ``dtype``."""
+
+    def __init__(self, in_dim: int, num_clusters: int, num_subheads: int, T: float = 1.0,
+                 head_type: str = "linear"):
+        if head_type not in ("linear", "mlp"):
+            raise ValueError(f"head_type {head_type!r}: linear or mlp")
+        mlp = head_type == "mlp"
+        super().__init__(MLP_HIDDEN if mlp else in_dim, num_clusters, num_subheads, T=T)
+        self.head_type = head_type
+        if mlp:
+            self.hidden_weight = nn.Parameter(torch.empty(num_subheads, in_dim, MLP_HIDDEN))
+            self.hidden_bias = nn.Parameter(torch.zeros(num_subheads, MLP_HIDDEN))
+
+    def layers(self):
+        hidden = [(self.hidden_weight, self.hidden_bias)] if self.head_type == "mlp" else []
+        return hidden + super().layers()
 
     def merged_params(self):
-        """(w [C, S*K] subhead-major, b [S*K]): every subhead in one product."""
+        """(w [C, S*K] subhead-major, b [S*K]): every subhead of the linear
+        form in one product."""
+        if self.head_type != "linear":
+            raise ValueError("merged_params: the linear form only")
         S, C, K = self.weight.shape
         return self.weight.permute(1, 0, 2).reshape(C, S * K), self.bias.reshape(S * K)
 
+    def _mlp_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, C] -> [S, B, H, W, K] logits of the mlp form."""
+        def layer(h, w, b, pattern):
+            dt = torch.promote_types(h.dtype, w.dtype)
+            return torch.einsum(pattern, h.to(dt), w.to(dt)) + b.to(dt)[:, None, None, None]
+
+        h = _leaky_relu(layer(x, self.hidden_weight, self.hidden_bias, "bhwc,scd->sbhwd"))
+        return layer(h, self.weight, self.bias, "sbhwd,sdk->sbhwk")
+
     def forward(self, features: torch.Tensor) -> torch.Tensor:
+        if self.head_type == "mlp":
+            return torch.softmax(self._mlp_logits(features) / self.T, -1)
         z = torch.einsum("bhwc,sck->sbhwk", features, self.weight)
         return torch.softmax((z + self.bias[:, None, None, None]) / self.T, -1)
+
+
+class CrossCorrelationProjector(DenseClusterHead):
+    """The cross-correlation block's head: a :class:`DenseClusterHead` of
+    the ``mlp`` form by default, 20 clusters, one subhead."""
+
+    def __init__(self, in_dim: int, num_clusters: int = 20, num_subheads: int = 1,
+                 head_type: str = "mlp"):
+        super().__init__(in_dim, num_clusters, num_subheads, head_type=head_type)

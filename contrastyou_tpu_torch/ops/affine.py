@@ -113,8 +113,8 @@ def apply_geometric(images: torch.Tensor, params: GeoParams, *,
     sign_y = torch.where(params.flip_h, -1.0, 1.0)
     col_signs = torch.stack([sign_x, sign_y, torch.ones_like(sign_x)], -1)
     mats = affine_matrices(params) * col_signs[:, None, :]
-    grid = _grid(H, W, images.device)
-    hom = torch.cat([grid, torch.ones(H, W, 1, device=images.device)], -1)
+    grid = _grid(H, W, images.device).to(mats.dtype)
+    hom = torch.cat([grid, torch.ones(H, W, 1, device=images.device, dtype=mats.dtype)], -1)
     coords = torch.einsum("bij,hwj->bhwi", mats, hom)
     return grid_sample(images, coords, order=order)
 

@@ -3,9 +3,10 @@
 The step: two independently augmented views of one contrastive batch, one
 forward over both cut at the deepest tapped layer, a loss made only of hook
 terms, and the RAdam update of the model layers up to that layer and of the
-hooks' heads. Every random draw is explicit, in a :class:`PretrainDraws`:
-:func:`sample_pretrain_draws` makes them from a ``torch.Generator``; a test
-hands in the JAX step's.
+hooks' heads (``CrossCorrelationParameters.train_encoder: false`` also
+freezes the encoder, :func:`pretrain_trainable`). Every random draw is
+explicit, in a :class:`PretrainDraws`: :func:`sample_pretrain_draws` makes
+them from a ``torch.Generator``; a test hands in the JAX step's.
 
 The trainers (:class:`PretrainEncoderTrainer`, :class:`PretrainDecoderTrainer`)
 run it on the experiment loop: per epoch ``num_batches`` host-fed steps over
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +31,7 @@ from ..engine.hooks import StepContext, TrainerHook, combined_taps
 from ..engine.state import TrainState
 from ..engine.steps import draw_points, point_grids
 from ..engine.trainer import Trainer, epoch_seed, hook_metrics
+from ..hooks.ccblock import CrossCorrelationHook
 from ..hooks.infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
 from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.interface import MeterInterface
@@ -37,13 +39,13 @@ from ..models._base import arch_order
 from ..models.masks import trainable_mask
 from ..models.unet import UNet
 from ..ops.affine import (GeoParams, apply_gamma, apply_geometric, sample_gammas,
-                          sample_geo_params, transform_image)
+                          sample_geo_params, transform_image, transform_logits)
 from ..ops.intensity import color_jitter as apply_jitter
 
 __all__ = ["PRETRAIN_BATCH_SIZE_MAX", "feature_until_from_hooks", "frozen_after",
-           "jitter_strength", "contrastive_sampler", "get_contrastive_loader",
-           "PRETRAIN_HOOK_TYPES", "check_pretrain_hooks", "PretrainDraws",
-           "sample_pretrain_draws", "build_pretrain_step",
+           "frozen_encoder", "pretrain_trainable", "jitter_strength", "contrastive_sampler",
+           "get_contrastive_loader", "PRETRAIN_HOOK_TYPES", "check_pretrain_hooks",
+           "PretrainDraws", "sample_pretrain_draws", "build_pretrain_step",
            "PretrainEncoderTrainer", "PretrainDecoderTrainer"]
 
 logger = logging.getLogger(__name__)
@@ -107,9 +109,32 @@ def frozen_after(until: str,
     return trainable_mask(elements=elements, enable=False, start=until, include_start=False)
 
 
+def frozen_encoder(config: Mapping) -> bool:
+    """Whether ``CrossCorrelationParameters.train_encoder`` is false: the
+    whole encoder then stays frozen during pretraining (JAX
+    ``_frozen_encoder``; only that exact section is read)."""
+    cc = config.get("CrossCorrelationParameters")
+    return isinstance(cc, Mapping) and "train_encoder" in cc and not bool(cc["train_encoder"])
+
+
+def pretrain_trainable(until: str, freeze_encoder: bool = False,
+                       elements: Sequence[str] = UNet.arch_elements) -> Callable[[str], bool]:
+    """-> ``trainable(param_name)``: :func:`frozen_after` ``until``, AND-merged
+    with an encoder freeze (the layers before the first decoder layer) when
+    ``freeze_encoder``."""
+    after = frozen_after(until, elements)
+    if not freeze_encoder:
+        return after
+    encoder = trainable_mask(elements=elements, enable=False, start=elements[0],
+                             end=UNet.decoder_names[0], include_start=True, include_end=False)
+    return lambda name: after(name) and encoder(name)
+
+
 #: the hook types the pretraining trainers take, matched by exact type: the
-#: InfoNCE hook and its self-paced and superpixel variants
-PRETRAIN_HOOK_TYPES = (INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook)
+#: InfoNCE hook and its self-paced and superpixel variants, and the
+#: cross-correlation block
+PRETRAIN_HOOK_TYPES = (INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook,
+                       CrossCorrelationHook)
 
 
 def check_pretrain_hooks(hooks: Sequence[TrainerHook]) -> None:
@@ -174,10 +199,13 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     (``g1``, ``gammas1``), view 2 the same with ``g2`` then the hooks'
     transform (``gammas_int`` then ``geo``); colour jitter follows each
     view's first gamma when drawn. One forward over the 2B images (BN
-    statistics over both views together) cut at ``until``; the loss is the
-    weighted sum of the hook losses. The metrics stay on the device."""
+    statistics over both views together) cut at ``until``, its output the
+    hooks' "logits", as in JAX; the aligned T(f(x)) is built only when a
+    hook reads it (a cross-correlation block on ``Deconv_1x1``). The loss is
+    the weighted sum of the hook losses. The metrics stay on the device."""
     hooks = tuple(hooks)
     taps = combined_taps(hooks)
+    logits_tf = any(h.reads_logits_tf for h in hooks)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: PretrainDraws,
              epoch: int = 0) -> Dict[str, torch.Tensor]:
@@ -193,8 +221,6 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         n = image.shape[0]
         out, taps_all = bundle.apply_train(torch.cat([view1, view2], 0), until=until,
                                            taps=taps)
-        # logit-space hooks (consistency) are not ported for pretraining, so
-        # the aligned T(f(x)) is not built
         ctx = StepContext(unlabeled_image=view1, unlabeled_image_tf=view2,
                           unlabeled_logits=out[:n], unlabeled_tf_logits=out[n:],
                           unlabeled_taps={k: v[:n] for k, v in taps_all.items()},
@@ -206,6 +232,8 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                           superpixel=batch.get("superpixel"),
                           geo_params=draws.geo, point_draws=draws.points,
                           epoch=epoch, bundle=bundle)
+        if logits_tf:
+            ctx.unlabeled_logits_tf = transform_logits(out[:n], draws.geo)
         reg_loss = out.new_zeros(())
         metrics: Dict[str, torch.Tensor] = {}
         for hook in hooks:
@@ -231,8 +259,10 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
 
 class PretrainEncoderTrainer(Trainer):
     """Contrastive pretraining on the experiment loop (JAX
-    ``PretrainEncoderTrainer``): InfoNCE hooks only, the forward cut at
-    their deepest tap (:attr:`forward_until`) and every later layer frozen.
+    ``PretrainEncoderTrainer``): InfoNCE and cross-correlation hooks only,
+    the forward cut at their deepest tap (:attr:`forward_until`) and every
+    later layer frozen (the encoder too without
+    ``CrossCorrelationParameters.train_encoder``).
     ``contrast_loader`` feeds the steps (by default the labeled loader); the
     JAX trainer's optional ``monitor_loader`` pass is not ported. The
     ``device_cache`` key is ignored, as in JAX: pretraining is host-fed."""
@@ -257,7 +287,7 @@ class PretrainEncoderTrainer(Trainer):
         super().init()
 
     def _trainable_parameters(self) -> List[torch.nn.Parameter]:
-        trainable = frozen_after(self.forward_until)
+        trainable = pretrain_trainable(self.forward_until, frozen_encoder(self._config))
         return [p for name, p in self._model.named_parameters() if trainable(name)]
 
     def _build_steps(self) -> None:

@@ -21,6 +21,15 @@ and the cluster heads of the discrete-MI hooks, whose S subheads flax vmaps:
                              <-> Vmap_DenseSubHead_0/Conv_0/kernel [S,1,1,C,K], /bias [S,K]
                                  (DenseClusterHead)
 
+and, in the dense heads' ``mlp`` form (the cross-correlation block's
+``CrossCorrelationProjector``), a hidden layer before it:
+
+  hidden_weight [S,C,D], hidden_bias [S,D] <-> .../Conv_0
+  weight [S,D,K], bias [S,K]               <-> .../Conv_1
+
+The DAE hook's conv (``AuxLayer``, ``Conv_0`` [1,1,C,1] and its bias) takes
+the projection heads' map.
+
 and the mean-teacher hook states, whose U-Nets are flax trees in JAX and
 ``state_dict`` halves in the port:
 
@@ -176,26 +185,38 @@ CLUSTER_LAYERS = {False: ("Vmap_SubHead_0", "Dense_0"), True: ("Vmap_DenseSubHea
 
 
 def flax_to_cluster_head_state_dict(params: t.Mapping) -> dict:
-    """flax params of a ``ClusterHead`` or ``DenseClusterHead`` (linear) ->
-    the state_dict of the port's head (f32 tensors)."""
+    """flax params of a ``ClusterHead`` or a ``DenseClusterHead`` (linear or
+    mlp) -> the state_dict of the port's head (f32 tensors)."""
     dense = CLUSTER_LAYERS[True][0] in params
     sub, layer = CLUSTER_LAYERS[dense]
-    leaves = params[sub][layer]
-    k = np.asarray(leaves["kernel"], np.float32)
-    S, K = k.shape[0], k.shape[-1]
-    return {"weight": torch.tensor(k.reshape(S, -1, K)),
-            "bias": torch.tensor(np.asarray(leaves["bias"], np.float32))}
+    kind = layer.split("_")[0]
+    layers = params[sub]
+    names = [f"{kind}_0", f"{kind}_1"] if f"{kind}_1" in layers else [layer]
+    keys = [("hidden_weight", "hidden_bias"), ("weight", "bias")][-len(names):]
+    sd = {}
+    for name, (wk, bk) in zip(names, keys):
+        k = np.asarray(layers[name]["kernel"], np.float32)
+        sd[wk] = torch.tensor(k.reshape(k.shape[0], -1, k.shape[-1]))
+        sd[bk] = torch.tensor(np.asarray(layers[name]["bias"], np.float32))
+    return sd
 
 
 def cluster_head_state_dict_to_flax(sd: t.Mapping[str, torch.Tensor], *, dense: bool) -> dict:
     """Inverse of :func:`flax_to_cluster_head_state_dict`; ``dense`` picks the
-    ``DenseClusterHead`` tree (1x1 conv kernel [S,1,1,C,K])."""
-    w = sd["weight"].detach().float().cpu().numpy()
-    if dense:
-        w = w[:, None, None]
+    ``DenseClusterHead`` tree (1x1 conv kernels [S,1,1,C,K])."""
     sub, layer = CLUSTER_LAYERS[dense]
-    return {sub: {layer: {"kernel": np.ascontiguousarray(w),
-                          "bias": sd["bias"].detach().float().cpu().numpy()}}}
+    kind = layer.split("_")[0]
+    keys = [("weight", "bias")]
+    if "hidden_weight" in sd:
+        keys.insert(0, ("hidden_weight", "hidden_bias"))
+    out = {}
+    for i, (wk, bk) in enumerate(keys):
+        w = sd[wk].detach().float().cpu().numpy()
+        if dense:
+            w = w[:, None, None]
+        out[f"{kind}_{i}"] = {"kernel": np.ascontiguousarray(w),
+                              "bias": sd[bk].detach().float().cpu().numpy()}
+    return {sub: out}
 
 
 def save_npz_tree(path: str, tree: t.Mapping) -> None:

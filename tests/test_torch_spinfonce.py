@@ -204,11 +204,33 @@ def test_creator_names_defaults_and_order_match_jax():
     assert "SPInfonceParams" in PORTED_SECTIONS and "InfonceSuperPixelParams" in PORTED_SECTIONS
 
 
-@pytest.mark.parametrize("section", [*UNPORTED_SECTIONS, "FeatureCrossCorrelationParameters"])
+#: the sections that were unported beside ``SPInfonceParams``, with a
+#: body each; all but the differentiable mean teacher have a port since
+CC_SECTION = {"feature_name": "Up_conv2", "num_clusters": 20, "head_type": "mlp",
+              "hooks": {"cc": {"weight": 0.1, "kernel_size": 5}}}
+OTHER_SECTIONS = {"DifferentiableMeanTeacherParameters": {"weight": 1.0},
+                  "EntropyMinParameters": {"weight": 1.0}, "OrthogonalParameters": {"weight": 1.0},
+                  "PsuedoLabelParams": {"weight": 1.0}, "MixUpParams": {"weight": 1.0},
+                  "DAEParameters": {"weight": 1.0},
+                  "FeatureCrossCorrelationParameters": CC_SECTION}
+
+
+@pytest.mark.parametrize("section", list(OTHER_SECTIONS))
 def test_every_other_unported_section_still_raises(section):
-    config = _configs({"SPInfonceParams": SP_SECTION, section: {"weight": 1.0}})
-    with pytest.raises(NotImplementedError, match=section):
-        create_hook_from_config(config, channel_dim=UNet(max_channel=64).get_channel_dim)
+    """Beside ``SPInfonceParams``, a section without a port (those of
+    ``UNPORTED_SECTIONS``) still raises naming itself; a section ported
+    since builds its hook after the self-paced ones, named and ordered as
+    JAX's factory does."""
+    config = _configs({"SPInfonceParams": SP_SECTION, section: OTHER_SECTIONS[section]})
+    width = UNet(max_channel=64).get_channel_dim
+    if section in UNPORTED_SECTIONS:
+        with pytest.raises(NotImplementedError, match=section):
+            create_hook_from_config(config, channel_dim=width)
+        return
+    ours = create_hook_from_config(config, channel_dim=width)
+    assert [h.name for h in ours] == [h.name for h in jcreate_from_config(config)]
+    assert len(ours) == 3
+    assert section in PORTED_SECTIONS or "CrossCorrelation" in section
 
 
 def _pretrain_batch():
