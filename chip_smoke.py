@@ -144,14 +144,39 @@ Phases, in order; any failure exits non-zero:
    sections) and ``pretrain_clusters`` (ccblocks_imsat.yaml's; the logged
    imsat weight must move between epochs): the files, finite
    ``storage.csv`` values, the launches per step of ``P15_LAUNCHES`` plus 8
-   K1 and 1 K2 an eval forward, and ms/step inside the loop.
+   K1 and 1 K2 an eval forward, and ms/step inside the loop;
+16. the differentiable mean teacher, multicore and the adversarial trainer
+   (run after phase 15): (16a) the double backward at full width: first
+   the backward of each Function it runs (ops/convblock.py ``_Conv3x3``,
+   ``_ConvDw`` on the 3x3 and Up2 taps, ``_Conv3x3Bwd``, ``_UpconvDx``) at
+   the U-Net's batch-5 shapes, through the kernels against
+   ``plain_kernels()`` on identical bf16 inputs and cotangents, each output
+   to its kernel's tolerance, with the launches each must make; then the
+   Hessian-vector product of DMT ``second_order``'s inner loss (sup + 0.1
+   MSE, labeled and transformed batches of 5 at 224x224), driven through
+   the hook's own ``virtual_teacher``, through the kernels, under
+   ``plain_kernels()`` and in f32: held to the plain bf16 product within
+   ``HV_PLAIN_RTOL`` and as ``HV_FACTOR`` says, over the whole product and
+   at each kernel-backed level (Conv1, Conv2, Up2, Up_conv3, Up_conv2),
+   none of which may be zero, with the launches of each kernel in the
+   hook's create-graph pass and in the backward of the backward; (16b) one
+   full-width step of ``mt``, ``method2``, ``method3`` and ``method4``
+   through ``build_semi_run`` after one warm-up: finite losses, the
+   launches of ``DMT_PASSES``, a teacher that moved; (16c) ``main.main`` on
+   phase 15's layout for 2 epochs x 10 host-fed steps on each path of
+   ``P16_PATHS`` (``dmt``, ``dmt/second_order``, ``multicore``,
+   ``multicore_mt``, ``adv``): the files JAX's trainers write (no
+   ``inference_result.json`` for ``adv``), finite ``storage.csv`` values,
+   the launches per step of ``P16_LAUNCHES`` plus 8 K1 and 1 K2 an eval
+   forward, the DMT teacher moved, ``adv``'s checkpoint holding the
+   segmenter's initial weights (as JAX's does), ms/step and peak memory.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
 path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
-``ft/ema`` and the five of phases 14 and 15 each), ``max_abs_err`` the
+``ft/ema``, the five of phases 14 and 15 and phase 16's each), ``max_abs_err`` the
 largest over the checked shapes and call sites (phases 14-15's included),
 ``ms`` /
 ``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
@@ -2597,6 +2622,398 @@ def run_phase15(device, card: str, recs: dict, extra=()) -> dict:
         package.DATA_PATH, package.RUN_PATH = saved_paths
     return by_path
 
+#: phase 16a, the whole product: bf16 moves a whole-network second
+#: derivative far from f32 on both paths (the first derivative already
+#: moves 40-90%), so besides the limit on its distance to the plain bf16
+#: product (``HV_PLAIN_RTOL``), the kernel path's H v is at most
+#: ``HV_FACTOR`` times as far from the f32 H v as the plain bf16 path's,
+#: plus ``HV_ATOL``, over the whole product and at each kernel-backed level;
+#: and no such level's H v may be zero (the silent loss of the
+#: second-order term a backward without a graph causes)
+HV_FACTOR, HV_ATOL = STAGE_FACTOR, STAGE_ATOL
+#: relative L2 of the kernel path's H v from the plain bf16 path's, over the
+#: whole product and at each level: two bf16 roundings of every
+#: intermediate, magnified by the BN backward's cancellations, lay
+#: 0.119-0.264 apart on the H100 at these inputs (0.203 over all; a copy of
+#: the inner loss on other inputs gave 0.139-0.263), so the limit is 1.5x
+#: the largest reading; the Functions' own checks hold each derivative to
+#: its kernel's tolerance
+HV_PLAIN_RTOL = 0.4
+#: a weight gradient of the double backward: C1's f32 sums (DK_RTOL)
+#: rounded to the weights' bf16, where a rounding may flip one ulp (<= 2^-7
+#: of the value)
+DK_BF16_RTOL = DK_RTOL + 2.0 ** -7
+#: the levels whose convs run on the kernels at full width
+HV_LEVELS = ("_Conv1.", "_Conv2.", "_Up2.", "_Up_conv3.", "_Up_conv2.")
+DMT_METHOD = "DifferentiableMeanTeacherParameters.method_name"
+#: (forwards, backward passes) of a DMT step: the student's two; the
+#: teacher's consistency forward; a meta gradient (forward and backward)
+#: in ``method1``-``method4``; ``method4``'s teacher forward at t
+DMT_PASSES = {"mt": (3, 2), "method1": (4, 3), "method2": (4, 3), "method3": (4, 3),
+              "method4": (5, 3)}
+#: launches of the backward of one pass's create-graph backward: each of
+#: its 9 C2 Functions K1 3 (its x, w-transposed and g sides) and C1 1;
+#: Conv1.conv0's C1 Function K1 1 (the image takes no gradient); Up2's C1
+#: Function K3 1 and K2 1, its K3 Function K2 1 and C1 1; plus the pass's
+#: own first-order backward again (its outputs feed the cotangents)
+DOUBLE_BWD_PASS = {"conv3x3_stats": 28, "upconv3x3_stats": 2, "upconv3x3_dx": 2,
+                   "conv_dw_taps": 12, "conv3x3_bwd_fused": 9}
+P16_STEPS, P16_EPOCHS = 10, 2
+#: the five paths of phase 16c, (name, argv of ``main.main``): the dmt
+#: preset (``method1``), its ``second_order``, the multicore preset (8
+#: prototypes a class: 32 channels) with the METHODS grid's IIC hook, the
+#: same with the mean teacher of config/hooks/mt.yaml (``multicore_mt``),
+#: the adv preset (``reg_weight`` 0.01)
+P16_MT = ["+MeanTeacherParameters.weight=1", "+MeanTeacherParameters.alpha=0.99",
+          "+MeanTeacherParameters.weight_decay=0.000001",
+          "+MeanTeacherParameters.update_bn=false", "+MeanTeacherParameters.hard_clip=false"]
+P16_PATHS = [("dmt", ["Trainer.name=dmt"]),
+             ("dmt/second_order", ["Trainer.name=dmt", f"{DMT_METHOD}=second_order"]),
+             ("multicore", ["Trainer.name=multicore", "+IIDSegParameters.weight=0.01"]),
+             ("multicore_mt", ["Trainer.name=multicore", "+IIDSegParameters.weight=0.01",
+                               *P16_MT]),
+             ("adv", ["Trainer.name=adv"])]
+
+
+def passes_launches(forwards: int, backwards: int, double: int = 0) -> dict:
+    """K1 8 and K2 1 a forward; K3 1, C1 2 and C2 9 a backward pass;
+    ``DOUBLE_BWD_PASS`` per pass differentiated twice."""
+    single = {"conv3x3_stats": 8 * forwards, "upconv3x3_stats": forwards,
+              "upconv3x3_dx": backwards, "conv_dw_taps": 2 * backwards,
+              "conv3x3_bwd_fused": 9 * backwards}
+    return {k: v + double * DOUBLE_BWD_PASS[k] for k, v in single.items()}
+
+
+#: a ``second_order`` step: 7 forwards (the student's two, the teacher's
+#: two, the inner loss's two, the meta loss at t1), 5 backward passes (the
+#: student's two, the inner loss's two with create_graph, the meta loss's),
+#: and the inner loss's two passes differentiated again (checked with the
+#: plain versions counted at full width on the CPU: 112, 11, 9, 34, 63)
+SECOND_ORDER_LAUNCHES = passes_launches(7, 5, 2)
+#: 16a's H v through ``virtual_teacher``: the teacher's forward, the inner
+#: loss's 2 forwards, their create-graph backward, and both differentiated
+#: again
+HV_LAUNCHES = passes_launches(3, 2, 2)
+P16_LAUNCHES = {"dmt": passes_launches(*DMT_PASSES["method1"]),
+                "dmt/second_order": SECOND_ORDER_LAUNCHES,
+                "multicore": passes_launches(2, 2), "multicore_mt": passes_launches(3, 2),
+                "adv": passes_launches(2, 2)}
+
+
+def check_double_backward_functions(device) -> None:
+    """Phase 16a, first part: the backward of each Function the double
+    backward runs (ops/convblock.py), through the kernels and under
+    ``plain_kernels()``, on identical bf16 inputs and cotangents at the
+    full-width U-Net's batch-5 shapes, with the launches of the kernel run.
+    One kernel's bf16 output is held to KERNEL_RTOL; a weight gradient to
+    DK_BF16_RTOL; C2's g side, conv(g_dx, w) + conv(x, g_dk), the sum of two
+    K1 outputs, to KERNEL_RTOL of the two terms' largest magnitudes summed
+    (each term may flip an ulp, and the sum's rounding one more)."""
+    import torch
+    from contrastyou_tpu_torch.ops import convblock as cb
+
+    gen = torch.Generator(device=device).manual_seed(161)
+    B, f32 = 5, torch.float32
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    def conv_dw(up2):
+        return lambda x, g: cb._ConvDw.apply(x, g, up2)
+
+    # (label, Function, inputs, which take a gradient, the outputs'
+    # cotangents, the gradients' names, the launches of the backward)
+    cases = [("_Conv3x3 32->32 @224", cb._Conv3x3.apply,
+              (randn(B, 224, 224, 32), randn(3, 3, 32, 32)), (True, True),
+              (randn(B, 224, 224, 32),), ("dx", "dw"), {"conv3x3_bwd_fused": 1}),
+             ("_ConvDw Conv1.conv0", conv_dw(False),
+              (randn(B, 224, 224, 1), randn(B, 224, 224, 32)), (False, True),
+              (randn(9, 1, 32, dtype=f32),), ("dg",), {"conv3x3_stats": 1}),
+             ("_ConvDw Up2", conv_dw(True),
+              (randn(B, 112, 112, 64), randn(B, 224, 224, 32)), (True, True),
+              (randn(16, 64, 32, dtype=f32),), ("dx", "dg"),
+              {"upconv3x3_dx": 1, "upconv3x3_stats": 1}),
+             *((f"_Conv3x3Bwd {ci}->{co} @{H}", cb._Conv3x3Bwd.apply,
+                (randn(B, H, H, ci), randn(3, 3, ci, co), randn(B, H, H, co)), (True,) * 3,
+                (randn(B, H, H, ci), randn(3, 3, ci, co, dtype=f32)), ("dx", "dw", "dg"),
+                {"conv3x3_stats": 3, "conv_dw_taps": 1})
+               for ci, co, H in ((32, 32, 224), (32, 64, 112), (64, 64, 112))),
+             ("_UpconvDx Up2", cb._UpconvDx.apply,
+              (randn(B, 224, 224, 32), randn(4, 4, 64, 32)), (True, True),
+              (randn(B, 112, 112, 64),), ("dg", "dtaps"),
+              {"upconv3x3_stats": 1, "conv_dw_taps": 1})]
+
+    def backward(fn, inputs, needs, cots):
+        leaves = [t.clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+        outs = fn(*leaves)
+        torch.cuda.synchronize()
+        _reset_counts()
+        grads = torch.autograd.grad(outs if isinstance(outs, tuple) else (outs,),
+                                    [t for t in leaves if t.requires_grad], cots)
+        torch.cuda.synchronize()
+        return grads, {k: n for k, n in _counts().items() if n}
+
+    for label, fn, inputs, needs, cots, names, want in cases:
+        got, launches = backward(fn, inputs, needs, cots)
+        with plain_kernels():
+            ref, _ = backward(fn, inputs, needs, cots)
+        errs = []
+        for name, a, b in zip(names, got, ref):
+            err = (a.float() - b.float()).abs().max().item()
+            if name == "dg" and label.startswith("_Conv3x3Bwd"):
+                x, w, _ = inputs
+                terms = (cb.conv3x3_stats_plain(cots[0], w, stats=False)[0],
+                         cb.conv3x3_stats_plain(x, cots[1].to(x.dtype), stats=False)[0])
+                scale = sum(t.float().abs().max().item() for t in terms)
+                limit = KERNEL_RTOL
+            else:
+                scale = b.float().abs().max().item()
+                limit = DK_BF16_RTOL if name in ("dw", "dtaps") else KERNEL_RTOL
+            rel = err / max(scale, 1e-30)
+            errs.append(f"{name} {rel:.2e} (limit {limit:.2e})")
+            if not (rel <= limit and a.shape == b.shape and scale > 0):
+                raise AssertionError(f"{label}: {name} {rel:.3e} from the plain backward "
+                                     f"(limit {limit:.3e}), shape {tuple(a.shape)}")
+        print(f"  {label} backward vs plain: {', '.join(errs)}; launches {launches}")
+        if launches != want:
+            raise AssertionError(f"{label}: the backward launched {launches}, want {want}")
+
+
+def check_double_backward(device, card: str, size: int = 224) -> dict:
+    """Phase 16a (see ``HV_PLAIN_RTOL`` and ``HV_FACTOR``): the Functions'
+    checks, then H v of the inner loss through the DMT hook's
+    ``virtual_teacher`` -> the launches of the kernel run. With alpha 0 and
+    meta_weight 1 the hook's t1 is p - grad(inner), so the gradient of
+    <t1, v> in the student's parameters is v - H v."""
+    import torch
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.hooks import StepContext
+    from contrastyou_tpu_torch.hooks.dmt import DifferentiableMeanTeacherTrainerHook
+    from contrastyou_tpu_torch.main import synthetic_split
+    from contrastyou_tpu_torch.models.unet import UNet
+    from contrastyou_tpu_torch.ops.affine import sample_gammas, sample_geo_params, transform_image
+
+    print("phase 16a: the double backward's Functions at full width, batch 5:")
+    check_double_backward_functions(device)
+    gen = torch.Generator(device=device).manual_seed(16)
+    weights = UNet(max_channel=512, momentum=0.01).to(device).init_weights(gen).state_dict()
+    images, targets = synthetic_split(10, size, seed=16)
+    lab = torch.from_numpy(images[:5, ..., None]).to(device)
+    target = torch.from_numpy(targets[:5]).to(device)
+    unl = torch.from_numpy(images[5:, ..., None]).to(device)
+    geo = sample_geo_params(gen, 5)
+    unl_tf = transform_image(unl, geo, sample_gammas(gen, 5))
+    hook = DifferentiableMeanTeacherTrainerHook(name="dmt", alpha=0.0, meta_weight=1.0,
+                                                method_name="second_order")
+    names = [k for k, _ in UNet(max_channel=512).named_parameters()]
+    vs = {k: torch.randn(weights[k].shape, generator=gen, device=device) for k in names}
+
+    def hv(dtype, stages=None):
+        model = UNet(max_channel=512, momentum=0.01, dtype=dtype).to(device)
+        model.load_state_dict(weights)
+        bundle = ModelBundle(model, (size, size, 1))
+        state = hook.init_state(bundle)
+        # labeled_logits: the hook reads only its class count
+        ctx = StepContext(labeled_image=lab, labeled_target=target,
+                          labeled_logits=lab.new_zeros(5, size, size, model.num_classes),
+                          unlabeled_image=unl, unlabeled_image_tf=unl_tf, geo_params=geo,
+                          bundle=bundle)
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t1 = hook.virtual_teacher(ctx, state)
+        marks = [_counts()]
+        dot = sum((t1[k].float() * vs[k]).sum() for k in names)
+        out = torch.autograd.grad(dot, [params[k] for k in names])
+        torch.cuda.synchronize()
+        marks.append(_counts())
+        if stages is not None:
+            stages["ms"] = (time.perf_counter() - t0) * 1e3
+            prev = {k: 0 for k in marks[0]}
+            for label, m in zip(("virtual_teacher (teacher forward, inner loss forwards, "
+                                 "create-graph backward)", "backward of the backward"), marks):
+                stages[label] = {k: m[k] - prev[k] for k in m if m[k] - prev[k]}
+                prev = m
+        return {k: (vs[k] - g.float()).detach() for k, g in zip(names, out)}
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stages: dict = {}
+    _reset_counts()
+    got = hv(torch.bfloat16, stages)
+    launches = _counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with plain_kernels():
+        plain = hv(torch.bfloat16)
+        ref = hv(torch.float32)
+
+    def rel(a, b, keys):
+        num = math.sqrt(sum(float(((a[k] - b[k]) ** 2).sum()) for k in keys))
+        return num / max(math.sqrt(sum(float((b[k] ** 2).sum()) for k in keys)), 1e-30)
+
+    print(f"phase 16a: H v of the inner loss through virtual_teacher and the kernels in "
+          f"{stages['ms']:.1f} ms, peak {peak:.2f} GiB above the process's, on {card}")
+    for label in [k for k in stages if k != "ms"]:
+        print(f"  launches, {label}: {stages[label]}")
+    for level, keys in (("all", names), *((lv.strip("_."), [k for k in names if k.startswith(lv)])
+                                          for lv in HV_LEVELS)):
+        ek, ep, ekp = rel(got, ref, keys), rel(plain, ref, keys), rel(got, plain, keys)
+        norm = math.sqrt(sum(float((got[k] ** 2).sum()) for k in keys))
+        print(f"  H v {level}: kernels vs plain {ekp:.3e} (limit {HV_PLAIN_RTOL}); kernels vs "
+              f"f32 {ek:.3e}, plain bf16 vs f32 {ep:.3e}; |H v| {norm:.3e}")
+        if (not (math.isfinite(norm) and norm > 0) or ekp > HV_PLAIN_RTOL
+                or ek > HV_FACTOR * ep + HV_ATOL):
+            raise AssertionError(f"H v at {level}: |H v| {norm}, kernels {ekp:.3e} from plain, "
+                                 f"{ek:.3e} from f32, plain bf16 {ep:.3e} from f32")
+    if {k: launches[k] for k in HV_LAUNCHES} != HV_LAUNCHES:
+        raise AssertionError(f"the double backward launched {launches}, want {HV_LAUNCHES}")
+    return launches
+
+
+def run_dmt_steps(device, card: str, **sizes) -> dict:
+    """Phase 16b: per update rule, one warm-up and one timed step of
+    ``build_semi_run`` at full width (the counts over both); ``sizes`` go to
+    ``build_semi_run``."""
+    import gc
+
+    import torch
+    from contrastyou_tpu_torch.main import build_semi_run, parse_config
+
+    by_path = {}
+    for method in ("mt", "method2", "method3", "method4"):
+        run = build_semi_run(parse_config(["-o", "Trainer.name=dmt", f"{DMT_METHOD}={method}"]),
+                             device=device, **sizes)
+        start = {k: v.clone() for k, v in run.state.hook_states["dmt"]["teacher_params"].items()}
+        torch.cuda.synchronize()
+        _reset_counts()
+        warm = run.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = run.run(1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = by_path[f"dmt/{method}"] = _counts()
+        want = {k: 2 * n for k, n in passes_launches(*DMT_PASSES[method]).items()}
+        losses = [float(m[k]) for m in warm + timed for k in ("total_loss", "dmt/loss")]
+        teacher = run.state.hook_states["dmt"]["teacher_params"]
+        moved = sum(not torch.equal(teacher[k], v) for k, v in start.items())
+        print(f"  dmt/{method}: losses {losses}; {ms:.1f} ms for the timed step on {card}; "
+              f"{moved} of {len(start)} teacher tensors moved; launches {counts}")
+        if (not all(math.isfinite(v) for v in losses) or not moved
+                or {k: counts[k] for k in want} != want):
+            raise AssertionError(f"dmt/{method}: losses {losses}, {moved} teacher tensors moved, "
+                                 f"launches {counts}, want {want}")
+        STEP_MS[f"dmt/{method}"] = ms
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def check_phase16_run(path, run_dir, records: list, launches: dict, eval_counts: dict,
+                      start: dict, card: str, peak: float) -> None:
+    """Phase 16c: one path's files, finite ``storage.csv`` values, the
+    launches (per step x steps, plus 8 K1 and 1 K2 per eval forward), the
+    teacher moved (dmt) or the checkpoint holding the initial segmenter
+    (adv, as JAX's), and its ms/step."""
+    from contrastyou_tpu_torch.engine.checkpoint import load_checkpoint
+
+    csv_lines = (run_dir / "storage.csv").read_text().splitlines()
+    header = csv_lines[0].split(",")
+    rows = [{k: float(v) for k, v in zip(header, line.split(",")) if k and v}
+            for line in csv_lines[1:]]
+    files = [".success", "last/train_state.pt", "config.yaml"]
+    files += [] if path == "adv" else ["inference_result.json"]
+    missing = [f for f in files if not (run_dir / f).exists()]
+    if (missing or len(rows) != P16_EPOCHS or (path == "adv") != (
+            not (run_dir / "inference_result.json").exists())
+            or not all(math.isfinite(v) for row in rows for v in row.values())):
+        raise AssertionError(f"{path}: missing {missing}, {len(rows)} rows, an "
+                             f"inference_result.json where JAX writes none, or a non-finite "
+                             f"value in storage.csv")
+    saved = load_checkpoint(run_dir / "last", map_location="cpu")["train_state"]
+    if path.startswith("dmt"):
+        teacher = saved["hook_states"]["dmt"]["teacher_params"]
+        moved = sum(not torch_equal(teacher[k], v) for k, v in start["model"].items())
+        print(f"{path}: {moved} of {len(teacher)} teacher tensors moved from the initial weights")
+        if not moved:
+            raise AssertionError(f"{path}: the teacher did not move")
+    if path == "adv":
+        same = all(torch_equal(saved["model"][k], v) for k, v in start["model"].items())
+        print(f"{path}: the checkpoint holds the initial segmenter, as JAX's: {same}")
+        if not same:
+            raise AssertionError(f"{path}: the checkpoint does not hold what JAX's holds")
+    train = [r for r in records if r["phase"] == "train"]
+    steps = sum(r["steps"] for r in train)
+    fwd = sum(r["batches"] for r in records if r["phase"] in ("val", "test", "inference"))
+    want = {k: n * steps for k, n in P16_LAUNCHES[path].items()}
+    want["conv3x3_stats"] += 8 * fwd
+    want["upconv3x3_stats"] += fwd
+    want = {k: want.get(k, 0) for k in launches}
+    ms = [r["seconds"] / r["steps"] * 1e3 for r in train]
+    last = {k.split("/metrics/")[-1] if "/metrics/" in k else k: v for k, v in rows[-1].items()
+            if k.startswith("tra/") and ("loss" in k or "/metrics/" in k)}
+    print(f"{path}: {len(rows)} storage rows, last {last}; train "
+          f"{', '.join(f'{m:.3f}' for m in ms)} ms/step inside the loop on {card}; peak "
+          f"{peak:.2f} GiB above the process's; {fwd} eval forwards; launches {launches}")
+    if launches != want or eval_counts.get("conv3x3_stats", 0) != 8 * fwd:
+        raise AssertionError(f"{path}: launches {launches} (eval {eval_counts}), want {want}")
+    STEP_MS[path] = ms[-1]
+
+
+def run_phase16(device, card: str, extra=()) -> dict:
+    """Phase 16: 16a, 16b, then each path of P16_PATHS through ``main.main``
+    on phase 15's layout with the counts set to 0 just before it and read
+    just after (16c)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+
+    by_path = {"dmt/double_backward": check_double_backward(device, card)}
+    torch.cuda.empty_cache()
+    print("phase 16b: one full-width step of each first-order DMT rule:")
+    by_path.update(run_dmt_steps(device, card))
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as tmp:
+            data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+            synthesize_acdc_like(data, num_train_scans=P15_SCANS[0], num_val_scans=P15_SCANS[1],
+                                 slices_per_scan=P15_SLICES, size=P15_SIZE)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(runs)
+            for path, argv in P16_PATHS:
+                save = path.replace("/", "_")
+                eval_counts: dict = {}
+                starts: dict = {}
+                timings.records.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                _reset_counts()
+                t0 = time.perf_counter()
+                with eval_launches(eval_counts), start_snapshot(starts):
+                    if port_main.main(["-o", *argv, f"Trainer.max_epoch={P16_EPOCHS}",
+                                       f"Trainer.num_batches={P16_STEPS}",
+                                       f"Trainer.save_dir={save}", *extra]) != 0:
+                        raise AssertionError(f"{path}: main returned non-zero")
+                torch.cuda.synchronize()
+                by_path[path] = _counts()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                print(f"{path}: {time.perf_counter() - t0:.1f} s")
+                check_phase16_run(path, runs / save, timings.records, by_path[path],
+                                  eval_counts, starts[str(runs / save)], card, peak)
+    finally:
+        logger.removeHandler(timings)
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    return by_path
+
+
 
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
@@ -2678,6 +3095,11 @@ def main() -> int:
     by_path.update(run_phase15(device, card, recs))
     torch.cuda.empty_cache()
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    print("the differentiable mean teacher, multicore and adversarial trainers (phase 16):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase16(device, card))
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

@@ -12,7 +12,7 @@ no other scaling, and the learning rate of update ``t`` is the schedule at
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Mapping, Tuple
+from typing import Callable, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,20 +104,26 @@ class RAdam(torch.optim.Optimizer):
 
 
 def create_optimizer(params: Iterable[torch.Tensor], optim_params: Mapping,
-                     scheduler_params: Mapping, *, max_epoch: int,
+                     scheduler_params: Optional[Mapping], *, max_epoch: int,
                      steps_per_epoch: int) -> Tuple[RAdam, Callable[[int], float]]:
     """(optimizer, schedule) from reference config sections
     ``Optim: {name, lr, weight_decay}`` and ``Scheduler: {multiplier,
-    warmup_max}``; RAdam only."""
+    warmup_max}``; without a ``Scheduler`` a constant learning rate
+    (optax's ``constant_schedule``, as the adversarial trainer's
+    discriminator takes); RAdam only."""
     name = str(optim_params.get("name", "RAdam")).lower()
     if name != "radam":
         raise KeyError(f"optimizer '{name}' is not ported (radam only)")
-    schedule = warmup_schedule(
-        base_lr=float(optim_params.get("lr", 1e-7)),
-        multiplier=float(scheduler_params.get("multiplier", 300)),
-        warmup_max_epoch=int(scheduler_params.get("warmup_max", 10)),
-        max_epoch=max_epoch, steps_per_epoch=steps_per_epoch,
-        name=str(scheduler_params.get("name", "cosine")).lower())
+    lr = float(optim_params.get("lr", 1e-7))
+    if scheduler_params:
+        schedule = warmup_schedule(
+            base_lr=lr, multiplier=float(scheduler_params.get("multiplier", 300)),
+            warmup_max_epoch=int(scheduler_params.get("warmup_max", 10)),
+            max_epoch=max_epoch, steps_per_epoch=steps_per_epoch,
+            name=str(scheduler_params.get("name", "cosine")).lower())
+    else:
+        def schedule(count: int) -> float:
+            return lr
     opt = RAdam(params, schedule,
                 weight_decay=float(optim_params.get("weight_decay", 0.0)))
     return opt, schedule

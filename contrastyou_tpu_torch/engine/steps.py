@@ -108,7 +108,10 @@ def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
 
 
 def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
-                     disable_bn: bool = False, mode: str = "semi") -> Callable:
+                     disable_bn: bool = False, mode: str = "semi",
+                     sup_criterion: Optional[Callable] = None,
+                     prob_transform: Optional[Callable] = None,
+                     target_num_classes: Optional[int] = None) -> Callable:
     """-> ``step(state, batch, draws, epoch=0) -> metrics`` for ``mode``
     ``semi`` or ``ft``.
 
@@ -121,12 +124,16 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     (``disable_bn`` keeps the second from updating the BN running
     statistics). ``ft`` runs the labeled forward alone; its ``draws``
     (:func:`sample_ft_draws`, or None) carry the drawing hooks' draws only.
-    The metrics stay on the device."""
+    ``sup_criterion(probs, onehot)`` replaces the supervised KL,
+    ``prob_transform`` maps the probabilities before the dice counts and
+    ``target_num_classes`` is the class count of the targets (multicore:
+    the prototype channels summed to the true classes); without them the
+    model's classes and the KL. The metrics stay on the device."""
     if mode not in ("semi", "ft"):
         raise ValueError(f"mode {mode!r}: semi or ft")
     hooks = tuple(hooks)
     taps = combined_taps(hooks)
-    num_classes = bundle.num_classes
+    num_classes = target_num_classes or bundle.num_classes
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: Optional[StepDraws], epoch: int = 0) -> Dict[str, torch.Tensor]:
@@ -161,7 +168,7 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
 
         onehot = F.one_hot(labeled_target.long(), num_classes).float()
         probs = torch.softmax(labeled_logits, -1)
-        sup_loss = kl_div(probs, onehot)
+        sup_loss = kl_div(probs, onehot) if sup_criterion is None else sup_criterion(probs, onehot)
         reg_loss = sup_loss.new_zeros(())
         metrics: Dict[str, torch.Tensor] = {}
         for hook in hooks:
@@ -181,7 +188,8 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                 ctx, state.model, state.hook_states[hook.name])
         state.step += 1
 
-        inter, union = slice_intersection_union(probs.detach().argmax(-1), labeled_target,
+        pred = probs.detach() if prob_transform is None else prob_transform(probs.detach())
+        inter, union = slice_intersection_union(pred.argmax(-1), labeled_target,
                                                 num_classes=num_classes)
         metrics.update(sup_loss=sup_loss.detach(), reg_loss=reg_loss.detach(),
                        total_loss=total.detach(), dice_inter=inter, dice_union=union)
@@ -231,33 +239,44 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     return cached_step
 
 
-def tta_probs(model: torch.nn.Module, image: torch.Tensor) -> torch.Tensor:
-    """Test-time augmentation: the mean class probability over the four axis
-    flips of the NHWC ``image`` (none, W, H, both), each flipped back."""
+def _probs(model: torch.nn.Module, image: torch.Tensor,
+           prob_transform: Optional[Callable]) -> torch.Tensor:
+    p = torch.softmax(model(image, train=False)[0], -1)
+    return p if prob_transform is None else prob_transform(p)
+
+
+def tta_probs(model: torch.nn.Module, image: torch.Tensor,
+              prob_transform: Optional[Callable] = None) -> torch.Tensor:
+    """Test-time augmentation: the mean class probability (after
+    ``prob_transform``) over the four axis flips of the NHWC ``image``
+    (none, W, H, both), each flipped back."""
     def probs(dims):
         x = torch.flip(image, dims) if dims else image
-        p = torch.softmax(model(x, train=False)[0], -1)
+        p = _probs(model, x, prob_transform)
         return torch.flip(p, dims) if dims else p
 
     return (probs(()) + probs((2,)) + probs((1,)) + probs((1, 2))) / 4.0
 
 
-def build_eval_step(bundle: ModelBundle, *, tta: bool = False) -> Callable:
+def build_eval_step(bundle: ModelBundle, *, tta: bool = False,
+                    prob_transform: Optional[Callable] = None,
+                    target_num_classes: Optional[int] = None) -> Callable:
     """-> ``eval_step(model, image, target, mask) -> (loss, pred, inter,
     union)``, under ``torch.no_grad``: the running-statistics forward of
     ``model`` (the bundle's or an eval model of the same classes), or its
     flip average with ``tta``; ``loss`` the KL to the one-hot target per
     pixel, averaged per sample and over the ``mask``-ed samples; ``pred`` the
     argmax [B,H,W]; per-sample [B, C] dice counts zeroed where ``mask`` is
-    False."""
-    num_classes = bundle.num_classes
+    False. ``prob_transform`` and ``target_num_classes`` as in
+    :func:`build_train_step`."""
+    num_classes = target_num_classes or bundle.num_classes
 
     @torch.no_grad()
     def eval_step(model, image, target, mask):
         if tta:
-            probs = tta_probs(model, image)
+            probs = tta_probs(model, image, prob_transform)
         else:
-            probs = torch.softmax(model(image, train=False)[0], -1)
+            probs = _probs(model, image, prob_transform)
         per_px = kl_div(probs, F.one_hot(target.long(), num_classes).float(),
                         reduction="none")
         m = mask.float()

@@ -89,6 +89,9 @@ class Trainer:
 
     activate_hooks: bool = True
     train_mode: str = "semi"        # "semi" | "ft"
+    #: whether ``main`` ends a run with :meth:`inference` (SemiTrainer and
+    #: its subclasses; not the pretraining or adversarial trainers)
+    runs_inference: bool = False
 
     def __init__(self, *, model: torch.nn.Module, labeled_loader, unlabeled_loader=None,
                  val_loader=None, test_loader=None, save_dir: str = "tmp",
@@ -96,7 +99,10 @@ class Trainer:
                  config: t.Optional[t.Mapping] = None, two_stage: bool = True,
                  disable_bn: bool = False, accumulate_iter: int = 1,
                  enable_scale: bool = False, seed: int = 10, device_cache: bool = False,
-                 unroll_steps: int = 1, profile: bool = False, **kwargs):
+                 unroll_steps: int = 1, profile: bool = False,
+                 criterion: t.Optional[t.Callable] = None,
+                 prob_transform: t.Optional[t.Callable] = None,
+                 target_num_classes: t.Optional[int] = None, **kwargs):
         del enable_scale, kwargs  # bf16 needs no loss scaling; other keys are the JAX trainer's
         for key, value, default in (("Trainer.two_stage", two_stage, True),
                                     ("Trainer.accumulate_iter", accumulate_iter, 1),
@@ -105,6 +111,10 @@ class Trainer:
             if value != default:
                 raise NotImplementedError(f"{key}={value!r} is not ported (only {default!r})")
         self._model = model
+        # the multicore trainer's supervised criterion, probability transform
+        # and true class count (engine/steps.py build_train_step)
+        self._criterion, self._prob_transform = criterion, prob_transform
+        self._target_num_classes = target_num_classes
         self._labeled_loader, self._unlabeled_loader = labeled_loader, unlabeled_loader
         self._val_loader, self._test_loader = val_loader, test_loader
         save_dir = Path(save_dir)
@@ -187,14 +197,19 @@ class Trainer:
 
     @property
     def num_classes(self) -> int:
-        return self._bundle.num_classes
+        return self._target_num_classes or self._bundle.num_classes
+
+    def _eval_kwargs(self) -> dict:
+        return dict(prob_transform=self._prob_transform,
+                    target_num_classes=self._target_num_classes)
 
     @property
     def _semi(self) -> bool:
         return self.train_mode == "semi"
 
     def _build_steps(self) -> None:
-        kw = dict(disable_bn=self._disable_bn)
+        kw = dict(disable_bn=self._disable_bn, sup_criterion=self._criterion,
+                  **self._eval_kwargs())
         if self._device_cache:
             crop = int(self._bundle.input_shape[0])
             self._labeled_cache = DeviceDataCache.from_dataset(
@@ -210,7 +225,7 @@ class Trainer:
         else:
             self._train_step = build_train_step(self._bundle, self._active_hooks,
                                                 mode=self.train_mode, **kw)
-        self._eval_step = build_eval_step(self._bundle)
+        self._eval_step = build_eval_step(self._bundle, **self._eval_kwargs())
 
     def _train_iterators(self):
         """The train loaders' iterators, made once per run (``ft`` reads no
@@ -266,7 +281,7 @@ class Trainer:
                 self.save_to("best")
             tra = stages["tra"]["tra"]
             logger.info("epoch %d/%d: sup %.5f reg %.5f sup DSC_mean %.4f, val DSC_mean %s",
-                        epoch + 1, self._max_epoch, tra["sup_loss"], tra["reg_loss"],
+                        epoch + 1, self._max_epoch, tra["sup_loss"], tra.get("reg_loss", 0.0),
                         tra["sup_dice"]["DSC_mean"],
                         "-" if cur_score is None else f"{cur_score:.4f}")
         package.success(self._save_dir)
@@ -387,7 +402,7 @@ class Trainer:
     def save_to(self, name: str = "last") -> str:
         path = Path(self._save_dir) / name
         t0 = time.perf_counter()
-        save_checkpoint(path, train_state=train_state_dict(self._state, self._active_hooks),
+        save_checkpoint(path, train_state=self._train_state_to_save(),
                         host_state={"cur_epoch": self._cur_epoch + 1,
                                     "best_score": float(self._best_score),
                                     "config": self._config,
@@ -396,6 +411,9 @@ class Trainer:
         logger.info("saved %s in %.3f s", path, seconds,
                     extra={"timing": {"phase": "save", "name": name, "seconds": seconds}})
         return str(path)
+
+    def _train_state_to_save(self) -> dict:
+        return train_state_dict(self._state, self._active_hooks)
 
     def resume_from_path(self, path: str) -> None:
         if not self._initialized:

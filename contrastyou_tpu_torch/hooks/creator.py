@@ -1,11 +1,11 @@
 """Config-keyed hook factory (counterpart of contrastyou_tpu/hooks/creator.py):
 hooks are selected by the presence of their config section, with the
 reference's key names, in the JAX factory's order and under its hook names.
-A hook section the JAX factory knows but the port has no hook for (the
-differentiable mean teacher) raises NotImplementedError naming it, so no
-preset trains without the regularizer it asks for. Given the
-trainer, the factory also picks its eval model: an ``EvalEMAParameters`` EMA
-over a mean teacher, as JAX does."""
+Every hook section of the JAX factory has a port (:data:`UNPORTED_SECTIONS`
+is empty; a section listed there would raise NotImplementedError naming
+it). Given the trainer, the factory also picks its eval model: an
+``EvalEMAParameters`` EMA over a mean teacher (MT, UAMT, ICT or DMT), as
+JAX does."""
 from __future__ import annotations
 
 import logging
@@ -16,6 +16,7 @@ from .autoencoder import DenoisingAutoEncoderTrainerHook
 from .ccblock import create_cross_correlation_hook
 from .consistency import ConsistencyTrainerHook
 from .discretemi import DiscreteIMSATTrainHook, DiscreteMITrainHook
+from .dmt import DifferentiableMeanTeacherTrainerHook
 from .entmin import EntropyMinTrainerHook
 from .infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
 from .midl import IIDSegmentationTrainerHook, IMSATTrainHook
@@ -35,12 +36,13 @@ logger = logging.getLogger(__name__)
 #: key containing ``CrossCorrelationParameters``, after ``IMSATFeatureParameters``)
 PORTED_SECTIONS = ("InfonceParams", "SPInfonceParams", "DiscreteMIConsistencyParams",
                    "MeanTeacherParameters", "UAMeanTeacherParameters",
-                   "ICTMeanTeacherParameters", "EntropyMinParameters", "OrthogonalParameters",
+                   "ICTMeanTeacherParameters", "DifferentiableMeanTeacherParameters",
+                   "EntropyMinParameters", "OrthogonalParameters",
                    "IIDSegParameters", "PsuedoLabelParams", "IMSATParameters",
                    "IMSATFeatureParameters", "ConsistencyParameters", "MixUpParams",
                    "DAEParameters", "InfonceSuperPixelParams", "EvalEMAParameters")
 #: hook sections of the JAX factory without a port yet
-UNPORTED_SECTIONS = ("DifferentiableMeanTeacherParameters",)
+UNPORTED_SECTIONS: tuple = ()
 #: the fixed grid of the dense self-paced hooks (JAX ``create_sp_infonce_hooks``)
 SP_DENSE_GRID = (16, 16)
 
@@ -169,6 +171,11 @@ def create_hook_from_config(config: Mapping, *, channel_dim: Callable[[str], int
     if "ICTMeanTeacherParameters" in config:
         not_pretrain("ICTMeanTeacherParameters")
         mt_hook = ICTMeanTeacherTrainerHook(name="ict", **config["ICTMeanTeacherParameters"])
+        hooks.append(mt_hook)
+    if "DifferentiableMeanTeacherParameters" in config:
+        not_pretrain("DifferentiableMeanTeacherParameters")
+        mt_hook = DifferentiableMeanTeacherTrainerHook(
+            name="dmt", **config["DifferentiableMeanTeacherParameters"])
         hooks.append(mt_hook)
     if "EntropyMinParameters" in config:
         hooks.append(EntropyMinTrainerHook(

@@ -11,6 +11,10 @@ contrastive pretraining, on one device.
         Arch.checkpoint=<RUN_PATH>/<pretrain>/last Trainer.save_dir=<ft>
     python -m contrastyou_tpu_torch.main -o Trainer.name=mt Trainer.save_dir=<mt>
     python -m contrastyou_tpu_torch.main -o Trainer.name=mixup Trainer.save_dir=<mixup>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=dmt \
+        DifferentiableMeanTeacherParameters.method_name=second_order Trainer.save_dir=<dmt>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=multicore Trainer.save_dir=<mc>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=adv Trainer.save_dir=<adv>
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/ccblocks2.yaml \
         -o Trainer.name=semi Trainer.save_dir=<ccblocks>
     python -m contrastyou_tpu_torch.main -o Trainer.name=pretrain ~InfonceParams \
@@ -25,7 +29,9 @@ takes the argv of the root ``main.py``. Without ``-p`` the base is the
 in-code equal of the YAML files for ``Trainer.name``: :data:`MAIN_PATH_CONFIG`
 (``semi``), config/base.yaml alone (``ft``), :data:`MT_CONFIG` (``mt``:
 config/hooks/mt.yaml's mean teacher), :data:`MIXUP_CONFIG` (``mixup``:
-config/hooks/mixup.yaml), :data:`PRETRAIN_DECODER_CONFIG`
+config/hooks/mixup.yaml), :data:`DMT_CONFIG`, :data:`MULTICORE_CONFIG` and
+:data:`ADV_CONFIG` (``dmt``, ``multicore``, ``adv``: config/hooks' file of
+that name), :data:`PRETRAIN_DECODER_CONFIG`
 or :data:`PRETRAIN_ENCODER_CONFIG`, so no YAML installation is needed (:data:`UDAIIC_CONFIG` is the in-code
 ``semi`` + ``udaiic`` base; from the ``semi`` base the same run is
 ``-o Trainer.name=semi ~ConsistencyParameters`` plus the four
@@ -43,7 +49,11 @@ hooks come from the config's hook sections (``hooks/creator.py``; a section
 without a port raises); ``mt`` evaluates and infers on the teacher,
 ``mixup`` trains on the labeled batch alone with the MixUp hook, and an
 ``EvalEMAParameters`` section adds an EMA of the student that ``semi`` and
-``ft`` evaluate on.
+``ft`` evaluate on. ``dmt`` evaluates and infers on the differentiable mean
+teacher; ``multicore`` builds a model of ``MulticoreParameters.multiplier``
+prototype channels a class (:func:`multicore_classes`) and sums them back
+to the classes; ``adv`` trains a discriminator beside the segmenter and,
+as JAX's trainer, runs no hooks and no inference.
 
 Every trainer runs the root ``main.py``'s experiment (:func:`run_experiment`):
 the dataset ``Data.name`` from ``$CONTRASTYOU_DATA_PATH`` (its on-disk
@@ -113,8 +123,8 @@ from .trainers.pretrain import (build_pretrain_step, check_pretrain_hooks, contr
                                 pretrain_trainable, sample_pretrain_draws)
 from .utils.torch_convert import load_pretrained
 
-__all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "MT_CONFIG", "MIXUP_CONFIG",
-           "PRETRAIN_DECODER_CONFIG",
+__all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "MT_CONFIG", "MIXUP_CONFIG", "DMT_CONFIG",
+           "MULTICORE_CONFIG", "ADV_CONFIG", "PRETRAIN_DECODER_CONFIG", "multicore_classes",
            "PRETRAIN_ENCODER_CONFIG", "UNPORTED_KEYS", "refuse_unported_keys",
            "check_warm_start", "resolve_device", "synthetic_split", "synthetic_scans",
            "SemiRun", "build_semi_run", "PretrainRun", "build_pretrain_run", "parse_config",
@@ -161,6 +171,20 @@ MT_CONFIG = merge(_BASE, {"MeanTeacherParameters": {
 #: mixup): labeled steps with the MixUp hook
 MIXUP_CONFIG = merge(_BASE, {"Trainer": {"name": "mixup"},
                              "MixUpParams": {"weight": 0.1, "enable_bn": True}})
+#: config/base.yaml merged with config/hooks/dmt.yaml: the differentiable mean
+#: teacher (``method1``)
+DMT_CONFIG = merge(_BASE, {"Trainer": {"name": "dmt"},
+                           "DifferentiableMeanTeacherParameters": {
+                               "weight": 10, "alpha": 0.99, "weight_decay": 0.000001,
+                               "meta_weight": 0.001, "meta_criterion": "ce",
+                               "method_name": "method1"}})
+#: config/base.yaml merged with config/hooks/multicore.yaml (``Trainer.name``
+#: stays null; ``-o Trainer.name=multicore`` picks this base): 8 prototypes a
+#: class, no hook
+MULTICORE_CONFIG = merge(_BASE, {"MulticoreParameters": {"multiplier": 8, "name": "naive",
+                                                         "mi_weight": 0.001}})
+#: config/base.yaml merged with config/hooks/adv.yaml: the adversarial trainer
+ADV_CONFIG = merge(_BASE, {"Trainer": {"name": "adv", "reg_weight": 0.01}})
 #: config/base.yaml + config/pretrain.yaml + config/hooks/infonce.yaml
 PRETRAIN_DECODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
     "InfonceParams": {"feature_names": ["Conv5", "Up_conv2"], "weights": [1.0, 1.0],
@@ -173,7 +197,8 @@ PRETRAIN_ENCODER_CONFIG = merge(merge(_BASE, _PRETRAIN), {
     "Trainer": {"name": "pretrain"}})
 
 _DEFAULTS = {None: MAIN_PATH_CONFIG, "semi": MAIN_PATH_CONFIG, "ft": _BASE, "mt": MT_CONFIG,
-             "mixup": MIXUP_CONFIG, "pretrain": PRETRAIN_ENCODER_CONFIG,
+             "mixup": MIXUP_CONFIG, "dmt": DMT_CONFIG, "multicore": MULTICORE_CONFIG,
+             "adv": ADV_CONFIG, "pretrain": PRETRAIN_ENCODER_CONFIG,
              "pretrain_decoder": PRETRAIN_DECODER_CONFIG}
 PRETRAIN_TRAINERS = ("pretrain", "pretrain_decoder")
 
@@ -449,6 +474,19 @@ def parse_config(argv, base: Optional[Mapping] = None) -> dict:
     return config
 
 
+def multicore_classes(config: Mapping, num_classes: int) -> dict:
+    """The multicore trainer's ``true_num_classes`` and ``multiplier`` from
+    ``MulticoreParameters`` (JAX root ``main.py``): the model predicts
+    ``num_classes * multiplier`` prototype channels; a criterion other than
+    ``naive`` raises, as upstream."""
+    mc = config.get("MulticoreParameters", {})
+    name = mc.get("name", "naive")
+    if name != "naive":
+        raise RuntimeError(f"MulticoreParameters.name={name!r} (only 'naive' is supported, "
+                           f"as upstream)")
+    return {"true_num_classes": num_classes, "multiplier": int(mc.get("multiplier", 2))}
+
+
 def find_checkpoint(save_dir) -> Optional[str]:
     """``<save_dir>/last`` when it holds a checkpoint."""
     last = Path(save_dir) / "last"
@@ -468,10 +506,13 @@ def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
         data, config.get("LabeledLoader", {}), config.get("UnlabeledLoader", {}),
         root_dir=package.DATA_PATH, pretrain=is_pretrain,
         order_num=int(data.get("order_num", 0)))
+    num_classes = dataset_spec(str(data["name"])).train_classes
+    multicore = multicore_classes(config, num_classes) if name == "multicore" else {}
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = _model(config, device, dtype, None, gen, dataset_spec(str(data["name"])).train_classes)
+    model = _model(config, device, dtype, None, gen,
+                   num_classes * multicore.get("multiplier", 1))
     kwargs = dict(model=model, labeled_loader=labeled, unlabeled_loader=unlabeled,
-                  val_loader=val, test_loader=test, config=config, seed=seed,
+                  val_loader=val, test_loader=test, config=config, seed=seed, **multicore,
                   **{k: v for k, v in config["Trainer"].items() if k not in ("name", "device")})
     if is_pretrain:
         clp = {k: v for k, v in config.get("ContrastiveLoaderParams", {}).items()
@@ -492,7 +533,7 @@ def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     if resume:
         trainer.resume_from_path(resume)
     best = trainer.start_training()
-    if not is_pretrain:
+    if trainer.runs_inference:
         best_ckpt = Path(trainer.save_dir) / "best"
         trainer.inference(checkpoint=str(best_ckpt) if best_ckpt.exists() else None)
     logging.getLogger(__name__).info("training finished, best score: %s", best)

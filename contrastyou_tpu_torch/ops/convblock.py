@@ -32,6 +32,27 @@ plain PyTorch version beside it (same signature, same rounding points: f32
 accumulation, one rounding of the output to the input dtype, statistics of the
 rounded output), a CUDA tensor to the kernel — which raises on what it does
 not take. Activations are NHWC, weights HWIO.
+
+The backward is differentiable again (``create_graph=True``, as DMT's
+``second_order`` rule takes it): with grad mode on, every dx, dW and d-taps
+the conv-block Functions return is the output of another Function whose
+forward is a kernel and whose backward is kernels again (the JAX package
+differentiates its ``custom_vjp`` rules the same way):
+
+- dx of a 3x3 conv, K1 on the flipped, channel-swapped kernel
+  (:class:`_Conv3x3`): its adjoints are K1 on the kernel and C1;
+- dW, C1 (:class:`_ConvDw`): its adjoints are K1 on dW's cotangent (the g
+  side) and K1 on its flipped transpose (the x side); on Up2's taps K2 and
+  K3;
+- dx and dW from C2 (:class:`_Conv3x3Bwd`): the sum of those;
+- Up2's dx, K3 (:class:`_UpconvDx`): its adjoints are K2 and C1 on the
+  parity taps.
+
+Without grad mode the backward launches the kernels directly, as before.
+Each Function calls the kernels through this module's names
+(``conv3x3_stats``, ``upconv3x3_stats``, ``upconv3x3_dx``, ``conv_dw_taps``,
+``conv3x3_bwd_fused``), so swapping those for the plain versions swaps
+every order of the backward.
 """
 from __future__ import annotations
 
@@ -233,13 +254,120 @@ def _conv3x3_bwd(x, w, g, need_dx: bool, need_dw: bool):
     """(dx, dW) of one input of a 3x3 conv for the folded cotangent ``g``,
     None where not needed (convblock.py ``_plane_conv_bwd``): C2 when Cin >=
     :data:`FUSED_BWD_MIN_CIN`, else dx on K1 with the flipped kernel and dW
-    on C1."""
+    on C1. Differentiable in grad mode (see the module docstring)."""
     if need_dw and x.shape[-1] >= FUSED_BWD_MIN_CIN:
-        dx, dk = conv3x3_bwd_fused(x, w, g)
+        dx, dk = _bwd_fused(x, w, g)
         return (dx if need_dx else None), dk.to(w.dtype)
-    dw = conv_dw_taps(x, g).reshape(w.shape).to(w.dtype) if need_dw else None
-    dx = conv3x3_stats(g, flip_transpose(w), stats=False)[0] if need_dx else None
+    dw = _dw(x, g).reshape(w.shape).to(w.dtype) if need_dw else None
+    dx = _conv(g, flip_transpose(w)) if need_dx else None
     return dx, dw
+
+
+# --- the backward's own backward (create_graph) ----------------------------
+#
+# Each helper launches its kernel directly outside grad mode (the first-order
+# backward), and through a Function whose backward is kernels in grad mode
+# (a backward taken with create_graph=True). The Functions alone would launch
+# the same kernels in both, but on the host-bound semi step the direct calls
+# measured 7-14 ms/step faster on the H100 (PERF.md).
+
+def _conv(x, w):
+    """K1 without statistics: ``conv3x3_SAME(x, w)``."""
+    if torch.is_grad_enabled():
+        return _Conv3x3.apply(x, w)
+    return conv3x3_stats(x, w, stats=False)[0]
+
+
+def _dw(x, g, up2: bool = False):
+    """C1: dk [T, Cin, Cout] f32."""
+    if torch.is_grad_enabled():
+        return _ConvDw.apply(x, g, up2)
+    return conv_dw_taps(x, g, up2)
+
+
+def _bwd_fused(x, w, g):
+    """C2: (dx, dk [3,3,Cin,Cout] f32)."""
+    if torch.is_grad_enabled():
+        return _Conv3x3Bwd.apply(x, w, g)
+    return conv3x3_bwd_fused(x, w, g)
+
+
+def _upconv(x, taps):
+    """K2's output alone."""
+    if torch.is_grad_enabled():
+        return _UpconvStats.apply(x, taps)[0]
+    return upconv3x3_stats(x, taps)[0]
+
+
+def _updx(g, taps):
+    """K3: Up2's dx."""
+    if torch.is_grad_enabled():
+        return _UpconvDx.apply(g, taps)
+    return upconv3x3_dx(g, taps)
+
+
+class _Conv3x3(torch.autograd.Function):
+    """``conv3x3_SAME(x, w)`` on K1 (the dx of a 3x3 conv, on the flipped,
+    channel-swapped kernel); backward: dx on K1 (the flipped kernel again),
+    dW on C1, or both on C2."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3x3_stats(x, w, stats=False)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _conv3x3_bwd(x, w, g.contiguous(), *ctx.needs_input_grad[:2])
+
+
+class _ConvDw(torch.autograd.Function):
+    """C1's dk = sum x[shifted] g; backward for dk's cotangent ``gk``: the g
+    side is the conv of x with ``gk`` (K1, or K2 on Up2's taps), the x side
+    the adjoint conv of g (K1 on ``gk`` flipped and transposed, or K3)."""
+
+    @staticmethod
+    def forward(ctx, x, g, up2):
+        ctx.save_for_backward(x, g)
+        ctx.up2 = up2
+        return conv_dw_taps(x, g, up2)
+
+    @staticmethod
+    def backward(ctx, gk):
+        x, g = ctx.saved_tensors
+        need_x, need_g = ctx.needs_input_grad[:2]
+        cin, cout = x.shape[-1], g.shape[-1]
+        k = gk.to(x.dtype).reshape(*((4, 4) if ctx.up2 else (3, 3)), cin, cout)
+        if ctx.up2:
+            dx = _updx(g, k) if need_x else None
+            dg = _upconv(x, k) if need_g else None
+        else:
+            dx = _conv(g, flip_transpose(k)) if need_x else None
+            dg = _conv(x, k) if need_g else None
+        return dx, dg, None
+
+
+class _Conv3x3Bwd(torch.autograd.Function):
+    """C2's (dx, dk) = (conv(g, flip_transpose(w)), sum x[shifted] g);
+    backward: the g side conv(g_dx, w) + conv(x, g_dk) on K1, the w side
+    C1(g_dx, g), the x side conv(g, flip_transpose(g_dk)) on K1."""
+
+    @staticmethod
+    def forward(ctx, x, w, g):
+        ctx.save_for_backward(x, w, g)
+        return conv3x3_bwd_fused(x, w, g)
+
+    @staticmethod
+    def backward(ctx, g_dx, g_dk):
+        x, w, g = ctx.saved_tensors
+        need_x, need_w, need_g = ctx.needs_input_grad
+        k = g_dk.to(x.dtype).contiguous()
+        g_dx = g_dx.contiguous()
+        dx = _conv(g, flip_transpose(k)) if need_x else None
+        dw = _dw(g_dx, g).reshape(w.shape).to(w.dtype) if need_w else None
+        dg = _conv(g_dx, w) + _conv(x, k) if need_g else None
+        return dx, dw, dg
 
 
 def conv3x3_bn_stats(x, w, skip=None, w_skip=None):
@@ -387,11 +515,31 @@ class _UpconvStats(torch.autograd.Function):
     def backward(ctx, g_out, g_s, g_sq):
         x, taps, out = ctx.saved_tensors
         g = _cotangent(out, g_out, g_s, g_sq, x.dtype)
-        dx = upconv3x3_dx(g, taps) if ctx.needs_input_grad[0] else None
+        dx = _updx(g, taps) if ctx.needs_input_grad[0] else None
         dtaps = None
         if ctx.needs_input_grad[1]:
-            dtaps = conv_dw_taps(x, g, up2=True).reshape(taps.shape).to(taps.dtype)
+            dtaps = _dw(x, g, up2=True).reshape(taps.shape).to(taps.dtype)
         return dx, dtaps
+
+
+class _UpconvDx(torch.autograd.Function):
+    """K3's dx = K2^T(g); backward for dx's cotangent ``gx``: the g side
+    K2(gx), the taps side C1 on the parity taps of (gx, g)."""
+
+    @staticmethod
+    def forward(ctx, g, taps):
+        ctx.save_for_backward(g, taps)
+        return upconv3x3_dx(g, taps)
+
+    @staticmethod
+    def backward(ctx, gx):
+        g, taps = ctx.saved_tensors
+        gx = gx.contiguous()
+        dg = _upconv(gx, taps) if ctx.needs_input_grad[0] else None
+        dtaps = None
+        if ctx.needs_input_grad[1]:
+            dtaps = _dw(gx, g, up2=True).reshape(taps.shape).to(taps.dtype)
+        return dg, dtaps
 
 
 def upconv3x3_bn_stats(x, k3):

@@ -25,6 +25,7 @@ logger = logging.getLogger(__name__)
 
 class SemiTrainer(Trainer):
     activate_hooks = True
+    runs_inference = True
 
     def inference(self, scan_loader=None, checkpoint: Optional[str] = None,
                   tta: Optional[bool] = None) -> dict:
@@ -43,7 +44,8 @@ class SemiTrainer(Trainer):
         meters.register_meter("loss", AverageValueMeter())
         dice = meters.register_meter("dice", UniversalDice(c, report_axis=range(1, c)))
         asd = meters.register_meter("asd", SurfaceMeter(c, report_axis=range(1, c)))
-        eval_step = build_eval_step(self._bundle, tta=True) if tta else self._eval_step
+        eval_step = (build_eval_step(self._bundle, tta=True, **self._eval_kwargs()) if tta
+                     else self._eval_step)
         model = self._inference_state()
         t0, n = time.perf_counter(), 0
         with meters:

@@ -33,9 +33,20 @@ the projection heads' map.
 and the mean-teacher hook states, whose U-Nets are flax trees in JAX and
 ``state_dict`` halves in the port:
 
-  teacher_params / teacher_batch_stats / ema_step  (MT, UAMT, ICT)
+  teacher_params / teacher_batch_stats / ema_step  (MT, UAMT, ICT, DMT)
   ema_params / ema_batch_stats / ema_step          (EvalEMAParameters)
   <-> {named_parameters}, {named_buffers}, int
+
+with DMT's teacher optimizer beside them, optax's ``ScaleByAdamState`` inside
+its chain state on the flax side:
+
+  teacher_opt (count, mu, nu)  <-> {"count": int, "mu": {...}, "nu": {...}}
+
+and the adversarial trainer's discriminator (models/discriminator.py):
+
+  Conv_i.weight [O,I,4,4]           <-> Conv_i/kernel [4,4,I,O]
+  BatchNorm_i.{scale,bias,mean,var} <-> BatchNorm_i/{scale,bias} + batch_stats
+  Dense_0.weight [1,I], .bias       <-> Dense_0/kernel [I,1], /bias
 
 Values are numpy arrays on the flax side and tensors on the torch side.
 
@@ -53,7 +64,8 @@ import numpy as np
 import torch
 
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_to_hook_state",
-           "hook_state_to_flax", "flax_to_head_state_dict",
+           "hook_state_to_flax", "flax_to_discriminator_state_dict",
+           "discriminator_state_dict_to_flax", "flax_to_head_state_dict",
            "head_state_dict_to_flax", "flax_to_cluster_head_state_dict",
            "cluster_head_state_dict_to_flax", "save_npz_tree", "load_npz_tree",
            "merge_pretrained", "load_pretrained"]
@@ -125,29 +137,98 @@ HOOK_STATE_TREES = (("teacher_params", "teacher_batch_stats"), ("ema_params", "e
 _BUFFERS = (".running_mean", ".running_var")
 
 
+def _adam_state(opt_state):
+    """optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside a
+    chain state."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    for part in (opt_state if isinstance(opt_state, (tuple, list)) else ()):
+        found = _adam_state(part)
+        if found is not None:
+            return found
+    return None
+
+
 def flax_to_hook_state(state: t.Mapping) -> dict:
-    """A JAX mean-teacher or EMA hook state (flax trees and ``ema_step``) ->
-    the port's: the parameters and the BN running statistics as two dicts
-    keyed as the model's ``named_parameters`` / ``named_buffers`` (f32
-    tensors), ``ema_step`` an int."""
+    """A JAX mean-teacher or EMA hook state (flax trees and ``ema_step``; for
+    DMT also the teacher's optax state) -> the port's: the parameters and the
+    BN running statistics as two dicts keyed as the model's
+    ``named_parameters`` / ``named_buffers`` (f32 tensors), ``ema_step`` an
+    int, ``teacher_opt`` as :func:`~contrastyou_tpu_torch.hooks.dmt.adam_init`
+    lays it out."""
     for p_key, s_key in HOOK_STATE_TREES:
         if p_key in state:
+            def params_of(tree):
+                sd = flax_to_state_dict(tree, state[s_key])
+                return {k: v for k, v in sd.items() if not k.endswith(_BUFFERS)}
+
             sd = flax_to_state_dict(state[p_key], state[s_key])
-            return {p_key: {k: v for k, v in sd.items() if not k.endswith(_BUFFERS)},
-                    s_key: {k: v for k, v in sd.items() if k.endswith(_BUFFERS)},
-                    "ema_step": int(np.asarray(state["ema_step"]))}
+            out = {p_key: params_of(state[p_key]),
+                   s_key: {k: v for k, v in sd.items() if k.endswith(_BUFFERS)},
+                   "ema_step": int(np.asarray(state["ema_step"]))}
+            if "teacher_opt" in state:
+                adam = _adam_state(state["teacher_opt"])
+                out["teacher_opt"] = {"mu": params_of(adam.mu), "nu": params_of(adam.nu),
+                                      "count": int(np.asarray(adam.count))}
+            return out
     raise KeyError(f"not a mean-teacher hook state: {sorted(state)}")
 
 
 def hook_state_to_flax(state: t.Mapping) -> dict:
     """Inverse of :func:`flax_to_hook_state` (numpy leaves, ``ema_step``
-    int32)."""
+    int32; DMT's ``teacher_opt`` as ``{"count", "mu", "nu"}`` with flax
+    parameter trees)."""
     for p_key, s_key in HOOK_STATE_TREES:
         if p_key in state:
-            tree = state_dict_to_flax({**state[p_key], **state[s_key]})
-            return {p_key: tree["params"], s_key: tree["batch_stats"],
-                    "ema_step": np.int32(state["ema_step"])}
+            stats = state[s_key]
+            tree = state_dict_to_flax({**state[p_key], **stats})
+            out = {p_key: tree["params"], s_key: tree["batch_stats"],
+                   "ema_step": np.int32(state["ema_step"])}
+            if "teacher_opt" in state:
+                opt = state["teacher_opt"]
+                out["teacher_opt"] = {
+                    "count": np.int32(opt["count"]),
+                    **{m: state_dict_to_flax({**opt[m], **stats})["params"]
+                       for m in ("mu", "nu")}}
+            return out
     raise KeyError(f"not a mean-teacher hook state: {sorted(state)}")
+
+
+def flax_to_discriminator_state_dict(params: t.Mapping, batch_stats: t.Mapping) -> dict:
+    """The discriminator's flax ``params`` + ``batch_stats`` -> the port's
+    ``Discriminator`` state_dict (f32 tensors)."""
+    sd = {}
+    for layer, leaves in params.items():
+        if layer.startswith("Conv_"):
+            sd[f"{layer}.weight"] = torch.tensor(
+                np.transpose(np.asarray(leaves["kernel"], np.float32), (3, 2, 0, 1)))
+        elif layer.startswith("Dense_"):
+            sd[f"{layer}.weight"] = torch.tensor(np.asarray(leaves["kernel"], np.float32).T)
+            sd[f"{layer}.bias"] = torch.tensor(np.asarray(leaves["bias"], np.float32))
+        else:
+            for k in ("scale", "bias"):
+                sd[f"{layer}.{k}"] = torch.tensor(np.asarray(leaves[k], np.float32))
+            for k in ("mean", "var"):
+                sd[f"{layer}.{k}"] = torch.tensor(np.asarray(batch_stats[layer][k], np.float32))
+    return sd
+
+
+def discriminator_state_dict_to_flax(sd: t.Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`flax_to_discriminator_state_dict` ->
+    ``{"params": ..., "batch_stats": ...}`` with numpy leaves."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, v in sd.items():
+        layer, leaf = key.split(".")
+        a = v.detach().float().cpu().numpy()
+        if layer.startswith("Conv_"):
+            out["params"].setdefault(layer, {})["kernel"] = np.transpose(a, (2, 3, 1, 0))
+        elif layer.startswith("Dense_"):
+            out["params"].setdefault(layer, {})["kernel" if leaf == "weight" else "bias"] = (
+                np.ascontiguousarray(a.T) if leaf == "weight" else a)
+        else:
+            coll = "batch_stats" if leaf in ("mean", "var") else "params"
+            out[coll].setdefault(layer, {})[leaf] = a
+    return out
 
 
 def flax_to_head_state_dict(params: t.Mapping) -> dict:

@@ -414,7 +414,8 @@ def test_factory_builds_the_sections_in_jax_order():
     assert hooks[-1].always_active and not hooks[-1].requires_unlabeled and hooks[-1].weight == 0
     for s in sections:
         assert s not in UNPORTED_SECTIONS
-    assert "DifferentiableMeanTeacherParameters" in UNPORTED_SECTIONS
+    # the differentiable mean teacher, the last section without a port, has one now
+    assert "DifferentiableMeanTeacherParameters" not in UNPORTED_SECTIONS == ()
 
 
 @pytest.mark.parametrize("ema", [False, True])
