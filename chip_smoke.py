@@ -169,15 +169,34 @@ Phases, in order; any failure exits non-zero:
    ``inference_result.json`` for ``adv``), finite ``storage.csv`` values,
    the launches per step of ``P16_LAUNCHES`` plus 8 K1 and 1 K2 an eval
    forward, the DMT teacher moved, ``adv``'s checkpoint holding the
-   segmenter's initial weights (as JAX's does), ms/step and peak memory.
+   segmenter's initial weights (as JAX's does), ms/step and peak memory;
+17. the other architectures and the step and optimizer knobs (run after
+   phase 16): (17a) the GroupNorm U-Net's kernel levels (phase 6a's stage
+   check, ``norm="groupnorm"``: per-sample group statistics from K1/K2's
+   sums and their per-sample cotangent through C1/C2) at batches 5 and 15,
+   then one full-width ``semi`` step each of the GroupNorm net, of
+   ``two_stage=false`` (K1 at batch 15) and of the ResUNet with every K1,
+   K2, K3, C1 and C2 launch held against its plain version; (17b) one
+   warm-up and one timed full-width ``semi`` step of each of adam, adamw
+   and sgd under ``poly`` and ``step``; (17c) UNet2 at its default width
+   (dim 16, batch 10, 224x224, f32), a timed forward + backward on cuDNN
+   and einsums, no hand kernel; (17d) ``main.main`` on phase 15's layout
+   for 2 epochs x 10 host-fed steps on each path of ``P17_PATHS``
+   (``resunet/semi``, ``resunet/pretrain_decoder``, ``groupnorm/semi``,
+   ``semi/accumulate``, ``semi/one_stage``): the files, finite
+   ``storage.csv`` values, what each path must hold (residual blocks, no
+   running statistics, one inner update per 2 steps), the launches per
+   step of ``P17_LAUNCHES`` plus each eval forward's (``P17_EVAL``),
+   ms/step and peak memory.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
 path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
-``ft/ema``, the five of phases 14 and 15 and phase 16's each), ``max_abs_err`` the
-largest over the checked shapes and call sites (phases 14-15's included),
+``ft/ema``, the five of phases 14 and 15 and phases 16's and 17's each),
+``max_abs_err`` the largest over the checked shapes and call sites (phases
+14-17's included),
 ``ms`` /
 ``plain_ms`` / ``library_ms`` / ``bound_ms`` the sums over those shapes of
 one launch each (C1/C2: over the batch-96 shapes only; ``by_batch`` has the
@@ -1026,11 +1045,12 @@ def plain_kernels():
             setattr(cb, k, f)
 
 
-def check_stages(device, B: int) -> None:
+def check_stages(device, B: int, norm: str = "batchnorm") -> None:
     """Phase 6a: the kernel-path U-Net levels (Conv1; Up2 -> Up_conv2 with
     the Conv1 skip) at full width, batch ``B``, forward and backward, are as
     close to an f32 evaluation of the same modules as the plain bf16 path is
-    (the backward runs C1 twice and C2 four times at every batch).
+    (the backward runs C1 twice and C2 four times at every batch); ``norm``
+    ``groupnorm`` checks the GroupNorm net's levels (phase 17a).
     bf16 itself moves these gradients by 10-25% from f32 (measured on the CPU:
     the BN backward cancels large terms), so a direct kernel-vs-plain bound
     would be noise; the kernel path must instead stay within
@@ -1039,8 +1059,8 @@ def check_stages(device, B: int) -> None:
     from contrastyou_tpu_torch.models.unet import UNet
 
     gen = torch.Generator(device=device).manual_seed(1)
-    net = UNet(max_channel=512, momentum=0.01).to(device).init_weights(gen)
-    net32 = UNet(max_channel=512, momentum=0.01, dtype=torch.float32).to(device)
+    net = UNet(max_channel=512, momentum=0.01, norm=norm).to(device).init_weights(gen)
+    net32 = UNet(max_channel=512, momentum=0.01, norm=norm, dtype=torch.float32).to(device)
     net32.load_state_dict(net.state_dict())
     x = torch.rand(B, 224, 224, 1, generator=gen, device=device)
     d3 = torch.randn(B, 112, 112, 64, generator=gen, device=device).to(torch.bfloat16)
@@ -1071,7 +1091,7 @@ def check_stages(device, B: int) -> None:
     bwd = [launches[k] for k in BWD_KERNELS]
     if bwd != [2, 4]:
         raise AssertionError(f"stage check B={B}: C1/C2 launches {bwd}")
-    print(f"stage check B={B} (Conv1, Up2, Up_conv2 fwd+bwd, {len(ref)} tensors; C1/C2 "
+    print(f"stage check {norm} B={B} (Conv1, Up2, Up_conv2 fwd+bwd, {len(ref)} tensors; C1/C2 "
           f"launches {bwd}): kernel-path error vs f32 at most {worst:.2f}x the plain bf16 "
           f"path's (+{STAGE_ATOL})")
 
@@ -3015,6 +3035,269 @@ def run_phase16(device, card: str, extra=()) -> dict:
 
 
 
+P17_STEPS, P17_EPOCHS = 10, 2
+#: the five paths of phase 17d, (name, argv of ``main.main``)
+P17_PATHS = [("resunet/semi", ["Trainer.name=semi", "Arch.name=resunet"]),
+             ("resunet/pretrain_decoder", ["Trainer.name=pretrain_decoder", "Arch.name=resunet"]),
+             ("groupnorm/semi", ["Trainer.name=semi", "+Arch.norm=groupnorm"]),
+             ("semi/accumulate", ["Trainer.name=semi", "Trainer.accumulate_iter=2"]),
+             ("semi/one_stage", ["Trainer.name=semi", "Trainer.two_stage=false"])]
+
+
+def resunet_launches(forwards: int, backwards: int) -> dict:
+    """The ResUNet's kernel levels (its encoder runs on cuDNN): a forward's
+    K1 the two convs of Up_conv3 and of Up_conv2 (each first one with its
+    skip) and K2 Up2; a backward pass's C2 each of those convs' inputs (x
+    and skip: 6), K3 Up2's dx and C1 its parity taps."""
+    return {"conv3x3_stats": 4 * forwards, "upconv3x3_stats": forwards,
+            "upconv3x3_dx": backwards, "conv_dw_taps": backwards,
+            "conv3x3_bwd_fused": 6 * backwards}
+
+
+#: launches per train step (predicted from the code before the first run):
+#: ``semi`` two passes, ``pretrain_decoder`` one (cut at Up_conv2, the two
+#: InfoNCE hooks one D1/D2 pair each), ``two_stage=false`` one pass of batch
+#: 15; the GroupNorm net and MultiSteps launch as the BN net does on every
+#: call
+P17_LAUNCHES = {"resunet/semi": resunet_launches(2, 2),
+                "resunet/pretrain_decoder": dict(resunet_launches(1, 1), supcon_loss=2,
+                                                 supcon_dz=2),
+                "groupnorm/semi": passes_launches(2, 2),
+                "semi/accumulate": passes_launches(2, 2),
+                "semi/one_stage": passes_launches(1, 1)}
+#: (K1, K2) launches of one eval forward: the U-Net's 8 and 1, the ResUNet's 4 and 1
+P17_EVAL = {"resunet/semi": (4, 1)}
+#: phase 17a: the semi steps whose every K1-K3, C1 and C2 launch is checked
+#: against its plain version, with the batch K1 must see there
+P17_CHECKED = [("groupnorm", ["+Arch.norm=groupnorm"], 10),
+               ("one_stage", ["Trainer.two_stage=false"], 15),
+               ("resunet", ["Arch.name=resunet"], 10)]
+#: phase 17b: one timed step of each optimizer under each schedule
+P17_OPTIMS = [(o, sch) for o in ("adam", "adamw", "sgd") for sch in ("poly", "step")]
+
+
+def check_phase17_kernels(device, recs: dict) -> None:
+    """Phase 17a: the GroupNorm U-Net's kernel levels (per-sample group
+    statistics from K1/K2's sums, their per-sample cotangent folded into
+    C1/C2's) against f32 as the plain bf16 path is, at batches 5 and 15;
+    then one full-width ``semi`` step of each of ``P17_CHECKED`` with every
+    K1-K3, C1 and C2 launch held against its plain version."""
+    import gc
+
+    import torch
+    from contrastyou_tpu_torch.main import build_semi_run, parse_config
+
+    for B in (5, 15):
+        check_stages(device, B, norm="groupnorm")
+    for name, overrides, batch in P17_CHECKED:
+        run = build_semi_run(parse_config(["-o", "Trainer.name=semi", *overrides]), device=device)
+        errs: dict = {}
+        with checked_conv_kernels(errs):
+            m = run.step(run.state, run.generator)
+        torch.cuda.synchronize()
+        if not math.isfinite(float(m["total_loss"])):
+            raise AssertionError(f"{name} step: total loss {float(m['total_loss'])}")
+        if not any(s[0] == batch for s in errs.get("conv3x3_stats", {}).get("shapes", ())):
+            raise AssertionError(f"{name}: K1 not checked at batch {batch}: {errs}")
+        for k in (*CONV_KERNELS, *BWD_KERNELS):
+            e = errs.get(k)
+            if e is None:
+                raise AssertionError(f"{name}: {k} not launched: {errs}")
+            print(f"  {name}: {k} at {sorted(e['shapes'])}: max_abs_err {e['err']:.3e} "
+                  f"({e['rel']:.2f} of its limit)")
+            if e["rel"] > 1.0:
+                raise AssertionError(f"{name}: {k} disagrees with its plain version")
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e["err"])
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_optim_steps(device, card: str) -> dict:
+    """Phase 17b: per optimizer and schedule, one warm-up and one timed
+    full-width ``semi`` step through ``build_semi_run``: finite losses,
+    parameters moved, the launches of two semi steps."""
+    import gc
+
+    import torch
+    from contrastyou_tpu_torch.main import build_semi_run, parse_config
+
+    by_path = {}
+    for optim, sched in P17_OPTIMS:
+        name = f"semi/{optim}/{sched}"
+        run = build_semi_run(parse_config([
+            "-o", "Trainer.name=semi", f"Optim.name={optim}", f"+Scheduler.name={sched}",
+            "+Scheduler.milestones=[20,40]", "Optim.lr=0.0001"]), device=device)
+        before = {k: v.detach().clone() for k, v in run.state.model.named_parameters()}
+        torch.cuda.synchronize()
+        _reset_counts()
+        warm = run.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = run.run(1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = by_path[name] = _counts()
+        want = {k: 2 * n for k, n in SEMI_STEP_LAUNCHES.items()}
+        losses = [float(m["total_loss"]) for m in warm + timed]
+        moved = sum(not torch.equal(before[k], v.detach())
+                    for k, v in run.state.model.named_parameters())
+        print(f"  {name}: losses {losses}; {ms:.1f} ms for the timed step on {card}; "
+              f"{moved}/{len(before)} tensors moved; lr {run.state.optimizer.schedule(2):.3e} "
+              f"after two updates; launches {counts}")
+        if (not all(math.isfinite(v) for v in losses) or not moved
+                or {k: counts[k] for k in want} != want):
+            raise AssertionError(f"{name}: losses {losses}, {moved} tensors moved, "
+                                 f"launches {counts}, want {want}")
+        STEP_MS[name] = ms
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def run_unet2(device, card: str) -> None:
+    """Phase 17c: UNet2 at its default width (dim 16, mults 1/2/4/8), batch
+    10 at 224x224, f32 (as JAX's, which has no dtype field): one warm-up and
+    one timed forward + backward; finite logits and gradients, every
+    parameter reached."""
+    import torch
+    from contrastyou_tpu_torch.models import get_arch
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    net = get_arch("unet2", input_dim=1, num_classes=4).to(device).init_weights(gen)
+    x = torch.rand(10, 224, 224, 1, generator=gen, device=device)
+    proj = torch.randn(10, 224, 224, 4, generator=gen, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_counts()
+    for timed in (False, True):
+        net.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, taps = net(x)
+        (out * proj).mean().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    grads = [p.grad for p in net.parameters()]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"  unet2: logits {tuple(out.shape)}, {ms:.1f} ms for the timed forward + backward on "
+          f"{card}; peak {peak:.2f} GiB; {sum(g is not None for g in grads)}/{len(grads)} "
+          f"parameters reached; hand kernels launched {sum(_counts().values())}")
+    if (out.shape != (10, 224, 224, 4) or taps or not bool(torch.isfinite(out).all())
+            or any(g is None or not bool(torch.isfinite(g).all()) for g in grads)):
+        raise AssertionError("unet2: wrong shape, taps, or a missing or non-finite gradient")
+    if any(_counts().values()):
+        raise AssertionError(f"unet2 launched hand kernels: {_counts()}")
+    STEP_MS["unet2"] = ms
+
+
+def check_phase17_run(path, run_dir, records: list, launches: dict, eval_counts: dict,
+                      card: str, peak: float) -> None:
+    """Phase 17d: one path's files, finite ``storage.csv`` values, what the
+    path must hold (the ResUNet's residual blocks, no running statistics in
+    the GroupNorm net, MultiSteps' count of inner updates), the launches
+    (per step x steps, plus each eval forward's), ms/step and peak memory."""
+    from contrastyou_tpu_torch.engine.checkpoint import load_checkpoint
+
+    pretrain = "pretrain" in path
+    csv_lines = (run_dir / "storage.csv").read_text().splitlines()
+    header = csv_lines[0].split(",")
+    rows = [{k: float(v) for k, v in zip(header, line.split(",")) if k and v}
+            for line in csv_lines[1:]]
+    files = [".success", "last/train_state.pt"] + ([] if pretrain else ["inference_result.json"])
+    missing = [f for f in files if not (run_dir / f).exists()]
+    if missing or len(rows) != P17_EPOCHS or not all(
+            math.isfinite(v) for row in rows for v in row.values()):
+        raise AssertionError(f"{path}: missing {missing}, {len(rows)} rows, or a non-finite "
+                             f"value in storage.csv")
+    saved = load_checkpoint(run_dir / "last", map_location="cpu")["train_state"]
+    model = saved["model"]
+    train = [r for r in records if r["phase"] == "train"]
+    steps = sum(r["steps"] for r in train)
+    held = {"resunet/semi": "_Conv5.ResidualBlock_1.Conv_1.weight" in model,
+            "resunet/pretrain_decoder": "_Conv1.ResidualBlock_0.Conv_2.weight" in model,
+            "groupnorm/semi": not any(k.endswith("running_mean") for k in model)
+            and "_Conv1.conv.1.weight" in model,
+            "semi/accumulate": saved["optimizer_count"] * 2 == saved["step"] == steps,
+            "semi/one_stage": saved["optimizer_count"] == saved["step"] == steps}[path]
+    if not held:
+        raise AssertionError(f"{path}: the checkpoint does not hold what the path must "
+                             f"(optimizer count {saved['optimizer_count']}, step {saved['step']})")
+    fwd = sum(r["batches"] for r in records if r["phase"] in ("val", "test", "inference"))
+    k1, k2 = P17_EVAL.get(path, (8, 1))
+    want = {k: n * steps for k, n in P17_LAUNCHES[path].items()}
+    want["conv3x3_stats"] += k1 * fwd
+    want["upconv3x3_stats"] += k2 * fwd
+    want = {k: want.get(k, 0) for k in launches}
+    ms = [r["seconds"] / r["steps"] * 1e3 for r in train]
+    last = {k.split("/metrics/")[-1] if "/metrics/" in k else k: v for k, v in rows[-1].items()
+            if k.startswith("tra/") and ("loss" in k or "/metrics/" in k)}
+    print(f"{path}: {len(rows)} storage rows, last {last}; train "
+          f"{', '.join(f'{m:.3f}' for m in ms)} ms/step inside the loop on {card}; peak "
+          f"{peak:.2f} GiB above the process's; {fwd} eval forwards; launches {launches}")
+    if launches != want or eval_counts.get("conv3x3_stats", 0) != k1 * fwd:
+        raise AssertionError(f"{path}: launches {launches} (eval {eval_counts}), want {want}")
+    STEP_MS[path] = ms[-1]
+
+
+def run_phase17(device, card: str, recs: dict, extra=()) -> dict:
+    """Phase 17: 17a the kernels at the new call sites, 17b the optimizers
+    and schedules, 17c UNet2, then each path of P17_PATHS through
+    ``main.main`` on phase 15's layout with the counts set to 0 just before
+    it and read just after (17d)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+
+    print("phase 17a: the GroupNorm net's stages, and semi steps with every kernel launch "
+          "checked:")
+    check_phase17_kernels(device, recs)
+    print("phase 17b: one full-width semi step per optimizer and schedule:")
+    by_path = run_optim_steps(device, card)
+    print("phase 17c: UNet2 forward + backward:")
+    run_unet2(device, card)
+    torch.cuda.empty_cache()
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p17_") as tmp:
+            data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+            synthesize_acdc_like(data, num_train_scans=P15_SCANS[0], num_val_scans=P15_SCANS[1],
+                                 slices_per_scan=P15_SLICES, size=P15_SIZE)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(runs)
+            for path, argv in P17_PATHS:
+                save = path.replace("/", "_")
+                eval_counts: dict = {}
+                timings.records.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                _reset_counts()
+                t0 = time.perf_counter()
+                with eval_launches(eval_counts):
+                    if port_main.main(["-o", *argv, f"Trainer.max_epoch={P17_EPOCHS}",
+                                       f"Trainer.num_batches={P17_STEPS}",
+                                       f"Trainer.save_dir={save}", *extra]) != 0:
+                        raise AssertionError(f"{path}: main returned non-zero")
+                torch.cuda.synchronize()
+                by_path[path] = _counts()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                print(f"{path}: {time.perf_counter() - t0:.1f} s")
+                check_phase17_run(path, runs / save, timings.records, by_path[path],
+                                  eval_counts, card, peak)
+    finally:
+        logger.removeHandler(timings)
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    return by_path
+
+
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
 #: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
@@ -3100,6 +3383,11 @@ def main() -> int:
     by_path.update(run_phase16(device, card))
     torch.cuda.empty_cache()
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    print("the other architectures and the step and optimizer knobs (phase 17):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase17(device, card, recs))
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

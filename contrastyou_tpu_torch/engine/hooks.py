@@ -102,7 +102,8 @@ class TrainerHook:
 
     def loss(self, ctx: StepContext, state: Any
              ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
-        return ctx.labeled_logits.new_zeros(()), state, {}
+        ref = ctx.labeled_logits if ctx.labeled_logits is not None else ctx.unlabeled_logits
+        return ref.new_zeros(()), state, {}
 
     def post_step(self, ctx: StepContext, model: torch.nn.Module, state: Any) -> Any:
         return state

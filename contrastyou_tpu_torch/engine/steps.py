@@ -108,7 +108,7 @@ def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
 
 
 def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
-                     disable_bn: bool = False, mode: str = "semi",
+                     disable_bn: bool = False, two_stage: bool = True, mode: str = "semi",
                      sup_criterion: Optional[Callable] = None,
                      prob_transform: Optional[Callable] = None,
                      target_num_classes: Optional[int] = None) -> Callable:
@@ -117,12 +117,13 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
 
     ``batch``: ``labeled_image`` [B,H,W,1], ``labeled_target`` [B,H,W] int;
     under ``semi`` also ``unlabeled_image`` [Bu,H,W,1], optional group ids
-    and ``unlabeled_superpixel`` [Bu,H,W]. ``semi`` runs two-stage BN (the
-    reference config's ``Trainer.two_stage``; the one-pass form is not
-    ported): one forward over
+    and ``unlabeled_superpixel`` [Bu,H,W]. ``semi`` with ``two_stage``
+    (the reference config's ``Trainer.two_stage``) runs one forward over
     the labeled batch, one over the unlabeled batch and its transformed copy
     (``disable_bn`` keeps the second from updating the BN running
-    statistics). ``ft`` runs the labeled forward alone; its ``draws``
+    statistics); without it one forward over all three, with shared batch
+    statistics and one running update (``disable_bn`` then plays no part,
+    as in JAX). ``ft`` runs the labeled forward alone; its ``draws``
     (:func:`sample_ft_draws`, or None) carry the drawing hooks' draws only.
     ``sup_criterion(probs, onehot)`` replaces the supervised KL,
     ``prob_transform`` maps the probabilities before the dice counts and
@@ -142,8 +143,8 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         labeled_target = batch["labeled_target"]
         ctx = StepContext(labeled_image=labeled_image, labeled_target=labeled_target,
                           epoch=epoch, bundle=bundle)
-        labeled_logits, labeled_taps = bundle.apply_train(labeled_image, taps=taps)
-        ctx.labeled_logits, ctx.labeled_taps = labeled_logits, labeled_taps
+        if mode != "semi" or two_stage:
+            labeled_logits, labeled_taps = bundle.apply_train(labeled_image, taps=taps)
         if draws is not None:
             ctx.hook_draws = dict(draws.hooks or {})
         if mode == "semi":
@@ -158,13 +159,23 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
             ctx.partition_group = batch.get("unlabeled_partition")
             ctx.patient_group = batch.get("unlabeled_patient")
             ctx.cycle_group = batch.get("unlabeled_cycle")
-            u_logits, u_taps = bundle.apply_train(
-                torch.cat([unlabeled_image, ctx.unlabeled_image_tf], 0), taps=taps,
-                update_stats=not disable_bn)
+            if two_stage:
+                u_logits, u_taps = bundle.apply_train(
+                    torch.cat([unlabeled_image, ctx.unlabeled_image_tf], 0), taps=taps,
+                    update_stats=not disable_bn)
+            else:
+                nl = labeled_image.shape[0]
+                logits, all_taps = bundle.apply_train(
+                    torch.cat([labeled_image, unlabeled_image, ctx.unlabeled_image_tf], 0),
+                    taps=taps)
+                labeled_logits, u_logits = logits[:nl], logits[nl:]
+                labeled_taps = {k: v[:nl] for k, v in all_taps.items()}
+                u_taps = {k: v[nl:] for k, v in all_taps.items()}
             ctx.unlabeled_logits, ctx.unlabeled_tf_logits = u_logits[:nu], u_logits[nu:]
             ctx.unlabeled_logits_tf = transform_logits(ctx.unlabeled_logits, draws.geo)
             ctx.unlabeled_taps = {k: v[:nu] for k, v in u_taps.items()}
             ctx.unlabeled_tf_taps = {k: v[nu:] for k, v in u_taps.items()}
+        ctx.labeled_logits, ctx.labeled_taps = labeled_logits, labeled_taps
 
         onehot = F.one_hot(labeled_target.long(), num_classes).float()
         probs = torch.softmax(labeled_logits, -1)

@@ -32,6 +32,11 @@ time is logged with ``extra={"timing": {...}}`` (``phase`` train / val /
 test / inference / save, its ``seconds`` and counts), for callers that time
 the loop. The TensorBoard writer, hook figures and the profiler trace of the
 JAX trainer are not ported, nor its TPU knobs (``unroll_steps``, ``profile``).
+
+``two_stage`` (``semi`` steps) picks two forwards (labeled, then unlabeled
+and transformed) or one over all three; ``accumulate_iter`` makes the
+optimizer ``optax.MultiSteps`` (``engine/optim.py``): BN statistics and the
+hooks' post-steps move on every step, the parameters every k-th.
 """
 from __future__ import annotations
 
@@ -104,9 +109,7 @@ class Trainer:
                  prob_transform: t.Optional[t.Callable] = None,
                  target_num_classes: t.Optional[int] = None, **kwargs):
         del enable_scale, kwargs  # bf16 needs no loss scaling; other keys are the JAX trainer's
-        for key, value, default in (("Trainer.two_stage", two_stage, True),
-                                    ("Trainer.accumulate_iter", accumulate_iter, 1),
-                                    ("Trainer.unroll_steps", unroll_steps, 1),
+        for key, value, default in (("Trainer.unroll_steps", unroll_steps, 1),
                                     ("Trainer.profile", bool(profile), False)):
             if value != default:
                 raise NotImplementedError(f"{key}={value!r} is not ported (only {default!r})")
@@ -125,6 +128,8 @@ class Trainer:
         self._max_epoch, self._num_batches = int(max_epoch), int(num_batches)
         self._config = dict(config) if config else {}
         self._disable_bn = bool(disable_bn)
+        self._two_stage = bool(two_stage)
+        self._accumulate_iter = int(accumulate_iter)
         self._seed = int(seed)
         self._device_cache = bool(device_cache)
         self._hooks: t.List[TrainerHook] = []
@@ -167,7 +172,8 @@ class Trainer:
         self._optimizer, self._schedule = create_optimizer(
             self._trainable_parameters() + hook_parameters(self._active_hooks),
             self._config.get("Optim", {}), self._config.get("Scheduler", {}),
-            max_epoch=self._max_epoch, steps_per_epoch=self._num_batches)
+            max_epoch=self._max_epoch, steps_per_epoch=self._num_batches,
+            accumulate_iter=self._accumulate_iter)
         if self._inference_hook is not None and self._inference_hook not in self._active_hooks:
             raise RuntimeError(f"the eval model's hook {self._inference_hook.name!r} is not "
                                f"active under {type(self).__name__}")
@@ -208,7 +214,8 @@ class Trainer:
         return self.train_mode == "semi"
 
     def _build_steps(self) -> None:
-        kw = dict(disable_bn=self._disable_bn, sup_criterion=self._criterion,
+        kw = dict(disable_bn=self._disable_bn, two_stage=self._two_stage,
+                  sup_criterion=self._criterion,
                   **self._eval_kwargs())
         if self._device_cache:
             crop = int(self._bundle.input_shape[0])

@@ -43,6 +43,8 @@ def ema_update(ema: Sequence[torch.Tensor], new: Sequence[torch.Tensor], alpha: 
     """In place, JAX's order: ``e = e * alpha + (1 - alpha) * n``, then
     ``e *= 1 - weight_decay`` when it is positive; ``1 - alpha`` in f32."""
     ema, new = list(ema), [n.detach() for n in new]
+    if not ema:                      # a GroupNorm net has no running statistics
+        return
     torch._foreach_mul_(ema, alpha)
     torch._foreach_add_(ema, new, alpha=float(np.float32(1.0) - np.float32(alpha)))
     if weight_decay > 0:

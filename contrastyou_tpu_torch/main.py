@@ -15,6 +15,8 @@ contrastive pretraining, on one device.
         DifferentiableMeanTeacherParameters.method_name=second_order Trainer.save_dir=<dmt>
     python -m contrastyou_tpu_torch.main -o Trainer.name=multicore Trainer.save_dir=<mc>
     python -m contrastyou_tpu_torch.main -o Trainer.name=adv Trainer.save_dir=<adv>
+    python -m contrastyou_tpu_torch.main -o Trainer.name=semi Arch.name=resunet \
+        Optim.name=adamw +Scheduler.name=poly Trainer.accumulate_iter=2 Trainer.save_dir=<res>
     python -m contrastyou_tpu_torch.main -p config/base.yaml config/hooks/ccblocks2.yaml \
         -o Trainer.name=semi Trainer.save_dir=<ccblocks>
     python -m contrastyou_tpu_torch.main -o Trainer.name=pretrain ~InfonceParams \
@@ -73,8 +75,11 @@ inference. A run resumes from ``trainer_checkpoint`` or else from
 of flax-keyed paths, merged into the fresh model before ``init``) and
 ``Arch.checkpoint`` (a checkpoint directory whose model parameters, not its
 BN statistics, replace the model's after ``init``); a missing one raises
-before anything is built. Keys the port does not implement
-(:data:`UNPORTED_KEYS`) raise when set. Every trainer takes the class count
+before anything is built. The net is ``models.get_arch(Arch.name)`` with
+every ``Arch`` key JAX's root ``main.py`` passes (``Arch.name=resunet``,
+``+Arch.norm=groupnorm``; a key the net has no field for raises, so
+``Arch.name=unet2`` does, as in JAX). Keys the port does not implement
+(:data:`UNPORTED_KEYS`, the TPU knobs) raise when set. Every trainer takes the class count
 of ``Data.name``; pretraining also its partition count and contrastive
 sampler. Every ``Data.name`` reads from disk, the resize datasets
 (prostate, prostate_md, spleen) included. The self-paced
@@ -115,7 +120,7 @@ from .engine.optim import create_optimizer
 from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state, point_grids
 from .hooks.creator import create_hook_from_config
-from .models.unet import UNet
+from .models import get_arch
 from .trainers import trainer_zoo
 from .trainers.pretrain import (build_pretrain_step, check_pretrain_hooks, contrastive_sampler,
                                 feature_until_from_hooks, frozen_encoder,
@@ -260,12 +265,10 @@ def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
                            zip(patient[::slices_per_scan], cycle[::slices_per_scan])]}
 
 
-#: config keys the port parses but does not implement yet, with the value
-#: that means "not used": another value raises rather than train something
-#: else (JAX: ``optax.MultiSteps``, ``get_arch``, and the TPU trainer's
-#: unrolled steps and profiler trace)
-UNPORTED_KEYS = {("Trainer", "accumulate_iter"): 1, ("Arch", "name"): "unet",
-                 ("Trainer", "unroll_steps"): 1, ("Trainer", "profile"): False}
+#: config keys the port parses but does not implement, with the value that
+#: means "not used": another value raises rather than train something else
+#: (the JAX trainer's TPU knobs: unrolled steps and the profiler trace)
+UNPORTED_KEYS = {("Trainer", "unroll_steps"): 1, ("Trainer", "profile"): False}
 
 
 def refuse_unported_keys(config: Mapping) -> None:
@@ -291,7 +294,7 @@ def check_warm_start(config: Mapping) -> None:
         raise FileNotFoundError(f"Arch.pretrained_path={pretrained}: no such file")
 
 
-def _warm_start(config: Mapping, model: UNet) -> None:
+def _warm_start(config: Mapping, model: torch.nn.Module) -> None:
     """The config's warm starts applied to ``model`` alone (the run builders
     make their optimizer after it)."""
     arch = config["Arch"]
@@ -301,17 +304,36 @@ def _warm_start(config: Mapping, model: UNet) -> None:
         load_model_params(model, extract_model_params(arch["checkpoint"], model))
 
 
+#: ``input_dim`` of every opt/<name>.yaml
+INPUT_DIM = 1
+#: the ``Arch`` keys the entry point does not pass to the net (JAX root
+#: main.py: ``name`` picks it, the others are warm starts and multicore's)
+ARCH_KEYS_NOT_PASSED = ("name", "checkpoint", "pretrained_path", "true_num_classes")
+
+
 def _model(config: Mapping, device, dtype, max_channel, generator,
-           num_classes: int = NUM_CLASSES) -> UNet:
-    arch = config["Arch"]
-    model = UNet(input_dim=1, num_classes=num_classes,
-                 max_channel=int(max_channel or arch["max_channel"]),
-                 momentum=float(arch["momentum"]), dtype=dtype).to(device)
-    return model.init_weights(generator)
+           num_classes: int = NUM_CLASSES) -> torch.nn.Module:
+    """``get_arch(Arch.name)`` with what JAX's root main.py passes:
+    ``input_dim``, the class count, ``dtype`` and every other ``Arch`` key
+    (``max_channel`` replaced when given). A key the net has no field for
+    raises ``TypeError``: UNet2 is built by ``get_arch`` alone, as in JAX."""
+    arch = {k: v for k, v in config["Arch"].items() if k not in ARCH_KEYS_NOT_PASSED}
+    name = str(config["Arch"].get("name", "unet"))
+    if max_channel:
+        arch["max_channel"] = int(max_channel)
+    try:
+        model = get_arch(name, input_dim=INPUT_DIM, num_classes=num_classes, dtype=dtype,
+                         **arch)
+    except TypeError as e:
+        raise TypeError(f"Arch.name={name}: {e}, which the entry point passes (input_dim, "
+                        f"num_classes, dtype and every Arch key but "
+                        f"{', '.join(ARCH_KEYS_NOT_PASSED)}), as JAX's root main.py does; "
+                        f"build it with models.get_arch") from e
+    return model.to(device).init_weights(generator)
 
 
-def _hooks(config: Mapping, model: UNet, device, dtype, generator, *, is_pretrain: bool,
-           trainer=None):
+def _hooks(config: Mapping, model: torch.nn.Module, device, dtype, generator, *,
+           is_pretrain: bool, trainer=None):
     """The config's hooks on ``device``, their heads drawn from ``generator``
     in hook order (``trainer``: see ``create_hook_from_config``)."""
     hooks = create_hook_from_config(
@@ -360,7 +382,8 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     optimizer, _ = create_optimizer(
         list(model.parameters()) + hook_parameters(hooks), config["Optim"],
         config.get("Scheduler"), max_epoch=int(trainer["max_epoch"]),
-        steps_per_epoch=int(trainer["num_batches"]))
+        steps_per_epoch=int(trainer["num_batches"]),
+        accumulate_iter=int(trainer.get("accumulate_iter", 1)))
     state = init_train_state(bundle, hooks, optimizer)
     images, targets = synthetic_split(n_slices, raw_size, num_classes=spec.num_classes,
                                       seed=seed)
@@ -372,12 +395,11 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
                                       device=device)
     nl = int(config["LabeledLoader"]["batch_size"])
     nu = int(config["UnlabeledLoader"]["batch_size"])
-    if not trainer.get("two_stage", True):
-        raise ValueError("Trainer.two_stage=False is not ported (two-stage BN only)")
     step = build_cached_train_step(
         bundle, hooks, labeled_cache=lab, unlabeled_cache=unl,
         labeled_batch=nl, unlabeled_batch=nu,
-        disable_bn=bool(trainer.get("disable_bn", False)))
+        disable_bn=bool(trainer.get("disable_bn", False)),
+        two_stage=bool(trainer.get("two_stage", True)))
     return SemiRun(state, step, gen, nl + nu, lab, unl, hooks, np.random.default_rng(seed))
 
 
@@ -427,7 +449,8 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     params = [p for name, p in model.named_parameters() if trainable(name)]
     optimizer, _ = create_optimizer(
         params + hook_parameters(hooks), config["Optim"], config.get("Scheduler"),
-        max_epoch=int(trainer["max_epoch"]), steps_per_epoch=int(trainer["num_batches"]))
+        max_epoch=int(trainer["max_epoch"]), steps_per_epoch=int(trainer["num_batches"]),
+        accumulate_iter=int(trainer.get("accumulate_iter", 1)))
     state = init_train_state(bundle, hooks, optimizer)
 
     scans = synthetic_scans(n_scans, slices_per_scan, raw_size, spec=spec, seed=seed)

@@ -19,6 +19,15 @@ batch mean and BIASED variance and updates the running statistics as
 ``new = (1 - m) * old + m * batch`` with the biased variance (stock
 ``nn.BatchNorm2d`` would store the unbiased one); eval mode uses the running
 statistics.
+
+``norm="groupnorm"`` (JAX ``unet.py:363-377``, ``:470-472``) puts flax's
+``nn.GroupNorm`` in each BatchNorm's place: ``min(8, features)`` groups,
+epsilon 1e-6, f32 statistics per sample over (H, W, the group's channels)
+with the fast variance E[x^2] - E[x]^2, no running statistics. The levels
+of at most 64 channels keep the kernels: K1 and K2 already return the
+per-sample sums the group statistics reduce, so the norm is a per-sample
+[B, C] affine on them (the statistics' cotangent differs per sample; the
+backward folds it per sample, ``ops/convblock.py`` ``_cotangent``).
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ import torch.nn.functional as F
 from ..ops.convblock import (bn_affine, bn_relu, convblock_stage,
                              upconv3x3_bn_stats)
 
-__all__ = ["UNet", "ConvBlock", "UpConv", "BatchNorm", "KERNEL_MAX_CHANNELS"]
+__all__ = ["UNet", "ConvBlock", "UpConv", "BatchNorm", "GroupNorm", "NamedLayerNet",
+           "KERNEL_MAX_CHANNELS"]
 
 #: widest level routed through the hand-written kernels
 KERNEL_MAX_CHANNELS = 64
@@ -86,23 +96,68 @@ class BatchNorm(nn.Module):
         return a, b
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=min(8, features))`` parameters under
+    the stock names (weight, bias); no running statistics. :meth:`affine`
+    has BatchNorm's signature, so the conv blocks take either."""
+
+    def __init__(self, features: int, eps: float = 1e-6, max_groups: int = 8):
+        super().__init__()
+        self.groups, self.eps = min(max_groups, features), eps
+        if features % self.groups:
+            raise ValueError(f"{features} channels do not split into {self.groups} groups")
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def affine(self, p: torch.Tensor, ssum: Optional[torch.Tensor] = None,
+               ssq: Optional[torch.Tensor] = None, *, train: bool = True,
+               update: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> per-sample (a, b) [B, 1, 1, C] f32 of ``a*p + b`` from the group
+        statistics of the NHWC ``p``, taken from its per-sample sums [B, C]
+        when given. ``train`` and ``update`` change nothing: there are no
+        running statistics."""
+        del train, update
+        if ssum is None:
+            pf = p.float()
+            ssum, ssq = pf.sum((1, 2)), (pf * pf).sum((1, 2))
+        B, C = ssum.shape
+        G = self.groups
+        count = p.shape[1] * p.shape[2] * (C // G)
+        mean = ssum.reshape(B, G, -1).sum(-1) / count
+        var = torch.clamp(ssq.reshape(B, G, -1).sum(-1) / count - mean * mean, min=0.0)
+        r = torch.rsqrt(var + self.eps)                                 # [B, G]
+        a = (self.weight.reshape(G, -1) * r[..., None]).reshape(B, C)
+        b = self.bias - a * mean.repeat_interleave(C // G, 1)
+        return a[:, None, None, :], b[:, None, None, :]
+
+
+def _norm(norm: str, features: int, momentum: float) -> nn.Module:
+    """The block's norm layer; JAX's UNet takes any ``norm`` but
+    ``batchnorm`` as GroupNorm, the port refuses the others."""
+    if norm == "batchnorm":
+        return BatchNorm(features, momentum)
+    if norm == "groupnorm":
+        return GroupNorm(features)
+    raise ValueError(f"norm={norm!r}: the port takes 'batchnorm' or 'groupnorm'")
+
+
 def _conv(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
 
 
 class ConvBlock(nn.Module):
-    """Two 3x3 conv + BN + ReLU (ref arch/unet.py ``_ConvBlock``; parameter
+    """Two 3x3 conv + norm + ReLU (ref arch/unet.py ``_ConvBlock``; parameter
     names ``conv.0`` / ``conv.1`` / ``conv.3`` / ``conv.4``). ``skip``
     behaves as ``cat([skip, x], -1)``."""
 
     def __init__(self, cin: int, features: int, momentum: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, norm: str = "batchnorm"):
         super().__init__()
         self.features, self.dtype = features, dtype
         self.conv = nn.Sequential(_conv(cin, features),
-                                  BatchNorm(features, momentum), nn.ReLU(),
+                                  _norm(norm, features, momentum), nn.ReLU(),
                                   _conv(features, features),
-                                  BatchNorm(features, momentum), nn.ReLU())
+                                  _norm(norm, features, momentum), nn.ReLU())
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None, *,
                 train: bool = True, update_stats: bool = True) -> torch.Tensor:
@@ -121,17 +176,17 @@ class ConvBlock(nn.Module):
 
 
 class UpConv(nn.Module):
-    """Nearest 2x upsample + 3x3 conv + BN + ReLU (ref arch/unet.py
+    """Nearest 2x upsample + 3x3 conv + norm + ReLU (ref arch/unet.py
     ``up_conv``; parameter names ``up.1`` / ``up.2``). With at most 64 input
     channels the upsample+conv is K2 (four parity convs, never building the
     upsampled input)."""
 
     def __init__(self, cin: int, features: int, momentum: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, norm: str = "batchnorm"):
         super().__init__()
         self.cin, self.dtype = cin, dtype
         self.up = nn.Sequential(nn.Upsample(scale_factor=2), _conv(cin, features),
-                                BatchNorm(features, momentum), nn.ReLU())
+                                _norm(norm, features, momentum), nn.ReLU())
 
     def forward(self, x: torch.Tensor, *, train: bool = True,
                 update_stats: bool = True) -> torch.Tensor:
@@ -145,9 +200,12 @@ class UpConv(nn.Module):
         return bn_relu(p, *bn.affine(p, train=train, update=update_stats))
 
 
-class UNet(nn.Module):
-    """5-level U-Net with the JAX model's named-layer registry, partial
-    forward ``until`` and feature ``taps``."""
+class NamedLayerNet(nn.Module):
+    """The named-layer surface the hooks and trainers read, shared by the
+    U-Net and the ResUNet: the layer registry, channel widths, LeCun
+    initialization, and the decoder (``Up5`` ... ``Deconv_1x1``) with the
+    partial forward ``until`` and feature ``taps``. A subclass builds
+    ``_Conv1`` ... ``_Conv5`` and implements :meth:`encode`."""
 
     layer_dimension = {"Conv1": 1, "Conv2": 2, "Conv3": 4, "Conv4": 8,
                        "Conv5": 16, "Up_conv5": 8, "Up_conv4": 4,
@@ -157,30 +215,11 @@ class UNet(nn.Module):
                      "Up2", "Up_conv2", "Deconv_1x1")
     arch_elements = encoder_names + decoder_names
 
-    def __init__(self, input_dim: int = 1, num_classes: int = 4,
-                 max_channel: int = 256, momentum: float = 0.1,
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, input_dim: int, num_classes: int, max_channel: int,
+                 dtype: torch.dtype):
         super().__init__()
-        if max_channel % 16 or max_channel < 16:
-            raise ValueError(f"max_channel must be a multiple of 16 >= 16, got {max_channel}")
         self.input_dim, self.num_classes = input_dim, num_classes
         self.max_channel, self.dtype = max_channel, dtype
-        cd = self.get_channel_dim
-        kw = dict(momentum=momentum, dtype=dtype)
-        self._Conv1 = ConvBlock(input_dim, cd("Conv1"), **kw)
-        self._Conv2 = ConvBlock(cd("Conv1"), cd("Conv2"), **kw)
-        self._Conv3 = ConvBlock(cd("Conv2"), cd("Conv3"), **kw)
-        self._Conv4 = ConvBlock(cd("Conv3"), cd("Conv4"), **kw)
-        self._Conv5 = ConvBlock(cd("Conv4"), cd("Conv5"), **kw)
-        self._Up5 = UpConv(cd("Conv5"), cd("Up_conv5"), **kw)
-        self._Up_conv5 = ConvBlock(2 * cd("Up_conv5"), cd("Up_conv5"), **kw)
-        self._Up4 = UpConv(cd("Up_conv5"), cd("Up_conv4"), **kw)
-        self._Up_conv4 = ConvBlock(2 * cd("Up_conv4"), cd("Up_conv4"), **kw)
-        self._Up3 = UpConv(cd("Up_conv4"), cd("Up_conv3"), **kw)
-        self._Up_conv3 = ConvBlock(2 * cd("Up_conv3"), cd("Up_conv3"), **kw)
-        self._Up2 = UpConv(cd("Up_conv3"), cd("Up_conv2"), **kw)
-        self._Up_conv2 = ConvBlock(2 * cd("Up_conv2"), cd("Up_conv2"), **kw)
-        self._Deconv_1x1 = nn.Conv2d(cd("Up_conv2"), num_classes, 1)
 
     def get_channel_dim(self, name: str) -> int:
         if name == "Deconv_1x1":
@@ -189,10 +228,22 @@ class UNet(nn.Module):
             return int(self.layer_dimension[name] / 16 * self.max_channel)
         raise KeyError(name)
 
+    def _build_decoder(self, **kw) -> None:
+        cd = self.get_channel_dim
+        self._Up5 = UpConv(cd("Conv5"), cd("Up_conv5"), **kw)
+        self._Up_conv5 = ConvBlock(2 * cd("Up_conv5"), cd("Up_conv5"), **kw)
+        self._Up4 = UpConv(cd("Up_conv5"), cd("Up_conv4"), **kw)
+        self._Up_conv4 = ConvBlock(2 * cd("Up_conv4"), cd("Up_conv4"), **kw)
+        self._Up3 = UpConv(cd("Up_conv4"), cd("Up_conv3"), **kw)
+        self._Up_conv3 = ConvBlock(2 * cd("Up_conv3"), cd("Up_conv3"), **kw)
+        self._Up2 = UpConv(cd("Up_conv3"), cd("Up_conv2"), **kw)
+        self._Up_conv2 = ConvBlock(2 * cd("Up_conv2"), cd("Up_conv2"), **kw)
+        self._Deconv_1x1 = nn.Conv2d(cd("Up_conv2"), self.num_classes, 1)
+
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "UNet":
+    def init_weights(self, generator: torch.Generator) -> "NamedLayerNet":
         """Random weights from ``generator``: conv kernels normal with std
-        1/sqrt(fan_in) (LeCun), BN scale 1 and bias 0, zero head bias."""
+        1/sqrt(fan_in) (LeCun), norm scale 1 and bias 0, zero head bias."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 fan_in = m.weight[0].numel()
@@ -202,6 +253,11 @@ class UNet(nn.Module):
                 if m.bias is not None:
                     m.bias.zero_()
         return self
+
+    def encode(self, x: torch.Tensor, emit, kw: dict):
+        """-> the five encoder activations, or None when ``emit`` (called
+        with each name and activation) asks to stop."""
+        raise NotImplementedError
 
     def forward(self, x: torch.Tensor, *, until: Optional[str] = None,
                 taps: Sequence[str] = (), train: bool = True,
@@ -215,42 +271,64 @@ class UNet(nn.Module):
             if t not in self.layer_dimension:
                 raise KeyError(f"'{t}' not in {tuple(self.layer_dimension)}")
         collected: Dict[str, torch.Tensor] = {}
+        stop: Dict[str, torch.Tensor] = {}
 
         def emit(name, value):
             if name in taps:
                 collected[name] = value.float()
-            return until == name
+            if until == name:
+                stop["out"] = value.float()
+                return True
+            return False
 
         kw = dict(train=train, update_stats=update_stats)
-
-        def pool(h):
-            return _nhwc(F.max_pool2d(_nchw(h), 2))
-
-        e1 = self._Conv1(x.to(self.dtype), **kw)
-        if emit("Conv1", e1):
-            return e1.float(), collected
-        e2 = self._Conv2(pool(e1), **kw)
-        if emit("Conv2", e2):
-            return e2.float(), collected
-        e3 = self._Conv3(pool(e2), **kw)
-        if emit("Conv3", e3):
-            return e3.float(), collected
-        e4 = self._Conv4(pool(e3), **kw)
-        if emit("Conv4", e4):
-            return e4.float(), collected
-        e5 = self._Conv5(pool(e4), **kw)
-        if emit("Conv5", e5):
-            return e5.float(), collected
-        d = e5
+        skips = self.encode(x.to(self.dtype), emit, kw)
+        if skips is None:
+            return stop["out"], collected
+        e1, e2, e3, e4, d = skips
         for up, upc, skip, name in ((self._Up5, self._Up_conv5, e4, "Up_conv5"),
                                     (self._Up4, self._Up_conv4, e3, "Up_conv4"),
                                     (self._Up3, self._Up_conv3, e2, "Up_conv3"),
                                     (self._Up2, self._Up_conv2, e1, "Up_conv2")):
             d = upc(up(d, **kw), skip=skip, **kw)
             if emit(name, d):
-                return d.float(), collected
+                return stop["out"], collected
         head = self._Deconv_1x1
         logits = F.linear(d, head.weight[:, :, 0, 0].to(self.dtype),
                           head.bias.to(self.dtype)).float()
         emit("Deconv_1x1", logits)
         return logits, collected
+
+
+class UNet(NamedLayerNet):
+    """5-level U-Net with the JAX model's named-layer registry, partial
+    forward ``until`` and feature ``taps``; ``norm`` ``batchnorm`` or
+    ``groupnorm``."""
+
+    def __init__(self, input_dim: int = 1, num_classes: int = 4,
+                 max_channel: int = 256, momentum: float = 0.1,
+                 norm: str = "batchnorm", dtype: torch.dtype = torch.bfloat16):
+        super().__init__(input_dim, num_classes, max_channel, dtype)
+        if max_channel % 16 or max_channel < 16:
+            raise ValueError(f"max_channel must be a multiple of 16 >= 16, got {max_channel}")
+        self.norm = norm
+        cd = self.get_channel_dim
+        kw = dict(momentum=momentum, dtype=dtype, norm=norm)
+        self._Conv1 = ConvBlock(input_dim, cd("Conv1"), **kw)
+        self._Conv2 = ConvBlock(cd("Conv1"), cd("Conv2"), **kw)
+        self._Conv3 = ConvBlock(cd("Conv2"), cd("Conv3"), **kw)
+        self._Conv4 = ConvBlock(cd("Conv3"), cd("Conv4"), **kw)
+        self._Conv5 = ConvBlock(cd("Conv4"), cd("Conv5"), **kw)
+        self._build_decoder(**kw)
+
+    def encode(self, x, emit, kw):
+        def pool(h):
+            return _nhwc(F.max_pool2d(_nchw(h), 2))
+
+        out, h = [], x
+        for i, name in enumerate(self.encoder_names):
+            h = getattr(self, f"_{name}")(pool(h) if i else h, **kw)
+            if emit(name, h):
+                return None
+            out.append(h)
+        return out

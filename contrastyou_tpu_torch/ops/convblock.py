@@ -665,24 +665,26 @@ def bn_affine(ssum: torch.Tensor, ssq: torch.Tensor, count: int,
 
 
 class _BNReLU(torch.autograd.Function):
-    """``relu(x*a + b)`` in f32, stored in x's dtype. The backward rebuilds
-    the ReLU mask from the stored output, so no f32 pre-activation is kept
+    """``relu(x*a + b)`` in f32, stored in x's dtype, for a per-channel [C]
+    affine (BatchNorm) or a per-sample [B, 1, 1, C] one (GroupNorm); the
+    affine's gradients are summed to its shape. The backward rebuilds the
+    ReLU mask from the stored output, so no f32 pre-activation is kept
     (convblock.py ``_bn_relu_planes_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, a, b):
         h = torch.relu(x.float() * a + b).to(x.dtype)
         ctx.save_for_backward(x, a, h)
+        ctx.b_shape = b.shape
         return h
 
     @staticmethod
     def backward(ctx, g):
         x, a, h = ctx.saved_tensors
         gh = torch.where(h > 0, g.float(), 0.0)
-        dims = tuple(range(x.dim() - 1))
         gx = (gh * a).to(x.dtype) if ctx.needs_input_grad[0] else None
-        ga = (gh * x.float()).sum(dims) if ctx.needs_input_grad[1] else None
-        gb = gh.sum(dims) if ctx.needs_input_grad[2] else None
+        ga = (gh * x.float()).sum_to_size(a.shape) if ctx.needs_input_grad[1] else None
+        gb = gh.sum_to_size(ctx.b_shape) if ctx.needs_input_grad[2] else None
         return gx, ga, gb
 
 

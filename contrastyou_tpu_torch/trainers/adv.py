@@ -100,6 +100,10 @@ class AdversarialTrainer(Trainer):
     activate_hooks = False
 
     def __init__(self, *, reg_weight: float = 0.01, dis_consider_image: bool = False, **kwargs):
+        if int(kwargs.get("accumulate_iter", 1)) != 1:
+            # JAX's adversarial trainer builds its optimizers without it
+            raise NotImplementedError("Trainer.accumulate_iter under Trainer.name=adv: the "
+                                      "adversarial trainer steps both optimizers every call")
         super().__init__(**kwargs)
         self._reg_weight = float(reg_weight)
         self._dis_consider_image = bool(dis_consider_image)

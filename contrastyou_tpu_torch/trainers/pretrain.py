@@ -33,6 +33,7 @@ from ..engine.steps import draw_points, point_grids
 from ..engine.trainer import Trainer, epoch_seed, hook_metrics
 from ..hooks.ccblock import CrossCorrelationHook
 from ..hooks.infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
+from ..hooks.mt import EMAEvalTrainerHook
 from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.interface import MeterInterface
 from ..models._base import arch_order
@@ -131,10 +132,11 @@ def pretrain_trainable(until: str, freeze_encoder: bool = False,
 
 
 #: the hook types the pretraining trainers take, matched by exact type: the
-#: InfoNCE hook and its self-paced and superpixel variants, and the
-#: cross-correlation block
+#: InfoNCE hook and its self-paced and superpixel variants, the
+#: cross-correlation block, and the loss-free EMA of the student
+#: (``EvalEMAParameters``, carried through the checkpoints as in JAX)
 PRETRAIN_HOOK_TYPES = (INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook,
-                       CrossCorrelationHook)
+                       CrossCorrelationHook, EMAEvalTrainerHook)
 
 
 def check_pretrain_hooks(hooks: Sequence[TrainerHook]) -> None:

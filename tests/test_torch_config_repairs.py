@@ -1,8 +1,9 @@
 """Config faults of the port repaired against the JAX package: the class
 count and label remap of every ``Data.name``, config keys that the port
 parses but does not implement (they raise instead of training something
-else), and warm-start keys that name a missing file (they raise before
-anything is built)."""
+else), ``Arch`` keys (honoured, or raising where JAX's entry point raises,
+never dropped), and warm-start keys that name a missing file (they raise
+before anything is built)."""
 import re
 from pathlib import Path
 
@@ -13,6 +14,7 @@ import torch
 import contrastyou_tpu_torch as package
 from contrastyou_tpu.augment.host import LabelRemap, transform_zoo
 from contrastyou_tpu_torch.data.datasets import DATASETS, dataset_spec
+from contrastyou_tpu_torch.models.unet import BatchNorm, GroupNorm
 from contrastyou_tpu_torch.main import (UNPORTED_KEYS, build_pretrain_run, build_semi_run, main,
                                         parse_config, synthetic_split)
 
@@ -56,8 +58,7 @@ def test_acdc_subtask_targets_are_remapped_as_jax(name):
     assert m["dice_inter"].shape[-1] == 2
 
 
-@pytest.mark.parametrize("key,value", [("Trainer.accumulate_iter", "4"), ("Arch.name", "unet2"),
-                                       ("Trainer.unroll_steps", "2")])
+@pytest.mark.parametrize("key,value", [("Trainer.unroll_steps", "2"), ("Trainer.profile", "true")])
 def test_unported_keys_raise(key, value):
     """A non-default value of a key the port does not implement raises
     ``NotImplementedError`` naming it, in both run builders, before anything
@@ -68,6 +69,37 @@ def test_unported_keys_raise(key, value):
         cfg = parse_config(["-o", f"Trainer.name={trainer}", f"+{key}={value}"])
         with pytest.raises(NotImplementedError, match=re.escape(key)):
             build(cfg, **size, **SMALL)
+
+
+@pytest.mark.parametrize("override,error,match", [
+    ("Arch.name=unet2", TypeError, "UNet2 has no field dtype, max_channel, momentum"),
+    ("+Arch.norm=instancenorm", ValueError, "norm='instancenorm'")])
+def test_arch_keys_the_net_lacks_raise(override, error, match):
+    """The entry point passes every ``Arch`` key but name, checkpoint,
+    pretrained_path and true_num_classes to the net, as JAX's root main.py:
+    ``Arch.name=unet2`` raises there (UNet2 has no ``dtype``,
+    ``max_channel`` or ``momentum`` field, the cause named), and a norm
+    other than batchnorm / groupnorm raises (JAX takes any other value as
+    GroupNorm), in both run builders before anything is trained."""
+    for trainer, build, size in (("semi", build_semi_run, dict(raw_size=40, n_slices=8)),
+                                 ("pretrain", build_pretrain_run, dict(raw_size=36, n_scans=6))):
+        cfg = parse_config(["-o", f"Trainer.name={trainer}", override])
+        with pytest.raises(error, match=re.escape(match)):
+            build(cfg, **size, **SMALL)
+
+
+def test_arch_norm_groupnorm_builds_groupnorm_layers():
+    """``+Arch.norm=groupnorm`` reaches the U-Net (the port used to drop it
+    and train a BatchNorm net): every norm of the run's model is a
+    GroupNorm, there are no running statistics, and a step trains."""
+    run = build_semi_run(parse_config(["-o", "Trainer.name=semi", "+Arch.norm=groupnorm"]),
+                         raw_size=40, n_slices=8, **SMALL)
+    model = run.state.model
+    norms = [m for m in model.modules() if isinstance(m, (GroupNorm, BatchNorm))]
+    assert len(norms) == 22 and all(isinstance(m, GroupNorm) for m in norms)
+    assert not list(model.buffers())
+    m = run.step(run.state, run.generator)
+    assert torch.isfinite(m["total_loss"])
 
 
 @pytest.mark.parametrize("key,name", [("Arch.checkpoint", "pretrain/last"),

@@ -86,9 +86,12 @@ def test_schedule_matches_optax():
 
 
 def test_unported_choices_raise():
+    """Names the JAX package's ``create_optimizer`` does not know raise
+    ``KeyError`` as there (adam, adamw, sgd, poly and step are ported:
+    tests/test_torch_optim_knobs.py)."""
     with pytest.raises(KeyError):
-        create_optimizer([torch.nn.Parameter(torch.zeros(1))], {"name": "sgd"}, None,
+        create_optimizer([torch.nn.Parameter(torch.zeros(1))], {"name": "lamb"}, None,
                          max_epoch=1, steps_per_epoch=1)
     with pytest.raises(KeyError):
         warmup_schedule(base_lr=1.0, multiplier=1, warmup_max_epoch=1, max_epoch=2,
-                        steps_per_epoch=1, name="poly")
+                        steps_per_epoch=1, name="exponential")
