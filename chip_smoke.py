@@ -187,14 +187,30 @@ Phases, in order; any failure exits non-zero:
    ``storage.csv`` values, what each path must hold (residual blocks, no
    running statistics, one inner update per 2 steps), the launches per
    step of ``P17_LAUNCHES`` plus each eval forward's (``P17_EVAL``),
-   ms/step and peak memory.
+   ms/step and peak memory;
+18. data parallelism (``semi/dp``, run after phase 17): the full-width
+   ``semi`` step with consistency and the encoder InfoNCE hook (Conv5 by
+   partition) through ``build_semi_run(data_group=...)`` on ``DP_WORLD``
+   ranks of ``DP_BATCH`` + ``DP_BATCH`` slices, spawned after the kernels
+   are built (NCCL with a card a rank, else gloo with every rank on
+   ``cuda:0``, which stages each collective through host memory; the
+   backend and the ranks' devices are printed): ``DP_STEPS`` steps, the
+   first one's global gradients and loss against one process's at the
+   global batch through the kernels, each against f32 (the ranks' error at
+   most ``STAGE_FACTOR`` times the one process's plus ``STAGE_ATOL``: as
+   accurate as bf16 against f32), the ranks' parameters bitwise equal
+   after the steps, every rank's launches the path implies
+   (``DP_LAUNCHES`` a step: D1/D2 on the gathered 2N anchors), ms/step of
+   the ranks against the one process and the time of one all-reduce of the
+   gradient bucket.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
 path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
-``ft/ema``, the five of phases 14 and 15 and phases 16's and 17's each),
+``ft/ema``, the five of phases 14 and 15, phases 16's and 17's each and
+``semi/dp``, rank 0's),
 ``max_abs_err`` the largest over the checked shapes and call sites (phases
 14-17's included),
 ``ms`` /
@@ -3298,6 +3314,164 @@ def run_phase17(device, card: str, recs: dict, extra=()) -> dict:
     return by_path
 
 
+# --- phase 18: data parallelism --------------------------------------------
+
+#: ranks, slices a rank (labeled and unlabeled each), steps of phase 18
+DP_WORLD, DP_BATCH, DP_STEPS = 2, 5, 5
+#: launches per step of a rank: semi's convs at its batch, and one D1/D2
+#: pair on the gathered anchors
+DP_LAUNCHES = {"conv3x3_stats": 16, "upconv3x3_stats": 2, "upconv3x3_dx": 2,
+               "conv_dw_taps": 4, "conv3x3_bwd_fused": 18, "supcon_loss": 1, "supcon_dz": 1,
+               "iic_joints": 0, "iic_joints_bwd": 0}
+
+
+def dp_config(batch: int) -> dict:
+    """The main path's config (consistency) with the encoder InfoNCE hook on
+    Conv5 by partition, at ``batch`` + ``batch`` slices."""
+    from contrastyou_tpu_torch.configure.config import merge
+    from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG
+    return merge(MAIN_PATH_CONFIG, {
+        "InfonceParams": {"feature_names": "Conv5", "weights": 0.5, "contrast_ons": "partition",
+                          "spatial_size": 1},
+        "LabeledLoader": {"batch_size": batch}, "UnlabeledLoader": {"batch_size": batch}})
+
+
+def _first_step(run) -> dict:
+    """One step of ``run`` -> its total loss and the model's gradients (f32,
+    on the host)."""
+    m = run.run(1)[0]
+    return {"loss": m["total_loss"].reshape(1).float().cpu(),
+            **{k: p.grad.float().cpu() for k, p in run.state.model.named_parameters()}}
+
+
+def _timed_steps(run, n: int) -> tuple:
+    """(wall ms per step, total losses) of ``n`` synchronized steps."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run.run(n)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, [float(m["total_loss"]) for m in metrics]
+
+
+def dp_rank(rank: int, world: int, port: int, backend: str, devices: list, out: str) -> None:
+    """One rank of phase 18 (a spawned process): ``DP_STEPS`` steps, the
+    first one's gradients, launches, timings and a digest of the
+    parameters, saved to ``out``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from contrastyou_tpu_torch.main import build_semi_run
+    from contrastyou_tpu_torch.parallel import init_distributed
+
+    group = init_distributed(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                             backend=backend, device=devices[rank])
+    try:
+        run = build_semi_run(dp_config(DP_BATCH), device=group.device, data_group=group)
+        before = {k: p.detach().clone() for k, p in run.state.model.named_parameters()}
+        _reset_counts()
+        first = _first_step(run)
+        ms, losses = _timed_steps(run, DP_STEPS - 1)
+        launches = _counts()
+        params = [p.detach() for p in run.state.model.parameters()]
+        flat = torch.cat([p.reshape(-1) for p in params])
+        changed = sum(int(not torch.equal(before[k], p.detach()))
+                      for k, p in run.state.model.named_parameters())
+        bucket = torch.cat([p.reshape(-1) for g in run.state.optimizer.param_groups
+                            for p in g["params"]]).clone()
+        # one BatchNorm's sums: [2, C] at the widest level
+        small = torch.zeros(2, 512, device=group.device)
+        times = {}
+        for name, x, n in (("bucket", bucket, 5), ("small", small, 50)):
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                dist.all_reduce(x)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) / n * 1e3
+        torch.save({"first": first, "ms": ms, "losses": [float(first["loss"])] + losses,
+                    "launches": launches, "changed": changed, "tensors": len(before),
+                    "digest": hashlib.sha256(flat.float().cpu().numpy().tobytes()).hexdigest(),
+                    "bucket": bucket.numel(), "allreduce_ms": times["bucket"],
+                    "small_allreduce_ms": times["small"], "device": str(group.device)},
+                   f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dp(device, card: str, world: int = DP_WORLD) -> dict:
+    """Phase 18: ``semi/dp`` on ``world`` spawned ranks, held against one
+    process at the global batch (module docstring)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from contrastyou_tpu_torch.main import build_semi_run
+
+    if torch.cuda.device_count() >= world:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(world)]
+        staging = "NCCL, a card a rank"
+    else:
+        backend, devices = "gloo", ["cuda:0"] * world
+        staging = ("gloo with every rank on one card: each collective is staged through host "
+                   "memory by ProcessGroupGloo")
+    print(f"semi/dp: {world} ranks, backend {backend} ({staging}); ranks' devices {devices}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(world, port, backend, devices, tmp), nprocs=world, join=True)
+        print(f"semi/dp: ranks done in {time.perf_counter() - t0:.1f} s")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    print(f"semi/dp: ranks on {[r['device'] for r in ranks]}")
+
+    config = dp_config(world * DP_BATCH)
+    one = build_semi_run(config, device=device)
+    ref = _first_step(one)
+    one_ms, _ = _timed_steps(one, DP_STEPS - 1)
+    del one
+    with plain_kernels(), plain_supcon():
+        f32 = _first_step(build_semi_run(config, device=device, dtype=torch.float32))
+    torch.cuda.empty_cache()
+
+    got, worst = ranks[0]["first"], 0.0
+    for k in f32:
+        ek, ep = _rel_err(got[k], f32[k])[1], _rel_err(ref[k], f32[k])[1]
+        worst = max(worst, ek / (ep + STAGE_ATOL))
+        if ek > STAGE_FACTOR * ep + STAGE_ATOL or not bool(torch.isfinite(got[k]).all()):
+            raise AssertionError(f"semi/dp step 1 {k}: {world} ranks {ek:.3e} from f32, one "
+                                 f"process {ep:.3e}")
+    loss_err = [_rel_err(x["loss"], f32["loss"])[1] for x in (got, ref)]
+    print(f"semi/dp: step 1 on {world} ranks of {DP_BATCH}+{DP_BATCH} vs one process of "
+          f"{world * DP_BATCH}+{world * DP_BATCH}, each against f32: loss {loss_err[0]:.2e} vs "
+          f"{loss_err[1]:.2e}; over the loss and {len(f32) - 1} gradients the ranks' error is "
+          f"at most {worst:.2f}x the one process's (+{STAGE_ATOL}; limit {STAGE_FACTOR}x)")
+    digests = {r["digest"] for r in ranks}
+    if len(digests) != 1:
+        raise AssertionError(f"semi/dp: the ranks' parameters differ after {DP_STEPS} steps")
+    for r, res in enumerate(ranks):
+        if not all(math.isfinite(v) for v in res["losses"]) or res["changed"] == 0:
+            raise AssertionError(f"semi/dp rank {r}: losses {res['losses']}, "
+                                 f"{res['changed']} tensors changed")
+        want = {k: DP_STEPS * v for k, v in DP_LAUNCHES.items()}
+        if any(res["launches"][k] != v for k, v in want.items()):
+            raise AssertionError(f"semi/dp rank {r}: launches {res['launches']}, want {want}")
+    print(f"semi/dp: the ranks' parameters bitwise equal after {DP_STEPS} steps "
+          f"({ranks[0]['changed']}/{ranks[0]['tensors']} tensors changed); losses "
+          f"{ranks[0]['losses']}; launches per rank {ranks[0]['launches']}")
+    print(f"semi/dp: {ranks[0]['ms']:.3f} ms/step on {world} ranks of {DP_BATCH}+{DP_BATCH} "
+          f"(rank 1 {ranks[1]['ms']:.3f}) vs {one_ms:.3f} ms/step in one process of "
+          f"{world * DP_BATCH}+{world * DP_BATCH}; one all-reduce of the "
+          f"{ranks[0]['bucket']}-float gradient bucket {ranks[0]['allreduce_ms']:.3f} ms, of "
+          f"one BatchNorm's [2, 512] sums {ranks[0]['small_allreduce_ms']:.3f} ms ({backend}); "
+          f"on {card}")
+    return {"semi/dp": ranks[0]["launches"]}
+
+
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
 #: launches per semi step (a batch-5 and a batch-10 forward, each with its
 #: backward): K1 the 8 forward convs of each pass (the backward's dx is C2's);
@@ -3388,6 +3562,11 @@ def main() -> int:
     by_path.update(run_phase17(device, card, recs))
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    print("data parallelism (phase 18):")
+    t0 = time.perf_counter()
+    by_path.update(run_dp(device, card))
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

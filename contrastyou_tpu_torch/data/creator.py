@@ -75,9 +75,14 @@ def split_dataset(dataset: SliceDataset, *scan_nums: int, seed: int = 1) -> t.Li
 
 
 def create_infinite_loader(dataset, *, shuffle: bool = True, batch_size: int = 4,
-                           seed: int = 0, num_workers: int = 0) -> BatchLoader:
+                           seed: int = 0, num_workers: int = 0, process_index: int = 0,
+                           process_count: int = 1) -> BatchLoader:
+    """Endless shuffled batches of ``dataset``; data-parallel, rank
+    ``process_index`` of ``process_count`` reads its stride of the indices
+    (:class:`InfiniteRandomSampler`) in batches of ``batch_size`` a rank."""
     del num_workers  # batches are made in the calling thread
-    sampler = InfiniteRandomSampler(len(dataset), seed=seed, shuffle=shuffle)
+    sampler = InfiniteRandomSampler(len(dataset), seed=seed, shuffle=shuffle,
+                                    process_index=process_index, process_count=process_count)
     return BatchLoader(dataset, sampler=sampler, batch_size=batch_size, seed=seed)
 
 

@@ -32,18 +32,25 @@ class InfiniteRandomSampler:
     """Endless stream of dataset indices, one fresh permutation of
     ``range(size)`` after another, or ``range(size)`` over and over without
     ``shuffle`` (the same numpy draws as the JAX sampler, so one seed gives
-    the same indices). Single process: the per-process stride of the JAX
-    sampler belongs to data-parallel training."""
+    the same indices). Data-parallel: rank ``process_index`` of
+    ``process_count`` takes the disjoint stride ``order[process_index::
+    process_count]`` of each permutation of the same seed, as the JAX
+    sampler's processes do (the host-fed input of each rank)."""
 
-    def __init__(self, size: int, seed: int = 0, shuffle: bool = True):
+    def __init__(self, size: int, seed: int = 0, shuffle: bool = True, *,
+                 process_index: int = 0, process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process {process_index} of {process_count}")
         self._size = size
         self._shuffle = shuffle
         self._rng = np.random.default_rng(seed)
+        self._pi, self._pc = int(process_index), int(process_count)
 
     def __iter__(self) -> t.Iterator[int]:
         while True:
-            yield from (self._rng.permutation(self._size) if self._shuffle
-                        else np.arange(self._size)).tolist()
+            order = (self._rng.permutation(self._size) if self._shuffle
+                     else np.arange(self._size))
+            yield from order[self._pi::self._pc].tolist()
 
     def batches(self, batch_size: int) -> t.Iterator[t.List[int]]:
         """Consecutive ``batch_size`` runs of the stream (data/loader.py

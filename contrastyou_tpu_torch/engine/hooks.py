@@ -8,7 +8,8 @@ after the optimizer update, and ``on_epoch_start(state, epoch) -> state``.
 views, the explicit transform, taps, the unlabeled batch's superpixel map
 (when the dataset has one), the dense hooks' sampled positions
 (``point_draws``), and the hook's own random draws
-(``draw``, made before the step; ``ctx.hook_draws[name]``). A hook may
+(``draw``, made before the step; ``ctx.hook_draws[name]``) and, in a
+data-parallel step, the group (``data_group``). A hook may
 offer an eval model (``eval_params`` / ``eval_batch_stats``: a teacher or
 an EMA of the student); ``always_active`` hooks run under trainers that
 drop the others (``ft``).
@@ -60,6 +61,9 @@ class StepContext:
     hook_draws: Dict[str, Any] = field(default_factory=dict)
     epoch: int = 0
     bundle: Any = None
+    # the data-parallel group of W > 1 ranks the step runs over (None: one
+    # process); the batch above is this rank's rows of the global batch
+    data_group: Any = None
 
     def affine_transformer(self, feature: torch.Tensor, *, order: int = 0) -> torch.Tensor:
         """The batch transform applied to an NHWC feature map (normalized
@@ -82,6 +86,11 @@ class TrainerHook:
     #: the feature grid a dense hook samples positions on (the step draws
     #: them, one draw per grid); None for a hook that samples none
     grid: Optional[Tuple[int, int]] = None
+    #: whether the hook runs in a data-parallel step: its loss is a mean
+    #: over this rank's rows, or a value of the global batch (either way the
+    #: step back-propagates 1/W of it), and it reduces nothing else over the
+    #: batch; a hook without it raises there
+    data_parallel: bool = False
     #: whether the hook reads the aligned first view T(f(x)), which the
     #: pretrain step builds only for such hooks
     reads_logits_tf: bool = False

@@ -11,6 +11,17 @@ the dense hooks' sampled positions; ``ft`` the drawing hooks' draws alone,
 :func:`sample_ft_draws`); the cached step draws those, the sample indices
 and the crop offsets from a ``torch.Generator``, and the hooks' host-side
 draws (ICT's and MixUp's ``lam`` and permutation) from a numpy generator.
+
+Data parallelism (``data_group`` of W > 1 ranks, ``parallel/``): the ``semi``
+step computes what one process computes on the global batch, as JAX's step
+on a sharded batch does. Each rank holds 1/W of the batch and of the draws
+(every rank draws the global batch's from the same generator and keeps its
+rows, :func:`~contrastyou_tpu_torch.parallel.shard_batch`); BatchNorm's sums
+and the InfoNCE anchors are global; each rank back-propagates its share of
+the loss (its per-rank means, or the global InfoNCE value, over W), the
+gradients are summed over ranks before the update, and the metrics are the
+global batch's. Only ``consistency`` and the encoder InfoNCE hook run so
+(:func:`check_data_parallel`); W = 1 or no group runs no collective.
 """
 from __future__ import annotations
 
@@ -23,13 +34,15 @@ from ..losses.kl import kl_div
 from ..meters.dice import slice_intersection_union
 from ..ops.affine import (GeoParams, sample_gammas, sample_geo_params,
                           transform_image, transform_logits)
+from ..parallel.collectives import gather_rows, mean_over_ranks, sum_gradients
+from ..parallel.mesh import DataGroup, data_parallel, multi_rank, shard_batch
 from .bundle import ModelBundle
 from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
 __all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_hook_draws",
-           "sample_step_draws", "sample_ft_draws", "init_train_state", "build_train_step",
-           "build_cached_train_step", "tta_probs", "build_eval_step"]
+           "sample_step_draws", "sample_ft_draws", "init_train_state", "check_data_parallel",
+           "build_train_step", "build_cached_train_step", "tta_probs", "build_eval_step"]
 
 
 class StepDraws(NamedTuple):
@@ -107,11 +120,36 @@ def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
                       hook_states={h.name: h.init_state(bundle) for h in hooks})
 
 
+def check_data_parallel(hooks: Sequence[TrainerHook], data_group: Optional[DataGroup], *,
+                        mode: str = "semi", sup_criterion: Optional[Callable] = None) -> None:
+    """Raise ``NotImplementedError`` when a step over ``data_group``'s W > 1
+    ranks would compute something other than the global batch's: a mode
+    other than ``semi``, a supervised criterion of a trainer's own, or a
+    hook whose batch reductions are not global yet (``data_parallel``
+    False), named."""
+    if multi_rank(data_group) is None:
+        return
+    W = data_group.size
+    if mode != "semi":
+        raise NotImplementedError(f"the {mode} step does not run on {W} ranks: data "
+                                  f"parallelism covers the semi step")
+    if sup_criterion is not None:
+        raise NotImplementedError(f"the supervised criterion {sup_criterion!r} does not run "
+                                  f"on {W} ranks: data parallelism covers the KL")
+    for h in hooks:
+        if not h.data_parallel:
+            raise NotImplementedError(
+                f"hook {h.name!r} ({type(h).__name__}) does not run on {W} ranks: its batch "
+                f"reductions are not global yet (data parallelism covers consistency and the "
+                f"encoder INFONCEHook)")
+
+
 def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                      disable_bn: bool = False, two_stage: bool = True, mode: str = "semi",
                      sup_criterion: Optional[Callable] = None,
                      prob_transform: Optional[Callable] = None,
-                     target_num_classes: Optional[int] = None) -> Callable:
+                     target_num_classes: Optional[int] = None,
+                     data_group: Optional[DataGroup] = None) -> Callable:
     """-> ``step(state, batch, draws, epoch=0) -> metrics`` for ``mode``
     ``semi`` or ``ft``.
 
@@ -129,20 +167,30 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     ``prob_transform`` maps the probabilities before the dice counts and
     ``target_num_classes`` is the class count of the targets (multicore:
     the prototype channels summed to the true classes); without them the
-    model's classes and the KL. The metrics stay on the device."""
+    model's classes and the KL. The metrics stay on the device.
+
+    ``data_group`` of W > 1 ranks: ``batch`` and ``draws`` are this rank's
+    rows of the global batch's (see the module docstring); the metrics are
+    the global batch's, the dice counts [W*B, C] in rank order."""
     if mode not in ("semi", "ft"):
         raise ValueError(f"mode {mode!r}: semi or ft")
     hooks = tuple(hooks)
+    group = multi_rank(data_group)
+    check_data_parallel(hooks, group, mode=mode, sup_criterion=sup_criterion)
     taps = combined_taps(hooks)
     num_classes = target_num_classes or bundle.num_classes
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: Optional[StepDraws], epoch: int = 0) -> Dict[str, torch.Tensor]:
+        with data_parallel(group):
+            return run(state, batch, draws, epoch)
+
+    def run(state, batch, draws, epoch):
         state.model.train()
         labeled_image = batch["labeled_image"]
         labeled_target = batch["labeled_target"]
         ctx = StepContext(labeled_image=labeled_image, labeled_target=labeled_target,
-                          epoch=epoch, bundle=bundle)
+                          epoch=epoch, bundle=bundle, data_group=group)
         if mode != "semi" or two_stage:
             labeled_logits, labeled_taps = bundle.apply_train(labeled_image, taps=taps)
         if draws is not None:
@@ -192,7 +240,13 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         total = sup_loss + reg_loss
 
         state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        if group is None:
+            total.backward()
+        else:
+            # this rank's share: the shares of the ranks sum to the global loss
+            (total / group.size).backward()
+            sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
+                          group)
         state.optimizer.step()
         for hook in hooks:
             state.hook_states[hook.name] = hook.post_step(
@@ -203,7 +257,11 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         inter, union = slice_intersection_union(pred.argmax(-1), labeled_target,
                                                 num_classes=num_classes)
         metrics.update(sup_loss=sup_loss.detach(), reg_loss=reg_loss.detach(),
-                       total_loss=total.detach(), dice_inter=inter, dice_union=union)
+                       total_loss=total.detach())
+        if group is not None:
+            metrics = mean_over_ranks(metrics, group)
+            inter, union = gather_rows(inter, group), gather_rows(union, group)
+        metrics.update(dice_inter=inter, dice_union=union)
         return metrics
 
     return step
@@ -212,6 +270,7 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
 def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                             labeled_cache, unlabeled_cache=None,
                             labeled_batch: int = 5, unlabeled_batch: int = 5,
+                            data_group: Optional[DataGroup] = None,
                             **kwargs) -> Callable:
     """-> ``cached_step(state, generator, epoch=0, host_rng=None) -> metrics``:
     one ``semi`` step whose batch is sampled and cropped on the device from
@@ -219,31 +278,40 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     the hooks' draws made after the transform's (host-side ones from the
     numpy ``host_rng``), or without an ``unlabeled_cache`` one ``ft`` step
     on the labeled cache's batch alone, with the hooks' draws; the metrics
-    also carry ``labeled_scan_id`` [B]."""
+    also carry ``labeled_scan_id`` [B].
+
+    ``data_group`` of W ranks, each holding the whole caches (JAX's
+    ``place_on_mesh`` replicates them): the batches are per rank, so every
+    rank draws the global batch of W times as many slices, and its draws,
+    from the same generator and keeps its rows; ``labeled_scan_id`` is the
+    global batch's."""
     semi = unlabeled_cache is not None
+    W = 1 if data_group is None else data_group.size
     needs_map = [h.name for h in hooks if h.needs_superpixel]
     if needs_map:
         raise ValueError(f"hooks {needs_map} read the superpixel map, which the device "
                          f"cache does not carry: train them host-fed "
                          f"(Trainer.device_cache=false)")
-    step = build_train_step(bundle, hooks, mode="semi" if semi else "ft", **kwargs)
+    step = build_train_step(bundle, hooks, mode="semi" if semi else "ft",
+                            data_group=data_group, **kwargs)
 
     def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0,
                     host_rng=None):
-        lab = labeled_cache.sample(generator, labeled_batch)
+        lab = labeled_cache.sample(generator, labeled_batch * W)
         batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
         labeled_shape = tuple(lab["image"].shape)
         if semi:
-            unl = unlabeled_cache.sample(generator, unlabeled_batch)
+            unl = unlabeled_cache.sample(generator, unlabeled_batch * W)
             batch.update(unlabeled_image=unl["image"], unlabeled_partition=unl["partition"],
                          unlabeled_scan_id=unl["scan_id"], unlabeled_patient=unl["patient"],
                          unlabeled_cycle=unl["cycle"])
-            draws = sample_step_draws(generator, unlabeled_batch, hooks, host_rng=host_rng,
-                                      shape=tuple(unl["image"].shape),
+            draws = sample_step_draws(generator, unlabeled_batch * W, hooks,
+                                      host_rng=host_rng, shape=tuple(unl["image"].shape),
                                       labeled_shape=labeled_shape)
         else:
             draws = sample_ft_draws(generator, hooks, host_rng=host_rng, shape=labeled_shape)
-        metrics = step(state, batch, draws, epoch)
+        metrics = step(state, shard_batch(batch, data_group), shard_batch(draws, data_group),
+                       epoch)
         metrics["labeled_scan_id"] = lab["scan_id"]
         return metrics
 

@@ -37,6 +37,18 @@ JAX trainer are not ported, nor its TPU knobs (``unroll_steps``, ``profile``).
 and transformed) or one over all three; ``accumulate_iter`` makes the
 optimizer ``optax.MultiSteps`` (``engine/optim.py``): BN statistics and the
 hooks' post-steps move on every step, the parameters every k-th.
+
+Data parallelism (``data_group``, in place of JAX's ``mesh``; a trainer
+whose ``data_parallel`` is False refuses W > 1 ranks): the model and hook
+heads are broadcast from rank 0 at :meth:`Trainer.init`; the loaders' batch
+sizes are per rank. Host-fed, each rank's loaders read its stride of the
+indices (``InfiniteRandomSampler(process_index=, process_count=)``); with
+the device cache every rank draws the global batch and keeps its rows, so
+the run is the one-process run at W times the batch. The step's metrics
+are global, so every rank's meters hold the global values; eval shards
+each batch that divides by W and gathers its counts. Only rank 0 writes
+``config.yaml``, ``storage.csv``, the checkpoints, ``.success`` and
+``inference_result.json``; a resume loads on every rank.
 """
 from __future__ import annotations
 
@@ -56,6 +68,8 @@ from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.dice import UniversalDice
 from ..meters.interface import MeterInterface
 from ..meters.storage import Storage
+from ..parallel.collectives import all_reduce_sum, gather_rows
+from ..parallel.mesh import DataGroup, multi_rank, replicate, shard_batch
 from ..utils.torch_convert import load_pretrained
 from .bundle import ModelBundle
 from .checkpoint import (load_checkpoint, load_model_params, load_train_state, save_checkpoint,
@@ -97,6 +111,8 @@ class Trainer:
     #: whether ``main`` ends a run with :meth:`inference` (SemiTrainer and
     #: its subclasses; not the pretraining or adversarial trainers)
     runs_inference: bool = False
+    #: whether the trainer runs on a ``data_group`` of W > 1 ranks
+    data_parallel: bool = False
 
     def __init__(self, *, model: torch.nn.Module, labeled_loader, unlabeled_loader=None,
                  val_loader=None, test_loader=None, save_dir: str = "tmp",
@@ -107,8 +123,14 @@ class Trainer:
                  unroll_steps: int = 1, profile: bool = False,
                  criterion: t.Optional[t.Callable] = None,
                  prob_transform: t.Optional[t.Callable] = None,
-                 target_num_classes: t.Optional[int] = None, **kwargs):
+                 target_num_classes: t.Optional[int] = None,
+                 data_group: t.Optional[DataGroup] = None, **kwargs):
         del enable_scale, kwargs  # bf16 needs no loss scaling; other keys are the JAX trainer's
+        self._group = multi_rank(data_group)
+        if self._group is not None and not self.data_parallel:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not run on {self._group.size} ranks: its batch "
+                f"reductions are not global yet (data parallelism covers SemiTrainer)")
         for key, value, default in (("Trainer.unroll_steps", unroll_steps, 1),
                                     ("Trainer.profile", bool(profile), False)):
             if value != default:
@@ -139,9 +161,14 @@ class Trainer:
         self._cur_epoch = 0
         self._best_score = -np.inf
         self._initialized = False
-        self._storage = Storage(self._save_dir)
-        if self._config:
+        self._storage = Storage(self._save_dir, write=self._is_master)
+        if self._config and self._is_master:
             yaml_write(self._config, self._save_dir, "config.yaml")
+
+    @property
+    def _is_master(self) -> bool:
+        """Whether this process writes the run's files (rank 0, or the only one)."""
+        return self._group is None or self._group.rank == 0
 
     # --- hooks ------------------------------------------------------------
     def register_hooks(self, *hooks: TrainerHook) -> None:
@@ -178,6 +205,9 @@ class Trainer:
             raise RuntimeError(f"the eval model's hook {self._inference_hook.name!r} is not "
                                f"active under {type(self).__name__}")
         self._state = init_train_state(self._bundle, self._active_hooks, self._optimizer)
+        for module in (self._model, *self._active_hooks):
+            if isinstance(module, torch.nn.Module):
+                replicate(module, self._group)
         self._build_steps()
         self._initialized = True
 
@@ -215,7 +245,7 @@ class Trainer:
 
     def _build_steps(self) -> None:
         kw = dict(disable_bn=self._disable_bn, two_stage=self._two_stage,
-                  sup_criterion=self._criterion,
+                  sup_criterion=self._criterion, data_group=self._group,
                   **self._eval_kwargs())
         if self._device_cache:
             crop = int(self._bundle.input_shape[0])
@@ -257,6 +287,11 @@ class Trainer:
                 batch["unlabeled_superpixel"] = dev(unlabeled["superpixel"]).long()
         return batch
 
+    def _global_shape(self, x: torch.Tensor) -> tuple:
+        """The shape of the global batch whose rows ``x`` holds on this rank."""
+        W = 1 if self._group is None else self._group.size
+        return (x.shape[0] * W, *x.shape[1:])
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -291,7 +326,8 @@ class Trainer:
                         epoch + 1, self._max_epoch, tra["sup_loss"], tra.get("reg_loss", 0.0),
                         tra["sup_dice"]["DSC_mean"],
                         "-" if cur_score is None else f"{cur_score:.4f}")
-        package.success(self._save_dir)
+        if self._is_master:
+            package.success(self._save_dir)
         return self._best_score
 
     def tra_epoch(self, epoch: int) -> dict:
@@ -322,18 +358,27 @@ class Trainer:
                     labeled = next(labeled_iter)
                     unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
                     batch = self._host_batch(labeled, unlabeled)
-                    labeled_shape = tuple(batch["labeled_image"].shape)
+                    labeled_shape = self._global_shape(batch["labeled_image"])
                     if unlabeled is not None:
-                        shape = tuple(batch["unlabeled_image"].shape)
+                        shape = self._global_shape(batch["unlabeled_image"])
                         draws = sample_step_draws(generator, shape[0], self._active_hooks,
                                                   host_rng=host_rng, shape=shape,
                                                   labeled_shape=labeled_shape)
                     else:
                         draws = sample_ft_draws(generator, self._active_hooks,
                                                 host_rng=host_rng, shape=labeled_shape)
-                    metrics = self._train_step(self._state, batch, draws, epoch)
-                    dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
-                                    group_name=labeled["scan"])
+                    metrics = self._train_step(self._state, batch,
+                                               shard_batch(draws, self._group), epoch)
+                    if self._group is None:
+                        dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
+                                        group_name=labeled["scan"])
+                    else:
+                        # the ranks' scans, in the order of the gathered counts
+                        ids = gather_rows(self._to_device(labeled["scan_id"]).long(),
+                                          self._group)
+                        dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
+                                        group_ids=ids,
+                                        id_table=self._labeled_loader.dataset.get_scan_list())
                 meters.add("sup_loss", metrics["sup_loss"])
                 meters.add("reg_loss", metrics["reg_loss"])
                 for hook in self._active_hooks:
@@ -392,13 +437,30 @@ class Trainer:
         t0, n = time.perf_counter(), 0
         with meters:
             for batch, tensors in self._eval_batches(loader):
-                loss, _, inter, union = self._eval_step(model, *tensors)
+                loss, inter, union = self._eval_counts(model, tensors)
                 meters.add("loss", loss)
                 dice.add_counts(inter, union, group_name=batch["scan"])
                 n += 1
         stats = dict(meters.statistics())
         self._log_eval(stage, epoch, n, time.perf_counter() - t0)
         return stats, float(stats["eval"]["dice"]["DSC_mean"])
+
+    def _eval_counts(self, model, tensors) -> tuple:
+        """(loss, inter, union) of one eval batch (image, target, mask). On W
+        ranks a batch that divides by W is sharded, as JAX's mesh eval does:
+        each rank evaluates its rows, the loss's masked sum and count are
+        summed over ranks and the per-sample counts gathered in row order;
+        another batch is evaluated whole on every rank."""
+        group = self._group
+        if group is None or tensors[0].shape[0] % group.size:
+            loss, _, inter, union = self._eval_step(model, *tensors)
+            return loss, inter, union
+        image, target, mask = shard_batch(tensors, group)
+        loss, _, inter, union = self._eval_step(model, image, target, mask)
+        count = mask.float().sum()
+        num, count = all_reduce_sum(torch.stack([loss * count.clamp(min=1.0), count]), group)
+        return (num / count.clamp(min=1.0), gather_rows(inter, group),
+                gather_rows(union, group))
 
     def _log_eval(self, stage: str, epoch: int, batches: int, seconds: float, **extra) -> None:
         logger.info("%s epoch %d: %d batches in %.3f s", stage, epoch, batches, seconds,
@@ -407,7 +469,11 @@ class Trainer:
 
     # --- checkpointing ----------------------------------------------------
     def save_to(self, name: str = "last") -> str:
+        """Write checkpoint ``name`` (rank 0 alone; every rank waits for it)."""
         path = Path(self._save_dir) / name
+        if not self._is_master:
+            self._group.barrier()
+            return str(path)
         t0 = time.perf_counter()
         save_checkpoint(path, train_state=self._train_state_to_save(),
                         host_state={"cur_epoch": self._cur_epoch + 1,
@@ -417,6 +483,8 @@ class Trainer:
         seconds = time.perf_counter() - t0
         logger.info("saved %s in %.3f s", path, seconds,
                     extra={"timing": {"phase": "save", "name": name, "seconds": seconds}})
+        if self._group is not None:
+            self._group.barrier()
         return str(path)
 
     def _train_state_to_save(self) -> dict:

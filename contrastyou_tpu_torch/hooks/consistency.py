@@ -11,6 +11,9 @@ __all__ = ["ConsistencyTrainerHook"]
 
 
 class ConsistencyTrainerHook(TrainerHook):
+    #: a per-pixel mean over this rank's rows (the step takes 1/W of it)
+    data_parallel = True
+
     def __init__(self, name: str = "consistency", weight: float = 1.0):
         super().__init__(hook_name=name, weight=weight)
 

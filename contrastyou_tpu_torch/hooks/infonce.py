@@ -25,6 +25,7 @@ from ..engine.hooks import ModuleHook, StepContext
 from ..losses.contrastive import self_paced_sup_con_loss, sup_con_loss
 from ..models.projectors import DenseProjectionHead, ProjectionHead
 from ..models.unet import UNet
+from ..parallel.collectives import gather_rows
 
 __all__ = ["TEMPERATURE", "contrast_labels", "majority_pool_labels", "sample_points",
            "INFONCEHook", "SelfPacedINFONCEHook", "SuperPixelInfoNCEHook"]
@@ -103,6 +104,12 @@ class INFONCEHook(ModuleHook):
             self.projector = DenseProjectionHead(in_dim, spatial_size=self.grid,
                                                  bf16=proj_bf16)
 
+    @property
+    def data_parallel(self) -> bool:
+        """An encoder hook gathers the global batch's anchors (:meth:`loss`);
+        a dense hook's point sampling is not ported to W > 1 ranks yet."""
+        return self._is_encoder
+
     def _projected_pair(self, ctx: StepContext):
         feat = ctx.unlabeled_taps[self._feature_name]
         feat_tf = ctx.unlabeled_tf_taps[self._feature_name]
@@ -133,6 +140,13 @@ class INFONCEHook(ModuleHook):
 
     def loss(self, ctx: StepContext, state):
         f1, f2, labels = self._pairs_and_labels(ctx)
+        group = ctx.data_group
+        if group is not None:
+            # the global 2N anchors in the one-process order (all of f1, then
+            # all of f2), as JAX's sharded step sees them; every rank computes
+            # the whole loss and the step back-propagates 1/W of it
+            f1, f2 = gather_rows(f1, group), gather_rows(f2, group)
+            labels = None if labels is None else gather_rows(labels, group)
         return sup_con_loss(f1, f2, target=labels, temperature=TEMPERATURE), state, {}
 
 
@@ -140,7 +154,10 @@ class SelfPacedINFONCEHook(INFONCEHook):
     """InfoNCE under the self-paced loss (``mode`` ``hard`` or ``soft``
     weights), its age parameter ``gamma = begin + (end - begin) * (epoch /
     max_epoch) ** p`` in f32, as JAX computes it. Metrics ``sp_weight`` (the
-    mean weight over the positive pairs) and ``age_param`` (gamma)."""
+    mean weight over the positive pairs) and ``age_param`` (gamma). Not run
+    on W > 1 ranks yet: its pair weights and their mean span the batch."""
+
+    data_parallel = False
 
     def __init__(self, *, name: str, feature_name: str, in_dim: int, weight: float = 1.0,
                  spatial_size: Optional[Sequence[int]] = None, contrast_on: str = "partition",

@@ -121,6 +121,7 @@ from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state, point_grids
 from .hooks.creator import create_hook_from_config
 from .models import get_arch
+from .parallel.mesh import DataGroup, replicate
 from .trainers import trainer_zoo
 from .trainers.pretrain import (build_pretrain_step, check_pretrain_hooks, contrastive_sampler,
                                 feature_until_from_hooks, frozen_encoder,
@@ -363,12 +364,15 @@ class SemiRun:
 
 def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
                    raw_size: int = 256, crop: int = CROP, n_slices: int = 40,
-                   max_channel: Optional[int] = None) -> SemiRun:
+                   max_channel: Optional[int] = None,
+                   data_group: Optional[DataGroup] = None) -> SemiRun:
     """Model, hooks (their heads optimized beside the model), optimizer,
     device-resident synthetic split and the cached ``semi`` step from a
     reference-style config; the class count is ``Data.name``'s (its label
     remap applied to the targets). Weights and data are made from
-    ``RandomSeed``."""
+    ``RandomSeed``. With a ``data_group`` of W ranks the loaders' batch
+    sizes are per rank: the step is the one-process step at W times them
+    (``parallel/``), the weights broadcast from rank 0."""
     refuse_unported_keys(config)
     check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
@@ -385,6 +389,9 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
         steps_per_epoch=int(trainer["num_batches"]),
         accumulate_iter=int(trainer.get("accumulate_iter", 1)))
     state = init_train_state(bundle, hooks, optimizer)
+    for module in (model, *hooks):
+        if isinstance(module, torch.nn.Module):
+            replicate(module, data_group)
     images, targets = synthetic_split(n_slices, raw_size, num_classes=spec.num_classes,
                                       seed=seed)
     targets = spec.remap(targets)
@@ -397,7 +404,7 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     nu = int(config["UnlabeledLoader"]["batch_size"])
     step = build_cached_train_step(
         bundle, hooks, labeled_cache=lab, unlabeled_cache=unl,
-        labeled_batch=nl, unlabeled_batch=nu,
+        labeled_batch=nl, unlabeled_batch=nu, data_group=data_group,
         disable_bn=bool(trainer.get("disable_bn", False)),
         two_stage=bool(trainer.get("two_stage", True)))
     return SemiRun(state, step, gen, nl + nu, lab, unl, hooks, np.random.default_rng(seed))

@@ -49,16 +49,21 @@ def _cell(value) -> str:
 
 
 class Storage:
-    def __init__(self, save_dir, csv_name: str = "storage.csv"):
+    """The history; leaving a ``with`` block writes the CSV unless ``write``
+    is False (a data-parallel rank other than 0 keeps the history alone)."""
+
+    def __init__(self, save_dir, csv_name: str = "storage.csv", *, write: bool = True):
         self._storage: Dict[str, HistoricalContainer] = defaultdict(HistoricalContainer)
         self._save_dir = str(save_dir)
         self._csv_name = csv_name
+        self._write = write
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
-        self.to_csv()
+        if self._write:
+            self.to_csv()
 
     def put(self, name: str, value, epoch: Optional[int] = None) -> None:
         if not isinstance(value, dict):

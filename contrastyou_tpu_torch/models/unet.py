@@ -18,7 +18,9 @@ BatchNorm follows JAX ``unet.py:185-206``: train mode normalizes with the
 batch mean and BIASED variance and updates the running statistics as
 ``new = (1 - m) * old + m * batch`` with the biased variance (stock
 ``nn.BatchNorm2d`` would store the unbiased one); eval mode uses the running
-statistics.
+statistics. Inside a data-parallel step (``parallel.data_parallel``) the
+batch sums are summed over the ranks first, so the statistics are the
+global batch's on every rank, as a mean over JAX's sharded batch axis is.
 
 ``norm="groupnorm"`` (JAX ``unet.py:363-377``, ``:470-472``) puts flax's
 ``nn.GroupNorm`` in each BatchNorm's place: ``min(8, features)`` groups,
@@ -40,6 +42,8 @@ import torch.nn.functional as F
 
 from ..ops.convblock import (bn_affine, bn_relu, convblock_stage,
                              upconv3x3_bn_stats)
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.mesh import active_group
 
 __all__ = ["UNet", "ConvBlock", "UpConv", "BatchNorm", "GroupNorm", "NamedLayerNet",
            "KERNEL_MAX_CHANNELS"]
@@ -77,17 +81,22 @@ class BatchNorm(nn.Module):
                update: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (a, b) [C] f32 of ``a*p + b``. Train mode takes the batch
         statistics of the NHWC pre-activation ``p`` — from its per-sample
-        sums [B, C] when given — and updates the running statistics when
-        ``update``."""
+        sums [B, C] when given, over every rank of the active data-parallel
+        group — and updates the running statistics when ``update``."""
         if not train:
             a = self.weight * torch.rsqrt(self.running_var + self.eps)
             return a, self.bias - a * self.running_mean
         if ssum is None:
             pf = p.float()
             ssum, ssq = pf.sum((1, 2)), (pf * pf).sum((1, 2))
+        ssum, ssq = ssum.sum(0), ssq.sum(0)
         count = p.numel() // p.shape[-1]
-        a, b, mean, var = bn_affine(ssum.sum(0), ssq.sum(0), count,
-                                    self.weight, self.bias, self.eps)
+        group = active_group()
+        if group is not None:
+            # the global batch's sums: each rank holds an equal share of it
+            ssum, ssq = all_reduce_sum(torch.stack([ssum, ssq]), group).unbind(0)
+            count *= group.size
+        a, b, mean, var = bn_affine(ssum, ssq, count, self.weight, self.bias, self.eps)
         if update:
             with torch.no_grad():
                 m = self.momentum

@@ -1,0 +1,99 @@
+"""The collectives of the data-parallel step, each usable under autograd.
+
+A rank's loss is its share of the global loss (the shares sum to it), so
+the backward of a collective carries the cotangents of every rank:
+
+- :func:`all_reduce_sum`: the forward sums over ranks; the backward sums
+  the cotangents over ranks, since every rank's share depends on the sum;
+- :func:`gather_rows`: the forward concatenates the ranks' rows in rank
+  order (the unsharded order); the backward sums the full cotangent over
+  ranks and keeps this rank's rows. A rank that computes the whole global
+  loss from gathered rows must therefore contribute ``1/W`` of it, or its
+  gradient comes out ``W`` times too large. The backward needs only
+  ``all_reduce``, which gloo supports on CUDA tensors too (``torch.
+  distributed.nn``'s gather takes an all-to-all there).
+
+:func:`sum_gradients` sums the gradients over ranks in one flat bucket and
+:func:`mean_over_ranks` averages scalars (the step's metrics) in one
+all-reduce.
+"""
+from __future__ import annotations
+
+import typing as t
+
+import torch
+import torch.distributed as dist
+
+from .mesh import DataGroup
+
+__all__ = ["all_reduce_sum", "gather_rows", "sum_gradients", "mean_over_ranks"]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group.process_group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group.process_group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``."""
+    return _AllReduceSum.apply(x, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(group.size)]
+        dist.all_gather(parts, x, group=group.process_group)
+        return torch.cat(parts, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group.process_group)
+        return g.narrow(0, ctx.group.rank * ctx.rows, ctx.rows), None
+
+
+def gather_rows(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """Every rank's ``x`` [n, ...] (the same n on each) -> [W*n, ...] in rank
+    order; integer tensors too (no gradient)."""
+    return _GatherRows.apply(x, group)
+
+
+@torch.no_grad()
+def sum_gradients(params: t.Iterable[torch.Tensor], group: DataGroup) -> None:
+    """Sum the ``.grad`` of ``params`` over ranks, in place, through one
+    flat bucket (parameters without a gradient, the same on every rank,
+    are left out)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group.process_group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+@torch.no_grad()
+def mean_over_ranks(values: t.Mapping[str, torch.Tensor], group: DataGroup) -> dict:
+    """The mean over ranks of each scalar of ``values``, in one all-reduce."""
+    keys = list(values)
+    if not keys:
+        return {}
+    stacked = torch.stack([values[k].float().reshape(()) for k in keys])
+    dist.all_reduce(stacked, group=group.process_group)
+    stacked /= group.size
+    return {k: stacked[i] for i, k in enumerate(keys)}

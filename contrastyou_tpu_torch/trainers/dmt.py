@@ -10,6 +10,10 @@ __all__ = ["DMTTrainer"]
 
 
 class DMTTrainer(SemiTrainer):
+    #: not on W > 1 ranks yet: the teacher's forwards and the meta step
+    #: take batch statistics of their own
+    data_parallel = False
+
     def init(self) -> None:
         super().init()
         dmt = next((h for h in self._active_hooks

@@ -13,3 +13,5 @@ __all__ = ["FineTuneTrainer"]
 class FineTuneTrainer(SemiTrainer):
     train_mode = "ft"
     activate_hooks = False
+    #: not on W > 1 ranks yet (the ft step; queued after semi)
+    data_parallel = False

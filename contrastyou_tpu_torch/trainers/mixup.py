@@ -12,3 +12,6 @@ __all__ = ["MixUpTrainer"]
 class MixUpTrainer(SemiTrainer):
     train_mode = "ft"
     activate_hooks = True
+    #: not on W > 1 ranks yet: the mixed forward and its permutation span
+    #: the batch
+    data_parallel = False

@@ -10,6 +10,10 @@ __all__ = ["MTTrainer"]
 
 
 class MTTrainer(SemiTrainer):
+    #: not on W > 1 ranks yet: the teacher's forward takes batch
+    #: statistics of its own
+    data_parallel = False
+
     def init(self) -> None:
         super().init()
         mt = next((h for h in self._active_hooks if isinstance(h, MeanTeacherTrainerHook)), None)

@@ -20,6 +20,9 @@ def prototype_groups(true_num_classes: int, multiplier: int) -> List[List[int]]:
 
 
 class MulticoreTrainer(SemiTrainer):
+    #: not on W > 1 ranks yet: the multicore criterion's reductions
+    data_parallel = False
+
     def __init__(self, *, true_num_classes: int, multiplier: int = 2, **kwargs):
         criterion = MultiCoreKL(prototype_groups(true_num_classes, multiplier))
         super().__init__(criterion=criterion, prob_transform=criterion.reduced_simplex,

@@ -26,12 +26,14 @@ logger = logging.getLogger(__name__)
 class SemiTrainer(Trainer):
     activate_hooks = True
     runs_inference = True
+    data_parallel = True
 
     def inference(self, scan_loader=None, checkpoint: Optional[str] = None,
                   tta: Optional[bool] = None) -> dict:
         """Dice and ASD per scan of ``scan_loader`` (default: the test
         loader) after restoring ``checkpoint`` when given; ``tta`` defaults
-        to the config's ``Inference.tta``."""
+        to the config's ``Inference.tta``. On W ranks every rank evaluates
+        every scan and rank 0 writes the result."""
         if not self._initialized:
             raise RuntimeError("call init() first")
         if tta is None:
@@ -58,7 +60,8 @@ class SemiTrainer(Trainer):
         result = dict(meters.statistics())["inference"]
         self._log_eval("inference", self._cur_epoch, n, time.perf_counter() - t0, tta=tta)
         out = {"dice": result["dice"], "asd": result["asd"], "loss": float(result["loss"])}
-        with open(Path(self._save_dir) / "inference_result.json", "w") as f:
-            json.dump(out, f, indent=2)
+        if self._is_master:
+            with open(Path(self._save_dir) / "inference_result.json", "w") as f:
+                json.dump(out, f, indent=2)
         logger.info("inference: %s", out["dice"])
         return out
