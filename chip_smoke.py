@@ -188,29 +188,35 @@ Phases, in order; any failure exits non-zero:
    running statistics, one inner update per 2 steps), the launches per
    step of ``P17_LAUNCHES`` plus each eval forward's (``P17_EVAL``),
    ms/step and peak memory;
-18. data parallelism (``semi/dp``, run after phase 17): the full-width
-   ``semi`` step with consistency and the encoder InfoNCE hook (Conv5 by
-   partition) through ``build_semi_run(data_group=...)`` on ``DP_WORLD``
-   ranks of ``DP_BATCH`` + ``DP_BATCH`` slices, spawned after the kernels
-   are built (NCCL with a card a rank, else gloo with every rank on
-   ``cuda:0``, which stages each collective through host memory; the
-   backend and the ranks' devices are printed): ``DP_STEPS`` steps, the
-   first one's global gradients and loss against one process's at the
-   global batch through the kernels, each against f32 (the ranks' error at
-   most ``STAGE_FACTOR`` times the one process's plus ``STAGE_ATOL``: as
-   accurate as bf16 against f32), the ranks' parameters bitwise equal
-   after the steps, every rank's launches the path implies
-   (``DP_LAUNCHES`` a step: D1/D2 on the gathered 2N anchors), ms/step of
-   the ranks against the one process and the time of one all-reduce of the
-   gradient bucket.
+18-19. data parallelism (run after phase 17), one harness (``run_dp``)
+   for every path of ``P19_PATHS``: phase 18's ``semi/dp`` (consistency
+   and the encoder InfoNCE hook, Conv5 by partition), then phase 19's
+   hooks and trainers beyond ``semi`` (``mt/dp``, ``uamt/dp`` with 2 noisy
+   passes, ``ict/dp``, ``semi/udaiic/dp``, ``semi/dense/dp`` with dense and
+   self-paced InfoNCE on Up_conv2, ``ft/dp`` with the EMA eval model),
+   each at full width through ``build_semi_run(data_group=...)`` on
+   ``DP_WORLD`` ranks of ``DP_BATCH`` + ``DP_BATCH`` slices, spawned once
+   after the kernels are built (each rank runs the paths in turn; NCCL
+   with a card a rank, else gloo with every rank on ``cuda:0``, which
+   stages each collective through host memory; the backend and the ranks'
+   devices are printed): per path ``DP_STEPS`` steps, the first one's loss,
+   the model's and the hooks' gradients and the hooks' states after it
+   (teachers, EMA) against f32 (plain kernels) within ``STAGE_FACTOR``
+   times the one process's error at the global batch plus ``STAGE_ATOL``
+   (as accurate as bf16 against f32), the ranks' parameters and hook
+   states bitwise equal after the steps, every rank's launches of
+   ``P19_LAUNCHES`` (D1/D2 on ``semi/dp``'s gathered 2N anchors and on
+   ``semi/dense/dp``, E1/E2 on ``semi/udaiic/dp``), ms/step on the ranks
+   and in one process, and on ``semi/dp`` the time of one all-reduce of
+   the gradient bucket and of one BatchNorm's sums.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
 counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
 path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
-``ft/ema``, the five of phases 14 and 15, phases 16's and 17's each and
-``semi/dp``, rank 0's),
+``ft/ema``, the five of phases 14 and 15, phases 16's and 17's each,
+the seven of phases 18 and 19, rank 0's),
 ``max_abs_err`` the largest over the checked shapes and call sites (phases
 14-17's included),
 ``ms`` /
@@ -3314,162 +3320,270 @@ def run_phase17(device, card: str, recs: dict, extra=()) -> dict:
     return by_path
 
 
-# --- phase 18: data parallelism --------------------------------------------
+# --- phases 18 and 19: data parallelism ---------------------------------------
 
-#: ranks, slices a rank (labeled and unlabeled each), steps of phase 18
+#: ranks, slices a rank (labeled and unlabeled each), steps a path
 DP_WORLD, DP_BATCH, DP_STEPS = 2, 5, 5
-#: launches per step of a rank: semi's convs at its batch, and one D1/D2
-#: pair on the gathered anchors
-DP_LAUNCHES = {"conv3x3_stats": 16, "upconv3x3_stats": 2, "upconv3x3_dx": 2,
-               "conv_dw_taps": 4, "conv3x3_bwd_fused": 18, "supcon_loss": 1, "supcon_dz": 1,
-               "iic_joints": 0, "iic_joints_bwd": 0}
+#: the data-parallel paths, (name, overrides of ``parse_config``), each on
+#: ``DP_WORLD`` ranks of ``DP_BATCH`` + ``DP_BATCH`` slices (``ft``: the
+#: labeled batch alone) against one process at the global batch: phase 18's
+#: ``semi/dp`` (consistency and the encoder InfoNCE hook on Conv5 by
+#: partition), then phase 19's hooks and trainers beyond ``semi``
+P19_PATHS = [
+    ("semi/dp", ["Trainer.name=semi", "+InfonceParams.feature_names=Conv5",
+                 "+InfonceParams.weights=0.5", "+InfonceParams.contrast_ons=partition",
+                 "+InfonceParams.spatial_size=1"]),
+    ("mt/dp", ["Trainer.name=mt"]),
+    ("uamt/dp", ["Trainer.name=mt", *MT_OVERRIDES["uamt"], "+UAMeanTeacherParameters.num_noise=2"]),
+    ("ict/dp", ["Trainer.name=mt", *MT_OVERRIDES["ict"]]),
+    ("semi/udaiic/dp", ["Trainer.name=semi", "~ConsistencyParameters",
+                        "+DiscreteMIConsistencyParams.feature_names=[Conv5,Up_conv2]",
+                        "+DiscreteMIConsistencyParams.mi_weights=[0.1,0.05]",
+                        "+DiscreteMIConsistencyParams.dense_paddings=[1]",
+                        "+DiscreteMIConsistencyParams.consistency_weight=1"]),
+    ("semi/dense/dp", ["Trainer.name=semi", "+InfonceParams.feature_names=Up_conv2",
+                       "+InfonceParams.weights=0.5", "+InfonceParams.contrast_ons=self",
+                       "+InfonceParams.spatial_size=16", "+SPInfonceParams.feature_names=Up_conv2",
+                       "+SPInfonceParams.weights=0.2", "+SPInfonceParams.contrast_ons=self",
+                       "+SPInfonceParams.begin_values=4", "+SPInfonceParams.end_values=10"]),
+    ("ft/dp", ["Trainer.name=ft", "+EvalEMAParameters.alpha=0.99"]),
+]
+#: launches per step of a rank: (forwards, backward passes) of the net (the
+#: teacher's forwards included: MT one, UAMT a clean and two noisy, ICT two
+#: and the student's mixed pass, whose backward replaces the unlabeled
+#: pass's), plus D1/D2 once per step on the InfoNCE hooks' gathered anchors
+#: (``semi/dp``'s 2N = 20 encoder anchors, ``semi/dense/dp``'s dense hook;
+#: the self-paced loss is eager) and E1/E2 once on the dense udaiic hook
+P19_LAUNCHES = {
+    "semi/dp": dict(passes_launches(2, 2), supcon_loss=1, supcon_dz=1),
+    "mt/dp": passes_launches(3, 2), "uamt/dp": passes_launches(5, 2),
+    "ict/dp": passes_launches(5, 2),
+    "semi/udaiic/dp": dict(passes_launches(2, 2), iic_joints=1, iic_joints_bwd=1),
+    "semi/dense/dp": dict(passes_launches(2, 2), supcon_loss=1, supcon_dz=1),
+    "ft/dp": passes_launches(1, 1)}
+#: the path whose rank also times one all-reduce of its gradient bucket and
+#: of one BatchNorm's [2, 512] sums
+COLLECTIVES_PATH = "semi/dp"
 
 
-def dp_config(batch: int) -> dict:
-    """The main path's config (consistency) with the encoder InfoNCE hook on
-    Conv5 by partition, at ``batch`` + ``batch`` slices."""
-    from contrastyou_tpu_torch.configure.config import merge
-    from contrastyou_tpu_torch.main import MAIN_PATH_CONFIG
-    return merge(MAIN_PATH_CONFIG, {
-        "InfonceParams": {"feature_names": "Conv5", "weights": 0.5, "contrast_ons": "partition",
-                          "spatial_size": 1},
-        "LabeledLoader": {"batch_size": batch}, "UnlabeledLoader": {"batch_size": batch}})
+def p19_config(overrides: list, batch: int) -> dict:
+    from contrastyou_tpu_torch.main import parse_config
+    return parse_config(["-o", *overrides, f"LabeledLoader.batch_size={batch}",
+                         f"UnlabeledLoader.batch_size={batch}"])
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _first_step(run) -> dict:
-    """One step of ``run`` -> its total loss and the model's gradients (f32,
-    on the host)."""
-    m = run.run(1)[0]
-    return {"loss": m["total_loss"].reshape(1).float().cpu(),
-            **{k: p.grad.float().cpu() for k, p in run.state.model.named_parameters()}}
-
-
-def _timed_steps(run, n: int) -> tuple:
-    """(wall ms per step, total losses) of ``n`` synchronized steps."""
+    """One step of ``run`` -> its total loss, the gradients of the model's
+    and the hooks' parameters, and the hooks' states after it (the
+    teachers, the EMA), f32 on the host."""
     import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics = run.run(n)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e3, [float(m["total_loss"]) for m in metrics]
+    m = run.run(1)[0]
+    out = {"loss": m["total_loss"].reshape(1).float().cpu(),
+           **{k: p.grad.float().cpu() for k, p in run.state.model.named_parameters()}}
+    for h in run.hooks:
+        if isinstance(h, torch.nn.Module):
+            out.update({f"{h.name}/{k}": p.grad.float().cpu() for k, p in h.named_parameters()
+                        if p.grad is not None})
+        out.update({f"{h.name} state/{k}": v.float().cpu() for k, v in _state_tensors(
+            run.state.hook_states[h.name]).items()})
+    return out
 
 
-def dp_rank(rank: int, world: int, port: int, backend: str, devices: list, out: str) -> None:
-    """One rank of phase 18 (a spawned process): ``DP_STEPS`` steps, the
-    first one's gradients, launches, timings and a digest of the
-    parameters, saved to ``out``."""
+def _time_all_reduces(run, group) -> dict:
+    """ms of one all-reduce of ``run``'s gradient bucket (every optimized
+    parameter) and of one BatchNorm's [2, 512] sums, over ``group``."""
+    import torch
+    import torch.distributed as dist
+
+    bucket = torch.cat([p.detach().reshape(-1) for g in run.state.optimizer.param_groups
+                        for p in g["params"]])
+    small = torch.zeros(2, 512, device=group.device)
+    times = {"bucket": bucket.numel()}
+    for name, x, n in (("allreduce_ms", bucket, 5), ("small_allreduce_ms", small, 50)):
+        dist.all_reduce(x, group=group.process_group)
+        _sync(group.device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dist.all_reduce(x, group=group.process_group)
+        _sync(group.device)
+        times[name] = (time.perf_counter() - t0) / n * 1e3
+    return times
+
+
+def p19_path(overrides: list, batch: int, device, group=None, steps: int = DP_STEPS,
+             collectives: bool = False, **sizes) -> dict:
+    """One data-parallel path at ``batch`` + ``batch`` slices (a rank's, with
+    ``group``): the first step's loss, gradients and hook states, then
+    ``steps - 1`` timed steps; the launches over all of them; digests of the
+    parameters and of the hooks' states; with ``collectives``, the times of
+    :func:`_time_all_reduces` after the steps."""
     import hashlib
 
     import torch
-    import torch.distributed as dist
     from contrastyou_tpu_torch.main import build_semi_run
+
+    run = build_semi_run(p19_config(overrides, batch), device=device, data_group=group,
+                         **sizes)
+    before = {k: p.detach().clone() for k, p in run.state.model.named_parameters()}
+    _reset_counts()
+    first = _first_step(run)
+    _sync(device)
+    t0 = time.perf_counter()
+    metrics = run.run(steps - 1)
+    _sync(device)
+    ms = (time.perf_counter() - t0) / max(steps - 1, 1) * 1e3
+    launches = _counts()
+
+    def digest(tensors) -> str:
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+    hook_tensors = [v for h in run.hooks for k, v in sorted(_state_tensors(
+        run.state.hook_states[h.name]).items())]
+    return {"first": first, "ms": ms, "launches": launches,
+            "losses": [float(first["loss"])] + [float(m["total_loss"]) for m in metrics],
+            "changed": sum(int(not torch.equal(before[k], p.detach()))
+                           for k, p in run.state.model.named_parameters()),
+            "tensors": len(before),
+            "digest": digest(run.state.model.parameters()),
+            "hook_digest": digest(hook_tensors) if hook_tensors else None,
+            "hooks": [h.name for h in run.hooks], "batch_slices": run.batch_slices,
+            **(_time_all_reduces(run, group) if collectives and group is not None else {})}
+
+
+def _state_tensors(tree, prefix: str = "") -> dict:
+    """The tensors of a hook state's nest of dicts, keyed by path."""
+    import torch
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_state_tensors(v, f"{prefix}{k}/"))
+        return out
+    return {prefix: tree} if isinstance(tree, torch.Tensor) else {}
+
+
+def p19_rank(rank: int, world: int, port: int, backend: str, devices: list, out: str,
+             sizes: dict) -> None:
+    """One rank of phases 18 and 19 (a spawned process): every path in turn."""
+    import torch
+    import torch.distributed as dist
     from contrastyou_tpu_torch.parallel import init_distributed
 
     group = init_distributed(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
                              backend=backend, device=devices[rank])
     try:
-        run = build_semi_run(dp_config(DP_BATCH), device=group.device, data_group=group)
-        before = {k: p.detach().clone() for k, p in run.state.model.named_parameters()}
-        _reset_counts()
-        first = _first_step(run)
-        ms, losses = _timed_steps(run, DP_STEPS - 1)
-        launches = _counts()
-        params = [p.detach() for p in run.state.model.parameters()]
-        flat = torch.cat([p.reshape(-1) for p in params])
-        changed = sum(int(not torch.equal(before[k], p.detach()))
-                      for k, p in run.state.model.named_parameters())
-        bucket = torch.cat([p.reshape(-1) for g in run.state.optimizer.param_groups
-                            for p in g["params"]]).clone()
-        # one BatchNorm's sums: [2, C] at the widest level
-        small = torch.zeros(2, 512, device=group.device)
-        times = {}
-        for name, x, n in (("bucket", bucket, 5), ("small", small, 50)):
-            dist.all_reduce(x)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                dist.all_reduce(x)
-            torch.cuda.synchronize()
-            times[name] = (time.perf_counter() - t0) / n * 1e3
-        torch.save({"first": first, "ms": ms, "losses": [float(first["loss"])] + losses,
-                    "launches": launches, "changed": changed, "tensors": len(before),
-                    "digest": hashlib.sha256(flat.float().cpu().numpy().tobytes()).hexdigest(),
-                    "bucket": bucket.numel(), "allreduce_ms": times["bucket"],
-                    "small_allreduce_ms": times["small"], "device": str(group.device)},
-                   f"{out}/rank{rank}.pt")
+        results = {}
+        for path, overrides in P19_PATHS:
+            results[path] = p19_path(overrides, DP_BATCH, group.device, group,
+                                     collectives=path == COLLECTIVES_PATH, **sizes)
+            if group.device.type == "cuda":
+                torch.cuda.empty_cache()
+        torch.save({"paths": results, "device": str(group.device)}, f"{out}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def run_dp(device, card: str, world: int = DP_WORLD) -> dict:
-    """Phase 18: ``semi/dp`` on ``world`` spawned ranks, held against one
-    process at the global batch (module docstring)."""
+def run_dp(device, card: str, world: int = DP_WORLD, **sizes) -> dict:
+    """Phases 18 and 19: each path of ``P19_PATHS`` on ``world`` ranks
+    spawned once, held against one process at the global batch: the first
+    step's loss, the model's and the hooks' gradients and the hooks' states
+    after it, through the kernels, against f32 (plain kernels), the ranks'
+    error at most ``STAGE_FACTOR`` times the one process's plus
+    ``STAGE_ATOL``; the ranks' parameters and hook states bitwise equal
+    after the steps; the launches per rank of ``P19_LAUNCHES``; ms/step of
+    both. ``sizes`` go to ``build_semi_run`` (full width without them)."""
     import socket
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
-    from contrastyou_tpu_torch.main import build_semi_run
 
-    if torch.cuda.device_count() >= world:
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.device_count() >= world:
         backend, devices = "nccl", [f"cuda:{r}" for r in range(world)]
         staging = "NCCL, a card a rank"
     else:
-        backend, devices = "gloo", ["cuda:0"] * world
-        staging = ("gloo with every rank on one card: each collective is staged through host "
-                   "memory by ProcessGroupGloo")
-    print(f"semi/dp: {world} ranks, backend {backend} ({staging}); ranks' devices {devices}")
+        backend, devices = "gloo", [str(device)] * world
+        staging = ("gloo with every rank on one device: each collective is staged through "
+                   "host memory by ProcessGroupGloo")
+    print(f"data parallelism: {world} ranks spawned once, backend {backend} ({staging}); "
+          f"ranks' devices {devices}")
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
         t0 = time.perf_counter()
-        mp.spawn(dp_rank, args=(world, port, backend, devices, tmp), nprocs=world, join=True)
-        print(f"semi/dp: ranks done in {time.perf_counter() - t0:.1f} s")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
-    print(f"semi/dp: ranks on {[r['device'] for r in ranks]}")
+        mp.spawn(p19_rank, args=(world, port, backend, devices, tmp, sizes), nprocs=world,
+                 join=True)
+        print(f"data parallelism: ranks done in {time.perf_counter() - t0:.1f} s")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt")["paths"] for r in range(world)]
 
-    config = dp_config(world * DP_BATCH)
-    one = build_semi_run(config, device=device)
-    ref = _first_step(one)
-    one_ms, _ = _timed_steps(one, DP_STEPS - 1)
-    del one
-    with plain_kernels(), plain_supcon():
-        f32 = _first_step(build_semi_run(config, device=device, dtype=torch.float32))
-    torch.cuda.empty_cache()
+    by_path = {}
+    for path, overrides in P19_PATHS:
+        one = p19_path(overrides, world * DP_BATCH, device, **sizes)
+        with plain_kernels(), plain_supcon(), plain_iic():
+            f32 = _first_step(_p19_f32_run(overrides, world * DP_BATCH, device, **sizes))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        got, ref = ranks[0][path]["first"], one["first"]
+        if set(got) != set(f32) or set(ref) != set(f32):
+            raise AssertionError(f"{path}: the first step's tensors differ from f32's: "
+                                 f"{sorted(set(got) ^ set(f32))}")
+        worst = {}
+        for k in f32:
+            ek, ep = _rel_err(got[k], f32[k])[1], _rel_err(ref[k], f32[k])[1]
+            kind = "state" if " state/" in k else "loss and gradients"
+            worst[kind] = max(worst.get(kind, 0.0), ek / (ep + STAGE_ATOL))
+            if ek > STAGE_FACTOR * ep + STAGE_ATOL or not bool(torch.isfinite(got[k]).all()):
+                raise AssertionError(f"{path} step 1 {k}: {world} ranks {ek:.3e} from f32, one "
+                                     f"process {ep:.3e}")
+        loss_err = [_rel_err(x["loss"], f32["loss"])[1] for x in (got, ref)]
+        digests = {(r[path]["digest"], r[path]["hook_digest"]) for r in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"{path}: the ranks' parameters or hook states differ after "
+                                 f"{DP_STEPS} steps")
+        want = {k: 0 for k in (*CONV_KERNELS, *BWD_KERNELS, *SUPCON_KERNELS, *IIC_KERNELS)}
+        want.update({k: DP_STEPS * n for k, n in P19_LAUNCHES[path].items()})
+        for r, res in enumerate(ranks):
+            res = res[path]
+            if not all(math.isfinite(v) for v in res["losses"]) or res["changed"] == 0:
+                raise AssertionError(f"{path} rank {r}: losses {res['losses']}, "
+                                     f"{res['changed']} tensors changed")
+            if res["launches"] != want:
+                raise AssertionError(f"{path} rank {r}: launches {res['launches']}, want {want}")
+        res = ranks[0][path]
+        hook_grads = sum(1 for k in f32 if any(k.startswith(f"{h}/") for h in res["hooks"]))
+        print(f"{path}: hooks {res['hooks']}; step 1 on {world} ranks vs one process, each "
+              f"against f32: loss {loss_err[0]:.2e} vs {loss_err[1]:.2e}; over the loss and "
+              f"{len(f32) - 1} gradients and hook-state tensors ({hook_grads} of the hooks' "
+              f"heads) the ranks' error at most "
+              f"{', '.join(f'{v:.2f}x ({k})' for k, v in worst.items())} the one process's "
+              f"(+{STAGE_ATOL}; limit {STAGE_FACTOR}x); parameters and hook states bitwise "
+              f"equal on the ranks after {DP_STEPS} steps ({res['changed']}/{res['tensors']} "
+              f"tensors changed); losses {res['losses']}; launches per rank {res['launches']}")
+        print(f"{path}: {res['ms']:.3f} ms/step on {world} ranks of {res['batch_slices']} "
+              f"slices (rank 1 {ranks[1][path]['ms']:.3f}) vs {one['ms']:.3f} ms/step in one "
+              f"process of {one['batch_slices']} ({backend}); on {card}")
+        if "bucket" in res:
+            print(f"{path}: one all-reduce of the {res['bucket']}-float gradient bucket "
+                  f"{res['allreduce_ms']:.3f} ms, of one BatchNorm's [2, 512] sums "
+                  f"{res['small_allreduce_ms']:.3f} ms ({backend}); on {card}")
+        STEP_MS[path] = res["ms"]
+        by_path[path] = res["launches"]
+    return by_path
 
-    got, worst = ranks[0]["first"], 0.0
-    for k in f32:
-        ek, ep = _rel_err(got[k], f32[k])[1], _rel_err(ref[k], f32[k])[1]
-        worst = max(worst, ek / (ep + STAGE_ATOL))
-        if ek > STAGE_FACTOR * ep + STAGE_ATOL or not bool(torch.isfinite(got[k]).all()):
-            raise AssertionError(f"semi/dp step 1 {k}: {world} ranks {ek:.3e} from f32, one "
-                                 f"process {ep:.3e}")
-    loss_err = [_rel_err(x["loss"], f32["loss"])[1] for x in (got, ref)]
-    print(f"semi/dp: step 1 on {world} ranks of {DP_BATCH}+{DP_BATCH} vs one process of "
-          f"{world * DP_BATCH}+{world * DP_BATCH}, each against f32: loss {loss_err[0]:.2e} vs "
-          f"{loss_err[1]:.2e}; over the loss and {len(f32) - 1} gradients the ranks' error is "
-          f"at most {worst:.2f}x the one process's (+{STAGE_ATOL}; limit {STAGE_FACTOR}x)")
-    digests = {r["digest"] for r in ranks}
-    if len(digests) != 1:
-        raise AssertionError(f"semi/dp: the ranks' parameters differ after {DP_STEPS} steps")
-    for r, res in enumerate(ranks):
-        if not all(math.isfinite(v) for v in res["losses"]) or res["changed"] == 0:
-            raise AssertionError(f"semi/dp rank {r}: losses {res['losses']}, "
-                                 f"{res['changed']} tensors changed")
-        want = {k: DP_STEPS * v for k, v in DP_LAUNCHES.items()}
-        if any(res["launches"][k] != v for k, v in want.items()):
-            raise AssertionError(f"semi/dp rank {r}: launches {res['launches']}, want {want}")
-    print(f"semi/dp: the ranks' parameters bitwise equal after {DP_STEPS} steps "
-          f"({ranks[0]['changed']}/{ranks[0]['tensors']} tensors changed); losses "
-          f"{ranks[0]['losses']}; launches per rank {ranks[0]['launches']}")
-    print(f"semi/dp: {ranks[0]['ms']:.3f} ms/step on {world} ranks of {DP_BATCH}+{DP_BATCH} "
-          f"(rank 1 {ranks[1]['ms']:.3f}) vs {one_ms:.3f} ms/step in one process of "
-          f"{world * DP_BATCH}+{world * DP_BATCH}; one all-reduce of the "
-          f"{ranks[0]['bucket']}-float gradient bucket {ranks[0]['allreduce_ms']:.3f} ms, of "
-          f"one BatchNorm's [2, 512] sums {ranks[0]['small_allreduce_ms']:.3f} ms ({backend}); "
-          f"on {card}")
-    return {"semi/dp": ranks[0]["launches"]}
+
+def _p19_f32_run(overrides: list, batch: int, device, **sizes):
+    import torch
+    from contrastyou_tpu_torch.main import build_semi_run
+    return build_semi_run(p19_config(overrides, batch), device=device, dtype=torch.float32,
+                          **sizes)
 
 
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
@@ -3562,11 +3676,11 @@ def main() -> int:
     by_path.update(run_phase17(device, card, recs))
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
-    print("data parallelism (phase 18):")
+    print("data parallelism: semi, and the hooks and trainers beyond it (phases 18 and 19):")
     t0 = time.perf_counter()
     by_path.update(run_dp(device, card))
     torch.cuda.empty_cache()
-    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    print(f"phases 18 and 19: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

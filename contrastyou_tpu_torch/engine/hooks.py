@@ -91,6 +91,11 @@ class TrainerHook:
     #: step back-propagates 1/W of it), and it reduces nothing else over the
     #: batch; a hook without it raises there
     data_parallel: bool = False
+    #: the batch axis of the hook's :meth:`draw`, along which a data-parallel
+    #: step cuts it to this rank's rows (``parallel.shard_batch``); None
+    #: keeps the draw whole on every rank (a draw over the global batch that
+    #: the hook reads whole, as ICT's permutation)
+    draw_batch_dim: Optional[int] = 0
     #: whether the hook reads the aligned first view T(f(x)), which the
     #: pretrain step builds only for such hooks
     reads_logits_tf: bool = False

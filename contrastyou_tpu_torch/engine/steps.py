@@ -13,15 +13,17 @@ and the crop offsets from a ``torch.Generator``, and the hooks' host-side
 draws (ICT's and MixUp's ``lam`` and permutation) from a numpy generator.
 
 Data parallelism (``data_group`` of W > 1 ranks, ``parallel/``): the ``semi``
-step computes what one process computes on the global batch, as JAX's step
-on a sharded batch does. Each rank holds 1/W of the batch and of the draws
-(every rank draws the global batch's from the same generator and keeps its
-rows, :func:`~contrastyou_tpu_torch.parallel.shard_batch`); BatchNorm's sums
-and the InfoNCE anchors are global; each rank back-propagates its share of
-the loss (its per-rank means, or the global InfoNCE value, over W), the
-gradients are summed over ranks before the update, and the metrics are the
-global batch's. Only ``consistency`` and the encoder InfoNCE hook run so
-(:func:`check_data_parallel`); W = 1 or no group runs no collective.
+and ``ft`` steps compute what one process computes on the global batch, as
+JAX's step on a sharded batch does. Each rank holds 1/W of the batch and of
+the draws (every rank draws the global batch's from the same generators and
+keeps its rows, :func:`shard_step_draws`: each hook's draw along its own
+batch axis, or whole); BatchNorm's sums (the teachers' forwards included),
+the InfoNCE anchors, the IIC joints and the IMSAT marginals are global; each
+rank back-propagates its share of the loss (its per-rank means, or a global
+value, over W), the gradients are summed over ranks before the update, and
+the metrics are the global batch's. The hooks whose ``data_parallel`` is
+True run so (:func:`check_data_parallel`); W = 1 or no group runs no
+collective.
 """
 from __future__ import annotations
 
@@ -34,14 +36,15 @@ from ..losses.kl import kl_div
 from ..meters.dice import slice_intersection_union
 from ..ops.affine import (GeoParams, sample_gammas, sample_geo_params,
                           transform_image, transform_logits)
-from ..parallel.collectives import gather_rows, mean_over_ranks, sum_gradients
+from ..parallel.collectives import gather_rows, mean_over_ranks, num_ranks, sum_gradients
 from ..parallel.mesh import DataGroup, data_parallel, multi_rank, shard_batch
 from .bundle import ModelBundle
 from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
 __all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_hook_draws",
-           "sample_step_draws", "sample_ft_draws", "init_train_state", "check_data_parallel",
+           "sample_step_draws", "sample_ft_draws", "shard_step_draws", "init_train_state",
+           "check_data_parallel",
            "build_train_step", "build_cached_train_step", "tta_probs", "build_eval_step"]
 
 
@@ -113,6 +116,23 @@ def sample_ft_draws(generator: torch.Generator, hooks: Sequence[TrainerHook] = (
                                                    shape=shape, labeled_shape=shape), {})
 
 
+def shard_step_draws(draws: Optional[StepDraws], hooks: Sequence[TrainerHook],
+                     group: Optional[DataGroup]) -> Optional[StepDraws]:
+    """This rank's share of a global batch's draws: the transform's and the
+    point draws' rows, and each hook's draw cut along the hook's
+    ``draw_batch_dim`` (UAMT's noise [num_noise, B, ...] along axis 1) or
+    kept whole where that is None (ICT's permutation of the global batch).
+    Without a group, or with one rank, ``draws`` as they are."""
+    if draws is None or multi_rank(group) is None:
+        return draws
+    dims = {h.name: h.draw_batch_dim for h in hooks}
+    drawn = None if draws.hooks is None else {
+        k: v if dims.get(k, 0) is None else shard_batch(v, group, dims.get(k, 0))
+        for k, v in draws.hooks.items()}
+    return StepDraws(shard_batch(draws.geo, group), shard_batch(draws.gammas, group), drawn,
+                     shard_batch(draws.points, group))
+
+
 def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
                      optimizer: torch.optim.Optimizer) -> TrainState:
     check_hook_names(hooks)
@@ -124,15 +144,15 @@ def check_data_parallel(hooks: Sequence[TrainerHook], data_group: Optional[DataG
                         mode: str = "semi", sup_criterion: Optional[Callable] = None) -> None:
     """Raise ``NotImplementedError`` when a step over ``data_group``'s W > 1
     ranks would compute something other than the global batch's: a mode
-    other than ``semi``, a supervised criterion of a trainer's own, or a
-    hook whose batch reductions are not global yet (``data_parallel``
-    False), named."""
+    other than ``semi`` and ``ft``, a supervised criterion of a trainer's
+    own, or a hook whose batch reductions are not global yet
+    (``data_parallel`` False), named."""
     if multi_rank(data_group) is None:
         return
     W = data_group.size
-    if mode != "semi":
+    if mode not in ("semi", "ft"):
         raise NotImplementedError(f"the {mode} step does not run on {W} ranks: data "
-                                  f"parallelism covers the semi step")
+                                  f"parallelism covers the semi and ft steps")
     if sup_criterion is not None:
         raise NotImplementedError(f"the supervised criterion {sup_criterion!r} does not run "
                                   f"on {W} ranks: data parallelism covers the KL")
@@ -140,8 +160,8 @@ def check_data_parallel(hooks: Sequence[TrainerHook], data_group: Optional[DataG
         if not h.data_parallel:
             raise NotImplementedError(
                 f"hook {h.name!r} ({type(h).__name__}) does not run on {W} ranks: its batch "
-                f"reductions are not global yet (data parallelism covers consistency and the "
-                f"encoder INFONCEHook)")
+                f"reductions are not global yet (a hook runs there where its data_parallel "
+                f"is True)")
 
 
 def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
@@ -286,7 +306,7 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     from the same generator and keeps its rows; ``labeled_scan_id`` is the
     global batch's."""
     semi = unlabeled_cache is not None
-    W = 1 if data_group is None else data_group.size
+    W = num_ranks(data_group)
     needs_map = [h.name for h in hooks if h.needs_superpixel]
     if needs_map:
         raise ValueError(f"hooks {needs_map} read the superpixel map, which the device "
@@ -310,8 +330,8 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
                                       labeled_shape=labeled_shape)
         else:
             draws = sample_ft_draws(generator, hooks, host_rng=host_rng, shape=labeled_shape)
-        metrics = step(state, shard_batch(batch, data_group), shard_batch(draws, data_group),
-                       epoch)
+        metrics = step(state, shard_batch(batch, data_group),
+                       shard_step_draws(draws, hooks, data_group), epoch)
         metrics["labeled_scan_id"] = lab["scan_id"]
         return metrics
 

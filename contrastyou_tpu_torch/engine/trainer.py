@@ -68,7 +68,7 @@ from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.dice import UniversalDice
 from ..meters.interface import MeterInterface
 from ..meters.storage import Storage
-from ..parallel.collectives import all_reduce_sum, gather_rows
+from ..parallel.collectives import all_reduce_sum, gather_rows, num_ranks
 from ..parallel.mesh import DataGroup, multi_rank, replicate, shard_batch
 from ..utils.torch_convert import load_pretrained
 from .bundle import ModelBundle
@@ -77,7 +77,7 @@ from .checkpoint import (load_checkpoint, load_model_params, load_train_state, s
 from .hooks import TrainerHook, hook_parameters
 from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_train_step,
-                    init_train_state, sample_ft_draws, sample_step_draws)
+                    init_train_state, sample_ft_draws, sample_step_draws, shard_step_draws)
 
 __all__ = ["Trainer", "epoch_seed", "hook_metrics", "HOOK_DRAW_SEED_OFFSET"]
 
@@ -114,6 +114,13 @@ class Trainer:
     #: whether the trainer runs on a ``data_group`` of W > 1 ranks
     data_parallel: bool = False
 
+    @classmethod
+    def active_hooks(cls, hooks: t.Sequence[TrainerHook]) -> t.List[TrainerHook]:
+        """The hooks that run under this trainer: all of them, or with
+        ``activate_hooks`` False (ft, adv) only the loss-free
+        ``always_active`` ones (the EMA eval model)."""
+        return list(hooks) if cls.activate_hooks else [h for h in hooks if h.always_active]
+
     def __init__(self, *, model: torch.nn.Module, labeled_loader, unlabeled_loader=None,
                  val_loader=None, test_loader=None, save_dir: str = "tmp",
                  max_epoch: int = 100, num_batches: int = 100,
@@ -130,7 +137,8 @@ class Trainer:
         if self._group is not None and not self.data_parallel:
             raise NotImplementedError(
                 f"{type(self).__name__} does not run on {self._group.size} ranks: its batch "
-                f"reductions are not global yet (data parallelism covers SemiTrainer)")
+                f"reductions are not global yet (a trainer runs there where its "
+                f"data_parallel is True)")
         for key, value, default in (("Trainer.unroll_steps", unroll_steps, 1),
                                     ("Trainer.profile", bool(profile), False)):
             if value != default:
@@ -192,10 +200,7 @@ class Trainer:
             loaded, skipped = load_pretrained(self._model, self._pretrained_path)
             logger.info("pretrained warm start from %s: %d tensors loaded, %d of another "
                         "shape skipped", self._pretrained_path, len(loaded), len(skipped))
-        # activate_hooks False (ft) drops the regularizer hooks; loss-free
-        # ones (``always_active``: the EMA eval model) stay
-        self._active_hooks = (list(self._hooks) if self.activate_hooks else
-                              [h for h in self._hooks if h.always_active])
+        self._active_hooks = self.active_hooks(self._hooks)
         self._optimizer, self._schedule = create_optimizer(
             self._trainable_parameters() + hook_parameters(self._active_hooks),
             self._config.get("Optim", {}), self._config.get("Scheduler", {}),
@@ -289,7 +294,7 @@ class Trainer:
 
     def _global_shape(self, x: torch.Tensor) -> tuple:
         """The shape of the global batch whose rows ``x`` holds on this rank."""
-        W = 1 if self._group is None else self._group.size
+        W = num_ranks(self._group)
         return (x.shape[0] * W, *x.shape[1:])
 
     def _sync(self) -> None:
@@ -367,8 +372,9 @@ class Trainer:
                     else:
                         draws = sample_ft_draws(generator, self._active_hooks,
                                                 host_rng=host_rng, shape=labeled_shape)
-                    metrics = self._train_step(self._state, batch,
-                                               shard_batch(draws, self._group), epoch)
+                    metrics = self._train_step(
+                        self._state, batch,
+                        shard_step_draws(draws, self._active_hooks, self._group), epoch)
                     if self._group is None:
                         dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
                                         group_name=labeled["scan"])

@@ -30,6 +30,10 @@ class AuxLayer(nn.Module):
 
 
 class DenoisingAutoEncoderTrainerHook(ModuleHook):
+    #: a per-pixel mean over this rank's rows; the conv's gradient joins the
+    #: step's gradient all-reduce with the optimizer's other parameters
+    data_parallel = True
+
     def __init__(self, *, hook_name: str = "dae", weight: float = 0.0, num_classes: int = 4):
         super().__init__(hook_name=hook_name, weight=weight)
         self.projector = AuxLayer(int(num_classes))

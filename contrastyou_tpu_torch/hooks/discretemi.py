@@ -12,6 +12,13 @@ the probability maps are never formed. On a bf16 model its taps (exact f32
 upcasts of bf16 activations) are cast back to bf16 before the nearest-
 neighbour alignment, which selects values and so loses nothing; E1/E2 read
 bf16 and compute in f32 (the JAX accelerator default, ``IIC_BF16``).
+
+Data parallelism (``ctx.data_group`` of W > 1 ranks): E1 and E2 run
+unchanged on this rank's rows; the joints they return (and the encoder
+path's batch sums, and IMSAT's marginal) are all-reduced over the ranks
+before any normalization (``losses/discrete_mi.py``), so every rank
+computes the global batch's loss and the all-reduce's backward hands E2
+the global cotangent.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ DECODER_NAMES = UNet.decoder_names
 class DiscreteMITrainHook(ModuleHook):
     """``in_dim``: channels of the tapped layer; ``padding``: the dense
     joints' displacement window (decoder layers)."""
+
+    data_parallel = True
 
     def __init__(self, *, name: str, feature_name: str, in_dim: int, weight: float = 1.0,
                  num_clusters: int = 20, num_subheads: int = 5,
@@ -72,11 +81,13 @@ class DiscreteMITrainHook(ModuleHook):
     def loss(self, ctx: StepContext, state):
         if self._is_encoder:
             p1, p2 = self._paired_probs(ctx)
-            mi = torch.stack([iid_loss(a, b)[0] for a, b in zip(p1, p2)]).mean()
+            mi = torch.stack([iid_loss(a, b, group=ctx.data_group)[0]
+                              for a, b in zip(p1, p2)]).mean()
         else:
             raw = self._dense_joints(ctx)
             B, H, W = ctx.unlabeled_taps[self._feature_name].shape[:3]
-            mi = iid_loss_from_raw_joints(raw, padding=self._padding, count=B * H * W).mean()
+            mi = iid_loss_from_raw_joints(raw, padding=self._padding, count=B * H * W,
+                                          group=ctx.data_group).mean()
         return mi, state, {"mi": mi}
 
 
@@ -93,7 +104,9 @@ class DiscreteIMSATTrainHook(DiscreteMITrainHook):
     def loss(self, ctx: StepContext, state):
         p1, p2 = self._paired_probs(ctx)
         K = p1.shape[-1]
-        mi = torch.stack([0.5 * (imsat_loss(a.reshape(-1, K)) + imsat_loss(b.reshape(-1, K)))
+        group = ctx.data_group
+        mi = torch.stack([0.5 * (imsat_loss(a.reshape(-1, K), group=group)
+                                 + imsat_loss(b.reshape(-1, K), group=group))
                           for a, b in zip(p1, p2)]).mean()
         cons = torch.mean((p1 - p2) ** 2)
         return mi + self._cons_weight * cons, state, {"mi": mi, "cons": cons}

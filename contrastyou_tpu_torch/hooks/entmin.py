@@ -11,6 +11,9 @@ __all__ = ["EntropyMinTrainerHook"]
 
 
 class EntropyMinTrainerHook(TrainerHook):
+    #: a per-pixel mean over this rank's rows
+    data_parallel = True
+
     def __init__(self, name: str = "entmin", weight: float = 1.0):
         super().__init__(hook_name=name, weight=weight)
 

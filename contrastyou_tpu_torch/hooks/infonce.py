@@ -14,6 +14,13 @@ the self-paced loss, its age parameter ramped with the epoch;
 the superpixel id that holds most of its feature cell
 (:func:`majority_pool_labels`), so positions of one superpixel, in any image
 of the batch, are positives.
+
+Data parallelism (``ctx.data_group`` of W > 1 ranks): every hook gathers
+its anchors (the pooled rows, or the sampled points) of both views and their
+labels over the ranks in rank order, which is the one-process order since
+both are image-major, and computes the whole global loss on every rank
+(the step back-propagates 1/W of it). The self-paced weights, their mean
+and the ``correct_grad`` divisor then span the global positive pairs.
 """
 from __future__ import annotations
 
@@ -84,6 +91,8 @@ class INFONCEHook(ModuleHook):
     on a bf16 model runs its projection head's 1x1 convs in bf16 with the
     pool before the output conv (the JAX accelerator defaults)."""
 
+    data_parallel = True
+
     def __init__(self, *, name: str, feature_name: str, in_dim: int,
                  weight: float = 1.0, spatial_size: Optional[Sequence[int]] = None,
                  contrast_on: str = "partition", proj_bf16: bool = False):
@@ -103,12 +112,6 @@ class INFONCEHook(ModuleHook):
             self.grid = tuple(spatial_size)
             self.projector = DenseProjectionHead(in_dim, spatial_size=self.grid,
                                                  bf16=proj_bf16)
-
-    @property
-    def data_parallel(self) -> bool:
-        """An encoder hook gathers the global batch's anchors (:meth:`loss`);
-        a dense hook's point sampling is not ported to W > 1 ranks yet."""
-        return self._is_encoder
 
     def _projected_pair(self, ctx: StepContext):
         feat = ctx.unlabeled_taps[self._feature_name]
@@ -130,23 +133,27 @@ class INFONCEHook(ModuleHook):
             raise KeyError(f"{self.name}: no point draws for grid {self.grid} in the step")
         return ctx.point_draws[self.grid]
 
+    @staticmethod
+    def _global(ctx: StepContext, f1, f2, labels):
+        """The global batch's anchors and labels on a data-parallel rank: the
+        ranks' rows in rank order, the one-process order (all of f1, then
+        all of f2, in the loss), as JAX's sharded step sees them."""
+        group = ctx.data_group
+        if group is None:
+            return f1, f2, labels
+        return (gather_rows(f1, group), gather_rows(f2, group),
+                None if labels is None else gather_rows(labels, group))
+
     def _pairs_and_labels(self, ctx: StepContext):
         f1, f2 = self._projected_pair(ctx)
         if self._is_encoder:
-            return f1, f2, contrast_labels(ctx, self._contrast_on)
+            return self._global(ctx, f1, f2, contrast_labels(ctx, self._contrast_on))
         ys, xs = self._points(ctx)
         # each point its own positive (SimCLR labels)
-        return sample_points(f1, ys, xs), sample_points(f2, ys, xs), None
+        return self._global(ctx, sample_points(f1, ys, xs), sample_points(f2, ys, xs), None)
 
     def loss(self, ctx: StepContext, state):
         f1, f2, labels = self._pairs_and_labels(ctx)
-        group = ctx.data_group
-        if group is not None:
-            # the global 2N anchors in the one-process order (all of f1, then
-            # all of f2), as JAX's sharded step sees them; every rank computes
-            # the whole loss and the step back-propagates 1/W of it
-            f1, f2 = gather_rows(f1, group), gather_rows(f2, group)
-            labels = None if labels is None else gather_rows(labels, group)
         return sup_con_loss(f1, f2, target=labels, temperature=TEMPERATURE), state, {}
 
 
@@ -154,10 +161,7 @@ class SelfPacedINFONCEHook(INFONCEHook):
     """InfoNCE under the self-paced loss (``mode`` ``hard`` or ``soft``
     weights), its age parameter ``gamma = begin + (end - begin) * (epoch /
     max_epoch) ** p`` in f32, as JAX computes it. Metrics ``sp_weight`` (the
-    mean weight over the positive pairs) and ``age_param`` (gamma). Not run
-    on W > 1 ranks yet: its pair weights and their mean span the batch."""
-
-    data_parallel = False
+    mean weight over the positive pairs) and ``age_param`` (gamma)."""
 
     def __init__(self, *, name: str, feature_name: str, in_dim: int, weight: float = 1.0,
                  spatial_size: Optional[Sequence[int]] = None, contrast_on: str = "partition",
@@ -213,6 +217,6 @@ class SuperPixelInfoNCEHook(INFONCEHook):
         sp_tf = ctx.affine_transformer(ctx.superpixel.float()[..., None], order=0)
         pooled = majority_pool_labels(sp_tf[..., 0].long(), f1.shape[1], f1.shape[2])
         labels = sample_points(pooled[..., None], ys, xs)[:, 0]
-        loss = sup_con_loss(sample_points(f1, ys, xs), sample_points(f2, ys, xs),
-                            target=labels, temperature=TEMPERATURE)
-        return loss, state, {}
+        f1, f2, labels = self._global(ctx, sample_points(f1, ys, xs), sample_points(f2, ys, xs),
+                                      labels)
+        return sup_con_loss(f1, f2, target=labels, temperature=TEMPERATURE), state, {}

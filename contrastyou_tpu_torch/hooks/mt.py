@@ -19,6 +19,17 @@ BN semantics (JAX ``_teacher_forward``):
 Random draws are explicit: UAMT's noise and ICT's ``lam`` and permutation
 come from :meth:`draw` (the step's generator, or the host generator) and
 reach ``loss`` through ``ctx.hook_draws``.
+
+Data parallelism (``ctx.data_group`` of W > 1 ranks): every teacher forward
+runs inside the step's data-parallel context, so its BatchNorm sums are the
+global batch's and its running statistics move identically on every rank;
+the EMA is of replicated parameters. MT's loss is a per-rank mean. UAMT's
+noise is drawn at the global batch and cut along its batch axis (axis 1),
+and its masked loss, a ratio of global means, is taken from sums
+all-reduced over the ranks. ICT's permutation spans the global batch of
+both views and stays whole on every rank: the mixed images and targets
+take rows of other ranks (gathered), and each rank's student forward runs
+on its own rows of the mixed global batch.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..engine.hooks import StepContext, TrainerHook
+from ..parallel.collectives import all_reduce_sum, gather_rows, num_ranks
 from .utils import draw_mixup, mixup_data
 
 __all__ = ["ema_update", "justified_alpha", "MeanTeacherTrainerHook", "EMAEvalTrainerHook",
@@ -80,6 +92,8 @@ def _track(state: dict, model: torch.nn.Module, keys, alpha: float, weight_decay
 
 
 class MeanTeacherTrainerHook(TrainerHook):
+    data_parallel = True
+
     def __init__(self, *, name: str = "mt", weight: float = 1.0, alpha: float = 0.999,
                  weight_decay: float = 1e-5, update_bn: bool = False,
                  hard_clip: bool = False, justify_alpha: bool = True):
@@ -148,6 +162,7 @@ class EMAEvalTrainerHook(TrainerHook):
 
     requires_unlabeled = False
     always_active = True
+    data_parallel = True
 
     def __init__(self, *, name: str = "ema_eval", alpha: float = 0.999,
                  weight_decay: float = 0.0, update_bn: bool = True, justify_alpha: bool = True):
@@ -180,6 +195,9 @@ class UAMeanTeacherTrainerHook(MeanTeacherTrainerHook):
     max_epoch``. The clean pass updates the teacher's running statistics,
     the noisy ones do not; each noisy pass normalizes over its own batch
     (JAX's per-pass loop, numerically its ``bn_groups`` forward)."""
+
+    #: the noise [num_noise, B, H, W, 1]: its batch axis is the second
+    draw_batch_dim = 1
 
     def __init__(self, *, name: str = "uamt", weight: float = 1.0, alpha: float = 0.999,
                  weight_decay: float = 1e-5, update_bn: bool = False, hard_clip: bool = False,
@@ -215,8 +233,13 @@ class UAMeanTeacherTrainerHook(MeanTeacherTrainerHook):
         ramp = np.float32(ctx.epoch) / np.float32(self._max_epoch)
         threshold = np.float32(0.75 * math.log(C)) + np.float32(0.25 * math.log(C)) * ramp
         mask = (entropy_tf < float(threshold)).float()
-        loss = (per_px * mask).mean() / (mask.mean() + 1e-2)
-        return loss, state, {"mask": mask.mean()}
+        # a ratio of the global batch's means, from the numerator's and the
+        # denominator's sums over the ranks: under a data-parallel group every
+        # rank computes the global ratio and the step back-propagates 1/W
+        group = ctx.data_group
+        num, den = (all_reduce_sum(torch.stack([(per_px * mask).sum(), mask.sum()]), group)
+                    / (per_px.numel() * num_ranks(group))).unbind(0)
+        return num / (den + 1e-2), state, {"mask": den}
 
 
 class ICTMeanTeacherTrainerHook(MeanTeacherTrainerHook):
@@ -226,6 +249,10 @@ class ICTMeanTeacherTrainerHook(MeanTeacherTrainerHook):
     its BN running statistics left alone) matches the mixed target. The
     teacher's second pass does not update its statistics (JAX discards
     them)."""
+
+    #: ``lam`` and a permutation of the global batch's 2B images: whole on
+    #: every rank
+    draw_batch_dim = None
 
     def __init__(self, *, name: str = "ict", weight: float = 1.0, alpha: float = 0.999,
                  weight_decay: float = 1e-5, update_bn: bool = False, mix_alpha: float = 0.2):
@@ -244,9 +271,19 @@ class ICTMeanTeacherTrainerHook(MeanTeacherTrainerHook):
         t_logits_1 = self._teacher_forward(ctx, state, ctx.unlabeled_image)
         t_logits_2 = self._teacher_forward(ctx, state, ctx.unlabeled_image_tf,
                                            update_stats=False)
+        views = (ctx.unlabeled_image, ctx.unlabeled_image_tf)
+        group, rows = ctx.data_group, None
+        if group is not None:
+            # the global batch of both views in the one-process order (every
+            # first view, then every second) and this rank's rows of it
+            b = ctx.unlabeled_image.shape[0]
+            B, r = b * group.size, group.rank
+            rows = [*range(r * b, (r + 1) * b), *range(B + r * b, B + (r + 1) * b)]
+            views = tuple(gather_rows(v.detach(), group) for v in views)
+            t_logits_1, t_logits_2 = (gather_rows(v, group) for v in (t_logits_1, t_logits_2))
         t_prob = torch.softmax(torch.cat([t_logits_1, t_logits_2], 0), -1)
-        images = torch.cat([ctx.unlabeled_image, ctx.unlabeled_image_tf], 0)
-        mixed_x, mixed_y = mixup_data(images.detach(), t_prob, lam, perm)
+        images = torch.cat(views, 0)
+        mixed_x, mixed_y = mixup_data(images.detach(), t_prob, lam, perm, rows=rows)
         s_logits = ctx.bundle.apply_train(mixed_x, update_stats=False)[0]
         loss = torch.mean((torch.softmax(s_logits, -1) - mixed_y) ** 2)
         return loss, state, {}

@@ -13,6 +13,9 @@ __all__ = ["OrthogonalTrainerHook"]
 
 class OrthogonalTrainerHook(TrainerHook):
     requires_unlabeled = False
+    #: a value of the replicated weight: every rank computes the whole of it
+    #: and the step back-propagates 1/W of it on each
+    data_parallel = True
 
     def __init__(self, *, hook_name: str = "orth", weight: float = 0.0):
         super().__init__(hook_name=hook_name, weight=weight)

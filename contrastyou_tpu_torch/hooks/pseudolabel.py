@@ -13,6 +13,9 @@ __all__ = ["PseudoLabelTrainerHook"]
 
 
 class PseudoLabelTrainerHook(TrainerHook):
+    #: a per-pixel mean over this rank's rows
+    data_parallel = True
+
     def __init__(self, name: str = "pseudolabel", weight: float = 1.0):
         super().__init__(hook_name=name, weight=weight)
 

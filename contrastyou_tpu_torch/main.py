@@ -370,9 +370,13 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     device-resident synthetic split and the cached ``semi`` step from a
     reference-style config; the class count is ``Data.name``'s (its label
     remap applied to the targets). Weights and data are made from
-    ``RandomSeed``. With a ``data_group`` of W ranks the loaders' batch
-    sizes are per rank: the step is the one-process step at W times them
-    (``parallel/``), the weights broadcast from rank 0."""
+    ``RandomSeed``. The hooks and the step's mode are the ``Trainer.name``
+    trainer's (``Trainer.active_hooks``, ``train_mode``): ``ft`` builds the
+    cached ``ft`` step on the labeled batch alone, with only the EMA eval
+    model of the hooks. With a ``data_group`` of W
+    ranks the loaders' batch sizes are per rank: the step is the
+    one-process step at W times them (``parallel/``), the weights broadcast
+    from rank 0."""
     refuse_unported_keys(config)
     check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
@@ -383,6 +387,9 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     _warm_start(config, model)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=False)
+    trainer_cls = trainer_zoo[trainer.get("name") or "semi"]
+    hooks = trainer_cls.active_hooks(hooks)
+    ft = trainer_cls.train_mode == "ft"
     optimizer, _ = create_optimizer(
         list(model.parameters()) + hook_parameters(hooks), config["Optim"],
         config.get("Scheduler"), max_epoch=int(trainer["max_epoch"]),
@@ -403,11 +410,12 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     nl = int(config["LabeledLoader"]["batch_size"])
     nu = int(config["UnlabeledLoader"]["batch_size"])
     step = build_cached_train_step(
-        bundle, hooks, labeled_cache=lab, unlabeled_cache=unl,
+        bundle, hooks, labeled_cache=lab, unlabeled_cache=None if ft else unl,
         labeled_batch=nl, unlabeled_batch=nu, data_group=data_group,
         disable_bn=bool(trainer.get("disable_bn", False)),
         two_stage=bool(trainer.get("two_stage", True)))
-    return SemiRun(state, step, gen, nl + nu, lab, unl, hooks, np.random.default_rng(seed))
+    return SemiRun(state, step, gen, nl if ft else nl + nu, lab, unl, hooks,
+                   np.random.default_rng(seed))
 
 
 @dataclass

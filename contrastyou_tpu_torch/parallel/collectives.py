@@ -4,7 +4,10 @@ A rank's loss is its share of the global loss (the shares sum to it), so
 the backward of a collective carries the cotangents of every rank:
 
 - :func:`all_reduce_sum`: the forward sums over ranks; the backward sums
-  the cotangents over ranks, since every rank's share depends on the sum;
+  the cotangents over ranks, since every rank's share depends on the sum.
+  Without a group of W > 1 ranks it is ``x`` itself (and
+  :func:`num_ranks` is 1), so a batch sum over one process and over ranks
+  is one code path;
 - :func:`gather_rows`: the forward concatenates the ranks' rows in rank
   order (the unsharded order); the backward sums the full cotangent over
   ranks and keeps this rank's rows. A rank that computes the whole global
@@ -24,9 +27,9 @@ import typing as t
 import torch
 import torch.distributed as dist
 
-from .mesh import DataGroup
+from .mesh import DataGroup, multi_rank
 
-__all__ = ["all_reduce_sum", "gather_rows", "sum_gradients", "mean_over_ranks"]
+__all__ = ["all_reduce_sum", "num_ranks", "gather_rows", "sum_gradients", "mean_over_ranks"]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -44,9 +47,15 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
-def all_reduce_sum(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``group``."""
-    return _AllReduceSum.apply(x, group)
+def all_reduce_sum(x: torch.Tensor, group: t.Optional[DataGroup]) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``; ``x`` without a group
+    of W > 1 ranks."""
+    return x if multi_rank(group) is None else _AllReduceSum.apply(x, group)
+
+
+def num_ranks(group: t.Optional[DataGroup]) -> int:
+    """W, the number of ranks of ``group`` (1 without one)."""
+    return 1 if group is None else group.size
 
 
 class _GatherRows(torch.autograd.Function):

@@ -13,5 +13,6 @@ __all__ = ["FineTuneTrainer"]
 class FineTuneTrainer(SemiTrainer):
     train_mode = "ft"
     activate_hooks = False
-    #: not on W > 1 ranks yet (the ft step; queued after semi)
-    data_parallel = False
+    #: on W > 1 ranks the labeled forward's BatchNorm sums are global, the
+    #: KL a per-rank mean (engine/steps.py)
+    data_parallel = True

@@ -10,9 +10,9 @@ __all__ = ["MTTrainer"]
 
 
 class MTTrainer(SemiTrainer):
-    #: not on W > 1 ranks yet: the teacher's forward takes batch
-    #: statistics of its own
-    data_parallel = False
+    #: on W > 1 ranks the teacher's forward runs inside the step's
+    #: data-parallel context, so its BatchNorm sums are global too
+    data_parallel = True
 
     def init(self) -> None:
         super().init()

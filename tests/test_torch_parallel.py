@@ -285,28 +285,35 @@ def test_one_process_starts_no_process_group(monkeypatch, env):
 
 #: every hook of the port that does not run on W > 1 ranks yet
 UNPORTED_HOOKS = {
+    "mixup": lambda: MixUpTrainHook(),
+    "dmt": lambda: DifferentiableMeanTeacherTrainerHook(),
+    "cc": lambda: CrossCorrelationHook(name="cc", feature_name="Conv5", in_dim=8, hooks={}),
+}
+#: the hooks beyond consistency and the encoder InfoNCE hook that run on
+#: W > 1 ranks (tests/test_torch_parallel_hooks.py holds them against one
+#: process)
+PORTED_HOOKS = {
     "entmin": lambda: EntropyMinTrainerHook(),
     "pseudolabel": lambda: PseudoLabelTrainerHook(),
     "orth": lambda: OrthogonalTrainerHook(),
     "dae": lambda: DenoisingAutoEncoderTrainerHook(),
-    "mixup": lambda: MixUpTrainHook(),
     "mt": lambda: MeanTeacherTrainerHook(),
     "uamt": lambda: UAMeanTeacherTrainerHook(),
     "ict": lambda: ICTMeanTeacherTrainerHook(),
     "ema_eval": lambda: EMAEvalTrainerHook(),
-    "dmt": lambda: DifferentiableMeanTeacherTrainerHook(),
     "iic": lambda: DiscreteMITrainHook(name="iic", feature_name="Conv5", in_dim=8),
     "discrete_imsat": lambda: DiscreteIMSATTrainHook(name="discrete_imsat",
                                                      feature_name="Conv5", in_dim=8),
     "midl_hook": lambda: IIDSegmentationTrainerHook(),
     "imsat": lambda: IMSATTrainHook(),
-    "cc": lambda: CrossCorrelationHook(name="cc", feature_name="Conv5", in_dim=8, hooks={}),
     "dense_nce": lambda: INFONCEHook(name="dense_nce", feature_name="Up_conv2", in_dim=8,
                                      spatial_size=(8, 8), contrast_on="self"),
     "spnce": lambda: SelfPacedINFONCEHook(name="spnce", feature_name="Conv5", in_dim=8),
     "spixel": lambda: SuperPixelInfoNCEHook(name="spixel", feature_name="Up_conv2", in_dim=8,
                                             spatial_size=(8, 8)),
 }
+#: the trainers beyond SemiTrainer that run on W > 1 ranks
+PORTED_TRAINERS = ("ft", "mt")
 
 
 def _bundle():
@@ -322,11 +329,28 @@ def test_unported_hook_raises_on_two_ranks(name):
     build_train_step(_bundle(), [hook])     # one process: as before
 
 
+@pytest.mark.parametrize("name", sorted(PORTED_HOOKS) + [f"trainer:{k}" for k in PORTED_TRAINERS])
+def test_ported_hook_or_trainer_passes_the_check_on_two_ranks(name, tmp_path):
+    """Each hook and trainer this port runs on W ranks builds its step (or
+    the trainer) on two ranks without raising."""
+    if name.startswith("trainer:"):
+        trainer = trainer_zoo[name.split(":")[1]](model=None, labeled_loader=None,
+                                                  data_group=TWO_RANKS, save_dir=str(tmp_path))
+        assert trainer.data_parallel
+        return
+    hook = PORTED_HOOKS[name]()
+    assert hook.data_parallel
+    build_train_step(_bundle(), [ConsistencyTrainerHook(), hook], data_group=TWO_RANKS)
+    if not hook.requires_unlabeled or hook.always_active:
+        build_train_step(_bundle(), [hook], mode="ft", data_group=TWO_RANKS)
+
+
 def test_ported_hooks_and_semi_step_pass_the_check():
     hooks = [ConsistencyTrainerHook(), INFONCEHook(name="nce", feature_name="Conv5", in_dim=8)]
     check_data_parallel(hooks, TWO_RANKS)
-    with pytest.raises(NotImplementedError, match="the ft step"):
-        check_data_parallel(hooks, TWO_RANKS, mode="ft")
+    check_data_parallel([], TWO_RANKS, mode="ft")
+    with pytest.raises(NotImplementedError, match="the pretrain step"):
+        check_data_parallel(hooks, TWO_RANKS, mode="pretrain")
     bundle = _bundle()
     opt, _ = create_optimizer(bundle.model.parameters(), OPTIM, None, max_epoch=1,
                               steps_per_epoch=1)
@@ -336,7 +360,7 @@ def test_ported_hooks_and_semi_step_pass_the_check():
                                 data_group=TWO_RANKS, sup_criterion=lambda p, o: p.sum())
 
 
-@pytest.mark.parametrize("name", sorted(set(trainer_zoo) - {"semi"}))
+@pytest.mark.parametrize("name", sorted(set(trainer_zoo) - {"semi", *PORTED_TRAINERS}))
 def test_unported_trainer_raises_on_two_ranks(name):
     cls = trainer_zoo[name]
     extra = {"true_num_classes": 4} if name == "multicore" else {}

@@ -18,6 +18,13 @@ hook, 2 slices a rank and step.
   a step holds the one-process step's slices in another row order and its
   draws fall on other rows: the test holds the ranks' parameters bitwise
   equal and the scores finite, not equal to a one-process run.
+- ``MTTrainer`` (the MT hook, evaluated on its teacher) and
+  ``FineTuneTrainer`` (the labeled batch alone, with the EMA eval hook
+  evaluated in the student's place) for two device-cached epochs on the
+  same layout (tests/torch_dp.py ``slice_loop_worker``): only rank 0
+  writes, the ranks end with bitwise equal parameters and hook states (the
+  teacher, the EMA), and rank 0's ``storage.csv`` is the one-process run's
+  at the global batch, to the tolerances above.
 """
 import csv
 import json
@@ -27,19 +34,25 @@ import pytest
 import torch
 
 from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
-from torch_dp import loop_worker, one_process_run, spawn
+from torch_dp import loop_worker, one_process_run, slice_loop_worker, spawn
 
 W = 2
 WRITTEN = ("config.yaml", "storage.csv", "last", "best", ".success")
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def layout(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp_loop")
     synthesize_acdc_like(root / "data", num_train_scans=4, num_val_scans=4, slices_per_scan=4,
                          size=32)
     spec = {"root": str(root / "data"), "size": 32, "max_channel": 32, "num_batches": 2,
             "per_rank": 2, "world": W}
+    return root, spec
+
+
+@pytest.fixture(scope="module")
+def runs(layout):
+    root, spec = layout
     spawn(loop_worker, W, spec, str(root))
     single = one_process_run(spec, str(root / "single"))
     return root, [torch.load(root / f"rank{r}.pt") for r in range(W)], single
@@ -100,3 +113,46 @@ def test_host_fed_ranks_train_and_evaluate(runs):
         if v != "":
             assert math.isfinite(float(v)), col
     assert all(math.isfinite(r["host_score"]) for r in ranks)
+
+
+# --- MTTrainer and FineTuneTrainer ---------------------------------------------
+
+SLICE_KINDS = ("mt", "ft")
+
+
+@pytest.fixture(scope="module")
+def slice_runs(layout):
+    root, spec = layout
+    spawn(slice_loop_worker, W, spec, str(root))
+    single = {k: one_process_run(spec, str(root / f"{k}_single"), k) for k in SLICE_KINDS}
+    return root, [torch.load(root / f"slice_rank{r}.pt") for r in range(W)], single
+
+
+@pytest.mark.parametrize("kind", SLICE_KINDS)
+def test_mt_and_ft_trainers_write_on_rank_zero_only(slice_runs, kind):
+    root, _, _ = slice_runs
+    for name in WRITTEN:
+        assert (root / f"{kind}_r0" / name).exists(), name
+    assert not any((root / f"{kind}_r1").iterdir())
+
+
+@pytest.mark.parametrize("kind", SLICE_KINDS)
+def test_mt_and_ft_ranks_end_with_equal_parameters_and_teachers(slice_runs, kind):
+    _, ranks, _ = slice_runs
+    assert ranks[0][kind] == ranks[1][kind]
+    assert ranks[0][kind]["ema_step"] == 4          # two epochs of two steps
+
+
+@pytest.mark.parametrize("kind", SLICE_KINDS)
+def test_mt_and_ft_storage_equals_one_process_run(slice_runs, kind):
+    root, _, _ = slice_runs
+    header, rows = _csv(root / f"{kind}_r0" / "storage.csv")
+    ref_header, ref_rows = _csv(root / f"{kind}_single" / "storage.csv")
+    assert header == ref_header
+    assert len(rows) == len(ref_rows) == 2
+    for row, ref in zip(rows, ref_rows):
+        for col, a, b in zip(header, row, ref):
+            if b == "":
+                assert a == "", col
+            else:
+                assert float(a) == pytest.approx(float(b), rel=1e-4, abs=1e-7), col

@@ -7,8 +7,10 @@ from __future__ import annotations
 
 import hashlib
 import socket
+import types
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -22,13 +24,24 @@ from contrastyou_tpu_torch.engine.bundle import ModelBundle
 from contrastyou_tpu_torch.engine.hooks import hook_parameters
 from contrastyou_tpu_torch.engine.optim import create_optimizer
 from contrastyou_tpu_torch.engine.steps import (StepDraws, build_cached_train_step,
-                                                build_train_step, init_train_state)
+                                                build_train_step, init_train_state,
+                                                sample_ft_draws, sample_step_draws,
+                                                shard_step_draws)
+from contrastyou_tpu_torch.hooks.autoencoder import DenoisingAutoEncoderTrainerHook
 from contrastyou_tpu_torch.hooks.consistency import ConsistencyTrainerHook
-from contrastyou_tpu_torch.hooks.infonce import INFONCEHook
+from contrastyou_tpu_torch.hooks.discretemi import DiscreteIMSATTrainHook, DiscreteMITrainHook
+from contrastyou_tpu_torch.hooks.entmin import EntropyMinTrainerHook
+from contrastyou_tpu_torch.hooks.infonce import (INFONCEHook, SelfPacedINFONCEHook,
+                                                 SuperPixelInfoNCEHook)
+from contrastyou_tpu_torch.hooks.midl import IIDSegmentationTrainerHook, IMSATTrainHook
+from contrastyou_tpu_torch.hooks.mt import (EMAEvalTrainerHook, ICTMeanTeacherTrainerHook,
+                                            MeanTeacherTrainerHook, UAMeanTeacherTrainerHook)
+from contrastyou_tpu_torch.hooks.orthogonal import OrthogonalTrainerHook
+from contrastyou_tpu_torch.hooks.pseudolabel import PseudoLabelTrainerHook
 from contrastyou_tpu_torch.models.unet import UNet
 from contrastyou_tpu_torch.ops.affine import GeoParams
 from contrastyou_tpu_torch.parallel import init_distributed, replicate, shard_batch
-from contrastyou_tpu_torch.trainers import SemiTrainer
+from contrastyou_tpu_torch.trainers import FineTuneTrainer, MTTrainer, SemiTrainer
 
 #: the optimizer of the step tests (tests/test_torch_step.py's): RAdam, lr 1e-3
 #: at the first step
@@ -145,11 +158,14 @@ def step_worker(group, job_path: str, out_dir: str) -> None:
 # --- the trainer loop -----------------------------------------------------------
 
 def semi_trainer(spec: dict, save_dir: str, *, per_rank: int, device_cache: bool,
-                 max_epoch: int, group=None) -> SemiTrainer:
-    """A SemiTrainer on the synthetic layout of ``spec`` at the test's small
-    size: the U-Net of ``max_channel`` (f32) with consistency and the
-    encoder InfoNCE hook, loaders of ``per_rank`` slices a rank; host-fed,
-    rank r reads its stride of the indices."""
+                 max_epoch: int, group=None, kind: str = "semi"):
+    """A trainer on the synthetic layout of ``spec`` at the test's small
+    size: the U-Net of ``max_channel`` (f32), loaders of ``per_rank`` slices
+    a rank (host-fed, rank r reads its stride of the indices). ``kind``:
+    ``semi``, a SemiTrainer with consistency and the encoder InfoNCE hook;
+    ``mt``, an MTTrainer with the MT hook (evaluated on its teacher);
+    ``ft``, a FineTuneTrainer with the EMA eval hook evaluated in the
+    student's place."""
     size = spec["size"]
     transforms = make_crop_transforms(size)
     tra = data_zoo["acdc"](root_dir=spec["root"], mode="train", transforms=transforms.train)
@@ -162,22 +178,34 @@ def semi_trainer(spec: dict, save_dir: str, *, per_rank: int, device_cache: bool
     model = UNet(max_channel=spec["max_channel"], momentum=0.1, dtype=torch.float32)
     gen = torch.Generator().manual_seed(3)
     model.init_weights(gen)
-    hooks = [ConsistencyTrainerHook(weight=1.0),
-             INFONCEHook(name="nce", feature_name="Conv5", weight=0.5, contrast_on="partition",
-                         in_dim=model.get_channel_dim("Conv5")).init_weights(gen)]
-    trainer = SemiTrainer(model=model, labeled_loader=lab, unlabeled_loader=unlab,
-                          val_loader=val, test_loader=test, save_dir=save_dir,
-                          max_epoch=max_epoch, num_batches=spec["num_batches"], seed=0,
-                          device_cache=device_cache, data_group=group,
-                          config={"Optim": OPTIM, "Scheduler": SCHED})
+    if kind == "semi":
+        cls = SemiTrainer
+        hooks = [ConsistencyTrainerHook(weight=1.0),
+                 INFONCEHook(name="nce", feature_name="Conv5", weight=0.5,
+                             contrast_on="partition",
+                             in_dim=model.get_channel_dim("Conv5")).init_weights(gen)]
+    else:
+        cls, hooks = {"mt": (MTTrainer, [MeanTeacherTrainerHook(weight=1.0, alpha=0.9)]),
+                      "ft": (FineTuneTrainer, [EMAEvalTrainerHook(alpha=0.9)])}[kind]
+    trainer = cls(model=model, labeled_loader=lab,
+                  unlabeled_loader=None if kind == "ft" else unlab, val_loader=val,
+                  test_loader=test, save_dir=save_dir, max_epoch=max_epoch,
+                  num_batches=spec["num_batches"], seed=0, device_cache=device_cache,
+                  data_group=group, config={"Optim": OPTIM, "Scheduler": SCHED})
     trainer.register_hooks(*hooks)
+    if kind == "ft":
+        trainer.set_model4inference(hooks[0])
     trainer.init()
     return trainer
 
 
-def params_digest(module: torch.nn.Module) -> str:
-    flat = torch.cat([p.detach().reshape(-1) for p in module.parameters()])
+def digest(tensors) -> str:
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     return hashlib.sha256(flat.numpy().tobytes()).hexdigest()
+
+
+def params_digest(module: torch.nn.Module) -> str:
+    return digest(module.parameters())
 
 
 def loop_worker(group, spec: dict, out_dir: str) -> None:
@@ -203,11 +231,211 @@ def loop_worker(group, spec: dict, out_dir: str) -> None:
                out / f"rank{r}.pt")
 
 
-def one_process_run(spec: dict, save_dir: str) -> SemiTrainer:
-    """The device-cached run of :func:`loop_worker` in one process at the
-    global batch, for two epochs unbroken."""
+def one_process_run(spec: dict, save_dir: str, kind: str = "semi"):
+    """The device-cached run of :func:`loop_worker` (or, for ``kind`` mt or
+    ft, of :func:`slice_loop_worker`) in one process at the global batch,
+    for two epochs unbroken."""
     torch.set_num_threads(1)
     trainer = semi_trainer(spec, save_dir, per_rank=spec["per_rank"] * spec["world"],
-                           device_cache=True, max_epoch=2)
+                           device_cache=True, max_epoch=2, kind=kind)
     trainer.start_training()
     return trainer
+
+
+# --- the hooks and trainers beyond consistency and the encoder InfoNCE ---------
+
+def _dim(model, name):
+    return model.get_channel_dim(name)
+
+
+#: the configurations held on W ranks against one process: name -> (step
+#: mode, epoch, hooks of a model); one hook each, named as it is refused
+#: without a port (tests/test_torch_parallel.py), and ``ft`` with the EMA
+HOOK_CONFIGS = {
+    "entmin": ("semi", 0, lambda m: [EntropyMinTrainerHook()]),
+    "pseudolabel": ("semi", 0, lambda m: [PseudoLabelTrainerHook()]),
+    "orth": ("semi", 0, lambda m: [ConsistencyTrainerHook(), OrthogonalTrainerHook(weight=0.5)]),
+    "dae": ("semi", 0, lambda m: [DenoisingAutoEncoderTrainerHook(
+        weight=0.5, num_classes=_dim(m, "Deconv_1x1"))]),
+    "mt": ("semi", 0, lambda m: [MeanTeacherTrainerHook(weight=1.0, alpha=0.9)]),
+    "mt_update_bn": ("semi", 0, lambda m: [MeanTeacherTrainerHook(
+        name="mt", weight=1.0, alpha=0.9, update_bn=True)]),
+    "uamt": ("semi", 1, lambda m: [UAMeanTeacherTrainerHook(weight=1.0, alpha=0.9, num_noise=2,
+                                                            max_epoch=4)]),
+    "ict": ("semi", 0, lambda m: [ICTMeanTeacherTrainerHook(weight=1.0, alpha=0.9)]),
+    "ema_eval": ("semi", 0, lambda m: [ConsistencyTrainerHook(),
+                                       EMAEvalTrainerHook(alpha=0.9)]),
+    "ft": ("ft", 0, lambda m: [EMAEvalTrainerHook(alpha=0.9)]),
+    "iic": ("semi", 0, lambda m: [DiscreteMITrainHook(
+        name="iic", feature_name="Conv5", in_dim=_dim(m, "Conv5"), num_clusters=5,
+        num_subheads=2)]),
+    "iic_dense": ("semi", 0, lambda m: [DiscreteMITrainHook(
+        name="iic", feature_name="Up_conv2", in_dim=_dim(m, "Up_conv2"), weight=0.05,
+        padding=1)]),
+    "iic_dense_p0": ("semi", 0, lambda m: [DiscreteMITrainHook(
+        name="iic", feature_name="Up_conv2", in_dim=_dim(m, "Up_conv2"), num_clusters=5,
+        num_subheads=2, padding=0)]),
+    "discrete_imsat": ("semi", 0, lambda m: [DiscreteIMSATTrainHook(
+        name="discrete_imsat", feature_name="Conv5", in_dim=_dim(m, "Conv5"), num_clusters=5,
+        num_subheads=2)]),
+    "midl_hook": ("semi", 0, lambda m: [IIDSegmentationTrainerHook()]),
+    "imsat": ("semi", 0, lambda m: [IMSATTrainHook()]),
+    "dense_nce": ("semi", 0, lambda m: [INFONCEHook(
+        name="dense_nce", feature_name="Up_conv2", in_dim=_dim(m, "Up_conv2"), weight=0.5,
+        spatial_size=(8, 8), contrast_on="self")]),
+    "spnce": ("semi", 2, lambda m: [
+        SelfPacedINFONCEHook(name="spnce", feature_name="Conv5", in_dim=_dim(m, "Conv5"),
+                             weight=0.3, contrast_on="patient", mode="hard", begin_value=4.0,
+                             end_value=10.0, max_epoch=10),
+        SelfPacedINFONCEHook(name="spnce_dense", feature_name="Up_conv2",
+                             in_dim=_dim(m, "Up_conv2"), weight=0.2, spatial_size=(8, 8),
+                             contrast_on="self", mode="soft", begin_value=4.0, end_value=10.0,
+                             correct_grad=True, max_epoch=10)]),
+    "spixel": ("semi", 0, lambda m: [SuperPixelInfoNCEHook(
+        name="spixel", feature_name="Up_conv2", in_dim=_dim(m, "Up_conv2"), weight=0.7,
+        spatial_size=(8, 8))]),
+}
+
+
+def build_hook_state(job: dict, name: str):
+    """(bundle, hooks, state) of configuration ``name``: the f32 U-Net of the
+    job's ``max_channel`` with the job's weights (or weights drawn from its
+    seed), the configuration's hooks with the job's heads for it (or drawn),
+    RAdam over both."""
+    model = UNet(max_channel=job["max_channel"], momentum=0.1, dtype=torch.float32)
+    if "model" in job:
+        model.load_state_dict(job["model"])
+    else:
+        model.init_weights(torch.Generator().manual_seed(job["seed"]))
+    hooks = HOOK_CONFIGS[name][2](model)
+    gen = torch.Generator().manual_seed(job["seed"] + 1)
+    for h in hooks:
+        if isinstance(h, torch.nn.Module):
+            h.init_weights(gen)
+            heads = job.get("heads", {}).get(name, {})
+            if h.name in heads:
+                h.projector.load_state_dict(heads[h.name])
+    bundle = ModelBundle(model, (job["size"], job["size"], 1))
+    opt, _ = create_optimizer(list(model.parameters()) + hook_parameters(hooks), OPTIM, SCHED,
+                              max_epoch=75, steps_per_epoch=200)
+    return bundle, hooks, init_train_state(bundle, hooks, opt)
+
+
+def global_draws(job: dict, name: str, hooks, i: int) -> StepDraws:
+    """The draws of step ``i`` at the global batch: the job's (replayed from
+    JAX) when it has them, else the step's and the host's generators seeded
+    from the job's seed and ``i``, as every rank draws them."""
+    if "draws" in job:
+        return job["draws"][name][i]
+    b = job["batch"]
+    gen, host = torch.Generator().manual_seed(job["seed"] + 10 + i), np.random.default_rng(i)
+    labeled = tuple(b["labeled_image"].shape)
+    if HOOK_CONFIGS[name][0] == "ft":
+        return sample_ft_draws(gen, hooks, host_rng=host, shape=labeled)
+    shape = tuple(b["unlabeled_image"].shape)
+    return sample_step_draws(gen, shape[0], hooks, host_rng=host, shape=shape,
+                             labeled_shape=labeled)
+
+
+def _recording(hook, seen: dict):
+    """Keep the draws ``hook`` reads and the images of any student forward
+    it runs (ICT's mixed batch) in ``seen``, at the first step."""
+    loss = hook.loss
+
+    def recording(ctx, state):
+        if seen:
+            return loss(ctx, state)
+        seen["draw"] = ctx.hook_draws.get(hook.name)
+        bundle = ctx.bundle
+
+        def apply_train(x, **kw):
+            seen["student_input"] = x.detach().clone()
+            return bundle.apply_train(x, **kw)
+
+        ctx.bundle = types.SimpleNamespace(model=bundle.model, apply_train=apply_train)
+        try:
+            return loss(ctx, state)
+        finally:
+            ctx.bundle = bundle
+
+    hook.loss = recording
+
+
+def _tensors(tree, prefix=""):
+    """The tensors of a nest of dicts, keyed by path; ints as 0-d tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tensors(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix[:-1]: tree.detach().clone()}
+    return {prefix[:-1]: torch.tensor(tree)}
+
+
+def run_hook_steps(job: dict, name: str, group=None) -> dict:
+    """``job.get('steps', 2)`` steps of configuration ``name`` on the job's
+    global batch and draws (this rank's rows of both): the metrics of each
+    step, the gradients of the first (before its update), and after the
+    last the parameters, BN statistics, hook states (the teachers) and what
+    UAMT and ICT saw at the first step."""
+    mode, epoch, _ = HOOK_CONFIGS[name]
+    bundle, hooks, state = build_hook_state(job, name)
+    for module in (state.model, *hooks):
+        if isinstance(module, torch.nn.Module):
+            replicate(module, group)
+    seen: dict = {}
+    for h in hooks:
+        if isinstance(h, (UAMeanTeacherTrainerHook, ICTMeanTeacherTrainerHook)):
+            _recording(h, seen)
+    batch = job["batch"]
+    if mode == "ft":
+        batch = {k: batch[k] for k in ("labeled_image", "labeled_target")}
+    step = build_train_step(bundle, hooks, mode=mode, data_group=group)
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    names = [k for k, _ in state.model.named_parameters()] + [
+        f"{h.name}/{k}" for h in hooks if isinstance(h, torch.nn.Module)
+        for k, _ in h.named_parameters()]
+    out = {"metrics": []}
+    for i in range(job.get("steps", 2)):
+        draws = shard_step_draws(global_draws(job, name, hooks, i), hooks, group)
+        m = step(state, shard_batch(batch, group), draws, epoch)
+        out["metrics"].append({k: v.detach().clone() for k, v in m.items()})
+        if i == 0:
+            out["grads"] = {k: p.grad.clone() for k, p in zip(names, params)}
+    out["params"] = {k: p.detach().clone() for k, p in zip(names, params)}
+    out["buffers"] = {k: b.clone() for k, b in state.model.named_buffers()}
+    out["hook_states"] = _tensors(state.hook_states)
+    out["seen"] = seen
+    return out
+
+
+def hooks_worker(group, job_path: str, out_dir: str) -> None:
+    """Every configuration of the job on this rank, in turn."""
+    job = torch.load(job_path, weights_only=False)     # the job's draws are named tuples
+    out = {name: run_hook_steps(job, name, group) for name in job["configs"]}
+    torch.save(out, Path(out_dir) / f"rank{group.rank}.pt")
+
+
+def slice_digests(trainer) -> dict:
+    """Digests of the student's parameters and of the hook's state (the
+    teacher's or the EMA's parameters and statistics)."""
+    state = trainer._state.hook_states[trainer._active_hooks[0].name]
+    return {"params": digest(trainer._model.parameters()),
+            "hook": digest(v for k, v in sorted(_tensors(state).items())
+                           if k != "ema_step"),
+            "ema_step": int(state["ema_step"])}
+
+
+def slice_loop_worker(group, spec: dict, out_dir: str) -> None:
+    """``mt`` and ``ft`` for two epochs each on this rank, into a save_dir
+    of its own."""
+    out, r = Path(out_dir), group.rank
+    result = {}
+    for kind in ("mt", "ft"):
+        trainer = semi_trainer(spec, str(out / f"{kind}_r{r}"), per_rank=spec["per_rank"],
+                               device_cache=True, max_epoch=2, group=group, kind=kind)
+        trainer.start_training()
+        result[kind] = slice_digests(trainer)
+    torch.save(result, out / f"slice_rank{r}.pt")
+
