@@ -208,7 +208,18 @@ Phases, in order; any failure exits non-zero:
    ``P19_LAUNCHES`` (D1/D2 on ``semi/dp``'s gathered 2N anchors and on
    ``semi/dense/dp``, E1/E2 on ``semi/udaiic/dp``), ms/step on the ranks
    and in one process, and on ``semi/dp`` the time of one all-reduce of
-   the gradient bucket and of one BatchNorm's sums.
+   the gradient bucket and of one BatchNorm's sums;
+20. the rest of data parallelism, in the same spawn and under the same
+   gates (``P20_PATHS``): ``semi/ccblocks/dp`` (cc, rr and imsat on
+   Up_conv2), ``mixup/dp``, ``multicore/dp``, ``dmt/dp`` (``method1``) and
+   ``dmt/second_order/dp`` through ``build_semi_run`` at ``DP_BATCH`` +
+   ``DP_BATCH`` slices a rank, and ``pretrain/dp``, ``pretrain_cc/dp`` and
+   ``pretrain_decoder/prostate/dp`` through ``build_pretrain_run``, the
+   one-process contrastive batch (ACDC's 18 slices, prostate's 48) cut
+   over the ranks; every rank's launches of ``P20_LAUNCHES`` and its
+   collectives a step (all-reduces and all-gathers counted on the rank),
+   and the ratio of the ranks' hook-state error to the one process's
+   (the block's ``imsat_weight``, the DMT teacher and its Adam moments).
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
@@ -216,7 +227,7 @@ counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
 path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
 ``ft/ema``, the five of phases 14 and 15, phases 16's and 17's each,
-the seven of phases 18 and 19, rank 0's),
+the seven of phases 18 and 19 and the eight of phase 20, rank 0's),
 ``max_abs_err`` the largest over the checked shapes and call sites (phases
 14-17's included),
 ``ms`` /
@@ -3378,14 +3389,21 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _loss_key(metrics: dict) -> str:
+    """The step's whole loss: ``total_loss``, or the pretrain step's
+    ``reg_loss``."""
+    return "total_loss" if "total_loss" in metrics else "reg_loss"
+
+
 def _first_step(run) -> dict:
     """One step of ``run`` -> its total loss, the gradients of the model's
     and the hooks' parameters, and the hooks' states after it (the
     teachers, the EMA), f32 on the host."""
     import torch
     m = run.run(1)[0]
-    out = {"loss": m["total_loss"].reshape(1).float().cpu(),
-           **{k: p.grad.float().cpu() for k, p in run.state.model.named_parameters()}}
+    out = {"loss": m[_loss_key(m)].reshape(1).float().cpu(),
+           **{k: p.grad.float().cpu() for k, p in run.state.model.named_parameters()
+              if p.grad is not None}}
     for h in run.hooks:
         if isinstance(h, torch.nn.Module):
             out.update({f"{h.name}/{k}": p.grad.float().cpu() for k, p in h.named_parameters()
@@ -3416,22 +3434,53 @@ def _time_all_reduces(run, group) -> dict:
     return times
 
 
+def _build_run(overrides: list, batch: int, device, group=None, **kw):
+    """``build_pretrain_run`` for a path of ``P20_PRETRAIN``'s (its
+    one-process contrastive batch, cut over ``group``), else
+    ``build_semi_run`` at ``batch`` + ``batch`` slices (a rank's)."""
+    from contrastyou_tpu_torch.main import build_pretrain_run, build_semi_run, parse_config
+    if any(o in PRETRAIN_NAMES for o in overrides):
+        return build_pretrain_run(parse_config(["-o", *overrides]), device=device,
+                                  data_group=group, **kw)
+    return build_semi_run(p19_config(overrides, batch), device=device, data_group=group, **kw)
+
+
+#: the collectives a rank ran, by kind (:func:`_count_collectives`)
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+
+
+def _count_collectives() -> None:
+    """Count every ``torch.distributed`` all-reduce and all-gather of this
+    process in :data:`COLLECTIVES` (the port's collectives call them
+    through the module)."""
+    import torch.distributed as dist
+
+    for kind in COLLECTIVES:
+        fn = getattr(dist, kind)
+
+        def counted(*args, _fn=fn, _kind=kind, **kwargs):
+            COLLECTIVES[_kind] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(dist, kind, counted)
+
+
 def p19_path(overrides: list, batch: int, device, group=None, steps: int = DP_STEPS,
              collectives: bool = False, **sizes) -> dict:
     """One data-parallel path at ``batch`` + ``batch`` slices (a rank's, with
-    ``group``): the first step's loss, gradients and hook states, then
-    ``steps - 1`` timed steps; the launches over all of them; digests of the
+    ``group``; a pretrain path at its contrastive batch): the first step's
+    loss, gradients and hook states, then ``steps - 1`` timed steps; the
+    launches and the collectives over all of them; digests of the
     parameters and of the hooks' states; with ``collectives``, the times of
     :func:`_time_all_reduces` after the steps."""
     import hashlib
 
     import torch
-    from contrastyou_tpu_torch.main import build_semi_run
 
-    run = build_semi_run(p19_config(overrides, batch), device=device, data_group=group,
-                         **sizes)
+    run = _build_run(overrides, batch, device, group, **sizes)
     before = {k: p.detach().clone() for k, p in run.state.model.named_parameters()}
     _reset_counts()
+    COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
     first = _first_step(run)
     _sync(device)
     t0 = time.perf_counter()
@@ -3439,6 +3488,7 @@ def p19_path(overrides: list, batch: int, device, group=None, steps: int = DP_ST
     _sync(device)
     ms = (time.perf_counter() - t0) / max(steps - 1, 1) * 1e3
     launches = _counts()
+    per_step = {k: v / steps for k, v in COLLECTIVES.items()}
 
     def digest(tensors) -> str:
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
@@ -3446,8 +3496,8 @@ def p19_path(overrides: list, batch: int, device, group=None, steps: int = DP_ST
 
     hook_tensors = [v for h in run.hooks for k, v in sorted(_state_tensors(
         run.state.hook_states[h.name]).items())]
-    return {"first": first, "ms": ms, "launches": launches,
-            "losses": [float(first["loss"])] + [float(m["total_loss"]) for m in metrics],
+    return {"first": first, "ms": ms, "launches": launches, "collectives": per_step,
+            "losses": [float(first["loss"])] + [float(m[_loss_key(m)]) for m in metrics],
             "changed": sum(int(not torch.equal(before[k], p.detach()))
                            for k, p in run.state.model.named_parameters()),
             "tensors": len(before),
@@ -3470,16 +3520,17 @@ def _state_tensors(tree, prefix: str = "") -> dict:
 
 def p19_rank(rank: int, world: int, port: int, backend: str, devices: list, out: str,
              sizes: dict) -> None:
-    """One rank of phases 18 and 19 (a spawned process): every path in turn."""
+    """One rank of phases 18-20 (a spawned process): every path in turn."""
     import torch
     import torch.distributed as dist
     from contrastyou_tpu_torch.parallel import init_distributed
 
     group = init_distributed(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
                              backend=backend, device=devices[rank])
+    _count_collectives()
     try:
         results = {}
-        for path, overrides in P19_PATHS:
+        for path, overrides in DP_PATHS:
             results[path] = p19_path(overrides, DP_BATCH, group.device, group,
                                      collectives=path == COLLECTIVES_PATH, **sizes)
             if group.device.type == "cuda":
@@ -3490,14 +3541,15 @@ def p19_rank(rank: int, world: int, port: int, backend: str, devices: list, out:
 
 
 def run_dp(device, card: str, world: int = DP_WORLD, **sizes) -> dict:
-    """Phases 18 and 19: each path of ``P19_PATHS`` on ``world`` ranks
+    """Phases 18-20: each path of ``DP_PATHS`` on ``world`` ranks
     spawned once, held against one process at the global batch: the first
     step's loss, the model's and the hooks' gradients and the hooks' states
     after it, through the kernels, against f32 (plain kernels), the ranks'
     error at most ``STAGE_FACTOR`` times the one process's plus
     ``STAGE_ATOL``; the ranks' parameters and hook states bitwise equal
-    after the steps; the launches per rank of ``P19_LAUNCHES``; ms/step of
-    both. ``sizes`` go to ``build_semi_run`` (full width without them)."""
+    after the steps; the launches per rank of ``DP_LAUNCHES``; the
+    collectives a step; ms/step of both. ``sizes`` go to ``build_semi_run``
+    and ``build_pretrain_run`` (full width without them)."""
     import socket
     import tempfile
 
@@ -3525,7 +3577,7 @@ def run_dp(device, card: str, world: int = DP_WORLD, **sizes) -> dict:
         ranks = [torch.load(f"{tmp}/rank{r}.pt")["paths"] for r in range(world)]
 
     by_path = {}
-    for path, overrides in P19_PATHS:
+    for path, overrides in DP_PATHS:
         one = p19_path(overrides, world * DP_BATCH, device, **sizes)
         with plain_kernels(), plain_supcon(), plain_iic():
             f32 = _first_step(_p19_f32_run(overrides, world * DP_BATCH, device, **sizes))
@@ -3549,7 +3601,7 @@ def run_dp(device, card: str, world: int = DP_WORLD, **sizes) -> dict:
             raise AssertionError(f"{path}: the ranks' parameters or hook states differ after "
                                  f"{DP_STEPS} steps")
         want = {k: 0 for k in (*CONV_KERNELS, *BWD_KERNELS, *SUPCON_KERNELS, *IIC_KERNELS)}
-        want.update({k: DP_STEPS * n for k, n in P19_LAUNCHES[path].items()})
+        want.update({k: DP_STEPS * n for k, n in DP_LAUNCHES[path].items()})
         for r, res in enumerate(ranks):
             res = res[path]
             if not all(math.isfinite(v) for v in res["losses"]) or res["changed"] == 0:
@@ -3567,8 +3619,16 @@ def run_dp(device, card: str, world: int = DP_WORLD, **sizes) -> dict:
               f"(+{STAGE_ATOL}; limit {STAGE_FACTOR}x); parameters and hook states bitwise "
               f"equal on the ranks after {DP_STEPS} steps ({res['changed']}/{res['tensors']} "
               f"tensors changed); losses {res['losses']}; launches per rank {res['launches']}")
-        print(f"{path}: {res['ms']:.3f} ms/step on {world} ranks of {res['batch_slices']} "
-              f"slices (rank 1 {ranks[1][path]['ms']:.3f}) vs {one['ms']:.3f} ms/step in one "
+        if path in P20_NAMES:
+            print(f"{path}: hook-state error on {world} ranks / one process's (each against "
+                  f"f32, +{STAGE_ATOL}): "
+                  + (f"{worst['state']:.2f}x" if "state" in worst else "no hook state")
+                  + f"; collectives a step per rank {res['collectives']}")
+        slices = (f"a {res['batch_slices']}-slice contrastive batch cut over them"
+                  if any(o in PRETRAIN_NAMES for o in overrides)
+                  else f"{res['batch_slices']} slices")
+        print(f"{path}: {res['ms']:.3f} ms/step on {world} ranks of {slices} "
+              f"(rank 1 {ranks[1][path]['ms']:.3f}) vs {one['ms']:.3f} ms/step in one "
               f"process of {one['batch_slices']} ({backend}); on {card}")
         if "bucket" in res:
             print(f"{path}: one all-reduce of the {res['bucket']}-float gradient bucket "
@@ -3581,9 +3641,49 @@ def run_dp(device, card: str, world: int = DP_WORLD, **sizes) -> dict:
 
 def _p19_f32_run(overrides: list, batch: int, device, **sizes):
     import torch
-    from contrastyou_tpu_torch.main import build_semi_run
-    return build_semi_run(p19_config(overrides, batch), device=device, dtype=torch.float32,
-                          **sizes)
+    return _build_run(overrides, batch, device, dtype=torch.float32, **sizes)
+
+
+# --- phase 20: the rest of data parallelism -------------------------------------
+
+#: the trainers whose paths run through ``build_pretrain_run``
+PRETRAIN_NAMES = ("Trainer.name=pretrain", "Trainer.name=pretrain_decoder")
+#: phase 20's paths, in the spawn of phases 18 and 19: the block (cc, rr
+#: and imsat on Up_conv2, phase 15's overrides), MixUp, multicore and the
+#: two DMT rules of phase 16 at ``DP_BATCH`` + ``DP_BATCH`` slices a rank;
+#: then the pretrain step on the one-process contrastive batch cut over
+#: the ranks (ACDC's 18 slices, 9 a rank; prostate's 48, 24 a rank, so the
+#: global forward is 96 images)
+P20_PATHS = [
+    ("semi/ccblocks/dp", ["Trainer.name=semi", "~ConsistencyParameters", *P15_CC, *P15_RR,
+                          *P15_IMSAT]),
+    ("mixup/dp", ["Trainer.name=mixup"]),
+    ("multicore/dp", ["Trainer.name=multicore", "+IIDSegParameters.weight=0.01"]),
+    ("dmt/dp", ["Trainer.name=dmt"]),
+    ("dmt/second_order/dp", ["Trainer.name=dmt", f"{DMT_METHOD}=second_order"]),
+    ("pretrain/dp", ["Trainer.name=pretrain"]),
+    ("pretrain_cc/dp", ["Trainer.name=pretrain_decoder", *P15_INFONCE_ENCODER, *P15_CC,
+                        *P15_RR]),
+    ("pretrain_decoder/prostate/dp", ["Trainer.name=pretrain_decoder", "Data.name=prostate"]),
+]
+P20_NAMES = [p for p, _ in P20_PATHS]
+#: launches per step of a rank: the semi paths' passes as in one process
+#: (phases 15 and 16); the pretrain step's one forward of both views and its
+#: backward (cut at Conv5: K1 on Conv1 and Conv2, C1 on Conv1.conv0, C2 on
+#: the 3 other narrow conv inputs; cut at Up_conv2: a whole pass), D1/D2
+#: once per InfoNCE hook on its gathered anchors
+P20_LAUNCHES = {
+    "semi/ccblocks/dp": passes_launches(2, 2), "mixup/dp": passes_launches(2, 2),
+    "multicore/dp": passes_launches(2, 2), "dmt/dp": passes_launches(*DMT_PASSES["method1"]),
+    "dmt/second_order/dp": SECOND_ORDER_LAUNCHES,
+    "pretrain/dp": {"conv3x3_stats": 4, "conv_dw_taps": 1, "conv3x3_bwd_fused": 3,
+                    "supcon_loss": 1, "supcon_dz": 1},
+    "pretrain_cc/dp": dict(passes_launches(1, 1), supcon_loss=1, supcon_dz=1),
+    "pretrain_decoder/prostate/dp": dict(passes_launches(1, 1), supcon_loss=2, supcon_dz=2),
+}
+#: every data-parallel path of the one spawn, and its launches per step
+DP_PATHS = P19_PATHS + P20_PATHS
+DP_LAUNCHES = {**P19_LAUNCHES, **P20_LAUNCHES}
 
 
 CONV_KERNELS = ("conv3x3_stats", "upconv3x3_stats", "upconv3x3_dx")
@@ -3676,11 +3776,12 @@ def main() -> int:
     by_path.update(run_phase17(device, card, recs))
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
-    print("data parallelism: semi, and the hooks and trainers beyond it (phases 18 and 19):")
+    print("data parallelism: semi, its hooks and trainers, the block, MixUp, multicore, DMT "
+          "and the pretrain step (phases 18-20):")
     t0 = time.perf_counter()
     by_path.update(run_dp(device, card))
     torch.cuda.empty_cache()
-    print(f"phases 18 and 19: {time.perf_counter() - t0:.1f} s")
+    print(f"phases 18-20: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

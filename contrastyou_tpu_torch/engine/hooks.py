@@ -94,8 +94,9 @@ class TrainerHook:
     #: the batch axis of the hook's :meth:`draw`, along which a data-parallel
     #: step cuts it to this rank's rows (``parallel.shard_batch``); None
     #: keeps the draw whole on every rank (a draw over the global batch that
-    #: the hook reads whole, as ICT's permutation)
-    draw_batch_dim: Optional[int] = 0
+    #: the hook reads whole, as ICT's permutation); a tuple gives each part
+    #: of a tuple draw its own axis or None (``engine.steps.shard_draw``)
+    draw_batch_dim: Any = 0
     #: whether the hook reads the aligned first view T(f(x)), which the
     #: pretrain step builds only for such hooks
     reads_logits_tf: bool = False

@@ -13,17 +13,18 @@ and the crop offsets from a ``torch.Generator``, and the hooks' host-side
 draws (ICT's and MixUp's ``lam`` and permutation) from a numpy generator.
 
 Data parallelism (``data_group`` of W > 1 ranks, ``parallel/``): the ``semi``
-and ``ft`` steps compute what one process computes on the global batch, as
-JAX's step on a sharded batch does. Each rank holds 1/W of the batch and of
-the draws (every rank draws the global batch's from the same generators and
-keeps its rows, :func:`shard_step_draws`: each hook's draw along its own
-batch axis, or whole); BatchNorm's sums (the teachers' forwards included),
-the InfoNCE anchors, the IIC joints and the IMSAT marginals are global; each
-rank back-propagates its share of the loss (its per-rank means, or a global
-value, over W), the gradients are summed over ranks before the update, and
-the metrics are the global batch's. The hooks whose ``data_parallel`` is
-True run so (:func:`check_data_parallel`); W = 1 or no group runs no
-collective.
+and ``ft`` steps (and the pretrain step of trainers/pretrain.py) compute
+what one process computes on the global batch, as JAX's step on a sharded
+batch does. Each rank holds 1/W of the batch and of the draws (every rank
+draws the global batch's from the same generators and keeps its rows,
+:func:`shard_step_draws`: each hook's draw, or each part of it, along its
+own batch axis, or whole); BatchNorm's sums (the teachers' forwards
+included), the InfoNCE anchors, the IIC joints and the IMSAT marginals are
+global; each rank back-propagates its share of the loss (its per-rank
+means, or a global value, over W), the gradients are summed over ranks
+before the update, and the metrics are the global batch's. The hooks whose
+``data_parallel`` is True run so (:func:`check_data_parallel`); W = 1 or no
+group runs no collective.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
 __all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_hook_draws",
-           "sample_step_draws", "sample_ft_draws", "shard_step_draws", "init_train_state",
-           "check_data_parallel",
+           "sample_step_draws", "sample_ft_draws", "shard_draw", "shard_step_draws", "init_train_state",
+           "DATA_PARALLEL_MODES", "check_data_parallel",
            "build_train_step", "build_cached_train_step", "tta_probs", "build_eval_step"]
 
 
@@ -116,19 +117,34 @@ def sample_ft_draws(generator: torch.Generator, hooks: Sequence[TrainerHook] = (
                                                    shape=shape, labeled_shape=shape), {})
 
 
+def shard_draw(draw: Any, batch_dim, group: Optional[DataGroup]) -> Any:
+    """This rank's share of one hook's draw made at the global batch:
+    ``batch_dim`` an int cuts it along that axis (``parallel.shard_batch``),
+    None keeps it whole, and a tuple gives each part of a tuple draw its own
+    rule, in turn (MixUp's ``(geo, lam, perm)``: ``(0, None, None)``)."""
+    if batch_dim is None:
+        return draw
+    if isinstance(batch_dim, tuple):
+        if not isinstance(draw, tuple) or len(draw) != len(batch_dim):
+            raise ValueError(f"a draw of {len(draw) if isinstance(draw, tuple) else 1} "
+                             f"part(s) against the axes {batch_dim}")
+        return tuple(shard_draw(d, a, group) for d, a in zip(draw, batch_dim))
+    return shard_batch(draw, group, batch_dim)
+
+
 def shard_step_draws(draws: Optional[StepDraws], hooks: Sequence[TrainerHook],
                      group: Optional[DataGroup]) -> Optional[StepDraws]:
     """This rank's share of a global batch's draws: the transform's and the
-    point draws' rows, and each hook's draw cut along the hook's
-    ``draw_batch_dim`` (UAMT's noise [num_noise, B, ...] along axis 1) or
-    kept whole where that is None (ICT's permutation of the global batch).
-    Without a group, or with one rank, ``draws`` as they are."""
+    point draws' rows, and each hook's draw cut by the hook's
+    ``draw_batch_dim`` (:func:`shard_draw`: UAMT's noise [num_noise, B, ...]
+    along axis 1, ICT's permutation of the global batch whole, MixUp's
+    GeoParams by rows and its ``lam`` and permutation whole). Without a
+    group, or with one rank, ``draws`` as they are."""
     if draws is None or multi_rank(group) is None:
         return draws
     dims = {h.name: h.draw_batch_dim for h in hooks}
     drawn = None if draws.hooks is None else {
-        k: v if dims.get(k, 0) is None else shard_batch(v, group, dims.get(k, 0))
-        for k, v in draws.hooks.items()}
+        k: shard_draw(v, dims.get(k, 0), group) for k, v in draws.hooks.items()}
     return StepDraws(shard_batch(draws.geo, group), shard_batch(draws.gammas, group), drawn,
                      shard_batch(draws.points, group))
 
@@ -140,22 +156,29 @@ def init_train_state(bundle: ModelBundle, hooks: Sequence[TrainerHook],
                       hook_states={h.name: h.init_state(bundle) for h in hooks})
 
 
+#: the step modes that run on W > 1 ranks
+DATA_PARALLEL_MODES = ("semi", "ft", "pretrain")
+
+
 def check_data_parallel(hooks: Sequence[TrainerHook], data_group: Optional[DataGroup], *,
                         mode: str = "semi", sup_criterion: Optional[Callable] = None) -> None:
     """Raise ``NotImplementedError`` when a step over ``data_group``'s W > 1
     ranks would compute something other than the global batch's: a mode
-    other than ``semi`` and ``ft``, a supervised criterion of a trainer's
-    own, or a hook whose batch reductions are not global yet
+    other than those of :data:`DATA_PARALLEL_MODES`, a supervised criterion
+    that does not declare itself a batch mean (its ``data_parallel``, as
+    ``MultiCoreKL``'s), or a hook whose batch reductions are not global yet
     (``data_parallel`` False), named."""
     if multi_rank(data_group) is None:
         return
     W = data_group.size
-    if mode not in ("semi", "ft"):
+    if mode not in DATA_PARALLEL_MODES:
         raise NotImplementedError(f"the {mode} step does not run on {W} ranks: data "
-                                  f"parallelism covers the semi and ft steps")
-    if sup_criterion is not None:
+                                  f"parallelism covers the {', '.join(DATA_PARALLEL_MODES)} "
+                                  f"steps")
+    if sup_criterion is not None and not getattr(sup_criterion, "data_parallel", False):
         raise NotImplementedError(f"the supervised criterion {sup_criterion!r} does not run "
-                                  f"on {W} ranks: data parallelism covers the KL")
+                                  f"on {W} ranks: data parallelism covers the KL and the "
+                                  f"criteria that are batch means (data_parallel True)")
     for h in hooks:
         if not h.data_parallel:
             raise NotImplementedError(

@@ -113,6 +113,8 @@ class Trainer:
     runs_inference: bool = False
     #: whether the trainer runs on a ``data_group`` of W > 1 ranks
     data_parallel: bool = False
+    #: why it does not, where ``data_parallel`` is False
+    data_parallel_refusal: str = "its batch reductions are not global yet"
 
     @classmethod
     def active_hooks(cls, hooks: t.Sequence[TrainerHook]) -> t.List[TrainerHook]:
@@ -136,8 +138,8 @@ class Trainer:
         self._group = multi_rank(data_group)
         if self._group is not None and not self.data_parallel:
             raise NotImplementedError(
-                f"{type(self).__name__} does not run on {self._group.size} ranks: its batch "
-                f"reductions are not global yet (a trainer runs there where its "
+                f"{type(self).__name__} does not run on {self._group.size} ranks: "
+                f"{self.data_parallel_refusal} (a trainer runs there where its "
                 f"data_parallel is True)")
         for key, value, default in (("Trainer.unroll_steps", unroll_steps, 1),
                                     ("Trainer.profile", bool(profile), False)):

@@ -23,6 +23,13 @@ each subhead's pair and are averaged over the subheads:
 The loss is the weighted sum; each tiny hook's value is a metric under its
 name (``imsat_weight`` beside ``imsat``). ``save: true`` (JAX's joint figure)
 is not ported.
+
+On W > 1 ranks (``ctx.data_group``) ``mi``'s and ``rr``'s joints and
+``imsat``'s marginal are summed over the ranks, so each rank computes the
+global batch's value, and ``imsat_weight`` moves by the global marginal,
+the same on every rank; ``cc`` (per-slice normalization, then a mean) and
+``consist`` are batch means, whose per-rank shares average to the global
+ones.
 """
 from __future__ import annotations
 
@@ -88,6 +95,8 @@ class CrossCorrelationHook(ModuleHook):
     rest, as config/hooks/ccblocks2.yaml). ``in_dim``: channels of the
     tapped layer (ignored on ``Deconv_1x1``)."""
 
+    data_parallel = True
+
     def __init__(self, *, name: str, feature_name: str, in_dim: int, num_clusters: int = 20,
                  head_type: str = "mlp", num_subheads: int = 1,
                  hooks: Mapping[str, Mapping], save: bool = False):
@@ -140,6 +149,7 @@ class CrossCorrelationHook(ModuleHook):
         metrics: dict = {}
         new_state = dict(state)
         tiny = self._tiny
+        group = ctx.data_group
         if "cc" in tiny:
             p = tiny["cc"]
             kw = dict(kernel_size=int(p["kernel_size"]),
@@ -152,18 +162,18 @@ class CrossCorrelationHook(ModuleHook):
             p = tiny["mi"]
             metrics["mi"] = per_subhead(lambda d1, d2: iid_segmentation_loss(
                 d1, d2, lamda=float(p.get("lamda", 1.0)), padding=int(p.get("padding", 0)),
-                symmetric=True))
+                symmetric=True, group=group))
             total = total + float(p["weight"]) * metrics["mi"]
         if "rr" in tiny:
             p = tiny["rr"]
             metrics["rr"] = per_subhead(lambda d1, d2: redundancy_criterion(
                 d1, d2, alpha=float(p["alpha"]), lamda=float(p.get("lamda", 1.0)),
-                symmetric=bool(p.get("symmetric", True))))
+                symmetric=bool(p.get("symmetric", True)), group=group))
             total = total + float(p["weight"]) * metrics["rr"]
         if "imsat" in tiny:
             p = tiny["imsat"]
             w = state["imsat_weight"]
-            terms = [imsat_terms(d1) for d1, _ in pairs]
+            terms = [imsat_terms(d1, group) for d1, _ in pairs]
             metrics["imsat"] = torch.stack([cond - w * marg for marg, cond in terms]).mean()
             metrics["imsat_weight"] = w
             total = total + float(p["weight"]) * metrics["imsat"]

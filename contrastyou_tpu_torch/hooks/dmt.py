@@ -31,6 +31,16 @@ the student's parameters (those of ``ctx.bundle.model``): on the card it goes th
 conv-block kernels' differentiable backward (ops/convblock.py), and the
 hook raises if a gradient comes back without a graph (a backward that
 dropped the second-order term).
+
+On W > 1 ranks (``ctx.data_group``; the step runs the hook, ``post_step``
+too, inside ``parallel.data_parallel``) every gradient the hook takes is
+the global batch's: the teacher's meta gradients and ``second_order``'s
+inner gradient are gradients of this rank's 1/W share of the loss, summed
+over the ranks (``parallel.sum_over_ranks``; the inner one through its
+differentiable all-reduce, so the Hessian-vector term spans the ranks),
+and the teachers' train-mode forwards take global BatchNorm sums. So the
+teacher, its statistics and ``teacher_opt`` stay bitwise equal on the
+ranks.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from torch.func import functional_call
 from ..engine.hooks import StepContext, TrainerHook
 from ..losses.dice import dice_loss
 from ..losses.kl import kl_div
+from ..parallel.collectives import num_ranks, sum_over_ranks
 from .mt import _copies, ema_update, justified_alpha
 
 __all__ = ["DifferentiableMeanTeacherTrainerHook", "METHODS", "adam_init", "adam_step"]
@@ -90,6 +101,8 @@ def adam_step(grads: Mapping[str, torch.Tensor], opt: dict, params: Mapping[str,
 
 
 class DifferentiableMeanTeacherTrainerHook(TrainerHook):
+    data_parallel = True
+
     def __init__(self, *, name: str = "dmt", weight: float = 1.0, alpha: float = 0.999,
                  weight_decay: float = 1e-5, meta_weight: float = 1e-3,
                  meta_criterion: str = "ce", method_name: str = "method1"):
@@ -139,7 +152,9 @@ class DifferentiableMeanTeacherTrainerHook(TrainerHook):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         with torch.enable_grad():
             loss = self._meta_loss(ctx, leaves, stats, train=train)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            # this rank's share of the global meta loss, summed over ranks
+            grads = sum_over_ranks(torch.autograd.grad(
+                loss / num_ranks(ctx.data_group), list(leaves.values())), ctx.data_group)
         return loss.detach(), dict(zip(leaves, grads))
 
     def _consistency(self, ctx: StepContext, params: Mapping, stats: Mapping
@@ -204,12 +219,14 @@ class DifferentiableMeanTeacherTrainerHook(TrainerHook):
         sup = kl_div(torch.softmax(l_logits, -1), onehot)
         u_logits = ctx.bundle.apply_train(ctx.unlabeled_image_tf, update_stats=False)[0]
         inner = sup + 0.1 * torch.mean((t_target - torch.softmax(u_logits, -1)) ** 2)
-        first = torch.autograd.grad(inner, leaves, create_graph=True)
+        first = torch.autograd.grad(inner / num_ranks(ctx.data_group), leaves,
+                                    create_graph=True)
         flat = [k for k, g in zip(names, first) if not g.requires_grad]
         if flat:
             raise RuntimeError(f"{self.name}: the inner gradient of {flat[:3]} (and "
                                f"{max(len(flat) - 3, 0)} more) has no graph; the "
                                f"second-order term would be lost")
+        first = sum_over_ranks(first, ctx.data_group)
         a = self._alpha
         return {k: a * teacher[k] + (1.0 - a) * (p - self._meta_weight * g)
                 for k, p, g in zip(names, leaves, first)}

@@ -54,6 +54,10 @@ def multicore_kl_loss(predict_simplex: torch.Tensor, onehot_target: torch.Tensor
 class MultiCoreKL:
     """KL of the group-reduced simplex against the one-hot true classes."""
 
+    #: a batch mean of a per-pixel term: on W > 1 ranks each rank's mean
+    #: over its rows is its share (engine/steps.py ``check_data_parallel``)
+    data_parallel = True
+
     def __init__(self, groups: List[List[int]]):
         self._groups = [list(g) for g in groups]
 

@@ -14,12 +14,13 @@ __all__ = ["redundancy_criterion", "RedundancyCriterion"]
 
 def redundancy_criterion(x_out: torch.Tensor, x_tf_out: torch.Tensor, *, alpha: float,
                          lamda: float = 1.0, eps: float = 1e-5, symmetric: bool = True,
-                         return_joint: bool = False):
+                         return_joint: bool = False, group=None):
     """``x_out`` / ``x_tf_out``: [B, H, W, K] simplexes -> the loss, or
-    (loss, joint [K, K]) with ``return_joint``."""
+    (loss, joint [K, K]) with ``return_joint``; the joint over the ranks of
+    a data-parallel ``group`` (losses/discrete_mi.py)."""
     k = x_out.shape[-1]
-    p_i_j = compute_joint_2d_with_padding_zeros(x_out, x_tf_out,
-                                                symmetric=symmetric).reshape(k, k)
+    p_i_j = compute_joint_2d_with_padding_zeros(x_out, x_tf_out, symmetric=symmetric,
+                                                group=group).reshape(k, k)
     eye = torch.eye(k, dtype=p_i_j.dtype, device=p_i_j.device)
     target = (eye / k) * alpha + p_i_j * (1.0 - alpha)
     p_i = p_i_j.sum(1, keepdim=True)

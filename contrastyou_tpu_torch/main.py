@@ -121,8 +121,10 @@ from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state, point_grids
 from .hooks.creator import create_hook_from_config
 from .models import get_arch
-from .parallel.mesh import DataGroup, replicate
+from .losses.multicore import MultiCoreKL
+from .parallel.mesh import DataGroup, replicate, shard_batch
 from .trainers import trainer_zoo
+from .trainers.multicore import prototype_groups
 from .trainers.pretrain import (build_pretrain_step, check_pretrain_hooks, contrastive_sampler,
                                 feature_until_from_hooks, frozen_encoder,
                                 get_contrastive_loader, jitter_strength,
@@ -373,7 +375,8 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     ``RandomSeed``. The hooks and the step's mode are the ``Trainer.name``
     trainer's (``Trainer.active_hooks``, ``train_mode``): ``ft`` builds the
     cached ``ft`` step on the labeled batch alone, with only the EMA eval
-    model of the hooks. With a ``data_group`` of W
+    model of the hooks; ``multicore`` its prototype model and criterion
+    (:func:`multicore_classes`). With a ``data_group`` of W
     ranks the loaders' batch sizes are per rank: the step is the
     one-process step at W times them (``parallel/``), the weights broadcast
     from rank 0."""
@@ -383,11 +386,14 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     trainer = config["Trainer"]
     spec = dataset_spec(str(config["Data"]["name"]))
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = _model(config, device, dtype, max_channel, gen, spec.train_classes)
+    name = trainer.get("name") or "semi"
+    multicore = multicore_classes(config, spec.train_classes) if name == "multicore" else {}
+    model = _model(config, device, dtype, max_channel, gen,
+                   spec.train_classes * multicore.get("multiplier", 1))
     _warm_start(config, model)
     bundle = ModelBundle(model, (crop, crop, 1))
     hooks = _hooks(config, model, device, dtype, gen, is_pretrain=False)
-    trainer_cls = trainer_zoo[trainer.get("name") or "semi"]
+    trainer_cls = trainer_zoo[name]
     hooks = trainer_cls.active_hooks(hooks)
     ft = trainer_cls.train_mode == "ft"
     optimizer, _ = create_optimizer(
@@ -409,11 +415,16 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
                                       device=device)
     nl = int(config["LabeledLoader"]["batch_size"])
     nu = int(config["UnlabeledLoader"]["batch_size"])
+    criterion = {}
+    if multicore:
+        mc = MultiCoreKL(prototype_groups(multicore["true_num_classes"], multicore["multiplier"]))
+        criterion = dict(sup_criterion=mc, prob_transform=mc.reduced_simplex,
+                         target_num_classes=multicore["true_num_classes"])
     step = build_cached_train_step(
         bundle, hooks, labeled_cache=lab, unlabeled_cache=None if ft else unl,
         labeled_batch=nl, unlabeled_batch=nu, data_group=data_group,
         disable_bn=bool(trainer.get("disable_bn", False)),
-        two_stage=bool(trainer.get("two_stage", True)))
+        two_stage=bool(trainer.get("two_stage", True)), **criterion)
     return SemiRun(state, step, gen, nl if ft else nl + nu, lab, unl, hooks,
                    np.random.default_rng(seed))
 
@@ -435,7 +446,8 @@ class PretrainRun:
 def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
                        raw_size: int = 256, crop: int = CROP, n_scans: int = 12,
                        slices_per_scan: Optional[int] = None,
-                       max_channel: Optional[int] = None) -> PretrainRun:
+                       max_channel: Optional[int] = None,
+                       data_group: Optional[DataGroup] = None) -> PretrainRun:
     """``pretrain`` / ``pretrain_decoder``: model, InfoNCE and
     cross-correlation hooks with their heads, RAdam over the layers up to
     the deepest tap (without the encoder when
@@ -444,7 +456,11 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     contrastive batch sampler and the pretrain step. Weights and data are
     made from ``RandomSeed``. ``slices_per_scan`` defaults to 10 for
     datasets of 3 partitions and to 8 per partition above (64 for prostate),
-    enough for the ``cur // (cut + 1)`` rule to fill every partition."""
+    enough for the ``cur // (cut + 1)`` rule to fill every partition. With a
+    ``data_group`` of W ranks every rank samples the one-process batch and
+    its draws and keeps its 1/W of the rows (``build_pretrain_step(
+    data_group=)``), the weights broadcast from rank 0; ``batch_slices``
+    stays the global batch's."""
     refuse_unported_keys(config)
     check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
@@ -467,6 +483,9 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
         max_epoch=int(trainer["max_epoch"]), steps_per_epoch=int(trainer["num_batches"]),
         accumulate_iter=int(trainer.get("accumulate_iter", 1)))
     state = init_train_state(bundle, hooks, optimizer)
+    for module in (model, *hooks):
+        if isinstance(module, torch.nn.Module):
+            replicate(module, data_group)
 
     scans = synthetic_scans(n_scans, slices_per_scan, raw_size, spec=spec, seed=seed)
     cache = DeviceDataCache.from_arrays(
@@ -480,7 +499,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
         scan_sample_num=int(clp.get("scan_sample_num", 6)),
         partition_sample_num=int(clp.get("partition_sample_num", 1)), seed=seed)
     batches = iter(sampler)
-    step = build_pretrain_step(bundle, hooks, until=until)
+    step = build_pretrain_step(bundle, hooks, until=until, data_group=data_group)
     grids = point_grids(hooks)
     strength = jitter_strength(data_name)
 
@@ -492,7 +511,7 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
                                 *cache.draw_offsets(generator, pad_to))
         draws = sample_pretrain_draws(generator, pad_to, color_jitter=strength,
                                       point_grids=grids)
-        return step(state, batch, draws, epoch)
+        return step(state, *shard_batch((batch, draws), data_group), epoch)
 
     return PretrainRun(state, cached_step, gen, pad_to, cache, hooks, until)
 

@@ -16,9 +16,15 @@ the backward of a collective carries the cotangents of every rank:
   ``all_reduce``, which gloo supports on CUDA tensors too (``torch.
   distributed.nn``'s gather takes an all-to-all there).
 
-:func:`sum_gradients` sums the gradients over ranks in one flat bucket and
-:func:`mean_over_ranks` averages scalars (the step's metrics) in one
-all-reduce.
+Both backwards are themselves these differentiable collectives, so a
+``create_graph`` backward (DMT ``second_order``'s inner gradient through
+the global BatchNorm sums) records them, and the double backward carries
+the cross-rank part of the second-order term too.
+
+:func:`sum_over_ranks` sums tensors over ranks in one flat bucket, under
+autograd (DMT's meta and inner gradients), :func:`sum_gradients` the
+``.grad`` of parameters through it, and :func:`mean_over_ranks` averages
+scalars (the step's metrics) in one all-reduce.
 """
 from __future__ import annotations
 
@@ -29,22 +35,23 @@ import torch.distributed as dist
 
 from .mesh import DataGroup, multi_rank
 
-__all__ = ["all_reduce_sum", "num_ranks", "gather_rows", "sum_gradients", "mean_over_ranks"]
+__all__ = ["all_reduce_sum", "num_ranks", "gather_rows", "sum_over_ranks", "sum_gradients",
+           "mean_over_ranks"]
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.clone()
+        out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group.process_group)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group.process_group)
-        return g, None
+        # the sum is self-adjoint; through the Function, so that a
+        # create_graph backward records it
+        return _AllReduceSum.apply(g, ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor, group: t.Optional[DataGroup]) -> torch.Tensor:
@@ -69,8 +76,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group.process_group)
+        g = _AllReduceSum.apply(g, ctx.group)
         return g.narrow(0, ctx.group.rank * ctx.rows, ctx.rows), None
 
 
@@ -80,20 +86,25 @@ def gather_rows(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
     return _GatherRows.apply(x, group)
 
 
+def sum_over_ranks(tensors: t.Sequence[torch.Tensor], group: t.Optional[DataGroup]) -> tuple:
+    """Each of ``tensors`` summed over the ranks of ``group``, through one
+    flat all-reduce (differentiable, twice: a ``create_graph`` gradient
+    keeps its graph); ``tensors`` as they are without a group of W > 1
+    ranks."""
+    if multi_rank(group) is None or not tensors:
+        return tuple(tensors)
+    flat = _AllReduceSum.apply(torch.cat([x.reshape(-1) for x in tensors]), group)
+    return tuple(f.view_as(x) for f, x in zip(flat.split([x.numel() for x in tensors]), tensors))
+
+
 @torch.no_grad()
 def sum_gradients(params: t.Iterable[torch.Tensor], group: DataGroup) -> None:
     """Sum the ``.grad`` of ``params`` over ranks, in place, through one
     flat bucket (parameters without a gradient, the same on every rank,
     are left out)."""
     grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group.process_group)
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    for g, total in zip(grads, sum_over_ranks(grads, group)):
+        g.copy_(total)
 
 
 @torch.no_grad()

@@ -98,6 +98,8 @@ def build_adversarial_step(model: torch.nn.Module, disc: Discriminator,
 
 class AdversarialTrainer(Trainer):
     activate_hooks = False
+    data_parallel_refusal = ("JAX's adversarial loop does not shard its batches "
+                             "(contrastyou_tpu/trainers/adv.py tra_epoch)")
 
     def __init__(self, *, reg_weight: float = 0.01, dis_consider_image: bool = False, **kwargs):
         if int(kwargs.get("accumulate_iter", 1)) != 1:

@@ -10,9 +10,9 @@ __all__ = ["DMTTrainer"]
 
 
 class DMTTrainer(SemiTrainer):
-    #: not on W > 1 ranks yet: the teacher's forwards and the meta step
-    #: take batch statistics of their own
-    data_parallel = False
+    #: on W > 1 ranks the teacher's forwards take global BatchNorm sums and
+    #: its meta gradients are summed over ranks (hooks/dmt.py)
+    data_parallel = True
 
     def init(self) -> None:
         super().init()

@@ -12,6 +12,5 @@ __all__ = ["MixUpTrainer"]
 class MixUpTrainer(SemiTrainer):
     train_mode = "ft"
     activate_hooks = True
-    #: not on W > 1 ranks yet: the mixed forward and its permutation span
-    #: the batch
-    data_parallel = False
+    #: on W > 1 ranks the hook mixes the gathered global batch
+    data_parallel = True

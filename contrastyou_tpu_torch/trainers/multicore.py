@@ -20,8 +20,8 @@ def prototype_groups(true_num_classes: int, multiplier: int) -> List[List[int]]:
 
 
 class MulticoreTrainer(SemiTrainer):
-    #: not on W > 1 ranks yet: the multicore criterion's reductions
-    data_parallel = False
+    #: on W > 1 ranks: the criterion is a batch mean (``MultiCoreKL``)
+    data_parallel = True
 
     def __init__(self, *, true_num_classes: int, multiplier: int = 2, **kwargs):
         criterion = MultiCoreKL(prototype_groups(true_num_classes, multiplier))

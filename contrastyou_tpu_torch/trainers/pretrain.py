@@ -14,6 +14,15 @@ the contrastive loader (:func:`get_contrastive_loader`), one ``storage.csv``
 row and the ``last`` checkpoint; no validation, no test, no ``best``;
 ``.success`` at the end. The step generator is reseeded at each epoch from
 ``(seed, 20_000 + epoch)``, as JAX folds ``20_000 + epoch`` into its key.
+
+The step runs on W > 1 ranks (``build_pretrain_step(data_group=)``) as
+JAX's does on a sharded batch: each rank holds 1/W of the contrastive batch
+and of its draws (``parallel.shard_batch``: every part of a
+:class:`PretrainDraws` is per row), the forward of both views takes global
+BatchNorm sums, the InfoNCE anchors and their group ids are gathered in the
+global order ``[view1_global; view2_global]``, each rank back-propagates
+1/W of the loss and the gradients are summed over ranks. The trainers
+refuse W > 1 ranks, as JAX's pretraining loop shards no batch.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ from ..data.sampler import ContrastBatchSampler, InfiniteRandomSampler
 from ..engine.bundle import ModelBundle
 from ..engine.hooks import StepContext, TrainerHook, combined_taps
 from ..engine.state import TrainState
-from ..engine.steps import draw_points, point_grids
+from ..engine.steps import check_data_parallel, draw_points, point_grids
 from ..engine.trainer import Trainer, epoch_seed, hook_metrics
 from ..hooks.ccblock import CrossCorrelationHook
 from ..hooks.infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
@@ -42,6 +51,8 @@ from ..models.unet import UNet
 from ..ops.affine import (GeoParams, apply_gamma, apply_geometric, sample_gammas,
                           sample_geo_params, transform_image, transform_logits)
 from ..ops.intensity import color_jitter as apply_jitter
+from ..parallel.collectives import mean_over_ranks, sum_gradients
+from ..parallel.mesh import DataGroup, data_parallel, multi_rank
 
 __all__ = ["PRETRAIN_BATCH_SIZE_MAX", "feature_until_from_hooks", "frozen_after",
            "frozen_encoder", "pretrain_trainable", "jitter_strength", "contrastive_sampler",
@@ -192,7 +203,7 @@ def sample_pretrain_draws(generator: torch.Generator, batch: int, *,
 
 
 def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
-                        until: str) -> Callable:
+                        until: str, data_group: Optional[DataGroup] = None) -> Callable:
     """-> ``step(state, batch, draws, epoch=0) -> metrics``.
 
     ``batch``: ``image`` [B,H,W,1], the group ids ``partition``,
@@ -204,13 +215,23 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     statistics over both views together) cut at ``until``, its output the
     hooks' "logits", as in JAX; the aligned T(f(x)) is built only when a
     hook reads it (a cross-correlation block on ``Deconv_1x1``). The loss is
-    the weighted sum of the hook losses. The metrics stay on the device."""
+    the weighted sum of the hook losses. The metrics stay on the device.
+
+    ``data_group`` of W > 1 ranks: ``batch`` and ``draws`` are this rank's
+    rows of the global batch's (see the module docstring); the metrics are
+    the global batch's."""
     hooks = tuple(hooks)
+    group = multi_rank(data_group)
+    check_data_parallel(hooks, group, mode="pretrain")
     taps = combined_taps(hooks)
     logits_tf = any(h.reads_logits_tf for h in hooks)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: PretrainDraws,
              epoch: int = 0) -> Dict[str, torch.Tensor]:
+        with data_parallel(group):
+            return run(state, batch, draws, epoch)
+
+    def run(state, batch, draws, epoch):
         state.model.train()
         image = batch["image"]
         view1 = apply_gamma(apply_geometric(image, draws.g1, order=0), draws.gammas1)
@@ -233,7 +254,7 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                           cycle_group=batch.get("cycle"),
                           superpixel=batch.get("superpixel"),
                           geo_params=draws.geo, point_draws=draws.points,
-                          epoch=epoch, bundle=bundle)
+                          epoch=epoch, bundle=bundle, data_group=group)
         if logits_tf:
             ctx.unlabeled_logits_tf = transform_logits(out[:n], draws.geo)
         reg_loss = out.new_zeros(())
@@ -247,14 +268,20 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
             metrics.update({f"{hook.name}/{k}": v.detach() for k, v in h_metrics.items()})
 
         state.optimizer.zero_grad(set_to_none=True)
-        reg_loss.backward()
+        if group is None:
+            reg_loss.backward()
+        else:
+            # this rank's share: the shares of the ranks sum to the global loss
+            (reg_loss / group.size).backward()
+            sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
+                          group)
         state.optimizer.step()
         for hook in hooks:
             state.hook_states[hook.name] = hook.post_step(
                 ctx, state.model, state.hook_states[hook.name])
         state.step += 1
         metrics["reg_loss"] = reg_loss.detach()
-        return metrics
+        return metrics if group is None else mean_over_ranks(metrics, group)
 
     return step
 
@@ -271,6 +298,9 @@ class PretrainEncoderTrainer(Trainer):
 
     train_mode = "pretrain"
     activate_hooks = True
+    data_parallel_refusal = ("JAX's pretraining loop does not shard its batches "
+                             "(contrastyou_tpu/trainers/pretrain.py tra_epoch); the pretrain "
+                             "step does: build_pretrain_step(data_group=)")
 
     def __init__(self, *, contrast_loader=None, monitor_loader=None, **kwargs):
         if monitor_loader is not None:

@@ -64,6 +64,7 @@ from contrastyou_tpu_torch.hooks.mt import (EMAEvalTrainerHook, ICTMeanTeacherTr
                                             MeanTeacherTrainerHook, UAMeanTeacherTrainerHook)
 from contrastyou_tpu_torch.hooks.orthogonal import OrthogonalTrainerHook
 from contrastyou_tpu_torch.hooks.pseudolabel import PseudoLabelTrainerHook
+from contrastyou_tpu_torch.losses.multicore import MultiCoreKL
 from contrastyou_tpu_torch.models.unet import UNet
 from contrastyou_tpu_torch.parallel import (DataGroup, init_distributed, is_master, multi_rank,
                                             shard_batch)
@@ -283,11 +284,17 @@ def test_one_process_starts_no_process_group(monkeypatch, env):
     assert not torch.distributed.is_initialized() and is_master()
 
 
-#: every hook of the port that does not run on W > 1 ranks yet
+class _UnportedHook(ConsistencyTrainerHook):
+    """A hook whose batch reductions are not global: the step refuses it on
+    W > 1 ranks (every hook of the port runs there now)."""
+
+    data_parallel = False
+
+
+#: hooks that do not run on W > 1 ranks: a stub, every hook of the port
+#: running there
 UNPORTED_HOOKS = {
-    "mixup": lambda: MixUpTrainHook(),
-    "dmt": lambda: DifferentiableMeanTeacherTrainerHook(),
-    "cc": lambda: CrossCorrelationHook(name="cc", feature_name="Conv5", in_dim=8, hooks={}),
+    "stub": lambda: _UnportedHook(name="stub"),
 }
 #: the hooks beyond consistency and the encoder InfoNCE hook that run on
 #: W > 1 ranks (tests/test_torch_parallel_hooks.py holds them against one
@@ -311,9 +318,17 @@ PORTED_HOOKS = {
     "spnce": lambda: SelfPacedINFONCEHook(name="spnce", feature_name="Conv5", in_dim=8),
     "spixel": lambda: SuperPixelInfoNCEHook(name="spixel", feature_name="Up_conv2", in_dim=8,
                                             spatial_size=(8, 8)),
+    "mixup": lambda: MixUpTrainHook(),
+    "dmt": lambda: DifferentiableMeanTeacherTrainerHook(),
+    "cc": lambda: CrossCorrelationHook(name="cc", feature_name="Conv5", in_dim=8, hooks={}),
 }
 #: the trainers beyond SemiTrainer that run on W > 1 ranks
-PORTED_TRAINERS = ("ft", "mt")
+PORTED_TRAINERS = ("ft", "mt", "mixup", "multicore", "dmt")
+#: the trainers that refuse W > 1 ranks, and why: JAX's loops of these do
+#: not shard their batches
+REFUSED_TRAINERS = {"adv": "adversarial loop does not shard",
+                    "pretrain": "pretraining loop does not shard",
+                    "pretrain_decoder": "pretraining loop does not shard"}
 
 
 def _bundle():
@@ -334,8 +349,10 @@ def test_ported_hook_or_trainer_passes_the_check_on_two_ranks(name, tmp_path):
     """Each hook and trainer this port runs on W ranks builds its step (or
     the trainer) on two ranks without raising."""
     if name.startswith("trainer:"):
-        trainer = trainer_zoo[name.split(":")[1]](model=None, labeled_loader=None,
-                                                  data_group=TWO_RANKS, save_dir=str(tmp_path))
+        key = name.split(":")[1]
+        extra = {"true_num_classes": 4} if key == "multicore" else {}
+        trainer = trainer_zoo[key](model=None, labeled_loader=None, data_group=TWO_RANKS,
+                                   save_dir=str(tmp_path), **extra)
         assert trainer.data_parallel
         return
     hook = PORTED_HOOKS[name]()
@@ -346,11 +363,16 @@ def test_ported_hook_or_trainer_passes_the_check_on_two_ranks(name, tmp_path):
 
 
 def test_ported_hooks_and_semi_step_pass_the_check():
+    """The semi, ft and pretrain steps pass the check, and so does a
+    criterion that declares itself a batch mean (``MultiCoreKL``); a mode
+    without data parallelism and any other criterion raise."""
     hooks = [ConsistencyTrainerHook(), INFONCEHook(name="nce", feature_name="Conv5", in_dim=8)]
     check_data_parallel(hooks, TWO_RANKS)
     check_data_parallel([], TWO_RANKS, mode="ft")
-    with pytest.raises(NotImplementedError, match="the pretrain step"):
-        check_data_parallel(hooks, TWO_RANKS, mode="pretrain")
+    check_data_parallel(hooks, TWO_RANKS, mode="pretrain")
+    with pytest.raises(NotImplementedError, match="the adversarial step"):
+        check_data_parallel(hooks, TWO_RANKS, mode="adversarial")
+    check_data_parallel(hooks, TWO_RANKS, sup_criterion=MultiCoreKL([[0, 1], [2, 3]]))
     bundle = _bundle()
     opt, _ = create_optimizer(bundle.model.parameters(), OPTIM, None, max_epoch=1,
                               steps_per_epoch=1)
@@ -362,10 +384,12 @@ def test_ported_hooks_and_semi_step_pass_the_check():
 
 @pytest.mark.parametrize("name", sorted(set(trainer_zoo) - {"semi", *PORTED_TRAINERS}))
 def test_unported_trainer_raises_on_two_ranks(name):
+    """The trainers left refuse W > 1 ranks and say why: JAX's loops of
+    these do not shard their batches."""
     cls = trainer_zoo[name]
-    extra = {"true_num_classes": 4} if name == "multicore" else {}
-    with pytest.raises(NotImplementedError, match=f"{cls.__name__} does not run on 2 ranks"):
-        cls(model=None, labeled_loader=None, data_group=TWO_RANKS, **extra)
+    with pytest.raises(NotImplementedError, match=f"{cls.__name__} does not run on 2 ranks: "
+                                                  f"JAX's {REFUSED_TRAINERS[name]}"):
+        cls(model=None, labeled_loader=None, data_group=TWO_RANKS)
 
 
 def test_parallel_package_imports_no_jax():

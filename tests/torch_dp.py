@@ -21,27 +21,38 @@ from contrastyou_tpu_torch.data.datasets import data_zoo
 from contrastyou_tpu_torch.augment.host import make_crop_transforms
 from contrastyou_tpu_torch.data.device_cache import DeviceDataCache
 from contrastyou_tpu_torch.engine.bundle import ModelBundle
-from contrastyou_tpu_torch.engine.hooks import hook_parameters
+from contrastyou_tpu_torch.engine.hooks import StepContext, hook_parameters
 from contrastyou_tpu_torch.engine.optim import create_optimizer
 from contrastyou_tpu_torch.engine.steps import (StepDraws, build_cached_train_step,
                                                 build_train_step, init_train_state,
                                                 sample_ft_draws, sample_step_draws,
                                                 shard_step_draws)
 from contrastyou_tpu_torch.hooks.autoencoder import DenoisingAutoEncoderTrainerHook
+from contrastyou_tpu_torch.hooks.ccblock import CrossCorrelationHook
 from contrastyou_tpu_torch.hooks.consistency import ConsistencyTrainerHook
 from contrastyou_tpu_torch.hooks.discretemi import DiscreteIMSATTrainHook, DiscreteMITrainHook
+from contrastyou_tpu_torch.hooks.dmt import METHODS, DifferentiableMeanTeacherTrainerHook
 from contrastyou_tpu_torch.hooks.entmin import EntropyMinTrainerHook
 from contrastyou_tpu_torch.hooks.infonce import (INFONCEHook, SelfPacedINFONCEHook,
                                                  SuperPixelInfoNCEHook)
 from contrastyou_tpu_torch.hooks.midl import IIDSegmentationTrainerHook, IMSATTrainHook
+from contrastyou_tpu_torch.hooks.mixup import MixUpTrainHook
 from contrastyou_tpu_torch.hooks.mt import (EMAEvalTrainerHook, ICTMeanTeacherTrainerHook,
                                             MeanTeacherTrainerHook, UAMeanTeacherTrainerHook)
 from contrastyou_tpu_torch.hooks.orthogonal import OrthogonalTrainerHook
 from contrastyou_tpu_torch.hooks.pseudolabel import PseudoLabelTrainerHook
+from contrastyou_tpu_torch.losses.multicore import MultiCoreKL
 from contrastyou_tpu_torch.models.unet import UNet
-from contrastyou_tpu_torch.ops.affine import GeoParams
-from contrastyou_tpu_torch.parallel import init_distributed, replicate, shard_batch
+from contrastyou_tpu_torch.models.unet import BatchNorm
+from contrastyou_tpu_torch.ops.affine import GeoParams, transform_image
+from contrastyou_tpu_torch.parallel import (data_parallel, gather_rows, init_distributed,
+                                            num_ranks, replicate, shard_batch, sum_over_ranks)
+from contrastyou_tpu_torch.parallel.mesh import _map
 from contrastyou_tpu_torch.trainers import FineTuneTrainer, MTTrainer, SemiTrainer
+from contrastyou_tpu_torch.trainers.multicore import prototype_groups
+from contrastyou_tpu_torch.trainers.pretrain import (build_pretrain_step,
+                                                     feature_until_from_hooks,
+                                                     pretrain_trainable, sample_pretrain_draws)
 
 #: the optimizer of the step tests (tests/test_torch_step.py's): RAdam, lr 1e-3
 #: at the first step
@@ -55,9 +66,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(worker, world: int, *args) -> None:
-    """Run ``worker(group, *args)`` on ``world`` gloo ranks of CPU processes."""
-    mp.spawn(_entry, args=(world, free_port(), worker, args), nprocs=world, join=True)
+def spawn(worker, world: int, *args, join: bool = True):
+    """Run ``worker(group, *args)`` on ``world`` gloo ranks of CPU processes;
+    with ``join`` False, return at once the processes' context, whose
+    ``join()`` is True once they have all ended."""
+    return mp.spawn(_entry, args=(world, free_port(), worker, args), nprocs=world, join=join)
 
 
 def _entry(rank, world, port, worker, args):
@@ -297,17 +310,77 @@ HOOK_CONFIGS = {
 }
 
 
+#: the cross-correlation block, MixUp, multicore, DMT and the pretrain step
+#: on W > 1 ranks (tests/test_torch_parallel_rest*.py): name -> (step mode,
+#: epoch, hooks of a model, options); options ``multiplier`` (multicore:
+#: the model predicts that many prototypes a class, the step takes
+#: ``MultiCoreKL``), mode ``pretrain`` (the forward cut at the hooks'
+#: deepest tap, the later layers frozen, the unlabeled batch the
+#: contrastive one)
+CC_TINY = {"cc": {"weight": 0.3, "kernel_size": 5, "diff_power": 0.75},
+           "mi": {"weight": 0.5, "lamda": 1.5, "padding": 0},
+           "rr": {"weight": 1.0, "alpha": 0.5, "lamda": 1.5, "symmetric": True},
+           "imsat": {"weight": 0.1, "use_dynamic": True}}
+#: the DMT hook of the rest configurations (tests/test_torch_dmt.py's);
+#: ``second_order`` and ``method2`` with a meta weight large enough for the
+#: Hessian term and for the meta gradient's step to show in the loss
+DMT_HOOK = dict(weight=10.0, alpha=0.99, weight_decay=1e-6, meta_weight=1e-3)
+DMT_SO_HOOK = dict(weight=1.0, alpha=0.5, meta_weight=0.1)
+DMT_LARGE_META = ("second_order", "method2")
+MIXUP_WEIGHT = 0.1
+
+
+def _cc(m, feature, tiny, subheads=2):
+    return CrossCorrelationHook(name=f"cc_{feature}", feature_name=feature,
+                                in_dim=_dim(m, feature), num_clusters=5,
+                                num_subheads=subheads, hooks=tiny)
+
+
+def _nce_encoder(m, weight=1.0):
+    return INFONCEHook(name="infonce", feature_name="Conv5", in_dim=_dim(m, "Conv5"),
+                       weight=weight, contrast_on="partition")
+
+
+def _dmt(method):
+    kw = DMT_SO_HOOK if method in DMT_LARGE_META else DMT_HOOK
+    return lambda m: [DifferentiableMeanTeacherTrainerHook(name="dmt", method_name=method, **kw)]
+
+
+REST_CONFIGS = {
+    "cc_tap": ("semi", 0, lambda m: [_cc(m, "Up_conv2", CC_TINY)], {}),
+    "cc_logits": ("semi", 0, lambda m: [_cc(m, "Deconv_1x1", dict(
+        CC_TINY, consist={"weight": 0.2}))], {}),
+    "mixup": ("ft", 0, lambda m: [MixUpTrainHook(weight=MIXUP_WEIGHT)], {}),
+    "multicore": ("semi", 0, lambda m: [IIDSegmentationTrainerHook(weight=0.01)],
+                  {"multiplier": 2}),
+    "multicore_mt": ("semi", 0, lambda m: [IIDSegmentationTrainerHook(weight=0.01),
+                                           MeanTeacherTrainerHook(weight=1.0, alpha=0.9)],
+                     {"multiplier": 2}),
+    **{f"dmt_{k}": ("semi", 1, _dmt(k), {}) for k in METHODS},
+    "pretrain": ("pretrain", 0, lambda m: [_nce_encoder(m)], {}),
+    "pretrain_cc": ("pretrain", 0, lambda m: [
+        _nce_encoder(m), _cc(m, "Up_conv2", {k: CC_TINY[k] for k in ("cc", "rr")}, 1)], {}),
+}
+#: every configuration a rank worker runs
+CONFIGS = {**{k: (*v, {}) for k, v in HOOK_CONFIGS.items()}, **REST_CONFIGS}
+#: the colour jitter of the pretrain configurations (ACDC's)
+PRETRAIN_JITTER = 0.5
+
+
 def build_hook_state(job: dict, name: str):
     """(bundle, hooks, state) of configuration ``name``: the f32 U-Net of the
-    job's ``max_channel`` with the job's weights (or weights drawn from its
-    seed), the configuration's hooks with the job's heads for it (or drawn),
-    RAdam over both."""
-    model = UNet(max_channel=job["max_channel"], momentum=0.1, dtype=torch.float32)
-    if "model" in job:
-        model.load_state_dict(job["model"])
+    job's ``max_channel`` with the job's weights (``models[name]``, else
+    ``model``, else weights drawn from its seed), the configuration's hooks with the job's heads for it (or drawn),
+    RAdam over both (under ``pretrain`` over the trainable layers)."""
+    mode, _, make_hooks, opts = CONFIGS[name]
+    model = UNet(max_channel=job["max_channel"], momentum=0.1, dtype=torch.float32,
+                 num_classes=4 * opts.get("multiplier", 1))
+    weights = job.get("models", {}).get(name, job.get("model"))
+    if weights is not None:
+        model.load_state_dict(weights)
     else:
         model.init_weights(torch.Generator().manual_seed(job["seed"]))
-    hooks = HOOK_CONFIGS[name][2](model)
+    hooks = make_hooks(model)
     gen = torch.Generator().manual_seed(job["seed"] + 1)
     for h in hooks:
         if isinstance(h, torch.nn.Module):
@@ -316,25 +389,57 @@ def build_hook_state(job: dict, name: str):
             if h.name in heads:
                 h.projector.load_state_dict(heads[h.name])
     bundle = ModelBundle(model, (job["size"], job["size"], 1))
-    opt, _ = create_optimizer(list(model.parameters()) + hook_parameters(hooks), OPTIM, SCHED,
-                              max_epoch=75, steps_per_epoch=200)
+    params = list(model.parameters())
+    if mode == "pretrain":
+        trainable = pretrain_trainable(feature_until_from_hooks(*hooks))
+        params = [p for k, p in model.named_parameters() if trainable(k)]
+    opt, _ = create_optimizer(params + hook_parameters(hooks), OPTIM, SCHED, max_epoch=75,
+                              steps_per_epoch=200)
     return bundle, hooks, init_train_state(bundle, hooks, opt)
 
 
-def global_draws(job: dict, name: str, hooks, i: int) -> StepDraws:
+def pretrain_batch(batch: dict) -> dict:
+    """The contrastive batch of a job's batch: its unlabeled images and
+    group ids."""
+    return {k.split("_", 1)[1]: v for k, v in batch.items()
+            if k.startswith("unlabeled_") and k != "unlabeled_superpixel"}
+
+
+def global_draws(job: dict, name: str, hooks, i: int):
     """The draws of step ``i`` at the global batch: the job's (replayed from
     JAX) when it has them, else the step's and the host's generators seeded
     from the job's seed and ``i``, as every rank draws them."""
     if "draws" in job:
         return job["draws"][name][i]
     b = job["batch"]
+    mode = CONFIGS[name][0]
     gen, host = torch.Generator().manual_seed(job["seed"] + 10 + i), np.random.default_rng(i)
     labeled = tuple(b["labeled_image"].shape)
-    if HOOK_CONFIGS[name][0] == "ft":
+    if mode == "ft":
         return sample_ft_draws(gen, hooks, host_rng=host, shape=labeled)
     shape = tuple(b["unlabeled_image"].shape)
+    if mode == "pretrain":
+        grids = sorted({h.grid for h in hooks if h.grid is not None})
+        return sample_pretrain_draws(gen, shape[0], color_jitter=PRETRAIN_JITTER,
+                                     point_grids=grids)
     return sample_step_draws(gen, shape[0], hooks, host_rng=host, shape=shape,
                              labeled_shape=labeled)
+
+
+def build_config_step(bundle, hooks, name: str, group=None):
+    """Configuration ``name``'s step over ``group``: the pretrain step, or
+    ``build_train_step`` in its mode (multicore with its criterion, the
+    prototype probabilities summed to the 4 classes)."""
+    mode, _, _, opts = CONFIGS[name]
+    if mode == "pretrain":
+        return build_pretrain_step(bundle, hooks, until=feature_until_from_hooks(*hooks),
+                                   data_group=group)
+    kw = {}
+    if "multiplier" in opts:
+        criterion = MultiCoreKL(prototype_groups(4, opts["multiplier"]))
+        kw = dict(sup_criterion=criterion, prob_transform=criterion.reduced_simplex,
+                  target_num_classes=4)
+    return build_train_step(bundle, hooks, mode=mode, data_group=group, **kw)
 
 
 def _recording(hook, seen: dict):
@@ -373,32 +478,54 @@ def _tensors(tree, prefix=""):
     return {prefix[:-1]: torch.tensor(tree)}
 
 
+def reorder_rows(tree, order: torch.Tensor):
+    """Every tensor of ``tree`` whose first axis is the batch's rows (of
+    ``len(order)``) taken in ``order``: the same global batch and per-row
+    draws, summed in another order (hook draws of other axes, as MixUp's
+    permutation, are not reordered: a configuration with them has no
+    reordered run)."""
+    def take(x):
+        return x[order] if x.dim() and x.shape[0] == len(order) else x
+
+    return _map(take, tree)
+
+
 def run_hook_steps(job: dict, name: str, group=None) -> dict:
     """``job.get('steps', 2)`` steps of configuration ``name`` on the job's
     global batch and draws (this rank's rows of both): the metrics of each
     step, the gradients of the first (before its update), and after the
     last the parameters, BN statistics, hook states (the teachers) and what
-    UAMT and ICT saw at the first step."""
-    mode, epoch, _ = HOOK_CONFIGS[name]
+    UAMT, ICT and MixUp saw at the first step."""
+    mode, epoch, _, _ = CONFIGS[name]
     bundle, hooks, state = build_hook_state(job, name)
     for module in (state.model, *hooks):
         if isinstance(module, torch.nn.Module):
             replicate(module, group)
     seen: dict = {}
     for h in hooks:
-        if isinstance(h, (UAMeanTeacherTrainerHook, ICTMeanTeacherTrainerHook)):
+        if isinstance(h, (UAMeanTeacherTrainerHook, ICTMeanTeacherTrainerHook, MixUpTrainHook)):
             _recording(h, seen)
     batch = job["batch"]
     if mode == "ft":
         batch = {k: batch[k] for k in ("labeled_image", "labeled_target")}
-    step = build_train_step(bundle, hooks, mode=mode, data_group=group)
+    elif mode == "pretrain":
+        batch = pretrain_batch(batch)
+    order = job.get("order")
+    if order is not None:
+        batch = reorder_rows(batch, order)
+    step = build_config_step(bundle, hooks, name, group)
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
-    names = [k for k, _ in state.model.named_parameters()] + [
-        f"{h.name}/{k}" for h in hooks if isinstance(h, torch.nn.Module)
-        for k, _ in h.named_parameters()]
+    named = {id(p): k for k, p in state.model.named_parameters()}
+    named.update({id(p): f"{h.name}/{k}" for h in hooks if isinstance(h, torch.nn.Module)
+                  for k, p in h.named_parameters()})
+    names = [named[id(p)] for p in params]
     out = {"metrics": []}
     for i in range(job.get("steps", 2)):
-        draws = shard_step_draws(global_draws(job, name, hooks, i), hooks, group)
+        draws = global_draws(job, name, hooks, i)
+        if order is not None:
+            draws = reorder_rows(draws, order)
+        draws = (shard_batch(draws, group) if mode == "pretrain"
+                 else shard_step_draws(draws, hooks, group))
         m = step(state, shard_batch(batch, group), draws, epoch)
         out["metrics"].append({k: v.detach().clone() for k, v in m.items()})
         if i == 0:
@@ -411,10 +538,123 @@ def run_hook_steps(job: dict, name: str, group=None) -> dict:
 
 
 def hooks_worker(group, job_path: str, out_dir: str) -> None:
-    """Every configuration of the job on this rank, in turn."""
+    """Every configuration of the job on this rank, in turn; with the job's
+    ``hv`` also the Hessian-vector products of :func:`collective_hvp` and
+    :func:`dmt_hessian_term`."""
     job = torch.load(job_path, weights_only=False)     # the job's draws are named tuples
     out = {name: run_hook_steps(job, name, group) for name in job["configs"]}
+    if "hv" in job:
+        out["hv"] = {case: collective_hvp(job["hv"], case, group) for case in HVP_CASES}
+        out["hv"]["dmt"] = dmt_hessian_term(job, group)
+    if "pretrain_run" in job:
+        out["pretrain_run"] = pretrain_run_steps(job["pretrain_run"], group)
     torch.save(out, Path(out_dir) / f"rank{group.rank}.pt")
+
+
+def pretrain_run_steps(argv: list, group=None, steps: int = 2) -> dict:
+    """``steps`` steps of ``main.build_pretrain_run`` from the overrides
+    ``argv`` at a small size (crop 32, max_channel 32, f32), over ``group``:
+    the metrics, the batch size and the parameters after them."""
+    from contrastyou_tpu_torch.main import build_pretrain_run, parse_config
+
+    run = build_pretrain_run(parse_config(["-o", *argv]), device="cpu", dtype=torch.float32,
+                             raw_size=40, crop=32, max_channel=32, data_group=group)
+    metrics = run.run(steps)
+    return {"metrics": [{k: v.detach().clone() for k, v in m.items()} for m in metrics],
+            "batch_slices": run.batch_slices,
+            "params": {k: p.detach().clone() for k, p in run.state.model.named_parameters()}}
+
+
+# --- second order through the collectives ------------------------------------------
+
+#: the losses whose Hessian-vector product :func:`collective_hvp` takes: a
+#: BatchNorm over the active group's global sums, and a loss of the rows
+#: gathered from every rank
+HVP_CASES = ("batchnorm", "gathered")
+
+
+def hvp_inputs(seed: int = 0, n: int = 8, size: int = 4, c_in: int = 3, c: int = 5) -> dict:
+    """f64 inputs of :func:`collective_hvp`: the global rows ``x`` [n, size,
+    size, c_in], a 1x1 conv ``w``, the BatchNorm's scale and bias, a target
+    ``t`` and the direction ``v`` of each parameter."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, dtype=torch.float64) * scale
+
+    params = [r(c_in, c), 1.0 + r(c, scale=0.1), r(c, scale=0.1)]
+    return {"x": r(n, size, size, c_in), "t": r(n, size, size, c), "params": params,
+            "v": [r(*p.shape) for p in params]}
+
+
+def _hvp_loss(case: str, x, t, w, scale, bias, group):
+    """``batchnorm``: the mean of tanh(BN(x w)) * t over this rank's rows,
+    the BatchNorm's sums over the group; ``gathered``: the logsumexp
+    contrast of the pooled features tanh(x w) of every rank's rows, a value
+    of the global batch."""
+    p = x @ w
+    if case == "batchnorm":
+        # the port's BatchNorm math on these leaves (no running update)
+        bn = types.SimpleNamespace(weight=scale, bias=bias, eps=1e-5)
+        with data_parallel(group):
+            a, b = BatchNorm.affine(bn, p, p.sum((1, 2)), (p * p).sum((1, 2)), train=True,
+                                    update=False)
+        return (torch.tanh(a * p + b) * t).mean()
+    f = torch.tanh(p).mean((1, 2)) * scale + bias
+    if group is not None:
+        f = gather_rows(f, group)
+    return torch.logsumexp(f @ f.T, 1).mean()
+
+
+def collective_hvp(inputs: dict, case: str, group=None) -> list:
+    """H v of the global loss of ``case`` (:func:`_hvp_loss`) in its three
+    parameters, on this rank's rows of the global ``x`` and ``t``: the
+    gradient of each rank's share with ``create_graph``, summed over the
+    ranks through the differentiable all-reduce, then the gradient of its
+    product with ``v`` (each rank's share, summed), as DMT ``second_order``
+    takes it. Without a group, one process on the whole batch."""
+    params = [p.clone().requires_grad_() for p in inputs["params"]]
+    x, t = shard_batch((inputs["x"], inputs["t"]), group)
+    loss = _hvp_loss(case, x, t, *params, group)
+    g = sum_over_ranks(torch.autograd.grad(loss / num_ranks(group), params, create_graph=True),
+                       group)
+    gv = sum((gi * vi).sum() for gi, vi in zip(g, inputs["v"]))
+    hv = torch.autograd.grad(gv / num_ranks(group), params)
+    return [h.detach() for h in sum_over_ranks(hv, group)]
+
+
+def dmt_hessian_term(job: dict, group=None) -> dict:
+    """The gradient of DMT ``second_order``'s meta loss at its virtual
+    teacher in the student's parameters, and its Hessian-vector part: the
+    whole gradient less the direct one, ``(1 - alpha)`` times the
+    gradient in the virtual teacher (the teacher's virtual step
+    differentiated back through the inner gradient). The first step's
+    draws of ``dmt_second_order`` on the job's batch, this rank's rows."""
+    name = "dmt_second_order"
+    bundle, hooks, state = build_hook_state(job, name)
+    replicate(state.model, group)
+    hook = hooks[0]
+    draws = shard_step_draws(global_draws(job, name, hooks, 0), hooks, group)
+    b = shard_batch(job["batch"], group)
+    ctx = StepContext(labeled_image=b["labeled_image"], labeled_target=b["labeled_target"],
+                      unlabeled_image=b["unlabeled_image"],
+                      unlabeled_image_tf=transform_image(b["unlabeled_image"], draws.geo,
+                                                         draws.gammas),
+                      geo_params=draws.geo, bundle=bundle, data_group=group,
+                      labeled_logits=torch.zeros(*b["labeled_target"].shape, 4))
+    params = list(state.model.parameters())
+    with data_parallel(group):
+        t1 = hook.virtual_teacher(ctx, state.hook_states[hook.name])
+        meta = hook._meta_loss(ctx, t1, state.hook_states[hook.name]["teacher_batch_stats"],
+                               train=True)
+        grads = torch.autograd.grad(meta / num_ranks(group), params + list(t1.values()))
+        whole, direct = (sum_over_ranks(part, group)
+                         for part in (grads[:len(params)], grads[len(params):]))
+    a = DMT_SO_HOOK["alpha"]
+    names = [k for k, _ in state.model.named_parameters()]
+    return {"whole": dict(zip(names, (w.detach() for w in whole))),
+            "hessian": {k: (w - (1.0 - a) * d).detach()
+                        for k, w, d in zip(names, whole, direct)}}
 
 
 def slice_digests(trainer) -> dict:
