@@ -219,7 +219,29 @@ Phases, in order; any failure exits non-zero:
    over the ranks; every rank's launches of ``P20_LAUNCHES`` and its
    collectives a step (all-reduces and all-gathers counted on the rank),
    and the ratio of the ranks' hook-state error to the one process's
-   (the block's ``imsat_weight``, the DMT teacher and its Adam moments).
+   (the block's ``imsat_weight``, the DMT teacher and its Adam moments);
+21. experiment tooling and run observability (run after phase 20), on
+   phase 11's layout in a temporary directory: ``generate_experiments``
+   makes the ``udaiic`` grid (``--labeled-scans 1``: 2 commands) and the
+   ``infonce_ed_pretrain`` chain (``--chain-ft``: a pretrain job, then an
+   ``ft`` job per ratio of opt/acdc.yaml, 1, 2, 4 and 174), and
+   ``SlurmSubmitter(on_local=True)`` runs them with bash as
+   ``python -m contrastyou_tpu_torch.main -p config/... -o ...`` processes
+   at full width, each job's output in a log file; the only cuts
+   (``P21_*``): 2 epochs x 10 steps, ``+Trainer.profile=true`` on the first
+   grid command, 4 scans a pretrain batch, and of the chain's ft jobs the
+   first (ratio 1) alone. Per run: its files, every numeric
+   ``storage.csv`` cell in its TensorBoard events under JAX's tag
+   (``read_events``, float32), its launches against its steps and eval
+   forwards, its seconds in ``run_experiment``, train ms/step (the profiled
+   epoch marked) and the events file's size and write time per epoch, all
+   from the run's ``launches.json`` (its launch counts and the trainer's
+   ``timing`` records); the
+   profiled epoch's Chrome trace, each hand kernel's device events (by
+   CUDA function name) equal to the launch counter over the same window and
+   to what the epoch's steps and eval forwards imply; ``report`` over the
+   runs, one row per finished ``semi`` / ``ft`` run with its best epoch and
+   value as its ``storage.csv`` has them.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
@@ -227,7 +249,9 @@ counted on the kernel's own main path (K1-K3, C1, C2: ``semi``; D1/D2:
 ``pretrain_decoder``; E1/E2: ``semi/udaiic``; ``launches_by_path`` has every
 path, the loops' included, and ``mt``, ``uamt``, ``ict``, ``mt/loop``,
 ``ft/ema``, the five of phases 14 and 15, phases 16's and 17's each,
-the seven of phases 18 and 19 and the eight of phase 20, rank 0's),
+the seven of phases 18 and 19 and the eight of phase 20, rank 0's, and
+phase 21's six runs, ``p21/...``, read from each process's
+``launches.json``),
 ``max_abs_err`` the largest over the checked shapes and call sites (phases
 14-17's included),
 ``ms`` /
@@ -252,6 +276,7 @@ import json
 import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1137,8 +1162,8 @@ def _reset_counts() -> None:
 
 
 def _counts() -> dict:
-    from contrastyou_tpu_torch.ops import convblock as cb, iic, supcon
-    return {**cb.LAUNCHES, **supcon.LAUNCHES, **iic.LAUNCHES}
+    from contrastyou_tpu_torch.engine.trainer import kernel_launches
+    return kernel_launches()
 
 
 def run_train(device, card: str) -> dict:
@@ -3713,6 +3738,240 @@ ROUTES = {**{k: ("tapconv.cu", "semi") for k in CONV_KERNELS},
           **{k: ("iic.cu", "semi/udaiic") for k in IIC_KERNELS}}
 
 
+# --- phase 21: experiment tooling and run observability --------------------------
+
+#: phase 21's cuts, added to the generated commands: 2 epochs x 10 steps (as
+#: the other loop phases) on every command; the profiler on the first grid
+#: command; on the pretrain command the pretrain split's 4 scans a batch (the
+#: layout's 8 train scans, half of them in the pretrain split, against
+#: config/pretrain.yaml's ``scan_sample_num`` 6); and of the chain's ft jobs
+#: only the first (:data:`P21_FT_RATIO`) runs
+P21_CUTS = (f"Trainer.max_epoch={LOOP_EPOCHS}", f"Trainer.num_batches={LOOP_STEPS}")
+P21_PROFILE = "+Trainer.profile=true"
+P21_PRETRAIN_CUT = "ContrastiveLoaderParams.scan_sample_num=4"
+#: the ratio of the chain's one ft job run, its first (ratios 2 and 4 train
+#: the same path at more labeled scans; 174 exceeds the layout's 8 train
+#: scans)
+P21_FT_RATIO = 1
+#: launches per train step of ``semi`` with the udaiic hooks
+UDAIIC_STEP_LAUNCHES = {**SEMI_STEP_LAUNCHES, "iic_joints": 1, "iic_joints_bwd": 1}
+#: launches of one eval forward (8 K1 and 1 K2)
+EVAL_FORWARD_LAUNCHES = {"conv3x3_stats": 8, "upconv3x3_stats": 1}
+def launched_wrapper(kernel: str):
+    """The port's kernel wrapper whose launch ran the CUDA function
+    ``kernel`` (a trace event's name), or None (a library, PyTorch or a
+    partial-sum kernel)."""
+    if "tapmma_kernel<" in kernel:     # <Cout, Cin, KIND, NG, MF>: KIND 1 is K2, 2 K3
+        kind = kernel.split("tapmma_kernel<", 1)[1].split(",")[2].strip()
+        return {"1": "upconv3x3_stats", "2": "upconv3x3_dx"}.get(kind, "conv3x3_stats")
+    for fn, wrapper in (("conv1ch_kernel", "conv3x3_stats"), ("dw_mma_kernel<", "conv_dw_taps"),
+                        ("dw1ch_kernel<", "conv_dw_taps"),
+                        ("convbwd_kernel<", "conv3x3_bwd_fused"),
+                        ("supcon_kernel<false", "supcon_loss"), ("supcon_kernel<true", "supcon_dz"),
+                        ("iic_joints_bwd_kernel<", "iic_joints_bwd"),
+                        ("iic_joints_kernel<", "iic_joints")):
+        if fn in kernel:
+            return wrapper
+    return None
+
+
+def check_run_events(run_dir) -> int:
+    """Every numeric ``storage.csv`` cell of the run is in its events file
+    under JAX's tag at step = epoch, equal within float32 rounding; -> the
+    scalars checked."""
+    import csv
+    import numpy as np
+    from contrastyou_tpu_torch.writer import read_events, storage_tag
+
+    files = sorted((run_dir / "tensorboard").glob("events.out.tfevents.*"))
+    if len(files) != 1:
+        raise AssertionError(f"{run_dir}: {len(files)} event files")
+    scalars = {(e["tag"], e["step"]): e["value"] for e in read_events(files[0])
+               if isinstance(e["value"], float)}
+    with open(run_dir / "storage.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    checked = 0
+    for row in rows[1:]:
+        epoch = int(row[0])
+        for column, cell in zip(rows[0][1:], row[1:]):
+            if cell == "":
+                continue
+            got = scalars.get((storage_tag(column), epoch))
+            if got is None or got != np.float32(float(cell)):
+                raise AssertionError(f"{run_dir}: {column} epoch {epoch}: events {got}, "
+                                     f"storage.csv {cell}")
+            checked += 1
+    if checked != len(scalars) or checked == 0:
+        raise AssertionError(f"{run_dir}: {len(scalars)} scalars in the events, {checked} "
+                             f"numeric storage cells")
+    return checked
+
+
+def check_trace(run_dir, card: str, want_window: dict) -> dict:
+    """The profiled epoch's trace: per hand kernel, its device events (by
+    CUDA function name) equal the launch counter's count over the same
+    window (``profile/launches.json``), which is what the epoch's train
+    steps and eval forwards imply (``want_window``)."""
+    trace = run_dir / "profile" / "epoch_001.pt.trace.json"
+    counted = json.loads((run_dir / "profile" / "launches.json").read_text())
+    t0 = time.perf_counter()
+    events = json.loads(trace.read_text())["traceEvents"]
+    device = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            w = launched_wrapper(e.get("name", ""))
+            if w is not None:
+                device[w] = device.get(w, 0) + 1
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"phase 21 trace: {trace.name} {trace.stat().st_size / 2**20:.1f} MiB, "
+          f"{len(events)} events, {kernels} device kernels, parsed in "
+          f"{time.perf_counter() - t0:.1f} s; hand kernels by CUDA function {device}")
+    launches = counted["launches"]
+    if {k: device.get(k, 0) for k in launches} != launches or launches != want_window:
+        raise AssertionError(f"profiled epoch: device events {device}, launch counter "
+                             f"{launches}, the epoch implies {want_window}")
+    return device
+
+
+def run_phase21(device, card: str) -> dict:
+    """Phase 21: a grid and a pretrain -> fine-tune chain generated by the
+    port's ``generate_experiments`` and run by its ``SlurmSubmitter``
+    (``on_local``, bash, one job after another, each job's output in a log
+    file) as ``python -m contrastyou_tpu_torch.main -p <presets>`` processes
+    at full width on phase 11's layout; ``P21_*`` are the only cuts. Then
+    each run's files, its events against its ``storage.csv``, its launches
+    against its steps and eval forwards (``launches.json``, which also holds
+    the run's seconds and timing records), the profiled epoch's trace
+    against the launch counter, and ``report`` over the runs against their
+    ``storage.csv``."""
+    import csv
+    import tempfile
+    from pathlib import Path
+
+    from contrastyou_tpu_torch import generate_experiments as gen, report
+    from contrastyou_tpu_torch.submitter import SlurmSubmitter
+
+    repo = Path(__file__).resolve().parent
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p21_") as tmp:
+        t0 = time.perf_counter()
+        data, runs_root, logs = Path(tmp) / "data", Path(tmp) / "runs", Path(tmp) / "logs"
+        write_loop_layout(data)
+        logs.mkdir()
+        grid = gen.build_commands("udaiic", "acdc", [1], str(runs_root))
+        chain = gen.build_chained_commands("infonce_ed_pretrain", "acdc", str(runs_root))[0]
+        if len(grid) != 2:
+            raise AssertionError(f"udaiic grid: {len(grid)} commands, want 2")
+        pre, *fts = chain.split(" && \\\n")
+        ratio = re.compile(r"Data\.labeled_scan_num=(\d+)")
+        ratios = [int(ratio.search(c).group(1)) for c in fts]
+        if ratios[0] != P21_FT_RATIO or ratios[0] > LOOP_SCANS[0]:
+            raise AssertionError(f"chain ratios {ratios}: the first is not {P21_FT_RATIO}")
+        jobs = [(f"udaiic/run{i}", " ".join([cmd, *P21_CUTS, *([P21_PROFILE] if i == 0 else [])]))
+                for i, cmd in enumerate(grid)]
+        jobs.append(("infonce_ed_pretrain/run0", " && \\\n".join(
+            [" ".join([pre, *P21_CUTS, P21_PRETRAIN_CUT]), " ".join([fts[0], *P21_CUTS])])))
+        print(f"phase 21: layout in {time.perf_counter() - t0:.1f} s; {len(grid)} grid commands, "
+              f"a chain of 1 pretrain + {len(fts)} ft jobs (ratios {ratios}), of which the "
+              f"ratio-{P21_FT_RATIO} job runs; cuts {' '.join(P21_CUTS)}, {P21_PROFILE} on "
+              f"udaiic/run0, {P21_PRETRAIN_CUT} on the pretrain job")
+        for name, job in jobs:
+            log = logs / (name.replace("/", "_") + ".log")
+            sub = SlurmSubmitter(work_dir=str(repo), on_local=True)
+            sub.configure_environment([
+                f"export CONTRASTYOU_DATA_PATH={data}", f"export CONTRASTYOU_RUN_PATH={runs_root}",
+                "unset CONTRASTYOU_PROFILE", f'python() {{ "{sys.executable}" "$@"; }}',
+                f"exec >{log} 2>&1"])
+            t1 = time.perf_counter()
+            try:
+                sub.submit(job)
+            except RuntimeError as e:
+                tail = log.read_text()[-4000:] if log.exists() else "(no log)"
+                raise AssertionError(f"phase 21 job {name} failed:\n{tail}") from e
+            print(f"phase 21 job {name}: {job.count('contrastyou_tpu_torch.main')} runs in "
+                  f"{time.perf_counter() - t1:.1f} s on {card}")
+        run_dirs = sorted(p.parent for p in runs_root.rglob("launches.json")
+                          if p.parent.name != "profile")
+        if len(run_dirs) != 4:
+            raise AssertionError(f"phase 21: runs {run_dirs}, want 4")
+        profiled_dir = runs_root / re.search(r"Trainer\.save_dir=(\S+)", grid[0]).group(1)
+        finished = []
+        for run_dir in run_dirs:
+            path = "p21/" + str(run_dir.relative_to(runs_root))
+            for f in (".success", "storage.csv", "config.yaml", "last/train_state.pt"):
+                if not (run_dir / f).exists():
+                    raise AssertionError(f"{path}: {f} missing")
+            record = json.loads((run_dir / "launches.json").read_text())
+            counts, trainer, timing = record["launches"], record["trainer"], record["timing"]
+            by_path[path] = counts
+            train = [t for t in timing if t["phase"] == "train"]
+            evals = [t for t in timing if t["phase"] in ("val", "test", "inference")]
+            steps = sum(t["steps"] for t in train)
+            fwd = sum(t["batches"] for t in evals)
+            if trainer == "pretrain_decoder":
+                per_step, want = CHAIN_LAUNCHES["pretrain_decoder/loop"], {}
+                positive = CONV_KERNELS + BWD_KERNELS + SUPCON_KERNELS
+            else:
+                per_step = UDAIIC_STEP_LAUNCHES if trainer == "semi" else \
+                    CHAIN_LAUNCHES["ft/loop"]
+                want = {k: n * fwd for k, n in EVAL_FORWARD_LAUNCHES.items()}
+                positive = CONV_KERNELS + BWD_KERNELS
+                finished.append(run_dir)
+            for k, n in per_step.items():
+                want[k] = want.get(k, 0) + n * steps
+            zero = [k for k in counts if k not in positive and k not in per_step]
+            if (any(counts[k] != v for k, v in want.items()) or any(counts[k] for k in zero)
+                    or min(counts[k] for k in positive) <= 0):
+                raise AssertionError(f"{path}: launches {counts}, want {want} ({steps} steps, "
+                                     f"{fwd} eval forwards), {zero} zero, {positive} > 0")
+            scalars = check_run_events(run_dir)
+            ms = ", ".join(f"epoch {t['epoch']} {t['seconds'] / t['steps'] * 1e3:.3f}"
+                           f"{' (profiled)' if t['profiled'] else ''}" for t in train)
+            events = ", ".join(f"epoch {t['epoch']} {t['bytes']} B in {t['seconds'] * 1e3:.3f} ms"
+                               for t in timing if t["phase"] == "events")
+            phases = {}
+            for t in timing:
+                phases[t["phase"]] = phases.get(t["phase"], 0.0) + t["seconds"]
+            split = ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+            print(f"{path} ({trainer}): {record['seconds']:.1f} s in run_experiment ({split} s); "
+                  f"train ms/step {ms}; events {events} ({scalars} scalars = storage.csv); "
+                  f"{steps} steps, {fwd} eval forwards; launches {counts} on {card}")
+            profile = [t for t in timing if t["phase"] == "profile"]
+            if (run_dir == profiled_dir) != bool(profile):
+                raise AssertionError(f"{path}: profile records {profile}, profiled run "
+                                     f"{profiled_dir}")
+            if profile:
+                (prof,) = profile
+                epoch = prof["epoch"]
+                window = {k: 0 for k in counts}
+                for k, n in per_step.items():
+                    window[k] += n * sum(t["steps"] for t in train if t["epoch"] == epoch)
+                val_test = sum(t["batches"] for t in evals
+                               if t["epoch"] == epoch and t["phase"] in ("val", "test"))
+                for k, n in EVAL_FORWARD_LAUNCHES.items():
+                    window[k] += n * val_test
+                check_trace(run_dir, card, window)
+                print(f"{path}: profile of epoch {epoch}: {prof['bytes'] / 2**20:.1f} MiB, "
+                      f"{prof['device_events']} device events, written in "
+                      f"{prof['seconds']:.3f} s")
+        rows = report.main(["-t", str(runs_root), "--classes", "DSC_mean", "--save_dir",
+                            str(Path(tmp) / "report")])
+        if sorted(r["folder"] for r in rows) != sorted(str(d) for d in finished):
+            raise AssertionError(f"report rows {[r['folder'] for r in rows]}, runs {finished}")
+        for row in rows:
+            # the expected row from the plain csv module, empty cells skipped
+            with open(Path(row["folder"]) / "storage.csv", newline="") as f:
+                header, *cells = list(csv.reader(f))
+            col = next(i for i, c in enumerate(header) if "DSC_mean" in c)
+            values = [(int(r[0]), float(r[col])) for r in cells if r[col] != ""]
+            best = max(v for _, v in values)
+            epoch = next(e for e, v in values if v == best)
+            if row["best_epoch"] != epoch or row[header[col]] != best:
+                raise AssertionError(f"report {row} against storage.csv: epoch {epoch}, {best}")
+        print(f"phase 21 report: {len(rows)} rows (best epoch and {header[col]} as storage.csv)")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3782,6 +4041,12 @@ def main() -> int:
     by_path.update(run_dp(device, card))
     torch.cuda.empty_cache()
     print(f"phases 18-20: {time.perf_counter() - t0:.1f} s")
+    print("experiment tooling and run observability: a udaiic grid and a pretrain -> ft chain "
+          "through the generator, the submitter and main -p (phase 21):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase21(device, card))
+    torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

@@ -1,12 +1,13 @@
 """Config loading: YAML files merged left to right, then dotted CLI
 overrides (counterpart of contrastyou_tpu/configure/config.py).
 
-``-p a.yaml b.yaml`` merges the files (PyYAML, imported only when a file is
-read); ``-o a.b=c`` overrides an existing key (or a :data:`RUNTIME_KEYS`
-key), ``+a.b=c`` adds one, ``~a.b`` deletes one. Override values are parsed
-without PyYAML, so a run configured in code plus overrides needs no YAML
-installation. :func:`yaml_write` writes a run's ``config.yaml`` without
-PyYAML.
+``-p a.yaml b.yaml`` merges the files; ``-o a.b=c`` overrides an existing
+key (or a :data:`RUNTIME_KEYS` key), ``+a.b=c`` adds one, ``~a.b`` deletes
+one. Nothing here needs PyYAML: the files are read by :mod:`.yaml11` (the
+block-YAML subset of ``config/`` and ``opt/``, scalars resolved as PyYAML's
+``safe_load`` resolves them), an override value is parsed by JAX's rule on
+the same reader (:func:`parse_value`), and :func:`yaml_write` writes a
+run's ``config.yaml``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import math
 import re
 from pathlib import Path
 from typing import Any, Iterable, List, Mapping, Optional, Sequence
+
+from . import yaml11
 
 __all__ = ["merge", "yaml_load", "yaml_write", "parse_value", "apply_overrides",
            "ConfigParser"]
@@ -33,9 +36,10 @@ def merge(base: Mapping, override: Mapping) -> dict:
 
 
 def yaml_load(path) -> dict:
-    import yaml
-    with open(path) as f:
-        return dict(yaml.safe_load(f) or {})
+    """The mapping of the YAML file ``path`` (an empty file: ``{}``), read
+    by :func:`.yaml11.load`, which raises with the file and line on YAML
+    outside its subset."""
+    return dict(yaml11.load(Path(path).read_text(), str(path)) or {})
 
 
 _PLAIN = re.compile(r"[A-Za-z_][A-Za-z0-9_.\-]*")
@@ -109,26 +113,27 @@ def yaml_write(config: Mapping, save_dir, filename: str = "config.yaml") -> str:
 
 
 def parse_value(raw: str) -> Any:
-    """YAML-style scalar or flow list: null/true/false, int, float, ``[a,
-    b]``, else the (unquoted) string."""
-    s = raw.strip()
-    if s in ("", "~", "null", "Null", "NULL", "None"):
-        return None
-    if s in ("true", "True", "TRUE"):
-        return True
-    if s in ("false", "False", "FALSE"):
-        return False
-    if s.startswith("[") and s.endswith("]"):
-        inner = s[1:-1].strip()
-        return [parse_value(p) for p in inner.split(",")] if inner else []
-    for conv in (int, float):
-        try:
-            return conv(s)
-        except ValueError:
-            pass
-    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
-        return s[1:-1]
-    return s
+    """An override's value by JAX's rule (contrastyou_tpu/configure/config.py
+    ``_parse_value``): the token read as a YAML 1.1 document (a scalar, a
+    nested flow list or map, a quoted string; ``yes``/``on`` are bools,
+    ``None`` a string, ``010`` 8, ``2:30`` 150, ``.inf`` a float); a string
+    result is retried as an int, then a float (so ``1e-3`` is 0.001); a
+    token that is not valid YAML stays the raw string. A token using YAML
+    that :mod:`.yaml11` leaves out (an anchor, a tag, ...) raises
+    ``ValueError``."""
+    try:
+        value = yaml11.load(raw, "<override>")
+    except yaml11.YAMLUnsupported as e:
+        raise ValueError(f"override value {raw!r}: {e}") from e
+    except yaml11.YAMLSyntaxError:
+        return raw
+    if isinstance(value, str):
+        for conv in (int, float):
+            try:
+                return conv(value)
+            except ValueError:
+                pass
+    return value
 
 
 def _set(cfg: dict, dotted: str, value, allow_new: bool) -> None:

@@ -98,12 +98,24 @@ def _radam_scalars(b1: float, b2: float, t: int):
     return float(ro), float(r), 1.0 / (1.0 - b1 ** t), 1.0 / (1.0 - b2 ** t)
 
 
+def _eager(method):
+    """``torch.optim.Optimizer``'s ``method`` without its
+    ``torch._dynamo.disable`` wrapper, whose first call imports
+    ``torch._dynamo`` (11.45 s a process on the H100 machine, measured by
+    ``python -c "import torch._dynamo"`` there); the port compiles nothing,
+    so in eager mode the wrapper changes nothing else."""
+    return getattr(method, "__wrapped__", method)
+
+
 class OptaxOptimizer(torch.optim.Optimizer):
     """An optax-style optimizer: :meth:`step` runs ``_update(lr, t, group,
     params, grads)`` with ``lr = schedule(t - 1)`` on update ``t``, after
     the MultiSteps accumulation when ``accumulate > 1``. ``count`` (the
     inner updates made) and ``mini_step`` (the calls folded since the last
     one) travel with :meth:`state_dict`."""
+
+    add_param_group = _eager(torch.optim.Optimizer.add_param_group)
+    zero_grad = _eager(torch.optim.Optimizer.zero_grad)
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Callable[[int], float],
                  defaults: dict, accumulate: int = 1):
@@ -154,7 +166,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
         raise NotImplementedError
 
     def state_dict(self):
-        sd = super().state_dict()
+        sd = _eager(torch.optim.Optimizer.state_dict)(self)
         sd["count"], sd["mini_step"] = self.count, self.mini_step
         return sd
 
@@ -162,7 +174,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
         state_dict = dict(state_dict)
         self.count = int(state_dict.pop("count", self.count))
         self.mini_step = int(state_dict.pop("mini_step", 0))
-        super().load_state_dict(state_dict)
+        _eager(torch.optim.Optimizer.load_state_dict)(self, state_dict)
 
 
 def _coupled_decay(group: dict, ps, grads):

@@ -29,9 +29,22 @@ offers none) copied into an eval copy of the model before each pass.
 
 Progress goes to the ``logging`` logger of this module. Each phase's host
 time is logged with ``extra={"timing": {...}}`` (``phase`` train / val /
-test / inference / save, its ``seconds`` and counts), for callers that time
-the loop. The TensorBoard writer, hook figures and the profiler trace of the
-JAX trainer are not ported, nor its TPU knobs (``unroll_steps``, ``profile``).
+test / inference / save / events / profile, its ``seconds`` and counts),
+for callers that time the loop. Beside ``storage.csv`` each epoch's
+statistics go to TensorBoard events under JAX's tags, step = epoch
+(``writer.py``, ``<save_dir>/tensorboard``; a resumed run adds a file), and
+the ``fig/`` metrics of each epoch's first step (hook figures: the
+cross-correlation block's joint, InfoNCE's similarities) are logged as
+images there by ``hooks/savers.py`` ``joint_2D_figure`` and kept out of the
+meters. ``Trainer.profile`` (or a non-empty ``CONTRASTYOU_PROFILE``) runs
+epoch index 1 under ``torch.profiler`` (CPU and, on the card, CUDA
+activity; the first epoch pays the first launches), from the hooks' epoch
+start to its storage row: the Chrome trace goes to
+``<save_dir>/profile/epoch_001.pt.trace.json`` beside ``launches.json``,
+the hand-written kernels' launch counts over the same window; on the card a
+trace without device kernels is removed and the run raises, and that
+epoch's timing records carry ``profiled: True``. The JAX trainer's TPU
+knob ``unroll_steps`` is not ported.
 
 ``two_stage`` (``semi`` steps) picks two forwards (labeled, then unlabeled
 and transformed) or one over all three; ``accumulate_iter`` makes the
@@ -48,12 +61,17 @@ the run is the one-process run at W times the batch. The step's metrics
 are global, so every rank's meters hold the global values; eval shards
 each batch that divides by W and gathers its counts. Only rank 0 writes
 ``config.yaml``, ``storage.csv``, the checkpoints, ``.success`` and
-``inference_result.json``; a resume loads on every rank.
+``inference_result.json``, the events and the trace; a resume loads on
+every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import json
 import logging
+import os
+import re
 import time
 import typing as t
 from pathlib import Path
@@ -68,9 +86,11 @@ from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.dice import UniversalDice
 from ..meters.interface import MeterInterface
 from ..meters.storage import Storage
+from ..ops import convblock, iic, supcon
 from ..parallel.collectives import all_reduce_sum, gather_rows, num_ranks
 from ..parallel.mesh import DataGroup, multi_rank, replicate, shard_batch
 from ..utils.torch_convert import load_pretrained
+from ..writer import SummaryWriter
 from .bundle import ModelBundle
 from .checkpoint import (load_checkpoint, load_model_params, load_train_state, save_checkpoint,
                          train_state_dict)
@@ -79,12 +99,17 @@ from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_train_step,
                     init_train_state, sample_ft_draws, sample_step_draws, shard_step_draws)
 
-__all__ = ["Trainer", "epoch_seed", "hook_metrics", "HOOK_DRAW_SEED_OFFSET"]
+__all__ = ["Trainer", "epoch_seed", "hook_metrics", "kernel_launches", "HOOK_DRAW_SEED_OFFSET",
+           "PROFILE_EPOCH"]
 
 logger = logging.getLogger(__name__)
 
 #: offset of the hooks' host generator's per-epoch seed
 HOOK_DRAW_SEED_OFFSET = 30_000
+#: the epoch index ``Trainer.profile`` traces (as JAX's trainer)
+PROFILE_EPOCH = 1
+#: a device kernel's event in a Chrome trace
+_KERNEL_EVENT = re.compile(rb'"cat"\s*:\s*"kernel"')
 
 
 def hook_metrics(metrics: dict, hook_name: str) -> dict:
@@ -92,9 +117,17 @@ def hook_metrics(metrics: dict, hook_name: str) -> dict:
     as the JAX trainers hand them to their meters (and so as
     ``storage.csv``'s columns): without the name's first path component
     only, so ``infonce/Conv5/self/loss`` is kept as ``Conv5/self/loss``, in
-    sorted order (a jitted step returns its metrics dict sorted)."""
+    sorted order (a jitted step returns its metrics dict sorted); the
+    ``<hook_name>/fig/...`` figure tensors are left out."""
     return {k.split("/", 1)[1]: metrics[k] for k in sorted(metrics)
-            if k.startswith(hook_name + "/")}
+            if k.startswith(hook_name + "/") and "/fig/" not in k}
+
+
+def kernel_launches() -> t.Dict[str, int]:
+    """The hand-written kernels' launch counts so far in this process (the
+    ``ops`` modules' counters; none on the CPU, where the plain versions
+    run)."""
+    return {**convblock.LAUNCHES, **supcon.LAUNCHES, **iic.LAUNCHES}
 
 
 def epoch_seed(seed: int, epoch: int, offset: int = 10_000) -> int:
@@ -141,10 +174,11 @@ class Trainer:
                 f"{type(self).__name__} does not run on {self._group.size} ranks: "
                 f"{self.data_parallel_refusal} (a trainer runs there where its "
                 f"data_parallel is True)")
-        for key, value, default in (("Trainer.unroll_steps", unroll_steps, 1),
-                                    ("Trainer.profile", bool(profile), False)):
-            if value != default:
-                raise NotImplementedError(f"{key}={value!r} is not ported (only {default!r})")
+        if unroll_steps != 1:
+            raise NotImplementedError(f"Trainer.unroll_steps={unroll_steps!r} is not ported "
+                                      f"(only 1)")
+        self._profile = bool(profile) or bool(os.environ.get("CONTRASTYOU_PROFILE"))
+        self._profiling = False
         self._model = model
         # the multicore trainer's supervised criterion, probability transform
         # and true class count (engine/steps.py build_train_step)
@@ -171,12 +205,13 @@ class Trainer:
         self._cur_epoch = 0
         self._best_score = -np.inf
         self._initialized = False
-        self._storage = Storage(self._save_dir, write=self._is_master)
-        if self._config and self._is_master:
+        self._storage = Storage(self._save_dir, write=self.is_master)
+        self._writer = SummaryWriter(self._save_dir, write=self.is_master)
+        if self._config and self.is_master:
             yaml_write(self._config, self._save_dir, "config.yaml")
 
     @property
-    def _is_master(self) -> bool:
+    def is_master(self) -> bool:
         """Whether this process writes the run's files (rank 0, or the only one)."""
         return self._group is None or self._group.rank == 0
 
@@ -307,35 +342,118 @@ class Trainer:
     def start_training(self) -> float:
         if not self._initialized:
             raise RuntimeError("call init() first")
-        for epoch in range(self._cur_epoch, self._max_epoch):
-            self._cur_epoch = epoch
-            for hook in self._active_hooks:
-                self._state.hook_states[hook.name] = hook.on_epoch_start(
-                    self._state.hook_states[hook.name], epoch)
-            with self._storage:
-                stages = {"tra": self.tra_epoch(epoch)}
-                cur_score = None
-                if self._val_loader is not None:
-                    stages["val"], cur_score = self.eval_epoch(self._val_loader, epoch, "val")
-                if self._test_loader is not None:
-                    stages["test"], _ = self.eval_epoch(self._test_loader, epoch, "test")
-                self._storage.add_from_meter_interface(epoch=epoch, **stages)
-            # the best score is updated before ``last`` is written (JAX writes
-            # ``last`` first, so a run resumed from it forgets this epoch's best)
-            improved = cur_score is not None and cur_score > self._best_score
-            if improved:
-                self._best_score = float(cur_score)
-            self.save_to("last")
-            if improved:
-                self.save_to("best")
-            tra = stages["tra"]["tra"]
-            logger.info("epoch %d/%d: sup %.5f reg %.5f sup DSC_mean %.4f, val DSC_mean %s",
-                        epoch + 1, self._max_epoch, tra["sup_loss"], tra.get("reg_loss", 0.0),
-                        tra["sup_dice"]["DSC_mean"],
-                        "-" if cur_score is None else f"{cur_score:.4f}")
-        if self._is_master:
+        with self._writer:
+            for epoch in range(self._cur_epoch, self._max_epoch):
+                self._cur_epoch = epoch
+                with self._epoch_profile(epoch):
+                    for hook in self._active_hooks:
+                        self._state.hook_states[hook.name] = hook.on_epoch_start(
+                            self._state.hook_states[hook.name], epoch)
+                    with self._storage:
+                        stages = {"tra": self.tra_epoch(epoch)}
+                        cur_score = None
+                        if self._val_loader is not None:
+                            stages["val"], cur_score = self.eval_epoch(self._val_loader, epoch,
+                                                                       "val")
+                        if self._test_loader is not None:
+                            stages["test"], _ = self.eval_epoch(self._test_loader, epoch, "test")
+                        self._storage.add_from_meter_interface(epoch=epoch, **stages)
+                        self._write_events(epoch, stages)
+                # the best score is updated before ``last`` is written (JAX writes
+                # ``last`` first, so a run resumed from it forgets this epoch's best)
+                improved = cur_score is not None and cur_score > self._best_score
+                if improved:
+                    self._best_score = float(cur_score)
+                self.save_to("last")
+                if improved:
+                    self.save_to("best")
+                tra = stages["tra"]["tra"]
+                logger.info("epoch %d/%d: sup %.5f reg %.5f sup DSC_mean %.4f, val DSC_mean %s",
+                            epoch + 1, self._max_epoch, tra["sup_loss"],
+                            tra.get("reg_loss", 0.0), tra["sup_dice"]["DSC_mean"],
+                            "-" if cur_score is None else f"{cur_score:.4f}")
+        if self.is_master:
             package.success(self._save_dir)
         return self._best_score
+
+    # --- observability ------------------------------------------------------
+    def _write_events(self, epoch: int, stages: dict) -> None:
+        """The epoch's statistics as TensorBoard scalars (JAX's tags, step =
+        epoch), flushed; the time and the file's size are logged."""
+        if not self.is_master:
+            return
+        t0 = time.perf_counter()
+        self._writer.add_scalars_from_meter_interface(epoch=epoch, **stages)
+        self._writer.flush()
+        seconds = time.perf_counter() - t0
+        size = self._writer.path.stat().st_size
+        logger.info("events of epoch %d: %s, %d bytes, written in %.3f ms", epoch,
+                    self._writer.path.name, size, seconds * 1e3,
+                    extra={"timing": {"phase": "events", "epoch": epoch, "seconds": seconds,
+                                      "bytes": size}})
+
+    def _log_figures(self, metrics: dict, epoch: int) -> None:
+        """The ``fig/`` tensors of a step's metrics (the first step of an
+        epoch) as TensorBoard images, tag ``<hook>/<name>``, the first 2-D
+        slice of each (JAX trainer ``log_figures``)."""
+        if not self.is_master:
+            return
+        from ..hooks.savers import joint_2D_figure
+        for k, v in metrics.items():
+            if "fig/" not in k:
+                continue
+            mat = v.detach().float().cpu().numpy()
+            while mat.ndim > 2:
+                mat = mat[0]
+            try:
+                joint_2D_figure(mat, tb_writer=self._writer, cur_epoch=epoch,
+                                tag=k.replace("fig/", ""))
+            except (ValueError, RuntimeError, OSError) as e:
+                logger.warning("figure logging failed for %s: %s", k, e)
+
+    @contextlib.contextmanager
+    def _epoch_profile(self, epoch: int):
+        """``epoch`` under ``torch.profiler`` when ``Trainer.profile`` asks
+        for it and ``epoch`` is :data:`PROFILE_EPOCH` (rank 0 alone); the
+        trace and the window's kernel launches go to ``<save_dir>/profile``."""
+        if not (self._profile and epoch == PROFILE_EPOCH and self.is_master):
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        self._sync()
+        before = kernel_launches()
+        self._profiling = True
+        try:
+            with profile(activities=activities) as prof:
+                yield
+                self._sync()
+        finally:
+            self._profiling = False
+        launches = {k: v - before.get(k, 0) for k, v in kernel_launches().items()}
+        t0 = time.perf_counter()
+        out = Path(self._save_dir) / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        trace = out / f"epoch_{epoch:03d}.pt.trace.json"
+        prof.export_chrome_trace(str(trace))
+        # the device kernels of the trace, counted in its text (walking the
+        # profiler's events in Python costs more than the export)
+        device_events = len(_KERNEL_EVENT.findall(trace.read_bytes()))
+        if cuda and not device_events:
+            trace.unlink()
+            raise RuntimeError(
+                "Trainer.profile: the profiler recorded no CUDA activity on the card (is "
+                "CUPTI available?); no trace is kept without the device")
+        (out / "launches.json").write_text(json.dumps(
+            {"epoch": epoch, "trace": trace.name, "device_events": device_events,
+             "launches": launches}, indent=2))
+        seconds = time.perf_counter() - t0
+        size = trace.stat().st_size
+        logger.info("profile of epoch %d: %s (%d bytes, %d device events) in %.3f s", epoch,
+                    trace, size, device_events, seconds,
+                    extra={"timing": {"phase": "profile", "epoch": epoch, "seconds": seconds,
+                                      "bytes": size, "device_events": device_events}})
 
     def tra_epoch(self, epoch: int) -> dict:
         meters = MeterInterface(default_focus="tra")
@@ -355,7 +473,7 @@ class Trainer:
             labeled_iter, unlabeled_iter = self._train_iterators()
         t0 = time.perf_counter()
         with meters:
-            for _ in range(self._num_batches):
+            for it in range(self._num_batches):
                 if self._device_cache:
                     metrics = self._train_step(self._state, generator, epoch, host_rng)
                     dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
@@ -391,16 +509,20 @@ class Trainer:
                 meters.add("reg_loss", metrics["reg_loss"])
                 for hook in self._active_hooks:
                     hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
+                if it == 0:
+                    self._log_figures(metrics, epoch)
         self._sync()
         seconds = time.perf_counter() - t0
         stats = dict(meters.statistics())
         stats["tra"]["lr"] = float(self._schedule(int(self._state.step)))
-        logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s)", epoch,
+        logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s%s)", epoch,
                     self._num_batches, seconds, seconds / self._num_batches * 1e3,
                     "device cache" if self._device_cache else "host-fed",
+                    ", profiled" if self._profiling else "",
                     extra={"timing": {"phase": "train", "epoch": epoch,
                                       "steps": self._num_batches, "seconds": seconds,
-                                      "device_cache": self._device_cache}})
+                                      "device_cache": self._device_cache,
+                                      "profiled": self._profiling}})
         return stats
 
     # --- evaluation -------------------------------------------------------
@@ -473,13 +595,13 @@ class Trainer:
     def _log_eval(self, stage: str, epoch: int, batches: int, seconds: float, **extra) -> None:
         logger.info("%s epoch %d: %d batches in %.3f s", stage, epoch, batches, seconds,
                     extra={"timing": {"phase": stage, "epoch": epoch, "batches": batches,
-                                      "seconds": seconds, **extra}})
+                                      "seconds": seconds, "profiled": self._profiling, **extra}})
 
     # --- checkpointing ----------------------------------------------------
     def save_to(self, name: str = "last") -> str:
         """Write checkpoint ``name`` (rank 0 alone; every rank waits for it)."""
         path = Path(self._save_dir) / name
-        if not self._is_master:
+        if not self.is_master:
             self._group.barrier()
             return str(path)
         t0 = time.perf_counter()

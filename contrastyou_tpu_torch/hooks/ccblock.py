@@ -21,8 +21,10 @@ each subhead's pair and are averaged over the subheads:
 - ``consist``: KL(dist1, dist2) with dist2 detached.
 
 The loss is the weighted sum; each tiny hook's value is a metric under its
-name (``imsat_weight`` beside ``imsat``). ``save: true`` (JAX's joint figure)
-is not ported.
+name (``imsat_weight`` beside ``imsat``). With ``save: true`` and an ``rr``
+tiny hook the metrics also carry ``fig/joint_rr``, the redundancy joint of
+the first subhead's pair, which the trainer logs as a figure (JAX
+``ccblock.py:147-153``).
 
 On W > 1 ranks (``ctx.data_group``) ``mi``'s and ``rr``'s joints and
 ``imsat``'s marginal are summed over the ranks, so each rank computes the
@@ -101,9 +103,7 @@ class CrossCorrelationHook(ModuleHook):
                  head_type: str = "mlp", num_subheads: int = 1,
                  hooks: Mapping[str, Mapping], save: bool = False):
         super().__init__(hook_name=name, weight=1.0)
-        if save:
-            raise NotImplementedError(f"{name}: save: true (the joint figure) waits for the "
-                                      f"figure savers, ROADMAP item 4d")
+        self._save = bool(save)
         unknown = sorted(set(hooks) - set(TINY_HOOKS))
         if unknown:
             raise ValueError(f"{name}: unknown tiny hooks {unknown}, known {TINY_HOOKS}")
@@ -166,10 +166,14 @@ class CrossCorrelationHook(ModuleHook):
             total = total + float(p["weight"]) * metrics["mi"]
         if "rr" in tiny:
             p = tiny["rr"]
-            metrics["rr"] = per_subhead(lambda d1, d2: redundancy_criterion(
-                d1, d2, alpha=float(p["alpha"]), lamda=float(p.get("lamda", 1.0)),
-                symmetric=bool(p.get("symmetric", True)), group=group))
+            rr_kw = dict(alpha=float(p["alpha"]), lamda=float(p.get("lamda", 1.0)),
+                         symmetric=bool(p.get("symmetric", True)), group=group)
+            metrics["rr"] = per_subhead(lambda d1, d2: redundancy_criterion(d1, d2, **rr_kw))
             total = total + float(p["weight"]) * metrics["rr"]
+            if self._save:
+                with torch.no_grad():
+                    _, metrics["fig/joint_rr"] = redundancy_criterion(
+                        dist_tf[0], tf_dist[0], return_joint=True, **rr_kw)
         if "imsat" in tiny:
             p = tiny["imsat"]
             w = state["imsat_weight"]

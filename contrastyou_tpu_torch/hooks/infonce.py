@@ -8,7 +8,11 @@ views, each its own positive pair.
 
 The positions are explicit draws (``ctx.point_draws``, one
 ``engine.steps.draw_points`` per grid, shared by the hooks on it), so a test
-can replay the JAX hook's. :class:`SelfPacedINFONCEHook` weights the pairs by
+can replay the JAX hook's. With ``emit_figures`` the eager SupCon's
+similarity logits and positive mask are computed beside the loss, without
+gradient, and go out as ``fig/sim_logits`` and ``fig/pos_mask`` (logged by
+the trainer as figures); the loss keeps its route (D1/D2 on the card).
+:class:`SelfPacedINFONCEHook` weights the pairs by
 the self-paced loss, its age parameter ramped with the epoch;
 :class:`SuperPixelInfoNCEHook` (dense only) labels each sampled position with
 the superpixel id that holds most of its feature cell
@@ -29,7 +33,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..engine.hooks import ModuleHook, StepContext
-from ..losses.contrastive import self_paced_sup_con_loss, sup_con_loss
+from ..losses.contrastive import self_paced_sup_con_loss, sup_con_figures, sup_con_loss
 from ..models.projectors import DenseProjectionHead, ProjectionHead
 from ..models.unet import UNet
 from ..parallel.collectives import gather_rows
@@ -95,8 +99,10 @@ class INFONCEHook(ModuleHook):
 
     def __init__(self, *, name: str, feature_name: str, in_dim: int,
                  weight: float = 1.0, spatial_size: Optional[Sequence[int]] = None,
-                 contrast_on: str = "partition", proj_bf16: bool = False):
+                 contrast_on: str = "partition", proj_bf16: bool = False,
+                 emit_figures: bool = False):
         super().__init__(hook_name=name, weight=weight)
+        self._emit_figures = bool(emit_figures)
         self._feature_name = feature_name
         self.taps = (feature_name,)
         self._is_encoder = feature_name in ENCODER_NAMES
@@ -154,7 +160,13 @@ class INFONCEHook(ModuleHook):
 
     def loss(self, ctx: StepContext, state):
         f1, f2, labels = self._pairs_and_labels(ctx)
-        return sup_con_loss(f1, f2, target=labels, temperature=TEMPERATURE), state, {}
+        loss = sup_con_loss(f1, f2, target=labels, temperature=TEMPERATURE)
+        if not self._emit_figures:
+            return loss, state, {}
+        # JAX infonce.py:158-166 takes these from the loss's auxiliaries; the
+        # fused route has none, so they are computed beside it
+        sim_logits, pos_mask = sup_con_figures(f1, f2, target=labels, temperature=TEMPERATURE)
+        return loss, state, {"fig/sim_logits": sim_logits, "fig/pos_mask": pos_mask}
 
 
 class SelfPacedINFONCEHook(INFONCEHook):

@@ -22,7 +22,7 @@ import torch
 from ..ops.supcon import MAX_ANCHORS, pair_code, sup_con_from_code
 
 __all__ = ["pair_masks_from_target", "FUSED_MAX_ANCHORS", "fused_route",
-           "sup_con_loss", "self_paced_sup_con_loss", "SupConLoss", "SelfPacedSupConLoss"]
+           "sup_con_loss", "sup_con_figures", "self_paced_sup_con_loss", "SupConLoss", "SelfPacedSupConLoss"]
 
 #: anchor counts (2N) up to this take the fused kernels on the card: their
 #: capacity, since chip_smoke.py's sweep (phase 4b: value and gradient, d =
@@ -110,6 +110,17 @@ def sup_con_loss(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *,
         return loss, {"sim_logits": sim_logits, "sim_exp": sim_exp,
                       "pos_mask": pos_mask, "neg_mask": neg_mask}
     return loss
+
+
+def sup_con_figures(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *,
+                    target: Optional[torch.Tensor] = None, temperature: float = 0.07):
+    """The eager form's ``sim_logits`` and ``pos_mask`` [2N, 2N] (what
+    ``return_aux`` gives), without gradient: the figures of a step whose loss
+    took whichever route :func:`fused_route` chose."""
+    with torch.no_grad():
+        n = proj_feat1.shape[0]
+        pos_mask, _ = _expand_masks(*_pair_masks(target, None, n, proj_feat1.device), n)
+        return _sim_logits(torch.cat([proj_feat1, proj_feat2], 0), temperature), pos_mask
 
 
 def self_paced_sup_con_loss(proj_feat1: torch.Tensor, proj_feat2: torch.Tensor, *, gamma,

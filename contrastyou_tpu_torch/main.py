@@ -61,8 +61,11 @@ Every trainer runs the root ``main.py``'s experiment (:func:`run_experiment`):
 the dataset ``Data.name`` from ``$CONTRASTYOU_DATA_PATH`` (its on-disk
 layout, e.g. the one ``data/synthetic.py`` writes), split into labeled,
 unlabeled, validation and test scans; ``Trainer.max_epoch`` epochs of
-``Trainer.num_batches`` steps written to ``storage.csv`` with
-``config.yaml``, the ``last`` checkpoint and ``.success`` in
+``Trainer.num_batches`` steps written to ``storage.csv`` and TensorBoard
+events (``tensorboard/``) with ``config.yaml``, the ``last`` checkpoint,
+``.success`` and ``launches.json`` (the hand-written kernels' launch counts
+of the process, train, evaluation and inference; the trainer name; the
+run's seconds and its ``timing`` records, as the trainer logs them) in
 ``Trainer.save_dir`` (under ``$CONTRASTYOU_RUN_PATH`` when relative). ``semi``
 and ``ft`` (the labeled batch alone, no hook) follow each epoch with
 validation and test over whole scans, keep ``best`` and end with inference
@@ -79,7 +82,9 @@ before anything is built. The net is ``models.get_arch(Arch.name)`` with
 every ``Arch`` key JAX's root ``main.py`` passes (``Arch.name=resunet``,
 ``+Arch.norm=groupnorm``; a key the net has no field for raises, so
 ``Arch.name=unet2`` does, as in JAX). Keys the port does not implement
-(:data:`UNPORTED_KEYS`, the TPU knobs) raise when set. Every trainer takes the class count
+(:data:`UNPORTED_KEYS`, the TPU knob ``Trainer.unroll_steps``) raise when
+set; ``+Trainer.profile=true`` traces epoch index 1 into
+``<save_dir>/profile`` (``engine/trainer.py``). Every trainer takes the class count
 of ``Data.name``; pretraining also its partition count and contrastive
 sampler. Every ``Data.name`` reads from disk, the resize datasets
 (prostate, prostate_md, spleen) included. The self-paced
@@ -98,8 +103,11 @@ Without a card and without that request it raises.
 """
 from __future__ import annotations
 
+import contextlib
+import json
 import logging
 import sys
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, List, Mapping, Optional
@@ -119,6 +127,7 @@ from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
 from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state, point_grids
+from .engine.trainer import kernel_launches
 from .hooks.creator import create_hook_from_config
 from .models import get_arch
 from .losses.multicore import MultiCoreKL
@@ -270,8 +279,8 @@ def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
 
 #: config keys the port parses but does not implement, with the value that
 #: means "not used": another value raises rather than train something else
-#: (the JAX trainer's TPU knobs: unrolled steps and the profiler trace)
-UNPORTED_KEYS = {("Trainer", "unroll_steps"): 1, ("Trainer", "profile"): False}
+#: (the JAX trainer's TPU knob: unrolled steps)
+UNPORTED_KEYS = {("Trainer", "unroll_steps"): 1}
 
 
 def refuse_unported_keys(config: Mapping) -> None:
@@ -550,14 +559,58 @@ def find_checkpoint(save_dir) -> Optional[str]:
     return str(last) if is_checkpoint(last) else None
 
 
+class _TimingRecords(logging.Handler):
+    """The ``timing`` dicts of the records the package logs (the trainers'
+    host times by phase, ``engine/trainer.py``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: List[dict] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        timing = getattr(record, "timing", None)
+        if timing is not None:
+            self.records.append(timing)
+
+
+@contextlib.contextmanager
+def _timing_records():
+    """The package's ``timing`` records while the block runs, INFO enabled
+    for them whatever the logging setup."""
+    log = logging.getLogger(package.__name__)
+    handler, level = _TimingRecords(), log.level
+    log.addHandler(handler)
+    if not log.isEnabledFor(logging.INFO):
+        log.setLevel(logging.INFO)
+    try:
+        yield handler.records
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
 def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16):
     """The experiment of ``config`` (see the module docstring) -> its
     trainer, after training and, but for pretraining, inference."""
+    t0 = time.perf_counter()
+    with _timing_records() as timing:
+        trainer, name, best = _run(config, device, dtype)
+    if trainer.is_master:
+        (Path(trainer.save_dir) / "launches.json").write_text(json.dumps(
+            {"launches": kernel_launches(), "trainer": name,
+             "seconds": time.perf_counter() - t0, "timing": timing}, indent=2))
+    logging.getLogger(__name__).info("training finished, best score: %s", best)
+    return trainer
+
+
+def _run(config: Mapping, device, dtype: torch.dtype):
     refuse_unported_keys(config)
     check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
     data = config["Data"]
     name = config["Trainer"].get("name") or "semi"
+    logging.getLogger(__name__).info("run %s: Trainer.name=%s on %s",
+                                     config["Trainer"].get("save_dir"), name, device)
     is_pretrain = name in PRETRAIN_TRAINERS
     labeled, unlabeled, val, test = get_data(
         data, config.get("LabeledLoader", {}), config.get("UnlabeledLoader", {}),
@@ -593,8 +646,7 @@ def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     if trainer.runs_inference:
         best_ckpt = Path(trainer.save_dir) / "best"
         trainer.inference(checkpoint=str(best_ckpt) if best_ckpt.exists() else None)
-    logging.getLogger(__name__).info("training finished, best score: %s", best)
-    return trainer
+    return trainer, name, best
 
 
 def main(argv=None) -> int:

@@ -109,11 +109,14 @@ def sum_gradients(params: t.Iterable[torch.Tensor], group: DataGroup) -> None:
 
 @torch.no_grad()
 def mean_over_ranks(values: t.Mapping[str, torch.Tensor], group: DataGroup) -> dict:
-    """The mean over ranks of each scalar of ``values``, in one all-reduce."""
-    keys = list(values)
+    """The mean over ranks of each scalar of ``values``, in one all-reduce;
+    a tensor of more than one element (a hook's ``fig/`` matrix, computed
+    over the global batch already) is kept as it is."""
+    keys = [k for k, v in values.items() if v.numel() == 1]
+    out = {k: v for k, v in values.items() if v.numel() != 1}
     if not keys:
-        return {}
+        return out
     stacked = torch.stack([values[k].float().reshape(()) for k in keys])
     dist.all_reduce(stacked, group=group.process_group)
     stacked /= group.size
-    return {k: stacked[i] for i, k in enumerate(keys)}
+    return {**{k: stacked[i] for i, k in enumerate(keys)}, **out}

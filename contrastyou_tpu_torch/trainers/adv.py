@@ -164,11 +164,12 @@ class AdversarialTrainer(Trainer):
                     meters.add("gen_loss", metrics["gen_loss"])
         self._sync()
         seconds = time.perf_counter() - t0
-        logger.info("train epoch %d: %d adversarial steps in %.3f s (%.3f ms/step, host-fed)",
+        logger.info("train epoch %d: %d adversarial steps in %.3f s (%.3f ms/step, host-fed%s)",
                     epoch, self._num_batches, seconds, seconds / self._num_batches * 1e3,
+                    ", profiled" if self._profiling else "",
                     extra={"timing": {"phase": "train", "epoch": epoch,
                                       "steps": self._num_batches, "seconds": seconds,
-                                      "device_cache": False}})
+                                      "device_cache": False, "profiled": self._profiling}})
         return dict(meters.statistics())
 
     def _train_state_to_save(self) -> dict:

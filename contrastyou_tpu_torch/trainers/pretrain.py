@@ -329,14 +329,16 @@ class PretrainEncoderTrainer(Trainer):
     def start_training(self) -> float:
         if not self._initialized:
             raise RuntimeError("call init() first")
-        for epoch in range(self._cur_epoch, self._max_epoch):
-            self._cur_epoch = epoch
-            with self._storage:
-                tra = self.tra_epoch(epoch)
-                self._storage.add_from_meter_interface(epoch=epoch, tra=tra)
-            self.save_to("last")
-            logger.info("pretrain epoch %d/%d: reg %.5f", epoch + 1, self._max_epoch,
-                        tra["pretrain"]["reg_loss"])
+        with self._writer:
+            for epoch in range(self._cur_epoch, self._max_epoch):
+                self._cur_epoch = epoch
+                with self._epoch_profile(epoch), self._storage:
+                    tra = self.tra_epoch(epoch)
+                    self._storage.add_from_meter_interface(epoch=epoch, tra=tra)
+                    self._write_events(epoch, {"tra": tra})
+                self.save_to("last")
+                logger.info("pretrain epoch %d/%d: reg %.5f", epoch + 1, self._max_epoch,
+                            tra["pretrain"]["reg_loss"])
         package.success(self._save_dir)
         return 0.0
 
@@ -364,7 +366,7 @@ class PretrainEncoderTrainer(Trainer):
         grids = point_grids(self._active_hooks)
         t0 = time.perf_counter()
         with meters:
-            for _ in range(self._num_batches):
+            for it in range(self._num_batches):
                 batch = self._device_contrast_batch(next(self._contrast_iter))
                 draws = sample_pretrain_draws(generator, batch["image"].shape[0],
                                               color_jitter=strength, point_grids=grids)
@@ -372,13 +374,16 @@ class PretrainEncoderTrainer(Trainer):
                 meters.add("reg_loss", metrics["reg_loss"])
                 for hook in self._active_hooks:
                     hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
+                if it == 0:
+                    self._log_figures(metrics, epoch)
         self._sync()
         seconds = time.perf_counter() - t0
-        logger.info("pretrain epoch %d: %d steps in %.3f s (%.3f ms/step, host-fed)", epoch,
+        logger.info("pretrain epoch %d: %d steps in %.3f s (%.3f ms/step, host-fed%s)", epoch,
                     self._num_batches, seconds, seconds / self._num_batches * 1e3,
+                    ", profiled" if self._profiling else "",
                     extra={"timing": {"phase": "train", "epoch": epoch,
                                       "steps": self._num_batches, "seconds": seconds,
-                                      "device_cache": False}})
+                                      "device_cache": False, "profiled": self._profiling}})
         return dict(meters.statistics())
 
 

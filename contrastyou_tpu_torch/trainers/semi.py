@@ -2,7 +2,9 @@
 labeled + unlabeled two-view steps under the supervised KL and the hooks,
 and scan-grouped inference (3D dice and average surface distance, written
 to ``inference_result.json``), optionally averaged over the four axis flips
-(``Inference.tta``)."""
+(``Inference.tta``), optionally with each slice's image, ground truth,
+prediction and overlay as PNGs (``save_predictions``,
+``trainers/savers.py``)."""
 from __future__ import annotations
 
 import json
@@ -17,6 +19,7 @@ from ..meters.averages import AverageValueMeter
 from ..meters.dice import UniversalDice
 from ..meters.interface import MeterInterface
 from ..meters.surface import SurfaceMeter
+from .savers import InferenceSaver
 
 __all__ = ["SemiTrainer"]
 
@@ -29,11 +32,13 @@ class SemiTrainer(Trainer):
     data_parallel = True
 
     def inference(self, scan_loader=None, checkpoint: Optional[str] = None,
-                  tta: Optional[bool] = None) -> dict:
+                  save_predictions: bool = False, tta: Optional[bool] = None) -> dict:
         """Dice and ASD per scan of ``scan_loader`` (default: the test
         loader) after restoring ``checkpoint`` when given; ``tta`` defaults
-        to the config's ``Inference.tta``. On W ranks every rank evaluates
-        every scan and rank 0 writes the result."""
+        to the config's ``Inference.tta``; ``save_predictions`` writes the
+        slices' PNGs under ``<save_dir>/predictions`` (``InferenceSaver``).
+        On W ranks every rank evaluates every scan and rank 0 writes the
+        result and the PNGs."""
         if not self._initialized:
             raise RuntimeError("call init() first")
         if tta is None:
@@ -48,6 +53,8 @@ class SemiTrainer(Trainer):
         asd = meters.register_meter("asd", SurfaceMeter(c, report_axis=range(1, c)))
         eval_step = (build_eval_step(self._bundle, tta=True, **self._eval_kwargs()) if tta
                      else self._eval_step)
+        saver = (InferenceSaver(self._save_dir) if save_predictions and self.is_master
+                 else None)
         model = self._inference_state()
         t0, n = time.perf_counter(), 0
         with meters:
@@ -56,11 +63,14 @@ class SemiTrainer(Trainer):
                 meters.add("loss", loss)
                 dice.add_counts(inter, union, group_name=batch["scan"])
                 asd.add(pred, batch["target"], group_name=batch["scan"])
+                if saver is not None:
+                    saver.save_batch(image=batch["image"], target=batch["target"], pred=pred,
+                                     filenames=batch["filename"], mask=batch["mask"])
                 n += 1
         result = dict(meters.statistics())["inference"]
         self._log_eval("inference", self._cur_epoch, n, time.perf_counter() - t0, tta=tta)
         out = {"dice": result["dice"], "asd": result["asd"], "loss": float(result["loss"])}
-        if self._is_master:
+        if self.is_master:
             with open(Path(self._save_dir) / "inference_result.json", "w") as f:
                 json.dump(out, f, indent=2)
         logger.info("inference: %s", out["dice"])

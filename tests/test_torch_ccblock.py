@@ -318,8 +318,12 @@ def test_imsat_weight_over_two_steps(use_dynamic):
 
 
 def test_save_true_raises_and_unknown_tiny_hooks_too():
-    with pytest.raises(NotImplementedError, match="4d"):
-        CrossCorrelationHook(name="cc", feature_name="Up_conv2", in_dim=16, hooks={}, save=True)
+    """Unknown tiny hooks raise. ``save: true`` raised until the figure
+    savers were ported; it now builds the hook, which emits the joint
+    figure (``tests/test_torch_writer.py``)."""
+    hook = CrossCorrelationHook(name="cc", feature_name="Up_conv2", in_dim=16, hooks={},
+                                save=True)
+    assert hook._save
     with pytest.raises(ValueError, match="unknown tiny hooks"):
         CrossCorrelationHook(name="cc", feature_name="Up_conv2", in_dim=16, hooks={"xx": {}})
 

@@ -62,11 +62,19 @@ def test_acdc_subtask_targets_are_remapped_as_jax(name):
 def test_unported_keys_raise(key, value):
     """A non-default value of a key the port does not implement raises
     ``NotImplementedError`` naming it, in both run builders, before anything
-    is built."""
-    assert tuple(key.split(".")) in UNPORTED_KEYS
+    is built. ``Trainer.profile`` was such a key until the profiler trace
+    was ported: it has left :data:`UNPORTED_KEYS`, which holds the TPU knob
+    alone, and both run-building functions take it."""
+    ported = key == "Trainer.profile"
+    assert (tuple(key.split(".")) in UNPORTED_KEYS) is not ported
+    assert list(UNPORTED_KEYS) == [("Trainer", "unroll_steps")]
     for trainer, build, size in (("semi", build_semi_run, dict(raw_size=40, n_slices=8)),
                                  ("pretrain", build_pretrain_run, dict(raw_size=36, n_scans=6))):
         cfg = parse_config(["-o", f"Trainer.name={trainer}", f"+{key}={value}"])
+        if ported:
+            assert cfg["Trainer"]["profile"] is True
+            build(cfg, **size, **SMALL)
+            continue
         with pytest.raises(NotImplementedError, match=re.escape(key)):
             build(cfg, **size, **SMALL)
 

@@ -95,3 +95,72 @@ def test_unported_choices_raise():
     with pytest.raises(KeyError):
         warmup_schedule(base_lr=1.0, multiplier=1, warmup_max_epoch=1, max_epoch=2,
                         steps_per_epoch=1, name="exponential")
+
+
+_NO_DYNAMO = """
+import sys
+import torch
+from contrastyou_tpu_torch.engine.optim import create_optimizer
+ps = [torch.nn.Parameter(torch.linspace(-1.0, 1.0, 6).reshape(2, 3)),
+      torch.nn.Parameter(torch.ones(4))]
+opt, _ = create_optimizer(ps, {"name": "RAdam", "lr": 1e-3, "weight_decay": 1e-2},
+                          {"multiplier": 3, "warmup_max": 2}, max_epoch=5, steps_per_epoch=3)
+for k in range(3):
+    for p in ps:
+        p.grad = torch.full_like(p, 0.5 - k)
+    opt.step()
+    opt.zero_grad()
+sd = opt.state_dict()
+opt.load_state_dict(sd)
+assert all(p.grad is None for p in ps)
+assert "torch._dynamo" not in sys.modules, "torch._dynamo imported"
+"""
+
+
+def test_optimizer_methods_import_no_dynamo():
+    """``zero_grad``, ``add_param_group``, ``state_dict`` and
+    ``load_state_dict`` are ``torch.optim.Optimizer``'s own, called without
+    the ``torch._dynamo.disable`` wrapper whose first call imports
+    ``torch._dynamo`` (a fresh process imports it nowhere), and give what
+    the wrapped methods give: the state dict of three steps, and a second
+    optimizer loaded from it steps as the first does."""
+    import copy
+    import subprocess
+    import sys
+    run = subprocess.run([sys.executable, "-c", _NO_DYNAMO], capture_output=True, text=True,
+                         cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    assert run.returncode == 0, run.stderr[-2000:]
+
+    def make():
+        ps = [torch.nn.Parameter(torch.linspace(-1.0, 1.0, 6).reshape(2, 3)),
+              torch.nn.Parameter(torch.ones(4))]
+        return ps, create_optimizer(ps, OPTIM, SCHED, max_epoch=5, steps_per_epoch=3)[0]
+
+    ps, opt = make()
+    for k in range(3):
+        for p in ps:
+            p.grad = torch.full_like(p, 0.5 - k)
+        opt.step()
+    sd = opt.state_dict()
+    want = torch.optim.Optimizer.state_dict(opt)     # the wrapped method
+    assert sd["count"] == 3 and sd["mini_step"] == 0
+    assert sd["param_groups"] == want["param_groups"]
+    assert sd["state"].keys() == want["state"].keys()
+    for i in sd["state"]:
+        for name, v in sd["state"][i].items():
+            torch.testing.assert_close(v, want["state"][i][name], rtol=0, atol=0)
+    qs, other = make()
+    with torch.no_grad():
+        for q, p in zip(qs, ps):
+            q.copy_(p)
+    other.load_state_dict(copy.deepcopy(sd))     # as from a checkpoint: no shared moments
+    assert other.count == 3
+    for p, q in zip(ps, qs):
+        p.grad = torch.full_like(p, 0.25)
+        q.grad = torch.full_like(q, 0.25)
+    opt.step()
+    other.step()
+    for p, q in zip(ps, qs):
+        torch.testing.assert_close(q, p, rtol=0, atol=0)
+    other.zero_grad()
+    assert all(q.grad is None for q in qs)
