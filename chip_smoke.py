@@ -241,7 +241,27 @@ Phases, in order; any failure exits non-zero:
    CUDA function name) equal to the launch counter over the same window and
    to what the epoch's steps and eval forwards imply; ``report`` over the
    runs, one row per finished ``semi`` / ``ft`` run with its best epoch and
-   value as its ``storage.csv`` has them.
+   value as its ``storage.csv`` has them;
+22. the last modules (run after phase 21): (22a) the cluster-plot entry as
+   a ``python -m contrastyou_tpu_torch.plot_pretrain_cluster -p
+   config/base.yaml config/hooks/udaiic.yaml -o
+   DiscreteMIConsistencyParams.feature_names=[Up_conv2]
+   DiscreteMIConsistencyParams.mi_weights=[0.05]`` process at full width, 2
+   epochs x 10 steps of decoder pretraining on a 256x256 layout of 12
+   train scans (the 6-scan, 18-slice contrastive batch) and 18 validation
+   scans (8 dumped batches): its files, ``cluster_acc`` in [0, 1], a
+   bijective mapping, the t-SNE PNG decoded, the launches of its training
+   and of its dump against its steps and forwards, the t-SNE's size,
+   seconds and exact KL; (22b) E1/E2 against their plain versions at that
+   path's [18, 224, 224, 32] taps (padding 1); (22c) the documented udaiic
+   preset (a pooled ``Conv5`` head) refused before training; (22d) the
+   monitor pass on ``pretrain_decoder``: model, BN statistics, heads, hook
+   states and the optimizer bitwise unchanged, its launches; (22e) the
+   host-fed ``semi`` loop's train epochs with ``prefetch=4`` and without,
+   beside the device cache, in turns (ms/step of each; the host-fed
+   batches identical); (22f) ``fast_crop`` against the numpy crop and
+   scale, exact, and its slices/s at 32 x 224^2 on 8 threads beside the
+   dataset's item path.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
@@ -920,7 +940,7 @@ def e1_split_flops(f: "torch.Tensor", S: int, K: int, padding: int) -> float:
     return float(3 * proj + 3 * pair)
 
 
-def check_iic(device) -> dict:
+def check_iic(device, shape=IIC_SHAPE, paddings=IIC_PADDINGS) -> dict:
     """Phase 9: E1 and E2 vs their plain versions (f32 math, TF32 off) on
     post-ReLU bf16 feature maps of the Up_conv2 taps' shape, at each padding
     of IIC_PADDINGS; E2 on a random cotangent and on the dense hook's own
@@ -939,20 +959,20 @@ def check_iic(device) -> dict:
     recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
                     bound_by="", by_padding={}) for k in iic.LAUNCHES}
     C, S, K = IIC_SHAPE[-1], IIC_S, IIC_K
-    f1, f2 = (torch.relu(torch.randn(IIC_SHAPE, generator=g, device=device)).to(torch.bfloat16)
+    f1, f2 = (torch.relu(torch.randn(shape, generator=g, device=device)).to(torch.bfloat16)
               for _ in range(2))
     w = torch.randn(C, S * K, generator=g, device=device) / math.sqrt(C)
     b = torch.randn(S * K, generator=g, device=device) * 0.1
-    for pad in IIC_PADDINGS:
+    for pad in paddings:
         kw = dict(num_subheads=S, num_clusters=K, padding=pad)
         raw, raw_ref = iic.iic_joints(f1, f2, w, b, **kw), iic.iic_joints_plain(f1, f2, w, b, **kw)
         err1, rel1 = _rel_err(raw, raw_ref)
-        if pad == IIC_PADDINGS[0] and not torch.equal(raw, iic.iic_joints(f1, f2, w, b, **kw)):
+        if pad == paddings[0] and not torch.equal(raw, iic.iic_joints(f1, f2, w, b, **kw)):
             raise AssertionError(f"E1 padding {pad}: two launches differ")
         jbar = torch.randn(raw.shape, generator=g, device=device)
         loss_raw = raw.detach().clone().requires_grad_()
         (0.05 * iid_loss_from_raw_joints(loss_raw, padding=pad,
-                                         count=math.prod(IIC_SHAPE[:3])).sum()).backward()
+                                         count=math.prod(shape[:3])).sum()).backward()
         rels, bad_dtype = {}, False
         for cot, jb in (("randn", jbar), ("loss", loss_raw.grad)):
             got = iic.iic_joints_bwd(f1, f2, w, b, jb, **kw)
@@ -985,7 +1005,7 @@ def check_iic(device) -> dict:
             r = recs[k]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["by_padding"][str(pad)] = {"ms": ms, "plain_ms": pms, "bound_ms": bms}
-            if pad == IIC_PADDINGS[0]:
+            if pad == paddings[0]:
                 r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
         print(line)
         if (rel1 > IIC_RAW_RTOL or bad_dtype
@@ -3972,6 +3992,328 @@ def run_phase21(device, card: str) -> dict:
     return by_path
 
 
+# --- phase 22: the last modules -------------------------------------------------
+
+#: phase 22's layout: 12 train scans (6 in the pretrain split: the 18-slice
+#: ACDC contrastive batch) and 18 validation scans (8 in the validation split:
+#: the plot's 8 dumped batches), 10 slices at 256x256
+P22_SCANS, P22_SLICES, P22_SIZE = (12, 18), 10, 256
+#: the plot entry's argv after ``-o`` (the udaiic preset cut to the decoder)
+P22_PLOT_ARGV = ["DiscreteMIConsistencyParams.feature_names=[Up_conv2]",
+                 "DiscreteMIConsistencyParams.mi_weights=[0.05]",
+                 f"Trainer.max_epoch={LOOP_EPOCHS}", f"Trainer.num_batches={LOOP_STEPS}",
+                 "Trainer.save_dir=plot"]
+#: launches of one decoder-pretraining step with the dense IIC hook (one
+#: forward over both views cut at Up_conv2, its backward, E1 and E2), and of
+#: one full forward of the dump
+PLOT_STEP_LAUNCHES = {"conv3x3_stats": 8, "upconv3x3_stats": 1, "upconv3x3_dx": 1,
+                      "conv_dw_taps": 2, "conv3x3_bwd_fused": 9, "iic_joints": 1,
+                      "iic_joints_bwd": 1}
+#: the E1/E2 shape of the plot path: the Up_conv2 taps of 18 slices
+PLOT_IIC_SHAPE = (18, 224, 224, 32)
+#: launches of one monitor pass batch on pretrain_decoder (InfoNCE on Conv5 and
+#: Up_conv2): the forward cut at Up_conv2 and the two losses, no backward
+MONITOR_LAUNCHES = {"conv3x3_stats": 8, "upconv3x3_stats": 1, "supcon_loss": 2}
+#: the loader comparison: the orders of the host-fed (prefetch 4 / None) and
+#: device-cached train epochs, in turns, and the steps of each of their 2 epochs
+P22_FEEDS = ("prefetch", "sync", "cached", "sync", "prefetch")
+P22_FEED_STEPS = 20
+#: fast_crop's timed batches (32 slices, 224^2, 8 threads)
+FAST_CROP_BATCH, FAST_CROP_THREADS, FAST_CROP_BATCHES, FAST_CROP_SIZE = 32, 8, 20, 224
+
+
+def write_p22_layout(root) -> None:
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+    synthesize_acdc_like(root, num_train_scans=P22_SCANS[0], num_val_scans=P22_SCANS[1],
+                         slices_per_scan=P22_SLICES, size=P22_SIZE)
+
+
+def run_plot_entry(data, runs_root, card: str) -> dict:
+    """22a: the plot entry as a process; -> its launches (train, dump)."""
+    import numpy as np
+    from pathlib import Path
+    from contrastyou_tpu_torch.data.png import read_png
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, CONTRASTYOU_DATA_PATH=str(data), CONTRASTYOU_RUN_PATH=str(runs_root))
+    env.pop("CONTRASTYOU_PROFILE", None)
+    cmd = [sys.executable, "-m", "contrastyou_tpu_torch.plot_pretrain_cluster", "-p",
+           str(repo / "config/base.yaml"), str(repo / "config/hooks/udaiic.yaml"), "-o",
+           *P22_PLOT_ARGV]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"plot entry failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    out = Path(runs_root) / "plot" / "cluster_plots"
+    metrics = json.loads((out / "cluster_metrics.json").read_text())
+    record = json.loads((out / "launches.json").read_text())
+    if list(metrics) != ["discreteMI/up_conv2"]:
+        raise AssertionError(f"plot: cluster hooks {list(metrics)}")
+    m = metrics["discreteMI/up_conv2"]
+    mapping = {int(k): v for k, v in m["mapping"].items()}
+    if not 0.0 <= m["cluster_acc"] <= 1.0 or sorted(mapping) != sorted(mapping.values()):
+        raise AssertionError(f"plot: cluster_acc {m['cluster_acc']}, mapping {mapping}")
+    maps = sorted(out.glob("discreteMI_up_conv2_b*.npy"))
+    if len(maps) != 8:
+        raise AssertionError(f"plot: {len(maps)} maps, want 8 (the validation batches)")
+    shapes = {np.load(f).shape for f in maps}
+    montages = [read_png(f.with_suffix(".png"), rgb=True) for f in maps]
+    tsne_png = read_png(out / "discreteMI_up_conv2_tsne.png", rgb=True)
+    if tsne_png.shape != (900, 900, 3) or any(a.ndim != 3 for a in montages):
+        raise AssertionError(f"plot: t-SNE PNG {tsne_png.shape}")
+    steps = LOOP_EPOCHS * LOOP_STEPS
+    want_train = {k: n * steps for k, n in PLOT_STEP_LAUNCHES.items()}
+    want_dump = {k: n * len(maps) for k, n in EVAL_FORWARD_LAUNCHES.items()}
+    launches = record["launches"]
+    for phase, want in (("train", want_train), ("dump", want_dump)):
+        got = launches[phase]
+        if any(got.get(k, 0) != want.get(k, 0) for k in set(got) | set(want)):
+            raise AssertionError(f"plot {phase} launches {got}, want {want}")
+    tsne = record["tsne"]["discreteMI/up_conv2"]
+    if tsne["n"] != len(maps) * P22_SLICES or not math.isfinite(tsne["kl_divergence"]):
+        raise AssertionError(f"plot t-SNE {tsne}")
+    ms = ", ".join(f"{t['seconds'] / t['steps'] * 1e3:.3f}" for t in record["timing"]
+                   if t["phase"] == "train")
+    print(f"plot entry: {seconds:.1f} s as a process (training {record['seconds']['train']:.1f} "
+          f"s, {ms} ms/step by epoch; dump {record['seconds']['dump']:.1f} s); cluster_acc "
+          f"{m['cluster_acc']:.4f}, "
+          f"{len(mapping)} ids mapped; maps {sorted(shapes)}; t-SNE of N = {tsne['n']} pooled "
+          f"features in {tsne['seconds']:.3f} s, exact KL {tsne['kl_divergence']:.6f} after "
+          f"{tsne['n_iter'] + 1} iterations; launches train {launches['train']}, dump "
+          f"{launches['dump']} on {card}")
+    return {"plot/train": launches["train"], "plot/dump": launches["dump"]}
+
+
+def check_default_preset_refused(data, runs_root) -> None:
+    """22c: the documented udaiic preset raises before training."""
+    from pathlib import Path
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch.plot_pretrain_cluster import main as plot_main
+
+    repo = Path(__file__).resolve().parent
+    saved = package.DATA_PATH, package.RUN_PATH
+    package.DATA_PATH, package.RUN_PATH = str(data), str(runs_root)
+    try:
+        plot_main(["-p", str(repo / "config/base.yaml"), str(repo / "config/hooks/udaiic.yaml"),
+                   "-o", "Trainer.save_dir=plot_default"])
+    except NotImplementedError as e:
+        if "discreteMI/conv5" not in str(e):
+            raise AssertionError(f"default udaiic preset: {e}") from e
+        if (Path(runs_root) / "plot_default" / "last").exists():
+            raise AssertionError("default udaiic preset: trained before refusing")
+        print(f"plot entry, default udaiic preset: refused before training ({str(e)[:96]}...)")
+    else:
+        raise AssertionError("default udaiic preset: no refusal")
+    finally:
+        package.DATA_PATH, package.RUN_PATH = saved
+
+
+def check_monitor_pass(device, card: str, **sizes) -> dict:
+    """22d: the monitor pass on pretrain_decoder changes nothing (``sizes``:
+    ``build_pretrain_run``'s, full width by default)."""
+    import torch
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.steps import point_grids
+    from contrastyou_tpu_torch.main import PRETRAIN_DECODER_CONFIG, build_pretrain_run
+    from contrastyou_tpu_torch.trainers.pretrain import build_monitor_step, sample_pretrain_draws
+
+    run = build_pretrain_run(PRETRAIN_DECODER_CONFIG, device=device, **sizes)
+    run.run(2)
+    gen = torch.Generator(device=device).manual_seed(7)
+    n = run.batch_slices
+    batch = run.cache.sample(gen, n)
+    draws = sample_pretrain_draws(gen, n, point_grids=point_grids(run.hooks),
+                                  total_freedom=False)
+    crop = run.cache.crop
+    monitor = build_monitor_step(ModelBundle(run.state.model, (crop, crop, 1)), run.hooks,
+                                 until=run.until)
+
+    def snapshot():
+        opt = run.state.optimizer
+        return ({k: v.clone() for k, v in run.state.model.state_dict().items()},
+                {f"{h.name}/{k}": v.clone() for h in run.hooks if isinstance(h, torch.nn.Module)
+                 for k, v in h.state_dict().items()},
+                repr(run.state.hook_states),
+                [{k: (v.clone() if torch.is_tensor(v) else v) for k, v in st.items()}
+                 for st in opt.state.values()], opt.count, run.state.step)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    before = snapshot()
+    sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = monitor(run.state, batch, draws)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    after = snapshot()
+    for a, b, what in ((before[0], after[0], "model"), (before[1], after[1], "heads")):
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        if bad:
+            raise AssertionError(f"monitor pass changed {what} {bad[:5]}")
+    if before[2] != after[2] or before[4:] != after[4:] or len(before[3]) != len(after[3]) or any(
+            not (torch.equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k])
+            for x, y in zip(before[3], after[3]) for k in x):
+        raise AssertionError("monitor pass changed the hook states or the optimizer")
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"monitor metrics {metrics}")
+    want = {k: MONITOR_LAUNCHES.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"monitor launches {launches}, want {want}")
+    print(f"monitor pass (pretrain_decoder, batch {n}): reg_loss "
+          f"{float(metrics['reg_loss']):.5f}, model / BN statistics / heads / hook states / "
+          f"optimizer ({len(before[3])} states, count {before[4]}) bitwise unchanged, "
+          f"{ms:.3f} ms (first call); launches {launches} on {card}")
+    return {"monitor/pretrain_decoder": launches}
+
+
+def run_feeds(data, runs_root, device, card: str) -> dict:
+    """22e: the semi loop's train epochs (2 x ``P22_FEED_STEPS``) host-fed with the
+    prefetch thread, host-fed in the calling thread, and device-cached, in
+    the turns of ``P22_FEEDS``; -> ms/step of each turn's second epoch."""
+    import hashlib
+    import torch
+    from contrastyou_tpu_torch import main as port_main
+    from contrastyou_tpu_torch.data.creator import get_data
+    from contrastyou_tpu_torch.trainers import trainer_zoo
+
+    config = port_main.parse_config(["-o", "Trainer.name=semi"])
+    seed = int(config["RandomSeed"])
+    timings = _Timings()
+    logger = logging.getLogger("contrastyou_tpu_torch")
+    logger.addHandler(timings)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    result, fed = {}, {}
+    by_path = {}
+    try:
+        for turn, feed in enumerate(P22_FEEDS):
+            labeled, unlabeled, _, _ = get_data(config["Data"], config["LabeledLoader"],
+                                                config["UnlabeledLoader"], root_dir=str(data))
+            for loader in (labeled, unlabeled):
+                loader.prefetch = 4 if feed == "prefetch" else None
+            gen = torch.Generator(device=device).manual_seed(seed)
+            model = port_main._model(config, device, torch.bfloat16, None, gen)
+            trainer = trainer_zoo["semi"](
+                model=model, labeled_loader=labeled, unlabeled_loader=unlabeled,
+                config=config, seed=seed, save_dir=str(runs_root / f"feed{turn}"),
+                max_epoch=LOOP_EPOCHS, num_batches=P22_FEED_STEPS, device_cache=feed == "cached")
+            trainer.register_hooks(*port_main._hooks(config, model, device, torch.bfloat16, gen,
+                                                     is_pretrain=False, trainer=trainer))
+            trainer.init()
+            digests = []
+            host_batch = trainer._host_batch
+
+            def record(lab, unlab, _hb=host_batch, _d=digests):
+                _d.append(hashlib.sha1(lab["image"].tobytes() + unlab["image"].tobytes()
+                                       + lab["target"].tobytes()).hexdigest())
+                return _hb(lab, unlab)
+
+            trainer._host_batch = record
+            timings.records.clear()
+            _reset_counts()
+            with trainer._closing_iterators():
+                for epoch in range(LOOP_EPOCHS):
+                    trainer.tra_epoch(epoch)
+            by_path[f"semi/feed/{feed}{turn}"] = _counts()
+            train = [r for r in timings.records if r["phase"] == "train"]
+            ms = train[-1]["seconds"] / train[-1]["steps"] * 1e3
+            result.setdefault(feed, []).append(ms)
+            if feed != "cached":
+                fed.setdefault(feed, []).append(digests)
+            del trainer, model
+            torch.cuda.empty_cache()
+    finally:
+        logger.removeHandler(timings)
+        logger.setLevel(level)
+    streams = [d for runs in fed.values() for d in runs]
+    if any(d != streams[0] for d in streams) or len(streams[0]) != LOOP_EPOCHS * P22_FEED_STEPS:
+        raise AssertionError("host-fed batches differ between prefetch 4 and the calling thread")
+    want = {k: n * LOOP_EPOCHS * P22_FEED_STEPS for k, n in SEMI_STEP_LAUNCHES.items()}
+    for path, counts in by_path.items():
+        if any(counts.get(k, 0) != want.get(k, 0) for k in set(counts) | set(want)):
+            raise AssertionError(f"{path} launches {counts}, want {want}")
+    print(f"semi loop feeds (second epoch, ms/step, in turns {P22_FEEDS}): " + "; ".join(
+        f"{k} {', '.join(f'{v:.3f}' for v in vs)}" for k, vs in result.items())
+        + f"; the {len(streams)} host-fed runs' {len(streams[0])} batches identical on {card}")
+    return by_path
+
+
+def check_fast_crop(data, card: str) -> None:
+    """22f: fast_crop against the numpy crop and scale, and its rate."""
+    import itertools
+    import numpy as np
+    from contrastyou_tpu_torch.data.base import normalize_u8
+    from contrastyou_tpu_torch.data.creator import get_data
+    from contrastyou_tpu_torch.data.loader import BatchLoader
+    from contrastyou_tpu_torch.data.sampler import InfiniteRandomSampler
+
+    ds = get_data({"name": "acdc", "labeled_scan_num": P22_SCANS[0] // 2}, {}, {},
+                  root_dir=str(data))[0].dataset
+    c = FAST_CROP_SIZE
+    crop = (c, c, "random")
+
+    def loader(fast):
+        return BatchLoader(ds, sampler=InfiniteRandomSampler(len(ds), seed=4),
+                           batch_size=FAST_CROP_BATCH, seed=4, prefetch=None,
+                           fast_crop=crop if fast else None, num_threads=FAST_CROP_THREADS)
+
+    t0 = time.perf_counter()
+    first = next(iter(loader(True)))
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4 ^ 0x5F5E1)
+    idx = list(itertools.islice(iter(InfiniteRandomSampler(len(ds), seed=4)), FAST_CROP_BATCH))
+    ys = rng.integers(0, P22_SIZE - c + 1, FAST_CROP_BATCH)
+    xs = rng.integers(0, P22_SIZE - c + 1, FAST_CROP_BATCH)
+    for j, (i, y, x) in enumerate(zip(idx, ys, xs)):
+        img, gt = ds._preload["img"][i], ds._preload["gt"][i]
+        if not (np.array_equal(first["image"][j, ..., 0], normalize_u8(img[y:y + c, x:x + c]))
+                and np.array_equal(first["target"][j], gt[y:y + c, x:x + c])):
+            raise AssertionError(f"fast_crop slice {j} differs from the numpy crop")
+    rates = {}
+    for name, fast in (("fast_crop", True), ("item path", False), ("fast_crop", True)):
+        it = iter(loader(fast))
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(FAST_CROP_BATCHES):
+            next(it)
+        rates.setdefault(name, []).append(
+            FAST_CROP_BATCHES * FAST_CROP_BATCH / (time.perf_counter() - t0))
+    print(f"fast_crop: {FAST_CROP_BATCH} slices exact against the numpy crop and scale (first "
+          f"batch with the build {build_s:.2f} s); slices/s at {FAST_CROP_BATCH} x {c}^2, "
+          f"{FAST_CROP_THREADS} threads: " + "; ".join(
+              f"{k} {', '.join(f'{v:.0f}' for v in vs)}" for k, vs in rates.items())
+          + f" on {card}")
+
+
+def run_phase22(device, card: str, recs: dict) -> dict:
+    import tempfile
+    from pathlib import Path
+    import torch
+
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p22_") as tmp:
+        data, runs_root = Path(tmp) / "data", Path(tmp) / "runs"
+        t0 = time.perf_counter()
+        write_p22_layout(data)
+        print(f"phase 22: layout ({P22_SCANS[0]} train, {P22_SCANS[1]} validation scans of "
+              f"{P22_SLICES} slices at {P22_SIZE}^2) in {time.perf_counter() - t0:.1f} s")
+        by_path.update(run_plot_entry(data, runs_root, card))
+        print(f"dense-IIC kernels vs plain at the plot path's taps {PLOT_IIC_SHAPE}:")
+        for k, r in check_iic(device, shape=PLOT_IIC_SHAPE, paddings=(1,)).items():
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], r["max_abs_err"])
+            recs[k].setdefault("by_shape", {})[str(list(PLOT_IIC_SHAPE))] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
+        torch.cuda.empty_cache()
+        check_default_preset_refused(data, runs_root)
+        by_path.update(check_monitor_pass(device, card))
+        torch.cuda.empty_cache()
+        by_path.update(run_feeds(data, runs_root, device, card))
+        check_fast_crop(data, card)
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4047,6 +4389,12 @@ def main() -> int:
     by_path.update(run_phase21(device, card))
     torch.cuda.empty_cache()
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    print("the last modules: the cluster-plot entry, E1/E2 at its batch, the monitor pass, "
+          "the loader's prefetch thread and native crop (phase 22):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase22(device, card, recs))
+    torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),

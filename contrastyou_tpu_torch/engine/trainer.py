@@ -81,6 +81,7 @@ import torch
 
 import contrastyou_tpu_torch as package
 from ..configure.config import yaml_write
+from ..indicator import Indicator
 from ..data.device_cache import DeviceDataCache
 from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.dice import UniversalDice
@@ -314,6 +315,31 @@ class Trainer:
             self._unlabeled_iter = iter(self._unlabeled_loader) if self._semi else None
         return self._labeled_iter, self._unlabeled_iter
 
+    #: the attributes holding the run's loader iterators (kept across epochs)
+    _ITERATORS = ("_labeled_iter", "_unlabeled_iter", "_contrast_iter", "_monitor_iter")
+
+    def _pause_iterators(self) -> None:
+        """Stop the loader iterators' prefetch threads at an epoch's end: the
+        batches they made stay for the next epoch, which restarts them, so
+        the stream is the one an unbroken iterator gives."""
+        for name in self._ITERATORS:
+            pause = getattr(getattr(self, name, None), "pause", None)
+            if pause is not None:
+                pause()
+
+    @contextlib.contextmanager
+    def _closing_iterators(self):
+        """Close the run's loader iterators (and their threads) when the run
+        ends, however it ends; a later run makes new ones."""
+        try:
+            yield
+        finally:
+            for name in self._ITERATORS:
+                it = self.__dict__.pop(name, None)
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -342,7 +368,7 @@ class Trainer:
     def start_training(self) -> float:
         if not self._initialized:
             raise RuntimeError("call init() first")
-        with self._writer:
+        with self._writer, self._closing_iterators():
             for epoch in range(self._cur_epoch, self._max_epoch):
                 self._cur_epoch = epoch
                 with self._epoch_profile(epoch):
@@ -471,9 +497,11 @@ class Trainer:
         host_rng = np.random.default_rng(epoch_seed(self._seed, epoch, HOOK_DRAW_SEED_OFFSET))
         if not self._device_cache:
             labeled_iter, unlabeled_iter = self._train_iterators()
+        indicator = Indicator(range(self._num_batches), desc=f"train {epoch:03d}")
+        last = self._num_batches - 1
         t0 = time.perf_counter()
         with meters:
-            for it in range(self._num_batches):
+            for it in indicator:
                 if self._device_cache:
                     metrics = self._train_step(self._state, generator, epoch, host_rng)
                     dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
@@ -511,6 +539,13 @@ class Trainer:
                     hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
                 if it == 0:
                     self._log_figures(metrics, epoch)
+                # reading a meter waits for the device: every tenth step, as JAX's loop
+                if it % 10 == 9 or it == last:
+                    indicator.set_postfix_statics(
+                        {"tra": {"sup": meters["sup_loss"].summary(),
+                                 "reg": meters["reg_loss"].summary()}},
+                        force_update=it == last)
+        self._pause_iterators()
         self._sync()
         seconds = time.perf_counter() - t0
         stats = dict(meters.statistics())

@@ -13,6 +13,8 @@ __all__ = ["ConsistencyTrainerHook"]
 class ConsistencyTrainerHook(TrainerHook):
     #: a per-pixel mean over this rank's rows (the step takes 1/W of it)
     data_parallel = True
+    #: it reads T(f(x)), which the pretrain step builds for such hooks
+    reads_logits_tf = True
 
     def __init__(self, name: str = "consistency", weight: float = 1.0):
         super().__init__(hook_name=name, weight=weight)

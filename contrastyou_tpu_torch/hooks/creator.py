@@ -12,6 +12,7 @@ import logging
 from typing import Callable, List, Mapping
 
 from ..models.unet import UNet
+from ..utils.general import ntuple
 from .autoencoder import DenoisingAutoEncoderTrainerHook
 from .ccblock import create_cross_correlation_hook
 from .consistency import ConsistencyTrainerHook
@@ -45,14 +46,6 @@ PORTED_SECTIONS = ("InfonceParams", "SPInfonceParams", "DiscreteMIConsistencyPar
 UNPORTED_SECTIONS: tuple = ()
 #: the fixed grid of the dense self-paced hooks (JAX ``create_sp_infonce_hooks``)
 SP_DENSE_GRID = (16, 16)
-
-
-def ntuple(n: int) -> Callable:
-    """A scalar (or string) -> ``n`` copies; a list passes through
-    (counterpart of contrastyou_tpu/utils ``ntuple``)."""
-    def parse(x):
-        return tuple(x) if isinstance(x, (list, tuple)) else (x,) * n
-    return parse
 
 
 def create_infonce_hooks(*, feature_names, weights, contrast_ons, spatial_size,

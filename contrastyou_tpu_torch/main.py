@@ -129,6 +129,7 @@ from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state, point_grids
 from .engine.trainer import kernel_launches
 from .hooks.creator import create_hook_from_config
+from .loggers import setup_logging
 from .models import get_arch
 from .losses.multicore import MultiCoreKL
 from .parallel.mesh import DataGroup, replicate, shard_batch
@@ -651,7 +652,7 @@ def _run(config: Mapping, device, dtype: torch.dtype):
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    setup_logging()
     config = parse_config(argv)
     run_experiment(config, device=resolve_device(config["Trainer"].get("device")))
     return 0

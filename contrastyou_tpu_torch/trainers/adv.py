@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ..engine.checkpoint import train_state_dict
 from ..engine.optim import create_optimizer
 from ..engine.trainer import Trainer
+from ..indicator import Indicator
 from ..losses.kl import kl_div
 from ..meters.averages import AverageValueMeter
 from ..meters.dice import UniversalDice, slice_intersection_union
@@ -150,7 +151,7 @@ class AdversarialTrainer(Trainer):
         labeled_iter, unlabeled_iter = self._train_iterators()
         t0 = time.perf_counter()
         with meters:
-            for _ in range(self._num_batches):
+            for _ in Indicator(range(self._num_batches), desc=f"adv {epoch:03d}"):
                 labeled, unlabeled = next(labeled_iter), next(unlabeled_iter)
                 batch = {"labeled_image": self._to_device(labeled["image"]),
                          "labeled_target": self._to_device(labeled["target"]).long(),
@@ -162,6 +163,7 @@ class AdversarialTrainer(Trainer):
                 with meters.focus_on("adv_reg"):
                     meters.add("dis_loss", metrics["dis_loss"])
                     meters.add("gen_loss", metrics["gen_loss"])
+        self._pause_iterators()
         self._sync()
         seconds = time.perf_counter() - t0
         logger.info("train epoch %d: %d adversarial steps in %.3f s (%.3f ms/step, host-fed%s)",

@@ -14,6 +14,11 @@ the contrastive loader (:func:`get_contrastive_loader`), one ``storage.csv``
 row and the ``last`` checkpoint; no validation, no test, no ``best``;
 ``.success`` at the end. The step generator is reseeded at each epoch from
 ``(seed, 20_000 + epoch)``, as JAX folds ``20_000 + epoch`` into its key.
+Given a ``monitor_loader``, each epoch ends with JAX's monitor pass
+(:meth:`PretrainEncoderTrainer.monitor_epoch`): :data:`MONITOR_BATCHES`
+batches through :func:`build_monitor_step`, which runs the step's forward
+and hook losses without the view geometry and changes nothing, metered
+under ``monitor``.
 
 The step runs on W > 1 ranks (``build_pretrain_step(data_group=)``) as
 JAX's does on a sharded batch: each rank holds 1/W of the contrastive batch
@@ -28,8 +33,10 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
+import numpy as np
 import torch
 
 import contrastyou_tpu_torch as package
@@ -38,11 +45,14 @@ from ..data.sampler import ContrastBatchSampler, InfiniteRandomSampler
 from ..engine.bundle import ModelBundle
 from ..engine.hooks import StepContext, TrainerHook, combined_taps
 from ..engine.state import TrainState
-from ..engine.steps import check_data_parallel, draw_points, point_grids
-from ..engine.trainer import Trainer, epoch_seed, hook_metrics
+from ..engine.steps import check_data_parallel, draw_points, point_grids, sample_hook_draws
+from ..engine.trainer import HOOK_DRAW_SEED_OFFSET, Trainer, epoch_seed, hook_metrics
 from ..hooks.ccblock import CrossCorrelationHook
+from ..hooks.consistency import ConsistencyTrainerHook
+from ..hooks.discretemi import DiscreteMITrainHook
 from ..hooks.infonce import INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook
 from ..hooks.mt import EMAEvalTrainerHook
+from ..indicator import Indicator
 from ..meters.averages import AverageValueDictionaryMeter, AverageValueMeter
 from ..meters.interface import MeterInterface
 from ..models._base import arch_order
@@ -58,13 +68,18 @@ __all__ = ["PRETRAIN_BATCH_SIZE_MAX", "feature_until_from_hooks", "frozen_after"
            "frozen_encoder", "pretrain_trainable", "jitter_strength", "contrastive_sampler",
            "get_contrastive_loader", "PRETRAIN_HOOK_TYPES", "check_pretrain_hooks",
            "PretrainDraws", "sample_pretrain_draws", "build_pretrain_step",
-           "PretrainEncoderTrainer", "PretrainDecoderTrainer"]
+           "build_monitor_step", "MONITOR_BATCHES", "PretrainEncoderTrainer",
+           "PretrainDecoderTrainer"]
 
 logger = logging.getLogger(__name__)
 
 PRETRAIN_BATCH_SIZE_MAX = 50
 #: JAX folds ``PRETRAIN_SEED_OFFSET + epoch`` into the pretrain step's key
 PRETRAIN_SEED_OFFSET = 20_000
+#: and ``MONITOR_SEED_OFFSET + epoch`` into the monitor pass's
+MONITOR_SEED_OFFSET = 30_000
+#: batches of a monitor pass (JAX ``monitor_epoch``'s ``num_batches``)
+MONITOR_BATCHES = 10
 
 
 def contrastive_sampler(data_name: str, slice_scans: Sequence[str],
@@ -144,10 +159,15 @@ def pretrain_trainable(until: str, freeze_encoder: bool = False,
 
 #: the hook types the pretraining trainers take, matched by exact type: the
 #: InfoNCE hook and its self-paced and superpixel variants, the
-#: cross-correlation block, and the loss-free EMA of the student
-#: (``EvalEMAParameters``, carried through the checkpoints as in JAX)
+#: cross-correlation block, the loss-free EMA of the student
+#: (``EvalEMAParameters``, carried through the checkpoints as in JAX), and
+#: the hooks of the cluster presets (config/hooks/udaiic.yaml's discrete-MI
+#: and consistency hooks, which plot_pretrain_cluster.py pretrains with;
+#: the hook factory refuses ``DiscreteMIConsistencyParams`` under
+#: ``is_pretrain``, as JAX's)
 PRETRAIN_HOOK_TYPES = (INFONCEHook, SelfPacedINFONCEHook, SuperPixelInfoNCEHook,
-                       CrossCorrelationHook, EMAEvalTrainerHook)
+                       CrossCorrelationHook, EMAEvalTrainerHook, DiscreteMITrainHook,
+                       ConsistencyTrainerHook)
 
 
 def check_pretrain_hooks(hooks: Sequence[TrainerHook]) -> None:
@@ -171,20 +191,30 @@ def jitter_strength(data_name: str) -> float:
 
 
 class PretrainDraws(NamedTuple):
-    g1: GeoParams                        # view 1 geometry
-    gammas1: torch.Tensor                # [B] view 1 gamma
-    g2: GeoParams                        # view 2 base geometry
-    gammas2: torch.Tensor                # [B]
+    g1: Optional[GeoParams]              # view 1 geometry (None: the monitor's plain views)
+    gammas1: Optional[torch.Tensor]      # [B] view 1 gamma
+    g2: Optional[GeoParams]              # view 2 base geometry
+    gammas2: Optional[torch.Tensor]      # [B]
     jitter1: Optional[Tuple[torch.Tensor, torch.Tensor]]   # (brightness, contrast) [B]
     jitter2: Optional[Tuple[torch.Tensor, torch.Tensor]]
     geo: GeoParams                       # view 2's extra transform, seen by the hooks
     gammas_int: torch.Tensor             # [B] gamma of that transform
     points: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]]  # grid -> (ys, xs)
+    #: each drawing hook's draws, by hook name (``ctx.hook_draws``)
+    hooks: Dict[str, Any] = {}
 
 
 def sample_pretrain_draws(generator: torch.Generator, batch: int, *,
                           color_jitter: float = 0.0,
-                          point_grids: Sequence[Tuple[int, int]] = ()) -> PretrainDraws:
+                          point_grids: Sequence[Tuple[int, int]] = (),
+                          hooks: Sequence[TrainerHook] = (), host_rng=None,
+                          shape: Optional[Tuple[int, ...]] = None,
+                          total_freedom: bool = True) -> PretrainDraws:
+    """The draws of a contrastive batch of ``batch`` slices: the two views'
+    geometry and gammas (none without ``total_freedom``: the monitor pass),
+    their colour jitter (with ``color_jitter`` > 0), the hooks' transform,
+    then each drawing hook's draw (``engine.steps.sample_hook_draws``, for
+    an image batch of ``shape``) and one point draw per grid."""
     def jitter():
         if color_jitter <= 0:
             return None
@@ -193,13 +223,95 @@ def sample_pretrain_draws(generator: torch.Generator, batch: int, *,
                                                  device=generator.device)
                      for _ in range(2))
 
+    views = ((sample_geo_params(generator, batch), sample_gammas(generator, batch),
+              sample_geo_params(generator, batch), sample_gammas(generator, batch))
+             if total_freedom else (None,) * 4)
     return PretrainDraws(
-        g1=sample_geo_params(generator, batch), gammas1=sample_gammas(generator, batch),
-        g2=sample_geo_params(generator, batch), gammas2=sample_gammas(generator, batch),
-        jitter1=jitter(), jitter2=jitter(),
+        *views, jitter1=jitter(), jitter2=jitter(),
         geo=sample_geo_params(generator, batch), gammas_int=sample_gammas(generator, batch),
         points={tuple(g): draw_points(generator, batch, tuple(g))
-                for g in point_grids})
+                for g in point_grids},
+        hooks=sample_hook_draws(generator, hooks, host_rng=host_rng,
+                                shape=shape if shape is not None else (batch,)))
+
+
+def _views(image: torch.Tensor, draws: PretrainDraws) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two views of ``image``: each its own geometry and gamma (when
+    drawn) and colour jitter (when drawn), the second then the hooks'
+    transform."""
+    if draws.g1 is None:
+        view1 = view2 = image
+    else:
+        view1 = apply_gamma(apply_geometric(image, draws.g1, order=0), draws.gammas1)
+        view2 = apply_gamma(apply_geometric(image, draws.g2, order=0), draws.gammas2)
+    if draws.jitter1 is not None:
+        view1 = apply_jitter(view1, *draws.jitter1)
+        view2 = apply_jitter(view2, *draws.jitter2)
+    return view1, transform_image(view2, draws.geo, draws.gammas_int)
+
+
+def _hook_losses(bundle, hooks, state, batch, draws, epoch, *, until, taps, logits_tf,
+                 group=None, update_stats: bool = True):
+    """One forward over both views cut at ``until`` and the hook losses ->
+    (reg_loss, metrics, ctx, each hook's new state); ``state`` is not
+    written."""
+    image = batch["image"]
+    view1, view2 = _views(image, draws)
+    n = image.shape[0]
+    out, taps_all = bundle.apply_train(torch.cat([view1, view2], 0), until=until, taps=taps,
+                                       update_stats=update_stats)
+    ctx = StepContext(unlabeled_image=view1, unlabeled_image_tf=view2,
+                      unlabeled_logits=out[:n], unlabeled_tf_logits=out[n:],
+                      unlabeled_taps={k: v[:n] for k, v in taps_all.items()},
+                      unlabeled_tf_taps={k: v[n:] for k, v in taps_all.items()},
+                      label_group=batch.get("scan_id"),
+                      partition_group=batch.get("partition"),
+                      patient_group=batch.get("patient"),
+                      cycle_group=batch.get("cycle"),
+                      superpixel=batch.get("superpixel"),
+                      geo_params=draws.geo, point_draws=draws.points,
+                      hook_draws=dict(draws.hooks),
+                      epoch=epoch, bundle=bundle, data_group=group)
+    if logits_tf:
+        ctx.unlabeled_logits_tf = transform_logits(out[:n], draws.geo)
+    reg_loss = out.new_zeros(())
+    metrics: Dict[str, torch.Tensor] = {}
+    new_states = {}
+    for hook in hooks:
+        h_loss, h_state, h_metrics = hook.loss(ctx, state.hook_states[hook.name])
+        reg_loss = reg_loss + hook.weight * h_loss
+        if h_state is not None:
+            new_states[hook.name] = h_state
+        metrics[f"{hook.name}/loss"] = h_loss.detach()
+        metrics.update({f"{hook.name}/{k}": v.detach() for k, v in h_metrics.items()})
+    return reg_loss, metrics, ctx, new_states
+
+
+def build_monitor_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
+                       until: str) -> Callable:
+    """-> ``monitor(state, batch, draws, epoch=0) -> metrics``: the pretrain
+    step's forward and hook losses without its update (JAX's monitor step,
+    ``build_pretrain_step(optax.set_to_zero(), total_freedom=False)`` on a
+    copy of the state). ``draws`` come without view geometry
+    (``sample_pretrain_draws(total_freedom=False)``); the forward takes
+    batch statistics and leaves the running ones alone; the hooks' states,
+    the parameters, the optimizer and its count are not touched. Metrics
+    as the step's, ``reg_loss`` included."""
+    hooks = tuple(hooks)
+    taps = combined_taps(hooks)
+    logits_tf = any(h.reads_logits_tf for h in hooks)
+
+    @torch.no_grad()
+    def monitor(state: TrainState, batch: Dict[str, torch.Tensor], draws: PretrainDraws,
+                epoch: int = 0) -> Dict[str, torch.Tensor]:
+        state.model.train()
+        reg_loss, metrics, _, _ = _hook_losses(bundle, hooks, state, batch, draws, epoch,
+                                               until=until, taps=taps, logits_tf=logits_tf,
+                                               update_stats=False)
+        metrics["reg_loss"] = reg_loss
+        return metrics
+
+    return monitor
 
 
 def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
@@ -233,39 +345,10 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
 
     def run(state, batch, draws, epoch):
         state.model.train()
-        image = batch["image"]
-        view1 = apply_gamma(apply_geometric(image, draws.g1, order=0), draws.gammas1)
-        view2 = apply_gamma(apply_geometric(image, draws.g2, order=0), draws.gammas2)
-        if draws.jitter1 is not None:
-            view1 = apply_jitter(view1, *draws.jitter1)
-            view2 = apply_jitter(view2, *draws.jitter2)
-        view2 = transform_image(view2, draws.geo, draws.gammas_int)
-
-        n = image.shape[0]
-        out, taps_all = bundle.apply_train(torch.cat([view1, view2], 0), until=until,
-                                           taps=taps)
-        ctx = StepContext(unlabeled_image=view1, unlabeled_image_tf=view2,
-                          unlabeled_logits=out[:n], unlabeled_tf_logits=out[n:],
-                          unlabeled_taps={k: v[:n] for k, v in taps_all.items()},
-                          unlabeled_tf_taps={k: v[n:] for k, v in taps_all.items()},
-                          label_group=batch.get("scan_id"),
-                          partition_group=batch.get("partition"),
-                          patient_group=batch.get("patient"),
-                          cycle_group=batch.get("cycle"),
-                          superpixel=batch.get("superpixel"),
-                          geo_params=draws.geo, point_draws=draws.points,
-                          epoch=epoch, bundle=bundle, data_group=group)
-        if logits_tf:
-            ctx.unlabeled_logits_tf = transform_logits(out[:n], draws.geo)
-        reg_loss = out.new_zeros(())
-        metrics: Dict[str, torch.Tensor] = {}
-        for hook in hooks:
-            h_loss, h_state, h_metrics = hook.loss(ctx, state.hook_states[hook.name])
-            reg_loss = reg_loss + hook.weight * h_loss
-            if h_state is not None:
-                state.hook_states[hook.name] = h_state
-            metrics[f"{hook.name}/loss"] = h_loss.detach()
-            metrics.update({f"{hook.name}/{k}": v.detach() for k, v in h_metrics.items()})
+        reg_loss, metrics, ctx, new_states = _hook_losses(
+            bundle, hooks, state, batch, draws, epoch, until=until, taps=taps,
+            logits_tf=logits_tf, group=group)
+        state.hook_states.update(new_states)
 
         state.optimizer.zero_grad(set_to_none=True)
         if group is None:
@@ -288,13 +371,14 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
 
 class PretrainEncoderTrainer(Trainer):
     """Contrastive pretraining on the experiment loop (JAX
-    ``PretrainEncoderTrainer``): InfoNCE and cross-correlation hooks only,
+    ``PretrainEncoderTrainer``): the hooks of :data:`PRETRAIN_HOOK_TYPES`,
     the forward cut at their deepest tap (:attr:`forward_until`) and every
     later layer frozen (the encoder too without
     ``CrossCorrelationParameters.train_encoder``).
     ``contrast_loader`` feeds the steps (by default the labeled loader); the
-    JAX trainer's optional ``monitor_loader`` pass is not ported. The
-    ``device_cache`` key is ignored, as in JAX: pretraining is host-fed."""
+    optional ``monitor_loader`` (contrastive batches) adds the monitor pass
+    to each epoch (:meth:`monitor_epoch`). The ``device_cache`` key is
+    ignored, as in JAX: pretraining is host-fed."""
 
     train_mode = "pretrain"
     activate_hooks = True
@@ -303,12 +387,11 @@ class PretrainEncoderTrainer(Trainer):
                              "step does: build_pretrain_step(data_group=)")
 
     def __init__(self, *, contrast_loader=None, monitor_loader=None, **kwargs):
-        if monitor_loader is not None:
-            raise NotImplementedError("the pretrain trainers' monitor_loader is not ported")
         if contrast_loader is not None:
             kwargs.setdefault("labeled_loader", contrast_loader)
         super().__init__(**kwargs)
         self._contrast_loader = contrast_loader or self._labeled_loader
+        self._monitor_loader = monitor_loader
 
     @property
     def forward_until(self) -> str:
@@ -325,20 +408,25 @@ class PretrainEncoderTrainer(Trainer):
     def _build_steps(self) -> None:
         self._train_step = build_pretrain_step(self._bundle, self._active_hooks,
                                                until=self.forward_until)
+        if self._monitor_loader is not None:
+            self._monitor_step = build_monitor_step(self._bundle, self._active_hooks,
+                                                    until=self.forward_until)
 
     def start_training(self) -> float:
         if not self._initialized:
             raise RuntimeError("call init() first")
-        with self._writer:
+        with self._writer, self._closing_iterators():
             for epoch in range(self._cur_epoch, self._max_epoch):
                 self._cur_epoch = epoch
                 with self._epoch_profile(epoch), self._storage:
-                    tra = self.tra_epoch(epoch)
-                    self._storage.add_from_meter_interface(epoch=epoch, tra=tra)
-                    self._write_events(epoch, {"tra": tra})
+                    stages = {"tra": self.tra_epoch(epoch)}
+                    if self._monitor_loader is not None:
+                        stages["monitor"] = self.monitor_epoch(epoch)
+                    self._storage.add_from_meter_interface(epoch=epoch, **stages)
+                    self._write_events(epoch, stages)
                 self.save_to("last")
                 logger.info("pretrain epoch %d/%d: reg %.5f", epoch + 1, self._max_epoch,
-                            tra["pretrain"]["reg_loss"])
+                            stages["tra"]["pretrain"]["reg_loss"])
         package.success(self._save_dir)
         return 0.0
 
@@ -350,32 +438,51 @@ class PretrainEncoderTrainer(Trainer):
             out["superpixel"] = dev(batch["superpixel"]).long()
         return out
 
-    def tra_epoch(self, epoch: int) -> dict:
-        meters = MeterInterface(default_focus="pretrain")
+    def _meters(self, focus: str) -> Tuple[MeterInterface, dict]:
+        """``reg_loss`` under ``focus`` and each hook's metrics under its name."""
+        meters = MeterInterface(default_focus=focus)
         meters.register_meter("reg_loss", AverageValueMeter())
         hook_meters = {}
         for hook in self._active_hooks:
             with meters.focus_on(hook.name):
                 hook_meters[hook.name] = meters.register_meter(
                     "metrics", AverageValueDictionaryMeter())
+        return meters, hook_meters
+
+    def _draws(self, generator: torch.Generator, image: torch.Tensor, *,
+               total_freedom: bool = True, color_jitter: float = 0.0) -> PretrainDraws:
+        return sample_pretrain_draws(generator, image.shape[0], color_jitter=color_jitter,
+                                     point_grids=point_grids(self._active_hooks),
+                                     hooks=self._active_hooks, host_rng=self._host_rng,
+                                     shape=tuple(image.shape), total_freedom=total_freedom)
+
+    def tra_epoch(self, epoch: int) -> dict:
+        meters, hook_meters = self._meters("pretrain")
         if not hasattr(self, "_contrast_iter"):
             self._contrast_iter = iter(self._contrast_loader)
         generator = torch.Generator(device=self.device).manual_seed(
             epoch_seed(self._seed, epoch, PRETRAIN_SEED_OFFSET))
+        self._host_rng = np.random.default_rng(
+            epoch_seed(self._seed, epoch, HOOK_DRAW_SEED_OFFSET))
         strength = jitter_strength(str(self._config.get("Data", {}).get("name", "")))
-        grids = point_grids(self._active_hooks)
+        indicator = Indicator(range(self._num_batches), desc=f"pretrain {epoch:03d}")
+        last = self._num_batches - 1
         t0 = time.perf_counter()
         with meters:
-            for it in range(self._num_batches):
+            for it in indicator:
                 batch = self._device_contrast_batch(next(self._contrast_iter))
-                draws = sample_pretrain_draws(generator, batch["image"].shape[0],
-                                              color_jitter=strength, point_grids=grids)
+                draws = self._draws(generator, batch["image"], color_jitter=strength)
                 metrics = self._train_step(self._state, batch, draws, epoch)
                 meters.add("reg_loss", metrics["reg_loss"])
                 for hook in self._active_hooks:
                     hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
                 if it == 0:
                     self._log_figures(metrics, epoch)
+                if it % 10 == 9 or it == last:
+                    indicator.set_postfix_statics(
+                        {"pretrain": {"reg": meters["reg_loss"].summary()}},
+                        force_update=it == last)
+        self._pause_iterators()
         self._sync()
         seconds = time.perf_counter() - t0
         logger.info("pretrain epoch %d: %d steps in %.3f s (%.3f ms/step, host-fed%s)", epoch,
@@ -384,6 +491,46 @@ class PretrainEncoderTrainer(Trainer):
                     extra={"timing": {"phase": "train", "epoch": epoch,
                                       "steps": self._num_batches, "seconds": seconds,
                                       "device_cache": False, "profiled": self._profiling}})
+        return dict(meters.statistics())
+
+    def monitor_epoch(self, epoch: int, num_batches: int = MONITOR_BATCHES) -> dict:
+        """JAX's monitor pass: ``num_batches`` batches of the monitor loader
+        (one iterator across epochs) through :func:`build_monitor_step`, no
+        view geometry and no colour jitter, the draws from ``(seed, 30_000 +
+        epoch)``; ``reg_loss`` and the hook metrics metered under
+        ``monitor``. The parameters, BN statistics, hook states and the
+        optimizer are left as they were."""
+        if self._monitor_loader is None:
+            raise RuntimeError("monitor_epoch needs a monitor_loader")
+        meters, hook_meters = self._meters("monitor")
+        if not hasattr(self, "_monitor_iter"):
+            self._monitor_iter = iter(self._monitor_loader)
+        generator = torch.Generator(device=self.device).manual_seed(
+            epoch_seed(self._seed, epoch, MONITOR_SEED_OFFSET))
+        self._host_rng = np.random.default_rng(
+            epoch_seed(self._seed, epoch, MONITOR_SEED_OFFSET + HOOK_DRAW_SEED_OFFSET))
+        indicator = Indicator(range(num_batches), desc=f"monitor {epoch:03d}")
+        last = num_batches - 1
+        t0 = time.perf_counter()
+        with meters:
+            for it in indicator:
+                batch = self._device_contrast_batch(next(self._monitor_iter))
+                draws = self._draws(generator, batch["image"], total_freedom=False)
+                metrics = self._monitor_step(self._state, batch, draws, epoch)
+                meters.add("reg_loss", metrics["reg_loss"])
+                for hook in self._active_hooks:
+                    hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
+                if it % 10 == 9 or it == last:
+                    indicator.set_postfix_statics(
+                        {"monitor": {"reg": meters["reg_loss"].summary()}},
+                        force_update=it == last)
+        self._pause_iterators()
+        self._sync()
+        seconds = time.perf_counter() - t0
+        logger.info("monitor epoch %d: %d batches in %.3f s", epoch, num_batches, seconds,
+                    extra={"timing": {"phase": "monitor", "epoch": epoch,
+                                      "batches": num_batches, "seconds": seconds,
+                                      "profiled": self._profiling}})
         return dict(meters.statistics())
 
 

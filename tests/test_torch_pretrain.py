@@ -56,12 +56,17 @@ from contrastyou_tpu_torch.main import (PRETRAIN_DECODER_CONFIG, PRETRAIN_ENCODE
                                         build_pretrain_run, main, parse_config,
                                         resolve_device)
 from contrastyou_tpu_torch.models.masks import trainable_mask
+from contrastyou_tpu_torch.models.projectors import ClusterHead, DenseClusterHead
 from contrastyou_tpu_torch.models.unet import UNet
 from contrastyou_tpu_torch.ops import convblock as cb
 from contrastyou_tpu_torch.ops.affine import GeoParams
-from contrastyou_tpu_torch.trainers.pretrain import (PretrainDraws, build_pretrain_step,
+from contrastyou_tpu_torch.trainers.pretrain import (PretrainDraws, build_monitor_step,
+                                                     build_pretrain_step,
+                                                     check_pretrain_hooks,
                                                      feature_until_from_hooks, frozen_after)
-from contrastyou_tpu_torch.utils.torch_convert import (flax_to_head_state_dict,
+from contrastyou_tpu_torch.utils.torch_convert import (cluster_head_state_dict_to_flax,
+                                                        flax_to_cluster_head_state_dict,
+                                                        flax_to_head_state_dict,
                                                         flax_to_state_dict,
                                                         head_state_dict_to_flax,
                                                         state_dict_to_flax)
@@ -107,15 +112,16 @@ def _recording(tx):
 
 
 def _jax_step(hook_kw, batch, key, data_name="acdc", jitter=JITTER, num_classes=4,
-              sections=None, epoch=0):
+              sections=None, epoch=0, is_pretrain=True):
     """JAX's step; its hooks from ``create_infonce_hooks(**hook_kw)``, or
-    with ``sections`` from its factory over those hook sections."""
+    with ``sections`` from its factory over those hook sections (made with
+    ``is_pretrain``)."""
     bundle = JBundle.create(JUNet(max_channel=128, momentum=0.1, dtype=jnp.float32,
                                   num_classes=num_classes),
                             jax.random.PRNGKey(0), (S, S, 1))
-    hooks = (jcreate_from_config(_hook_config(sections, data_name), is_pretrain=True)
+    hooks = (jcreate_from_config(_hook_config(sections, data_name), is_pretrain=is_pretrain)
              if sections else jcreate_hooks(data_name=data_name, **hook_kw))
-    until = max((h.taps[0] for h in hooks), key=JUNet.arch_elements.index)
+    until = max((t for h in hooks for t in h.taps), key=JUNet.arch_elements.index)
 
     def labels(trainables):
         params, hook_params = trainables
@@ -194,27 +200,57 @@ def test_pretrain_step_matches_jax(trainer):
     _check_step_against_jax(trainer, _batch())
 
 
+def _head_state_dict(h, tree):
+    """The flax head parameters ``tree`` as ``h``'s projector state dict."""
+    if isinstance(h.projector, (ClusterHead, DenseClusterHead)):
+        return flax_to_cluster_head_state_dict(tree)
+    return flax_to_head_state_dict(tree)
+
+
+def _head_tree(h, state_dict):
+    """``h``'s projector state dict (or its gradients) as a flax tree."""
+    if isinstance(h.projector, (ClusterHead, DenseClusterHead)):
+        return cluster_head_state_dict_to_flax(state_dict,
+                                               dense=isinstance(h.projector, DenseClusterHead))
+    return head_state_dict_to_flax(state_dict)
+
+
+def _paired_leaves(got, ref):
+    """[(path, leaf of ``got``, leaf of ``ref`` at that path)]; the trees hold
+    the same paths."""
+    ref = {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    pairs = [(jax.tree_util.keystr(p), v, ref.pop(jax.tree_util.keystr(p)))
+             for p, v in jax.tree_util.tree_flatten_with_path(got)[0]]
+    assert not ref, f"leaves missing: {sorted(ref)}"
+    return pairs
+
+
 def _check_step_against_jax(trainer, batch, data_name="acdc", num_classes=4, jitter=JITTER,
-                            tol=L2_TOL, sections=None, epoch=0, grid=(16, 16)):
+                            tol=L2_TOL, sections=None, epoch=0, grid=(16, 16), is_pretrain=True,
+                            metric_rtol=None, metric_atol=0.0):
     """One port step against the JAX step on ``batch``: metrics, gradients,
     updates, frozen layers and BN statistics (tolerances above). The hooks:
     ``HOOKS[trainer]``'s InfoNCE hooks, or both factories over the hook
-    ``sections``; the dense hooks sample ``grid``."""
+    ``sections`` (made with ``is_pretrain``); the dense hooks sample
+    ``grid``. ``metric_rtol``: metric suffix -> its rtol, where not 1e-5;
+    ``metric_atol`` the metrics' atol."""
     key = jax.random.PRNGKey(7)
     n = len(batch["image"])
     jhooks, (params, stats, hparams), jnew, jm = _jax_step(
         HOOKS[trainer], batch, key, data_name=data_name, jitter=jitter, num_classes=num_classes,
-        sections=sections, epoch=epoch)
+        sections=sections, epoch=epoch, is_pretrain=is_pretrain)
 
     model = UNet(max_channel=128, momentum=0.1, dtype=torch.float32, num_classes=num_classes)
     model.load_state_dict(flax_to_state_dict(params, stats))
     hooks = (create_hook_from_config(_hook_config(sections, data_name),
-                                     channel_dim=model.get_channel_dim, is_pretrain=True)
+                                     channel_dim=model.get_channel_dim, is_pretrain=is_pretrain)
              if sections else create_infonce_hooks(channel_dim=model.get_channel_dim,
                                                    **HOOKS[trainer]))
+    check_pretrain_hooks(hooks)
     assert [h.name for h in hooks] == [h.name for h in jhooks]
-    for h in hooks:
-        h.projector.load_state_dict(flax_to_head_state_dict(hparams[h.name]))
+    heads = [h for h in hooks if getattr(h, "projector", None) is not None]
+    for h in heads:
+        h.projector.load_state_dict(_head_state_dict(h, hparams[h.name]))
     until = feature_until_from_hooks(*hooks)
     assert until == ("Up_conv2" if trainer == "pretrain_decoder" else "Conv5")
     trainable = frozen_after(until)
@@ -229,7 +265,8 @@ def _check_step_against_jax(trainer, batch, data_name="acdc", num_classes=4, jit
 
     assert set(m) == set(jm)
     for k in jm:
-        close(m[k], jm[k], rtol=1e-5, atol=0, what=k)
+        rtol = next((r for suffix, r in (metric_rtol or {}).items() if k.endswith(suffix)), 1e-5)
+        close(m[k], jm[k], rtol=rtol, atol=metric_atol, what=k)
     # gradients: backbone (trainable layers) and projection heads
     jgrads, jhgrads = jnew.opt_state["grads"]
     grads = state_dict_to_flax({k: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -237,11 +274,9 @@ def _check_step_against_jax(trainer, batch, data_name="acdc", num_classes=4, jit
     _check_l2([(jax.tree_util.keystr(path), g, jg) for (path, g), jg in zip(
         jax.tree_util.tree_flatten_with_path(grads["params"])[0], jax.tree.leaves(jgrads))],
         "grad", tol)
-    for h in hooks:
-        hg = head_state_dict_to_flax({k: p.grad for k, p in h.projector.named_parameters()})
-        _check_l2([(f"{layer}/{k}", v, jhgrads[h.name][layer][k])
-                   for layer, leaves in hg.items() for k, v in leaves.items()], f"grad {h.name}",
-                  tol)
+    for h in heads:
+        hg = _head_tree(h, {k: p.grad for k, p in h.projector.named_parameters()})
+        _check_l2(_paired_leaves(hg, jhgrads[h.name]), f"grad {h.name}", tol)
     # updated parameters, frozen layers, BN statistics
     new = state_dict_to_flax(model.state_dict())
     frozen = [layer for layer in UNet.arch_elements
@@ -259,11 +294,12 @@ def _check_step_against_jax(trainer, batch, data_name="acdc", num_classes=4, jit
             else:
                 updates.append((what, a - b0, b - b0))
     _check_l2(updates, "update", tol)
-    for h in hooks:
-        _check_l2([(f"{layer}/{k}", v - hparams[h.name][layer][k],
-                    jnew.hook_params[h.name][layer][k] - hparams[h.name][layer][k])
-                   for layer, leaves in head_state_dict_to_flax(h.projector.state_dict()).items()
-                   for k, v in leaves.items()], f"update {h.name}", tol)
+    for h in heads:
+        _check_l2(_paired_leaves(
+            jax.tree.map(lambda a, b: a - b, _head_tree(h, h.projector.state_dict()),
+                         hparams[h.name]),
+            jax.tree.map(lambda a, b: np.asarray(a) - b, jnew.hook_params[h.name],
+                         hparams[h.name])), f"update {h.name}", tol)
     for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(new["batch_stats"])[0],
                             jax.tree.leaves(jnew.batch_stats)):
         scaled_close(a, b, tol=1e-4, what=f"stats {jax.tree_util.keystr(path)}")
@@ -481,3 +517,138 @@ def test_prostate_run_builds_48_slice_batches(monkeypatch):
                               dtype=torch.float32)
     assert acdc.batch_slices == 18
     assert acdc.state.model._Deconv_1x1.out_channels == 4
+
+
+def test_monitor_pass_matches_jax_and_changes_nothing():
+    """The monitor pass of the pretraining trainers (``build_monitor_step``)
+    against JAX's ``_monitor_step`` (``build_pretrain_step(
+    optax.set_to_zero(), total_freedom=False)`` on a copy of the state):
+    the same metrics (rtol 1e-5) from the plain views, the hooks' transform
+    replayed from the key's ``k_geo`` / ``k_int``; and the port's model,
+    BN statistics, heads, hook states, optimizer state and step count
+    bitwise unchanged across it."""
+    from contrastyou_tpu.trainers.pretrain import build_pretrain_step as jbuild_step
+
+    batch = _batch()
+    key = jax.random.PRNGKey(11)
+    n = len(batch["image"])
+    bundle_j = JBundle.create(JUNet(max_channel=128, momentum=0.1, dtype=jnp.float32),
+                              jax.random.PRNGKey(0), (S, S, 1))
+    jhooks = jcreate_hooks(data_name="acdc", **HOOKS["pretrain_decoder"])
+    tx, _ = jcreate(OPTIM, SCHED, max_epoch=75, steps_per_epoch=200)
+    jstate = jinit(bundle_j, jhooks, tx, jax.random.PRNGKey(1))
+    params, stats, hparams = jax.tree.map(np.asarray, (jstate.params, jstate.batch_stats,
+                                                       jstate.hook_params))
+    monitor_j = jbuild_step(bundle_j, optax.set_to_zero(), jhooks, until="Up_conv2",
+                            total_freedom=False)
+    _, jm = monitor_j(jax.tree.map(jnp.array, jstate),
+                      {k: jnp.asarray(v) for k, v in batch.items()}, key, jnp.int32(0))
+
+    model = UNet(max_channel=128, momentum=0.1, dtype=torch.float32)
+    model.load_state_dict(flax_to_state_dict(params, stats))
+    hooks = create_infonce_hooks(channel_dim=model.get_channel_dim,
+                                 **HOOKS["pretrain_decoder"])
+    for h in hooks:
+        h.projector.load_state_dict(flax_to_head_state_dict(hparams[h.name]))
+    opt, _ = create_optimizer(list(model.parameters()) + hook_parameters(hooks), OPTIM, SCHED,
+                              max_epoch=75, steps_per_epoch=200)
+    bundle = ModelBundle(model, (S, S, 1))
+    state = init_train_state(bundle, hooks, opt)
+    tb = {k: torch.tensor(v) for k, v in batch.items()}
+    _, _, k_geo, k_int, k_hook, _, _ = jax.random.split(key, 7)
+    ys, xs = [], []
+    for k in jax.random.split(k_hook, n):
+        kh, kw = jax.random.split(k)
+        ys.append(np.asarray(jax.random.choice(kh, 16, (P,), replace=False)))
+        xs.append(np.asarray(jax.random.choice(kw, 16, (P,), replace=False)))
+    draws = PretrainDraws(None, None, None, None, None, None, geo=_geo(k_geo, n),
+                          gammas_int=_uniform(k_int, n, 0.5, 2.0),
+                          points={(16, 16): (torch.tensor(np.stack(ys)).long(),
+                                             torch.tensor(np.stack(xs)).long())})
+    monitor = build_monitor_step(bundle, hooks, until="Up_conv2")
+    m = monitor(state, tb, draws)
+    assert set(m) == set(jm)
+    for k in jm:
+        close(m[k], jm[k], rtol=1e-5, atol=0, what=k)
+
+    # after a train step (the optimizer holds moments), a monitor pass changes nothing
+    build_pretrain_step(bundle, hooks, until="Up_conv2")(
+        state, tb, _replayed_draws(jax.random.PRNGKey(7), n, (16, 16)))
+    before = ({k: v.clone() for k, v in model.state_dict().items()},
+              [{k: v.clone() for k, v in h.state_dict().items()} for h in hooks],
+              {k: dict(v) for k, v in state.hook_states.items()},
+              [{k: (v.clone() if torch.is_tensor(v) else v) for k, v in s.items()}
+               for s in opt.state.values()], state.step)
+    monitor(state, tb, draws)
+    after = model.state_dict()
+    for k, v in before[0].items():
+        assert torch.equal(after[k], v), k
+    for h, sd in zip(hooks, before[1]):
+        for k, v in sd.items():
+            assert torch.equal(h.state_dict()[k], v), (h.name, k)
+    assert state.hook_states == before[2] and state.step == before[4]
+    for s, sb in zip(opt.state.values(), before[3]):
+        for k, v in sb.items():
+            assert (torch.equal(s[k], v) if torch.is_tensor(v) else s[k] == v), k
+
+
+def test_monitor_pass_writes_monitor_columns(tmp_path):
+    """A ``pretrain_decoder`` trainer given a ``monitor_loader`` runs JAX's
+    monitor pass after each epoch (two batches here): ``storage.csv`` gains the
+    ``monitor/...`` columns (``reg_loss`` and each hook's metrics, finite),
+    the monitor iterator persists across epochs, and the pass leaves the
+    model, the optimizer's count and the hook states as the train epoch
+    left them."""
+    import csv
+    import functools
+
+    from contrastyou_tpu_torch.data.creator import get_data
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+    from contrastyou_tpu_torch.trainers.pretrain import (MONITOR_BATCHES,
+                                                         PretrainDecoderTrainer,
+                                                         get_contrastive_loader)
+
+    root = tmp_path / "data"
+    synthesize_acdc_like(root, num_train_scans=4, num_val_scans=2, slices_per_scan=6, size=40)
+    labeled, unlabeled, _, _ = get_data({"name": "acdc", "labeled_scan_num": 1}, {}, {},
+                                        root_dir=str(root), pretrain=True)
+    model = UNet(max_channel=32, momentum=0.1, dtype=torch.float32)
+    model.init_weights(torch.Generator().manual_seed(0))
+    loader = get_contrastive_loader(labeled.dataset, data_name="acdc", seed=1,
+                                    scan_sample_num=2)
+    monitor = get_contrastive_loader(unlabeled.dataset, data_name="acdc", seed=2,
+                                     scan_sample_num=2)
+    trainer = PretrainDecoderTrainer(model=model, labeled_loader=labeled,
+                                     contrast_loader=loader, monitor_loader=monitor,
+                                     save_dir=str(tmp_path / "run"), max_epoch=2, num_batches=2,
+                                     config={"Data": {"name": "acdc"}}, seed=3)
+    hooks = create_infonce_hooks(channel_dim=model.get_channel_dim,
+                                 **HOOKS["pretrain_decoder"])
+    for h in hooks:
+        h.init_weights(torch.Generator().manual_seed(1))
+    trainer.register_hooks(*hooks)
+    trainer.init()
+    calls = []
+    inner = trainer._monitor_step
+
+    def spy(state, batch, draws, epoch=0):
+        snap = {k: v.clone() for k, v in state.model.state_dict().items()}
+        count = state.step
+        m = inner(state, batch, draws, epoch)
+        assert state.step == count and draws.g1 is None and draws.jitter1 is None
+        assert all(torch.equal(v, state.model.state_dict()[k]) for k, v in snap.items())
+        calls.append(epoch)
+        return m
+
+    trainer._monitor_step = spy
+    # two batches a pass (JAX's MONITOR_BATCHES, 10, at the default) keep the test short
+    trainer.monitor_epoch = functools.partial(trainer.monitor_epoch, num_batches=2)
+    trainer.start_training()
+    assert MONITOR_BATCHES == 10 and calls == [0, 0, 1, 1]
+    with open(tmp_path / "run" / "storage.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 2
+    mon = [c for c in rows[0] if c.startswith("monitor/")]
+    assert "monitor/monitor/reg_loss/value" in mon, mon
+    assert any("infonce/Up_conv2/self" in c for c in mon), mon
+    assert all(np.isfinite(float(r[c])) for r in rows for c in mon)
