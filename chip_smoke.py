@@ -261,7 +261,30 @@ Phases, in order; any failure exits non-zero:
    beside the device cache, in turns (ms/step of each; the host-fed
    batches identical); (22f) ``fast_crop`` against the numpy crop and
    scale, exact, and its slices/s at 32 x 224^2 on 8 threads beside the
-   dataset's item path.
+   dataset's item path;
+23. ``Trainer.unroll_steps`` = 8 (the JAX bench's ``UNROLL``): K train
+   steps a call, one CUDA graph a call (``engine/graph.py``). Each path of
+   ``P23_PATHS`` (``semi`` + consistency device-cached and host-fed through
+   pinned memory, ``semi/udaiic`` with E1/E2 in the graph, ``mt`` and
+   ``ict`` with the EMA teacher updated in place) runs from one seed as 24
+   eager steps at K = 1 and as 3 calls at K = 8 (the eager warm-up, the
+   capture and its replay, a replay): losses and every state tensor within
+   ``KERNEL_RTOL`` (the state's difference in units of what the steps
+   changed; bitwise expected, and printed, where the step has no
+   nondeterministic op: ``semi/udaiic`` is held beside a second eager run),
+   each step's draws those of the eager step and found in the graph's
+   input buffers at its replay, the two replays' draws apart, each step's
+   learning rate the schedule's, launches equal to the eager run's and 3x
+   a graph's; ms/step of the last call against the last 8 eager steps
+   (CUDA events), the capture's seconds, peak memory, and on ``semi`` the
+   device's busy share of a replay and of 8 eager steps (torch.profiler);
+   then ``main -p config/base.yaml config/hooks/consistency.yaml -o
+   Trainer.unroll_steps=8 Trainer.device_cache=true`` for 2 epochs of 16
+   steps on phase 11's layout: ``.success``, two finite storage rows, C1
+   and C2 launched as 32 ``semi`` steps imply. ``python3 chip_smoke.py
+   unroll [kind ...]`` runs the same check on other trainers
+   (``P23_EXTRA``: ``ft``, ``uamt``, ``mixup``, ``multicore``, ``dmt``,
+   ``dmt/second_order``, ``ccblocks``).
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
@@ -4314,6 +4337,400 @@ def run_phase22(device, card: str, recs: dict) -> dict:
     return by_path
 
 
+# --- phase 23: K train steps a call, one CUDA graph a call -----------------------------
+
+#: steps a call (the JAX bench's UNROLL) and the calls of a graph run: the
+#: first is the eager warm-up, the second captures and replays, the third
+#: replays (timed against as many eager steps)
+P23_UNROLL, P23_CALLS = 8, 3
+#: (path, its config, host-fed): ``semi`` + consistency device-cached and
+#: host-fed, then the udaiic hooks (E1/E2 in the graph), MT and ICT (the
+#: EMA teacher updated in place; ICT's draws from the host generator)
+P23_PATHS = [("semi/unroll", "semi", False), ("semi/unroll/host", "semi", True),
+             ("semi/udaiic/unroll", "udaiic", False), ("mt/unroll", "mt", False),
+             ("ict/unroll", "ict", False)]
+#: the entry point's run of phase 23: a short epoch of two graph calls
+P23_MAIN_ARGV = ["-o", "Trainer.name=semi", f"Trainer.unroll_steps={P23_UNROLL}",
+                 "Trainer.device_cache=true", "Trainer.max_epoch=2",
+                 f"Trainer.num_batches={2 * P23_UNROLL}", "Trainer.save_dir=unroll"]
+
+
+#: the paths ``python3 chip_smoke.py unroll`` drives by default (phase 23's
+#: check on the other trainers that take K)
+P23_EXTRA = ("ft", "uamt", "mixup", "multicore", "dmt", "dmt/second_order", "ccblocks")
+#: the overrides of the trainers phase 23 can also drive (``ft``, MixUp,
+#: multicore, DMT's default rule and ``second_order``, the cc block with its
+#: dynamic IMSAT weight under ``semi``)
+P23_OVERRIDES = {"ft": ["Trainer.name=ft"], "mixup": ["Trainer.name=mixup"],
+                 "multicore": ["Trainer.name=multicore", "+IIDSegParameters.weight=0.01"],
+                 "dmt": ["Trainer.name=dmt"],
+                 "dmt/second_order": ["Trainer.name=dmt", f"{DMT_METHOD}=second_order"],
+                 "ccblocks": ["Trainer.name=semi", "~ConsistencyParameters", *P15_CC, *P15_RR,
+                              *P15_IMSAT]}
+
+
+def p23_config(kind: str, unroll: int):
+    from contrastyou_tpu_torch.main import UDAIIC_CONFIG, parse_config
+    extra = [f"Trainer.unroll_steps={unroll}"]
+    if kind == "udaiic":
+        return parse_config(["-o", "Trainer.name=semi", *extra], UDAIIC_CONFIG)
+    if kind in MT_OVERRIDES:
+        return _mt_config(kind, *extra)
+    return parse_config(["-o", *P23_OVERRIDES.get(kind, ["Trainer.name=semi"]), *extra])
+
+
+class P23Feed:
+    """Phase 23's host-fed ``semi`` steps: numpy batches cropped from the
+    run's synthetic split with a seeded numpy generator, sent through pinned
+    memory as the trainer sends them, and the step's draws from the run's
+    generators; the eager side steps ``build_train_step``, the graph side
+    ``build_unrolled_train_step``."""
+
+    def __init__(self, run, device, unroll: int, seed: int = 5):
+        import numpy as np
+        from contrastyou_tpu_torch.engine.bundle import ModelBundle
+        from contrastyou_tpu_torch.engine.steps import (build_train_step,
+                                                        build_unrolled_train_step)
+        self.run, self.device, self.unroll = run, device, unroll
+        self.rng = np.random.default_rng(seed)
+        #: each call's stacked labeled images (K > 1)
+        self.log: list = []
+        self.split = [(c.images.cpu().numpy(), c.targets.cpu().numpy(), c.crop)
+                      for c in (run.labeled_cache, run.unlabeled_cache)]
+        bundle = ModelBundle(run.state.model, (self.split[0][2], self.split[0][2], 1))
+        self.step = (build_train_step(bundle, run.hooks) if unroll == 1 else
+                     build_unrolled_train_step(bundle, run.hooks, unroll=unroll))
+
+    def _crop(self, which: int, n: int):
+        images, targets, c = self.split[which]
+        idx = self.rng.integers(0, len(images), n)
+        oy, ox = (self.rng.integers(0, images.shape[k] - c + 1, n) for k in (1, 2))
+        return (idx, [images[i, y:y + c, x:x + c] for i, y, x in zip(idx, oy, ox)],
+                [targets[i, y:y + c, x:x + c] for i, y, x in zip(idx, oy, ox)])
+
+    def _one(self):
+        import numpy as np
+        import torch
+        from contrastyou_tpu_torch.engine.steps import sample_step_draws
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+                self.device, non_blocking=True)
+
+        idx, img, tgt = self._crop(0, 5)
+        _, uimg, _ = self._crop(1, 5)
+        batch = {"labeled_image": dev(np.stack(img)[..., None]),
+                 "labeled_target": dev(np.stack(tgt)),
+                 "unlabeled_image": dev(np.stack(uimg)[..., None])}
+        shape = tuple(batch["unlabeled_image"].shape)
+        draws = sample_step_draws(self.run.generator, shape[0], self.run.hooks,
+                                  host_rng=self.run.host_rng, shape=shape,
+                                  labeled_shape=tuple(batch["labeled_image"].shape))
+        return batch, draws, torch.as_tensor(idx)
+
+    def __call__(self):
+        import torch
+        from contrastyou_tpu_torch.engine.steps import stack_batches
+        state = self.run.state
+        if self.unroll == 1:
+            batch, draws, idx = self._one()
+            m = _with_lr(state, self.step(state, batch, draws))
+            m["labeled_scan_id"] = idx
+            return m
+        parts = [self._one() for _ in range(self.unroll)]
+        batches = stack_batches([b for b, _, _ in parts])
+        self.log.append(batches["labeled_image"].clone())
+        m = self.step(state, batches, [d for _, d, _ in parts])
+        m["labeled_scan_id"] = torch.stack([i for _, _, i in parts])
+        return m
+
+
+def _with_lr(state, m: dict) -> dict:
+    m["lr"] = state.optimizer.lr.clone()
+    return m
+
+
+def _p23_state(run) -> dict:
+    """name -> tensor of what the steps change: parameters, BN statistics,
+    optimizer moments, hook state tensors."""
+    import torch
+    out = {f"model.{k}": v.detach() for k, v in run.state.model.state_dict().items()}
+    for i, st in enumerate(run.state.optimizer.state.values()):
+        out.update({f"opt{i}.{k}": v for k, v in st.items()})
+    for name, st in run.state.hook_states.items():
+        for k, v in (st or {}).items():
+            items = v.items() if isinstance(v, dict) else [("", v)]
+            out.update({f"{name}.{k}.{j}": x for j, x in items if isinstance(x, torch.Tensor)})
+    return out
+
+
+def _record_draws(cache, log: list) -> None:
+    """Log the batch indices each step draws from ``cache``."""
+    draw = cache.draw
+
+    def recorded(generator, n):
+        out = draw(generator, n)
+        log.append(out[0].clone())
+        return out
+
+    cache.draw = recorded
+
+
+def _p23_run(kind: str, host: bool, unroll: int, device, steps: int, timed: int) -> dict:
+    """``steps`` train steps of the ``kind`` run, ``unroll`` a call, the
+    last ``timed`` timed with CUDA events (and the host clock)."""
+    import torch
+    from contrastyou_tpu_torch.main import build_semi_run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run = build_semi_run(p23_config(kind, unroll), device=device)
+    start = {k: v.clone() for k, v in _p23_state(run).items()}
+    drawn: list = []
+    if host:
+        feed = P23Feed(run, device, unroll)
+    else:
+        _record_draws(run.labeled_cache, drawn)
+
+        def feed():
+            m = run.step(run.state, run.generator, 0, run.host_rng)
+            return _with_lr(run.state, m) if unroll == 1 else m
+    _reset_counts()
+    got, statics, capture_s, graph = [], [], None, None
+    calls = steps // unroll
+    for c in range(calls):
+        if c == calls - timed // unroll:
+            torch.cuda.synchronize()
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_start.record()
+            t0 = time.perf_counter()
+        tc = time.perf_counter()
+        m = feed()
+        if unroll > 1:
+            graph = feed.step.graph if host else run.step.graph
+            if c == 1:
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - tc
+            statics.append([v.clone() for v in graph._statics if isinstance(v, torch.Tensor)])
+        got.append(m if unroll > 1 else {k: v[None] for k, v in m.items()})
+    t_end = torch.cuda.Event(enable_timing=True)
+    t_end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / timed * 1e3
+    metrics = {k: torch.cat([m[k].reshape(m[k].shape[0], -1) for m in got])
+               for k in ("total_loss", "lr")}
+    ids = (torch.cat([m["labeled_scan_id"].reshape(-1, 5) for m in got]) if host
+           else torch.stack(drawn))
+    return {"loss": metrics["total_loss"][:, 0].double(), "lr": metrics["lr"][:, 0],
+            "ids": ids.cpu(), "launches": _counts(), "state": _p23_state(run),
+            "ms": t_start.elapsed_time(t_end) / timed, "wall_ms": wall,
+            "peak": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            "graph": graph, "statics": statics, "schedule": run.state.optimizer.schedule,
+            "step": run.state.step, "capture_s": capture_s, "run": run, "start": start,
+            "feed": feed,
+            # what each call's replay must find in the graph's inputs
+            "inputs": ([[b] for b in feed.log] if host else
+                       [drawn[c * unroll:(c + 1) * unroll] for c in range(calls)])}
+
+
+def _p23_compare(e: dict, g: dict) -> dict:
+    """Run ``g`` against run ``e`` of as many steps: losses (bitwise count,
+    the first step apart, worst relative), state tensors (bitwise count,
+    the difference's L2 over every float tensor in units of the L2 of what
+    ``e``'s steps changed, the worst tensor relative to its largest value);
+    integer state equal."""
+    import torch
+    le, lg = e["loss"], g["loss"]
+    out = {"loss_rel": ((lg - le).abs() / le.abs().clamp(min=1e-30)).max().item(),
+           "losses_bitwise": int((lg == le).sum()),
+           "first_apart": next((i + 1 for i in range(len(le)) if lg[i] != le[i]), None)}
+    worst, worst_key, same, n, diff2, upd2 = 0.0, None, 0, 0, 0.0, 0.0
+    for k, v in e["state"].items():
+        w = g["state"][k]
+        if not v.is_floating_point():
+            if not torch.equal(v, w):
+                raise AssertionError(f"{k}: {v.tolist()} against {w.tolist()}")
+            continue
+        r = (w.double() - v.double()).abs().max().item() / max(
+            v.double().abs().max().item(), 1e-30)
+        if r > worst:
+            worst, worst_key = r, k
+        diff2 += (w.double() - v.double()).pow(2).sum().item()
+        v0 = e["start"].get(k)            # optimizer moments are made at the first step
+        upd2 += (v.double() - (0.0 if v0 is None else v0.double())).pow(2).sum().item()
+        same += int(torch.equal(v, w))
+        n += 1
+    out.update(state_rel=math.sqrt(diff2 / max(upd2, 1e-300)), worst_tensor=[worst_key, worst],
+               state_bitwise=same, state_tensors=n)
+    return out
+
+
+def p23_path(path: str, kind: str, host: bool, device, card: str,
+             profiled: bool = False, eager_twice: bool = False) -> dict:
+    """One path of phase 23: from one state and one seed, P23_CALLS x K
+    eager steps at K = 1 and P23_CALLS calls at K = P23_UNROLL, held
+    against each other (losses and every state tensor at KERNEL_RTOL, the
+    draws each step consumed, the learning rates, the launches); the last
+    call timed against the last K eager steps with CUDA events.
+    ``eager_twice``: a second eager run measures the eager steps' own
+    run-to-run difference beside the graph's; ``profiled``: the busy share
+    of one more call and of as many eager steps. Returns the graph run's
+    launches and its record."""
+    import torch
+
+    K, calls = P23_UNROLL, P23_CALLS
+    steps = K * calls
+    e = _p23_run(kind, host, 1, device, steps, K)
+    e2 = _p23_run(kind, host, 1, device, steps, K) if eager_twice else None
+    g = _p23_run(kind, host, K, device, steps, K)
+    cmp = _p23_compare(e, g)
+    rel, state_rel, first = cmp["loss_rel"], cmp["state_rel"], cmp["first_apart"]
+    bitwise, (worst_key, worst) = cmp["losses_bitwise"], cmp["worst_tensor"]
+    same, n = cmp["state_bitwise"], cmp["state_tensors"]
+    timed = K
+    graph = g["graph"]
+    per_graph = graph.launches_per_graph
+    print(f"{path}: {steps} eager steps vs {calls} calls of {K} (call 1 the eager warm-up, "
+          f"call 2 the capture ({g['capture_s']:.2f} s with its replay); {graph.replays} "
+          f"replays): losses {bitwise}/{steps} bitwise (first apart: step {first}), worst rel "
+          f"{rel:.2e}; {same}/{n} state tensors bitwise, the difference {state_rel:.2e} of the "
+          f"steps' change in L2 (worst tensor {worst_key}, {worst:.2e} of its largest); "
+          f"launches per graph {per_graph}; "
+          f"the last {timed} steps (a replay): eager {e['ms']:.3f} ms/step, graph "
+          f"{g['ms']:.3f} ms/step "
+          f"({e['ms'] / g['ms']:.2f}x; CUDA events; host clock {e['wall_ms']:.3f} / "
+          f"{g['wall_ms']:.3f}); peak {e['peak']:.2f} / {g['peak']:.2f} GiB above the process's "
+          f"on {card}")
+    again = None
+    if e2 is not None:
+        again = _p23_compare(e, e2)
+        print(f"{path}: a second eager run against the first: losses "
+              f"{again['losses_bitwise']}/{steps} bitwise (first apart: step "
+              f"{again['first_apart']}), worst rel {again['loss_rel']:.2e}; "
+              f"{again['state_bitwise']}/{again['state_tensors']} state tensors bitwise, the "
+              f"difference {again['state_rel']:.2e} of the steps' change")
+    if rel > KERNEL_RTOL or state_rel > KERNEL_RTOL:
+        raise AssertionError(f"{path}: graph vs eager loss rel {rel:.2e}, state {state_rel:.2e} "
+                             f"of the steps' change (limit {KERNEL_RTOL})")
+    # the draws: each step's equal to the eager step's; the last two replays'
+    # their own, and in the graph's input buffers at their replay
+    if not torch.equal(e["ids"], g["ids"]):
+        raise AssertionError(f"{path}: batch indices {g['ids'].tolist()} graph, "
+                             f"{e['ids'].tolist()} eager")
+    r1, r2 = slice(steps - 2 * K, steps - K), slice(steps - K, steps)
+    if torch.equal(g["ids"][r1], g["ids"][r2]) or torch.equal(g["loss"][r1], g["loss"][r2]):
+        raise AssertionError(f"{path}: replay {graph.replays} repeats replay "
+                             f"{graph.replays - 1}'s draws (frozen in the graph)")
+    for c in (calls - 2, calls - 1):
+        want = g["inputs"][c]
+        if not all(any(s.shape == i.shape and torch.equal(s, i) for s in g["statics"][c])
+                   for i in want):
+            raise AssertionError(f"{path}: call {c + 1}'s draws are not in the graph's inputs")
+    lr_want = torch.tensor([e["schedule"](i) for i in range(steps)], dtype=torch.float64)
+    for name, lr in (("graph", g["lr"]), ("eager", e["lr"])):
+        if ((lr.double().cpu() - lr_want).abs() / lr_want).max().item() > 1e-12:
+            raise AssertionError(f"{path}: {name} lr {lr.tolist()} vs schedule {lr_want.tolist()}")
+    if not g["step"] == e["step"] == steps or g["launches"] != e["launches"]:
+        raise AssertionError(f"{path}: step {g['step']} / {e['step']}, launches graph "
+                             f"{g['launches']} vs eager {e['launches']}")
+    if any(per_graph.get(k, 0) * calls != v for k, v in e["launches"].items()) or not per_graph:
+        raise AssertionError(f"{path}: {per_graph} a graph of {K} steps vs {e['launches']} in "
+                             f"{steps} eager steps")
+    if profiled:
+        rec_idle = {"eager": _busy_share(lambda: [e["feed"]() for _ in range(K)], K),
+                    "graph": _busy_share(g["feed"], K)}
+        print(f"{path} profiled window of {K} steps on {card}: {rec_idle}")
+    STEP_MS[path] = g["ms"]
+    rec = {"eager_ms": e["ms"], "graph_ms": g["ms"], "eager_wall_ms": e["wall_ms"],
+           "graph_wall_ms": g["wall_ms"], "capture_s": g["capture_s"],
+           "launches_per_graph": per_graph, "eager_peak_gib": e["peak"],
+           "graph_peak_gib": g["peak"], **cmp}
+    if again is not None:
+        rec["eager_again"] = again
+    if profiled:
+        rec["idle"] = rec_idle
+    launches = g["launches"]
+    del e, e2, g
+    torch.cuda.empty_cache()
+    return {"launches": launches, "record": rec}
+
+
+def _busy_share(step, steps: int) -> dict:
+    """The device's busy share of ``step()`` (``steps`` train steps) under
+    torch.profiler, per step; "not measured" when the trace has no device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    if not kernels:
+        return "not measured"
+    busy = sum(ev.time_range.elapsed_us() for ev in kernels)
+    return {"busy_ms_per_step": busy / steps / 1e3, "wall_ms_per_step": wall / steps / 1e3,
+            "idle_share": 1 - busy / wall, "kernels_per_step": len(kernels) / steps}
+
+
+def run_phase23(device, card: str) -> dict:
+    """Phase 23: ``Trainer.unroll_steps`` = 8 at full width; each path of
+    P23_PATHS held graph against eager (``p23_path``; on ``semi`` also the
+    device's busy share), then the entry point once for two short epochs
+    of two graph calls (the files, finite rows, C1 and C2 launched as 2 x
+    16 ``semi`` steps imply)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+
+    by_path, recs = {}, {}
+    for path, kind, host in P23_PATHS:
+        r = p23_path(path, kind, host, device, card, profiled=path == "semi/unroll",
+                     eager_twice=kind == "udaiic")
+        by_path[path], recs[path] = r["launches"], r["record"]
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p23_") as tmp:
+            data = Path(tmp) / "data"
+            write_loop_layout(data)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(Path(tmp) / "runs")
+            root = Path(__file__).resolve().parent
+            argv = ["-p", str(root / "config/base.yaml"),
+                    str(root / "config/hooks/consistency.yaml"), *P23_MAIN_ARGV]
+            _reset_counts()
+            t0 = time.perf_counter()
+            if port_main.main(argv) != 0:
+                raise AssertionError("semi/unroll/main: main returned non-zero")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = by_path["semi/unroll/main"] = _counts()
+            run_dir = Path(tmp) / "runs" / "unroll"
+            rows = (run_dir / "storage.csv").read_text().splitlines()
+            values = [float(v) for row in rows[1:] for v in row.split(",")[1:] if v]
+            steps = 2 * 2 * P23_UNROLL
+            print(f"semi/unroll/main: {seconds:.1f} s, {len(rows) - 1} storage rows, launches "
+                  f"{launches} ({steps} steps)")
+            if not (run_dir / ".success").exists() or len(rows) != 3:
+                raise AssertionError(f"semi/unroll/main: .success or storage.csv rows {rows}")
+            if not all(math.isfinite(v) for v in values):
+                raise AssertionError(f"semi/unroll/main: non-finite storage {rows}")
+            for k in BWD_KERNELS:
+                if launches[k] != steps * SEMI_LAUNCHES[k]:
+                    raise AssertionError(f"semi/unroll/main: {k} {launches[k]} in {steps} steps")
+    finally:
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    print("phase 23 records: " + json.dumps(recs))
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4395,6 +4812,12 @@ def main() -> int:
     by_path.update(run_phase22(device, card, recs))
     torch.cuda.empty_cache()
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    print(f"K = {P23_UNROLL} train steps a call, one CUDA graph a call, against eager steps "
+          f"(phase 23):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase23(device, card))
+    torch.cuda.empty_cache()
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),
@@ -4424,5 +4847,33 @@ def main() -> int:
     return 0
 
 
+def unroll_main(kinds) -> int:
+    """``python3 chip_smoke.py unroll [kind ...]``: phase 23's check
+    (``p23_path``) on each ``kind`` device-cached (default
+    :data:`P23_EXTRA`), its record printed; the kernels are built first."""
+    import torch
+    from contrastyou_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = _card()
+    print(card)
+    _build.build()
+    failed = []
+    for kind in kinds or P23_EXTRA:
+        t0 = time.perf_counter()
+        try:
+            r = p23_path(f"{kind}/unroll", kind, False, torch.device("cuda", 0), card)
+            print(f"{kind}/unroll: passed in {time.perf_counter() - t0:.1f} s: "
+                  f"{json.dumps(r['record'])}")
+        except Exception as e:       # report every path, then fail
+            failed.append(kind)
+            print(f"{kind}/unroll: FAILED in {time.perf_counter() - t0:.1f} s: "
+                  f"{type(e).__name__}: {e}")
+        torch.cuda.empty_cache()
+    return 1 if failed else 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main() if len(sys.argv) == 1 else
+             unroll_main(sys.argv[2:]) if sys.argv[1] == "unroll" else 2)

@@ -154,8 +154,10 @@ def _set(cfg: dict, dotted: str, value, allow_new: bool) -> None:
 
 #: keys ``-o`` may set though the files lack them: ``Trainer.device`` (the
 #: reference strips it from the section before the trainer sees it),
-#: ``Trainer.device_cache`` and ``Inference.tta`` (off when absent)
-RUNTIME_KEYS = ("Trainer.device", "Trainer.device_cache", "Inference.tta")
+#: ``Trainer.device_cache`` and ``Inference.tta`` (off when absent),
+#: ``Trainer.unroll_steps`` (1 when absent)
+RUNTIME_KEYS = ("Trainer.device", "Trainer.device_cache", "Trainer.unroll_steps",
+                "Inference.tta")
 
 
 def apply_overrides(config: Mapping, tokens: Iterable[str]) -> dict:

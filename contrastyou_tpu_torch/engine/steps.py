@@ -5,6 +5,15 @@ labeled forward alone under the supervised KL and the hooks), the
 device-cached step that also samples its batch on the GPU, and the eval step
 (running-statistics forward, optionally averaged over the four axis flips).
 
+K steps a call (``Trainer.unroll_steps``, JAX's unrolled and cached
+steps): :func:`build_unrolled_train_step` takes K host-fed batches stacked
+``[K, ...]`` and K steps' draws, :func:`build_cached_train_step` with
+``unroll=K`` samples K batches and their draws a call; both return every
+metric stacked ``[K, ...]``. The i-th step of a call makes the draws the
+i-th of K one-step calls makes, so at one seed K and 1 train the same
+steps. On the CPU the K steps run as a loop; on the card one call is one
+CUDA graph, captured once and replayed (``engine/graph.py``).
+
 Every random draw is explicit: the ``semi`` step takes a :class:`StepDraws`
 (the unlabeled batch's GeoParams and gammas, each drawing hook's draws and
 the dense hooks' sampled positions; ``ft`` the drawing hooks' draws alone,
@@ -40,13 +49,15 @@ from ..ops.affine import (GeoParams, sample_gammas, sample_geo_params,
 from ..parallel.collectives import gather_rows, mean_over_ranks, num_ranks, sum_gradients
 from ..parallel.mesh import DataGroup, data_parallel, multi_rank, shard_batch
 from .bundle import ModelBundle
+from .graph import StepGraph
 from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
 __all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_hook_draws",
            "sample_step_draws", "sample_ft_draws", "shard_draw", "shard_step_draws", "init_train_state",
-           "DATA_PARALLEL_MODES", "check_data_parallel",
-           "build_train_step", "build_cached_train_step", "tta_probs", "build_eval_step"]
+           "DATA_PARALLEL_MODES", "check_data_parallel", "refuse_unroll_on_ranks", "commit_state",
+           "build_train_step", "stack_batches", "build_unrolled_train_step",
+           "build_cached_train_step", "tta_probs", "build_eval_step"]
 
 
 class StepDraws(NamedTuple):
@@ -187,6 +198,24 @@ def check_data_parallel(hooks: Sequence[TrainerHook], data_group: Optional[DataG
                 f"is True)")
 
 
+@torch.no_grad()
+def commit_state(old: Any, new: Any) -> Any:
+    """A hook's new state (``loss``'s second value) with each tensor written
+    into the tensor of the old state it replaces (same key, shape, dtype and
+    device), so the state's tensors live across steps and a CUDA graph of
+    the step replays the update (``engine/graph.py``); other values as
+    ``new`` has them."""
+    if not isinstance(old, dict) or not isinstance(new, dict):
+        return new
+    out = dict(new)
+    for k, v in new.items():
+        o = old.get(k)
+        if (isinstance(v, torch.Tensor) and isinstance(o, torch.Tensor) and v is not o
+                and (v.shape, v.dtype, v.device) == (o.shape, o.dtype, o.device)):
+            out[k] = o.copy_(v)
+    return out
+
+
 def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                      disable_bn: bool = False, two_stage: bool = True, mode: str = "semi",
                      sup_criterion: Optional[Callable] = None,
@@ -273,13 +302,15 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         sup_loss = kl_div(probs, onehot) if sup_criterion is None else sup_criterion(probs, onehot)
         reg_loss = sup_loss.new_zeros(())
         metrics: Dict[str, torch.Tensor] = {}
+        new_states = {}
         for hook in hooks:
             h_loss, h_state, h_metrics = hook.loss(ctx, state.hook_states[hook.name])
             reg_loss = reg_loss + hook.weight * h_loss
             if h_state is not None:
-                state.hook_states[hook.name] = h_state
+                new_states[hook.name] = h_state
             metrics[f"{hook.name}/loss"] = h_loss.detach()
-            metrics.update({f"{hook.name}/{k}": v.detach() for k, v in h_metrics.items()})
+            # copies: a metric may be a state tensor that the commit below overwrites
+            metrics.update({f"{hook.name}/{k}": v.detach().clone() for k, v in h_metrics.items()})
         total = sup_loss + reg_loss
 
         state.optimizer.zero_grad(set_to_none=True)
@@ -291,6 +322,8 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
             sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
                           group)
         state.optimizer.step()
+        for name, h_state in new_states.items():
+            state.hook_states[name] = commit_state(state.hook_states[name], h_state)
         for hook in hooks:
             state.hook_states[hook.name] = hook.post_step(
                 ctx, state.model, state.hook_states[hook.name])
@@ -310,10 +343,68 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     return step
 
 
+def refuse_unroll_on_ranks(unroll: int, data_group: Optional[DataGroup]) -> None:
+    """Raise ``NotImplementedError`` for K > 1 steps a call on W > 1 ranks:
+    a call of K steps is one CUDA graph on the card, and the ranks'
+    collectives (gloo's host round trips) cannot be captured in one."""
+    group = multi_rank(data_group)
+    if unroll > 1 and group is not None:
+        raise NotImplementedError(
+            f"unroll_steps={unroll} on {group.size} ranks: a call of {unroll} steps is one "
+            f"CUDA graph on the card, and the ranks' collectives (host round trips under "
+            f"gloo) cannot be captured in it; use unroll_steps=1 on ranks")
+
+
+def _with_lr(state: TrainState, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The step's metrics plus ``lr``, the learning rate of its update."""
+    lr = getattr(state.optimizer, "lr", None)
+    if isinstance(lr, torch.Tensor):
+        metrics["lr"] = lr.clone()
+    return metrics
+
+
+def stack_batches(batches: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """K batch (or metric) dicts -> one dict of [K, ...] tensors."""
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def build_unrolled_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
+                              unroll: int, data_group: Optional[DataGroup] = None,
+                              **kwargs) -> Callable:
+    """-> ``unrolled(state, batches, draws, epoch=0) -> metrics``: ``unroll``
+    steps of :func:`build_train_step` (``**kwargs`` as there), the i-th on
+    ``batches``' i-th rows (each value stacked [K, ...], :func:`stack_batches`)
+    and ``draws[i]``. Every metric comes back stacked [K, ...], plus ``lr``
+    [K], each update's learning rate. On the card one call is one CUDA graph
+    (``engine/graph.py``); on the CPU the steps run as a loop."""
+    refuse_unroll_on_ranks(unroll, data_group)
+    hooks = tuple(hooks)
+    step = build_train_step(bundle, hooks, data_group=data_group, **kwargs)
+
+    def body(state, inputs, epoch):
+        batches, draws = inputs
+        return stack_batches([
+            _with_lr(state, step(state, {k: v[i] for k, v in batches.items()}, draws[i], epoch))
+            for i in range(unroll)])
+
+    graph = StepGraph(body, unroll=unroll,
+                      name=f"the unrolled {kwargs.get('mode', 'semi')} step")
+
+    def unrolled(state: TrainState, batches: Dict[str, torch.Tensor],
+                 draws: Sequence[Optional[StepDraws]], epoch: int = 0) -> Dict[str, torch.Tensor]:
+        if len(draws) != unroll or any(v.shape[0] != unroll for v in batches.values()):
+            raise ValueError(f"{len(draws)} draws and batches of {[v.shape[0] for v in batches.values()]} "
+                             f"steps for a call of {unroll}")
+        return graph(state, (batches, list(draws)), epoch)
+
+    unrolled.graph = graph
+    return unrolled
+
+
 def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
                             labeled_cache, unlabeled_cache=None,
                             labeled_batch: int = 5, unlabeled_batch: int = 5,
-                            data_group: Optional[DataGroup] = None,
+                            data_group: Optional[DataGroup] = None, unroll: int = 1,
                             **kwargs) -> Callable:
     """-> ``cached_step(state, generator, epoch=0, host_rng=None) -> metrics``:
     one ``semi`` step whose batch is sampled and cropped on the device from
@@ -323,13 +414,25 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     on the labeled cache's batch alone, with the hooks' draws; the metrics
     also carry ``labeled_scan_id`` [B].
 
+    ``unroll`` = K > 1: ``unroll`` such steps a call, each drawing as a call
+    of one step does (so K and 1 train the same steps from one generator);
+    every metric comes back stacked [K, ...] (``labeled_scan_id`` [K, B]),
+    plus ``lr`` [K]. All K steps' draws (indices, crops, transforms, hook
+    draws) are made before the steps; on the card the K steps are one CUDA
+    graph that reads them (``engine/graph.py``, ``cached_step.graph``).
+    ``cached_step.run(state, draws, epoch)`` runs the steps of a list of
+    draws of one step each (``{"labeled": (idx, oy, ox), "unlabeled": ...,
+    "draws": StepDraws}``).
+
     ``data_group`` of W ranks, each holding the whole caches (JAX's
     ``place_on_mesh`` replicates them): the batches are per rank, so every
     rank draws the global batch of W times as many slices, and its draws,
     from the same generator and keeps its rows; ``labeled_scan_id`` is the
     global batch's."""
     semi = unlabeled_cache is not None
+    refuse_unroll_on_ranks(unroll, data_group)
     W = num_ranks(data_group)
+    hooks = tuple(hooks)
     needs_map = [h.name for h in hooks if h.needs_superpixel]
     if needs_map:
         raise ValueError(f"hooks {needs_map} read the superpixel map, which the device "
@@ -337,27 +440,52 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
                          f"(Trainer.device_cache=false)")
     step = build_train_step(bundle, hooks, mode="semi" if semi else "ft",
                             data_group=data_group, **kwargs)
+    crop = labeled_cache.crop
+    labeled_shape = (labeled_batch * W, crop, crop, 1)
 
-    def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0,
-                    host_rng=None):
-        lab = labeled_cache.sample(generator, labeled_batch * W)
-        batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
-        labeled_shape = tuple(lab["image"].shape)
+    def draw(generator: torch.Generator, host_rng=None) -> dict:
+        """One step's draws, in the order of the step: the labeled batch,
+        the unlabeled batch, the transform and the hooks'."""
+        drawn = {"labeled": labeled_cache.draw(generator, labeled_batch * W)}
         if semi:
-            unl = unlabeled_cache.sample(generator, unlabeled_batch * W)
+            drawn["unlabeled"] = unlabeled_cache.draw(generator, unlabeled_batch * W)
+            shape = (unlabeled_batch * W, unlabeled_cache.crop, unlabeled_cache.crop, 1)
+            drawn["draws"] = sample_step_draws(generator, shape[0], hooks, host_rng=host_rng,
+                                               shape=shape, labeled_shape=labeled_shape)
+        else:
+            drawn["draws"] = sample_ft_draws(generator, hooks, host_rng=host_rng,
+                                             shape=labeled_shape)
+        return drawn
+
+    def one(state: TrainState, drawn: dict, epoch: int) -> Dict[str, torch.Tensor]:
+        lab = labeled_cache.sample_at(*drawn["labeled"])
+        batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
+        if semi:
+            unl = unlabeled_cache.sample_at(*drawn["unlabeled"])
             batch.update(unlabeled_image=unl["image"], unlabeled_partition=unl["partition"],
                          unlabeled_scan_id=unl["scan_id"], unlabeled_patient=unl["patient"],
                          unlabeled_cycle=unl["cycle"])
-            draws = sample_step_draws(generator, unlabeled_batch * W, hooks,
-                                      host_rng=host_rng, shape=tuple(unl["image"].shape),
-                                      labeled_shape=labeled_shape)
-        else:
-            draws = sample_ft_draws(generator, hooks, host_rng=host_rng, shape=labeled_shape)
         metrics = step(state, shard_batch(batch, data_group),
-                       shard_step_draws(draws, hooks, data_group), epoch)
+                       shard_step_draws(drawn["draws"], hooks, data_group), epoch)
         metrics["labeled_scan_id"] = lab["scan_id"]
         return metrics
 
+    def body(state, drawn_list, epoch):
+        return stack_batches([_with_lr(state, one(state, d, epoch)) for d in drawn_list])
+
+    graph = StepGraph(body, unroll=unroll,
+                      name=f"the device-cached {'semi' if semi else 'ft'} step")
+
+    def run(state: TrainState, drawn_list: Sequence[dict], epoch: int = 0):
+        return graph(state, list(drawn_list), epoch)
+
+    def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0,
+                    host_rng=None):
+        if unroll == 1:
+            return one(state, draw(generator, host_rng), epoch)
+        return run(state, [draw(generator, host_rng) for _ in range(unroll)], epoch)
+
+    cached_step.run, cached_step.graph = run, graph
     return cached_step
 
 

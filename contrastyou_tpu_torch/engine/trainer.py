@@ -43,8 +43,17 @@ start to its storage row: the Chrome trace goes to
 ``<save_dir>/profile/epoch_001.pt.trace.json`` beside ``launches.json``,
 the hand-written kernels' launch counts over the same window; on the card a
 trace without device kernels is removed and the run raises, and that
-epoch's timing records carry ``profiled: True``. The JAX trainer's TPU
-knob ``unroll_steps`` is not ported.
+epoch's timing records carry ``profiled: True``.
+
+``unroll_steps`` = K runs K train steps a call, as JAX's trainer:
+``num_batches // K`` calls an epoch (JAX's warning when K does not divide
+``num_batches``), each call's metrics stacked [K, ...] and taken into the
+meters as their mean with weight K, the dice counts per scan over the K x B
+rows, ``state.step`` advanced by K. The i-th step of a call draws as the
+i-th of K one-step calls does, so K and 1 train the same steps. On the card
+a call is one CUDA graph (``engine/graph.py``), host-fed batches reaching it
+through pinned memory; on the CPU the K steps run as a loop. Trainers that
+build their own step (``adv``, pretraining) and W > 1 ranks refuse K > 1.
 
 ``two_stage`` (``semi`` steps) picks two forwards (labeled, then unlabeled
 and transformed) or one over all three; ``accumulate_iter`` makes the
@@ -98,7 +107,8 @@ from .checkpoint import (load_checkpoint, load_model_params, load_train_state, s
 from .hooks import TrainerHook, hook_parameters
 from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_train_step,
-                    init_train_state, sample_ft_draws, sample_step_draws, shard_step_draws)
+                    build_unrolled_train_step, init_train_state, refuse_unroll_on_ranks,
+                    sample_ft_draws, sample_step_draws, shard_step_draws, stack_batches)
 
 __all__ = ["Trainer", "epoch_seed", "hook_metrics", "kernel_launches", "HOOK_DRAW_SEED_OFFSET",
            "PROFILE_EPOCH"]
@@ -149,6 +159,9 @@ class Trainer:
     data_parallel: bool = False
     #: why it does not, where ``data_parallel`` is False
     data_parallel_refusal: str = "its batch reductions are not global yet"
+    #: why the trainer runs one step a call whatever ``unroll_steps`` is
+    #: (it builds its own step and loop), or None where it takes K
+    unroll_refusal: t.Optional[str] = None
 
     @classmethod
     def active_hooks(cls, hooks: t.Sequence[TrainerHook]) -> t.List[TrainerHook]:
@@ -175,9 +188,14 @@ class Trainer:
                 f"{type(self).__name__} does not run on {self._group.size} ranks: "
                 f"{self.data_parallel_refusal} (a trainer runs there where its "
                 f"data_parallel is True)")
-        if unroll_steps != 1:
-            raise NotImplementedError(f"Trainer.unroll_steps={unroll_steps!r} is not ported "
-                                      f"(only 1)")
+        self._unroll = int(unroll_steps)
+        if self._unroll < 1:
+            raise ValueError(f"Trainer.unroll_steps={unroll_steps!r}: at least 1")
+        if self._unroll > 1 and self.unroll_refusal is not None:
+            raise NotImplementedError(f"{type(self).__name__} does not take "
+                                      f"Trainer.unroll_steps={self._unroll}: "
+                                      f"{self.unroll_refusal}")
+        refuse_unroll_on_ranks(self._unroll, self._group)
         self._profile = bool(profile) or bool(os.environ.get("CONTRASTYOU_PROFILE"))
         self._profiling = False
         self._model = model
@@ -301,7 +319,11 @@ class Trainer:
                 self._bundle, self._active_hooks, labeled_cache=self._labeled_cache,
                 unlabeled_cache=unlabeled_cache,
                 labeled_batch=self._labeled_loader.batch_size,
-                unlabeled_batch=self._unlabeled_loader.batch_size if self._semi else 0, **kw)
+                unlabeled_batch=self._unlabeled_loader.batch_size if self._semi else 0,
+                unroll=self._unroll, **kw)
+        elif self._unroll > 1:
+            self._train_step = build_unrolled_train_step(
+                self._bundle, self._active_hooks, unroll=self._unroll, mode=self.train_mode, **kw)
         else:
             self._train_step = build_train_step(self._bundle, self._active_hooks,
                                                 mode=self.train_mode, **kw)
@@ -340,11 +362,20 @@ class Trainer:
                 if close is not None:
                     close()
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _to_device(self, a: np.ndarray, pinned: bool = False) -> torch.Tensor:
+        """``a`` on the device; ``pinned``: through pinned memory, without
+        waiting (on the card)."""
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        if pinned and self.device.type == "cuda":
+            return x.pin_memory().to(self.device, non_blocking=True)
+        return x.to(self.device)
 
     def _host_batch(self, labeled: dict, unlabeled: t.Optional[dict]) -> dict:
-        dev = self._to_device
+        pinned = self._unroll > 1
+
+        def dev(a):
+            return self._to_device(a, pinned)
+
         batch = {"labeled_image": dev(labeled["image"]),
                  "labeled_target": dev(labeled["target"]).long()}
         if unlabeled is not None:
@@ -497,50 +528,42 @@ class Trainer:
         host_rng = np.random.default_rng(epoch_seed(self._seed, epoch, HOOK_DRAW_SEED_OFFSET))
         if not self._device_cache:
             labeled_iter, unlabeled_iter = self._train_iterators()
-        indicator = Indicator(range(self._num_batches), desc=f"train {epoch:03d}")
-        last = self._num_batches - 1
+        K = self._unroll
+        num_calls = max(self._num_batches // K, 1)
+        if K > 1 and self._num_batches % K:
+            logger.warning("num_batches=%d not divisible by unroll_steps=%d; running %d steps "
+                           "per epoch", self._num_batches, K, num_calls * K)
+        indicator = Indicator(range(num_calls), desc=f"train {epoch:03d}")
+        last = num_calls - 1
         t0 = time.perf_counter()
         with meters:
             for it in indicator:
                 if self._device_cache:
                     metrics = self._train_step(self._state, generator, epoch, host_rng)
-                    dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
-                                    group_ids=metrics.pop("labeled_scan_id"),
+                    dice.add_counts(*self._rows(metrics["dice_inter"], metrics["dice_union"]),
+                                    group_ids=metrics.pop("labeled_scan_id").reshape(-1),
                                     id_table=self._labeled_cache.scan_names)
+                elif K == 1:
+                    labeled, batch, draws = self._host_step_inputs(
+                        labeled_iter, unlabeled_iter, generator, host_rng)
+                    metrics = self._train_step(self._state, batch, draws, epoch)
+                    self._add_host_counts(dice, metrics, [labeled])
                 else:
-                    labeled = next(labeled_iter)
-                    unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
-                    batch = self._host_batch(labeled, unlabeled)
-                    labeled_shape = self._global_shape(batch["labeled_image"])
-                    if unlabeled is not None:
-                        shape = self._global_shape(batch["unlabeled_image"])
-                        draws = sample_step_draws(generator, shape[0], self._active_hooks,
-                                                  host_rng=host_rng, shape=shape,
-                                                  labeled_shape=labeled_shape)
-                    else:
-                        draws = sample_ft_draws(generator, self._active_hooks,
-                                                host_rng=host_rng, shape=labeled_shape)
-                    metrics = self._train_step(
-                        self._state, batch,
-                        shard_step_draws(draws, self._active_hooks, self._group), epoch)
-                    if self._group is None:
-                        dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
-                                        group_name=labeled["scan"])
-                    else:
-                        # the ranks' scans, in the order of the gathered counts
-                        ids = gather_rows(self._to_device(labeled["scan_id"]).long(),
-                                          self._group)
-                        dice.add_counts(metrics["dice_inter"], metrics["dice_union"],
-                                        group_ids=ids,
-                                        id_table=self._labeled_loader.dataset.get_scan_list())
-                meters.add("sup_loss", metrics["sup_loss"])
-                meters.add("reg_loss", metrics["reg_loss"])
+                    inputs = [self._host_step_inputs(labeled_iter, unlabeled_iter, generator,
+                                                     host_rng) for _ in range(K)]
+                    metrics = self._train_step(self._state, stack_batches([b for _, b, _ in inputs]),
+                                               [d for _, _, d in inputs], epoch)
+                    self._add_host_counts(dice, metrics, [lab for lab, _, _ in inputs])
+                for key in ("sup_loss", "reg_loss"):
+                    meters.add(key, metrics[key] if K == 1 else metrics[key].mean(), n=K)
                 for hook in self._active_hooks:
-                    hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
+                    hm = hook_metrics(metrics, hook.name)
+                    hook_meters[hook.name].add(**(hm if K == 1 else
+                                                  {k: v.mean(0) for k, v in hm.items()}))
                 if it == 0:
                     self._log_figures(metrics, epoch)
                 # reading a meter waits for the device: every tenth step, as JAX's loop
-                if it % 10 == 9 or it == last:
+                if (it + 1) * K // 10 > it * K // 10 or it == last:
                     indicator.set_postfix_statics(
                         {"tra": {"sup": meters["sup_loss"].summary(),
                                  "reg": meters["reg_loss"].summary()}},
@@ -550,15 +573,49 @@ class Trainer:
         seconds = time.perf_counter() - t0
         stats = dict(meters.statistics())
         stats["tra"]["lr"] = float(self._schedule(int(self._state.step)))
-        logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s%s)", epoch,
-                    self._num_batches, seconds, seconds / self._num_batches * 1e3,
+        steps = num_calls * K
+        logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s%s%s)", epoch,
+                    steps, seconds, seconds / steps * 1e3,
                     "device cache" if self._device_cache else "host-fed",
+                    f", {K} steps a call" if K > 1 else "",
                     ", profiled" if self._profiling else "",
                     extra={"timing": {"phase": "train", "epoch": epoch,
-                                      "steps": self._num_batches, "seconds": seconds,
+                                      "steps": steps, "seconds": seconds,
                                       "device_cache": self._device_cache,
-                                      "profiled": self._profiling}})
+                                      "unroll_steps": K, "profiled": self._profiling}})
         return stats
+
+    @staticmethod
+    def _rows(inter: torch.Tensor, union: torch.Tensor) -> tuple:
+        """A call's dice counts as [rows, C] (K x B rows of K steps)."""
+        return inter.reshape(-1, inter.shape[-1]), union.reshape(-1, union.shape[-1])
+
+    def _host_step_inputs(self, labeled_iter, unlabeled_iter, generator, host_rng) -> tuple:
+        """(labeled host batch, device batch, draws) of one host-fed step."""
+        labeled = next(labeled_iter)
+        unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
+        batch = self._host_batch(labeled, unlabeled)
+        labeled_shape = self._global_shape(batch["labeled_image"])
+        if unlabeled is not None:
+            shape = self._global_shape(batch["unlabeled_image"])
+            draws = sample_step_draws(generator, shape[0], self._active_hooks,
+                                      host_rng=host_rng, shape=shape,
+                                      labeled_shape=labeled_shape)
+        else:
+            draws = sample_ft_draws(generator, self._active_hooks, host_rng=host_rng,
+                                    shape=labeled_shape)
+        return labeled, batch, shard_step_draws(draws, self._active_hooks, self._group)
+
+    def _add_host_counts(self, dice, metrics: dict, labeled: list) -> None:
+        """The dice counts of a call's host-fed steps, grouped by their scans."""
+        inter, union = self._rows(metrics["dice_inter"], metrics["dice_union"])
+        if self._group is None:
+            dice.add_counts(inter, union, group_name=[s for lab in labeled for s in lab["scan"]])
+        else:
+            # the ranks' scans, in the order of the gathered counts
+            ids = gather_rows(self._to_device(labeled[0]["scan_id"]).long(), self._group)
+            dice.add_counts(inter, union, group_ids=ids,
+                            id_table=self._labeled_loader.dataset.get_scan_list())
 
     # --- evaluation -------------------------------------------------------
     @torch.no_grad()

@@ -24,7 +24,9 @@ forwards that update statistics write the teacher's in place. The teacher's
 optimizer is optax's ``chain(add_decayed_weights(1e-5), adam(meta_weight))``
 written out by hand (:func:`adam_step`): its moments and update count are
 the state's ``teacher_opt`` (``mu``, ``nu``: dicts keyed as the parameters;
-``count``: an int), so checkpoints carry them.
+``count``: an int64 tensor, as ``ema_step``), so checkpoints carry them.
+Every update of the state is in place and its scalars are computed on the
+device, so a CUDA graph of several steps replays them.
 
 ``second_order`` takes the inner gradient with ``create_graph=True`` over
 the student's parameters (those of ``ctx.bundle.model``): on the card it goes through the
@@ -55,7 +57,7 @@ from ..engine.hooks import StepContext, TrainerHook
 from ..losses.dice import dice_loss
 from ..losses.kl import kl_div
 from ..parallel.collectives import num_ranks, sum_over_ranks
-from .mt import _copies, ema_update, justified_alpha
+from .mt import _copies, _zero_step, ema_step_tensor, ema_update, justified_alpha
 
 __all__ = ["DifferentiableMeanTeacherTrainerHook", "METHODS", "adam_init", "adam_step"]
 
@@ -67,8 +69,10 @@ Tensors = Dict[str, torch.Tensor]
 
 
 def adam_init(params: Mapping[str, torch.Tensor]) -> dict:
+    device = next(iter(params.values())).device
     return {"mu": {k: torch.zeros_like(p) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()}, "count": 0}
+            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+            "count": torch.zeros((), dtype=torch.int64, device=device)}
 
 
 @torch.no_grad()
@@ -78,8 +82,10 @@ def adam_step(grads: Mapping[str, torch.Tensor], opt: dict, params: Mapping[str,
     """One update of ``optax.chain(add_decayed_weights(decay), adam(lr))``
     in optax's order: g += decay * params; mu = (1 - b1) g + b1 mu; nu =
     (1 - b2) g^2 + b2 nu; the step -lr * mu_hat / (sqrt(nu_hat) + eps) with
-    the bias corrections of the incremented count (in f32, as JAX). ``opt``
-    is updated in place; -> ``params`` plus the step, new tensors."""
+    the bias corrections of the incremented count (in f32, as JAX; of a
+    tensor count on the device, b^count taken in f64 from the f32 base and
+    rounded once). ``opt`` is updated in place; -> ``params`` plus the step,
+    new tensors."""
     keys = list(params)
     g = torch._foreach_add([grads[k] for k in keys], [params[k] for k in keys], alpha=decay)
     mus, nus = [opt["mu"][k] for k in keys], [opt["nu"][k] for k in keys]
@@ -88,9 +94,14 @@ def adam_step(grads: Mapping[str, torch.Tensor], opt: dict, params: Mapping[str,
     torch._foreach_mul_(nus, b2)
     torch._foreach_addcmul_(nus, g, g, value=1.0 - b2)
     opt["count"] += 1
-    f32 = np.float32
-    bc1 = float(f32(1.0) - f32(b1) ** f32(opt["count"]))
-    bc2 = float(f32(1.0) - f32(b2) ** f32(opt["count"]))
+    f32, count = np.float32, opt["count"]
+    if isinstance(count, torch.Tensor):
+        # device scalars go in as lists (the Tensor overload reads one back)
+        bc1, bc2 = ([1.0 - torch.pow(float(f32(b)), count.double()).float()] * len(keys)
+                    for b in (b1, b2))
+    else:
+        bc1 = float(f32(1.0) - f32(b1) ** f32(count))
+        bc2 = float(f32(1.0) - f32(b2) ** f32(count))
     denom = torch._foreach_div(nus, bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
@@ -119,7 +130,8 @@ class DifferentiableMeanTeacherTrainerHook(TrainerHook):
 
     def init_state(self, bundle) -> dict:
         params, stats = _copies(bundle.model)
-        state = {"teacher_params": params, "teacher_batch_stats": stats, "ema_step": 0}
+        state = {"teacher_params": params, "teacher_batch_stats": stats,
+                 "ema_step": _zero_step(bundle.model)}
         if self._method in ("method1", "method3", "method4"):
             state["teacher_opt"] = adam_init(params)
         return state
@@ -232,7 +244,8 @@ class DifferentiableMeanTeacherTrainerHook(TrainerHook):
                 for k, p, g in zip(names, leaves, first)}
 
     def post_step(self, ctx: StepContext, model: torch.nn.Module, state):
-        alpha = justified_alpha(state["ema_step"], self._alpha)
+        alpha = justified_alpha(ema_step_tensor(state, next(model.parameters()).device),
+                                self._alpha)
         params = state["teacher_params"]
         current = dict(model.named_parameters())
         if self._method in ("method1", "method3"):
@@ -240,8 +253,9 @@ class DifferentiableMeanTeacherTrainerHook(TrainerHook):
             ema_update(ema.values(), [current[k] for k in ema], alpha, self._weight_decay)
             _, g = self._meta_grad(ctx, ema, state["teacher_batch_stats"], train=True)
             base = params if self._method == "method1" else ema
-            state["teacher_params"] = adam_step(g, state["teacher_opt"], base,
-                                                self._meta_weight)
+            new = adam_step(g, state["teacher_opt"], base, self._meta_weight)
+            with torch.no_grad():
+                torch._foreach_copy_([params[k] for k in new], list(new.values()))
         else:
             ema_update(params.values(), [current[k] for k in params], alpha,
                        self._weight_decay)

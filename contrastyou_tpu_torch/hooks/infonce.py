@@ -193,7 +193,7 @@ class SelfPacedINFONCEHook(INFONCEHook):
 
     def gamma(self, epoch: int, device=None) -> torch.Tensor:
         """The age parameter of ``epoch``, an f32 scalar."""
-        ramp = (torch.tensor(epoch, dtype=torch.float32, device=device)
+        ramp = (torch.full((), epoch, dtype=torch.float32, device=device)
                 / self._max_epoch) ** self._p
         return self._begin + (self._end - self._begin) * ramp
 

@@ -28,7 +28,7 @@ from ..engine.hooks import StepContext, TrainerHook
 from ..losses.kl import kl_div
 from ..ops.affine import apply_geometric, sample_geo_params
 from ..parallel.collectives import gather_rows
-from .utils import draw_mixup, mixup_data
+from .utils import mixup_data, mixup_draw_tensors
 
 __all__ = ["MixUpTrainHook"]
 
@@ -51,11 +51,13 @@ class MixUpTrainHook(TrainerHook):
     def draw(self, generator: torch.Generator, host_rng, shape):
         """``(geo, lam, perm)`` for a labeled batch of ``shape``: the second
         view's GeoParams from ``generator``, ``lam`` and a permutation of
-        the 2B images from ``host_rng``."""
+        the 2B images from ``host_rng`` (as tensors on the generator's
+        device)."""
         if host_rng is None:
             raise ValueError(f"{self.name}: the mixup draws need a host generator")
         geo = sample_geo_params(generator, int(shape[0]))
-        return (geo, *draw_mixup(host_rng, 2 * int(shape[0]), MIX_ALPHA))
+        return (geo, *mixup_draw_tensors(host_rng, 2 * int(shape[0]), MIX_ALPHA,
+                                         generator.device))
 
     def loss(self, ctx: StepContext, state):
         geo, lam, perm = ctx.hook_draws[self.name]

@@ -4,7 +4,10 @@ contrastyou_tpu/hooks/mt.py).
 
 The teacher is hook state, as in JAX: ``teacher_params`` and
 ``teacher_batch_stats`` (tensors keyed as the model's ``state_dict``, copies
-made at init) and ``ema_step`` (an int). A teacher forward runs the
+made at init) and ``ema_step`` (an int64 tensor on the model's device,
+advanced in place, so the EMA weight of each step is computed on the
+device and a CUDA graph of several steps replays it; a state restored with
+an int ``ema_step`` takes a tensor at its first EMA step). A teacher forward runs the
 student's module on those tensors (``torch.func.functional_call``) under
 ``torch.no_grad``, so the teacher is never an optimizer parameter and a
 resumed run's forward reads the restored tensors. The EMA update runs in
@@ -17,8 +20,8 @@ BN semantics (JAX ``_teacher_forward``):
   statistics, which ``post_step`` EMAs from the student's.
 
 Random draws are explicit: UAMT's noise and ICT's ``lam`` and permutation
-come from :meth:`draw` (the step's generator, or the host generator) and
-reach ``loss`` through ``ctx.hook_draws``.
+come from :meth:`draw` (the step's generator, or the host generator, its
+draws handed over as tensors) and reach ``loss`` through ``ctx.hook_draws``.
 
 Data parallelism (``ctx.data_group`` of W > 1 ranks): every teacher forward
 runs inside the step's data-parallel context, so its BatchNorm sums are the
@@ -43,37 +46,61 @@ from torch.func import functional_call
 
 from ..engine.hooks import StepContext, TrainerHook
 from ..parallel.collectives import all_reduce_sum, gather_rows, num_ranks
-from .utils import draw_mixup, mixup_data
+from .utils import mixup_data, mixup_draw_tensors
 
-__all__ = ["ema_update", "justified_alpha", "MeanTeacherTrainerHook", "EMAEvalTrainerHook",
+__all__ = ["ema_update", "justified_alpha", "ema_step_tensor", "MeanTeacherTrainerHook", "EMAEvalTrainerHook",
            "UAMeanTeacherTrainerHook", "ICTMeanTeacherTrainerHook"]
 
 
 @torch.no_grad()
-def ema_update(ema: Sequence[torch.Tensor], new: Sequence[torch.Tensor], alpha: float,
+def ema_update(ema: Sequence[torch.Tensor], new: Sequence[torch.Tensor], alpha,
                weight_decay: float = 0.0) -> None:
     """In place, JAX's order: ``e = e * alpha + (1 - alpha) * n``, then
-    ``e *= 1 - weight_decay`` when it is positive; ``1 - alpha`` in f32."""
+    ``e *= 1 - weight_decay`` when it is positive; ``1 - alpha`` in f32.
+    ``alpha`` is a float or an f32 scalar tensor (:func:`justified_alpha`
+    of a tensor step)."""
     ema, new = list(ema), [n.detach() for n in new]
     if not ema:                      # a GroupNorm net has no running statistics
         return
     torch._foreach_mul_(ema, alpha)
-    torch._foreach_add_(ema, new, alpha=float(np.float32(1.0) - np.float32(alpha)))
+    if isinstance(alpha, torch.Tensor):
+        torch._foreach_add_(ema, torch._foreach_mul(new, 1.0 - alpha))
+    else:
+        torch._foreach_add_(ema, new, alpha=float(np.float32(1.0) - np.float32(alpha)))
     if weight_decay > 0:
         torch._foreach_mul_(ema, float(np.float32(1.0) - np.float32(weight_decay)))
 
 
-def justified_alpha(step: int, alpha: float, justify: bool = True) -> float:
-    """``min(1 - 1/(step + 1), alpha)`` in f32 (JAX's), or ``alpha``."""
+def justified_alpha(step, alpha: float, justify: bool = True):
+    """``min(1 - 1/(step + 1), alpha)`` in f32 (JAX's), or ``alpha``: a
+    float of an int ``step``, an f32 scalar tensor of a tensor one (the
+    same f32 operations)."""
     if not justify:
         return float(np.float32(alpha))
+    if isinstance(step, torch.Tensor):
+        # each f32 operation taken in f64 and rounded: the correctly rounded f32
+        inv = (1.0 / (step.double() + 1.0).float().double()).float().double()
+        return (1.0 - inv).float().clamp(max=float(np.float32(alpha)))
     one = np.float32(1.0)
     return float(min(one - one / (np.float32(step) + one), np.float32(alpha)))
+
+
+def ema_step_tensor(state: dict, device) -> torch.Tensor:
+    """The state's ``ema_step`` as an int64 tensor on ``device`` (an int one,
+    from a restored checkpoint, becomes one)."""
+    step = state["ema_step"]
+    if not isinstance(step, torch.Tensor):
+        step = state["ema_step"] = torch.tensor(int(step), dtype=torch.int64, device=device)
+    return step
 
 
 def _copies(model: torch.nn.Module):
     return ({k: p.detach().clone() for k, p in model.named_parameters()},
             {k: b.detach().clone() for k, b in model.named_buffers()})
+
+
+def _zero_step(model: torch.nn.Module) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=next(model.parameters()).device)
 
 
 def _track(state: dict, model: torch.nn.Module, keys, alpha: float, weight_decay: float,
@@ -106,7 +133,8 @@ class MeanTeacherTrainerHook(TrainerHook):
 
     def init_state(self, bundle) -> dict:
         params, stats = _copies(bundle.model)
-        return {"teacher_params": params, "teacher_batch_stats": stats, "ema_step": 0}
+        return {"teacher_params": params, "teacher_batch_stats": stats,
+                "ema_step": _zero_step(bundle.model)}
 
     # --- teacher forward ----------------------------------------------------
     @staticmethod
@@ -141,7 +169,8 @@ class MeanTeacherTrainerHook(TrainerHook):
     def post_step(self, ctx: StepContext, model: torch.nn.Module, state):
         """The teacher's EMA step: the statistics with ``update_bn``, with
         the weight decay as JAX's."""
-        alpha = justified_alpha(state["ema_step"], self._alpha, self._justify_alpha)
+        step = ema_step_tensor(state, next(model.parameters()).device)
+        alpha = justified_alpha(step, self._alpha, self._justify_alpha)
         return _track(state, model, ("teacher_params", "teacher_batch_stats"), alpha,
                       self._weight_decay, self._weight_decay if self._update_bn else None)
 
@@ -174,10 +203,12 @@ class EMAEvalTrainerHook(TrainerHook):
 
     def init_state(self, bundle) -> dict:
         params, stats = _copies(bundle.model)
-        return {"ema_params": params, "ema_batch_stats": stats, "ema_step": 0}
+        return {"ema_params": params, "ema_batch_stats": stats,
+                "ema_step": _zero_step(bundle.model)}
 
     def post_step(self, ctx: StepContext, model: torch.nn.Module, state):
-        alpha = justified_alpha(state["ema_step"], self._alpha, self._justify_alpha)
+        step = ema_step_tensor(state, next(model.parameters()).device)
+        alpha = justified_alpha(step, self._alpha, self._justify_alpha)
         return _track(state, model, ("ema_params", "ema_batch_stats"), alpha,
                       self._weight_decay, 0.0 if self._update_bn else None)
 
@@ -261,10 +292,12 @@ class ICTMeanTeacherTrainerHook(MeanTeacherTrainerHook):
         self._mix_alpha = float(mix_alpha)
 
     def draw(self, generator: torch.Generator, host_rng: np.random.Generator, shape):
-        """``(lam, perm)`` over the 2B images of both views, on the host."""
+        """``(lam, perm)`` over the 2B images of both views, drawn on the
+        host, as tensors on the generator's device."""
         if host_rng is None:
             raise ValueError(f"{self.name}: the mixup draws need a host generator")
-        return draw_mixup(host_rng, 2 * int(shape[0]), self._mix_alpha)
+        return mixup_draw_tensors(host_rng, 2 * int(shape[0]), self._mix_alpha,
+                                  generator.device)
 
     def loss(self, ctx: StepContext, state):
         lam, perm = ctx.hook_draws[self.name]

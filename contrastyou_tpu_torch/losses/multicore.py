@@ -42,8 +42,14 @@ def scale_grad(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
 
 def reduced_simplex_from_groups(predict_simplex: torch.Tensor,
                                 groups: Sequence[Sequence[int]]) -> torch.Tensor:
-    """Sum the prototype probabilities of each group along the last axis."""
-    return torch.stack([predict_simplex[..., list(g)].sum(-1) for g in groups], -1)
+    """Sum the prototype probabilities of each group along the last axis. A
+    group of consecutive channels is sliced, so no index tensor goes to the
+    device (a CUDA graph of the step could not copy one)."""
+    def channels(g):
+        g = list(g)
+        return slice(g[0], g[0] + len(g)) if g == list(range(g[0], g[0] + len(g))) else g
+
+    return torch.stack([predict_simplex[..., channels(g)].sum(-1) for g in groups], -1)
 
 
 def multicore_kl_loss(predict_simplex: torch.Tensor, onehot_target: torch.Tensor,

@@ -82,8 +82,10 @@ before anything is built. The net is ``models.get_arch(Arch.name)`` with
 every ``Arch`` key JAX's root ``main.py`` passes (``Arch.name=resunet``,
 ``+Arch.norm=groupnorm``; a key the net has no field for raises, so
 ``Arch.name=unet2`` does, as in JAX). Keys the port does not implement
-(:data:`UNPORTED_KEYS`, the TPU knob ``Trainer.unroll_steps``) raise when
-set; ``+Trainer.profile=true`` traces epoch index 1 into
+(:data:`UNPORTED_KEYS`, none left) raise when set;
+``Trainer.unroll_steps=K`` runs K steps a call (one CUDA graph a call on the
+card; ``engine/graph.py``) under every trainer but ``adv`` and pretraining,
+which refuse it as JAX's run one step a call; ``+Trainer.profile=true`` traces epoch index 1 into
 ``<save_dir>/profile`` (``engine/trainer.py``). Every trainer takes the class count
 of ``Data.name``; pretraining also its partition count and contrastive
 sampler. Every ``Data.name`` reads from disk, the resize datasets
@@ -280,8 +282,13 @@ def synthetic_scans(n_scans: int, slices_per_scan: int, size: int, *,
 
 #: config keys the port parses but does not implement, with the value that
 #: means "not used": another value raises rather than train something else
-#: (the JAX trainer's TPU knob: unrolled steps)
-UNPORTED_KEYS = {("Trainer", "unroll_steps"): 1}
+#: (none left: ``Trainer.unroll_steps`` was the last)
+UNPORTED_KEYS: dict = {}
+
+#: why the pretraining runs and trainers take one step a call
+PRETRAIN_UNROLL_REFUSAL = ("JAX's pretraining trainers build their own step and loop and run "
+                           "one step a call whatever unroll_steps is "
+                           "(contrastyou_tpu/trainers/pretrain.py)")
 
 
 def refuse_unported_keys(config: Mapping) -> None:
@@ -362,7 +369,9 @@ def _hooks(config: Mapping, model: torch.nn.Module, device, dtype, generator, *,
 @dataclass
 class SemiRun:
     state: TrainState
-    step: Callable                  # step(state, generator, epoch, host_rng) -> metrics
+    #: step(state, generator, epoch, host_rng) -> metrics: one call of
+    #: ``Trainer.unroll_steps`` steps (metrics stacked [K, ...] when K > 1)
+    step: Callable
     generator: torch.Generator
     batch_slices: int               # slices per step (labeled + unlabeled)
     labeled_cache: DeviceDataCache
@@ -433,6 +442,7 @@ def build_semi_run(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     step = build_cached_train_step(
         bundle, hooks, labeled_cache=lab, unlabeled_cache=None if ft else unl,
         labeled_batch=nl, unlabeled_batch=nu, data_group=data_group,
+        unroll=int(trainer.get("unroll_steps", 1)),
         disable_bn=bool(trainer.get("disable_bn", False)),
         two_stage=bool(trainer.get("two_stage", True)), **criterion)
     return SemiRun(state, step, gen, nl if ft else nl + nu, lab, unl, hooks,
@@ -470,11 +480,15 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     ``data_group`` of W ranks every rank samples the one-process batch and
     its draws and keeps its 1/W of the rows (``build_pretrain_step(
     data_group=)``), the weights broadcast from rank 0; ``batch_slices``
-    stays the global batch's."""
+    stays the global batch's. ``Trainer.unroll_steps`` above 1 raises
+    (:data:`PRETRAIN_UNROLL_REFUSAL`)."""
     refuse_unported_keys(config)
     check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
     trainer = config["Trainer"]
+    if int(trainer.get("unroll_steps", 1)) != 1:
+        raise NotImplementedError(f"Trainer.unroll_steps={trainer['unroll_steps']!r} under "
+                                  f"pretraining: {PRETRAIN_UNROLL_REFUSAL}")
     data_name = str(config["Data"]["name"])
     spec = dataset_spec(data_name)
     if slices_per_scan is None:

@@ -5,6 +5,7 @@
     python -m contrastyou_tpu_torch.profile_step semi --udaiic
     python -m contrastyou_tpu_torch.profile_step mt [-o ~MeanTeacherParameters \
         +UAMeanTeacherParameters.weight=10 ...]
+    python -m contrastyou_tpu_torch.profile_step semi --unroll 8
 
 For ``semi``, ``mt`` (the mean teacher; UAMT and ICT by the overrides of
 README's "mean teacher without PyYAML"), ``pretrain_decoder`` or
@@ -19,7 +20,10 @@ of ``semi`` + consistency. After warm-up, ``--rounds`` timed windows of
 (the sum of the kernels' device times over the window's wall time), kernels
 per step, and the largest items by device time, grouped by the operator that
 launched them, and the device time of each of the port's hand-written
-kernels. Every line names the card and its power limit. Needs a card.
+kernels. ``--unroll K`` (``semi``, ``mt``) runs ``Trainer.unroll_steps=K``:
+K steps a call, one CUDA graph a call after the first two calls (eager
+warm-up, capture), ``--steps`` rounded down to whole calls; every figure
+stays per step. Every line names the card and its power limit. Needs a card.
 """
 from __future__ import annotations
 
@@ -82,6 +86,8 @@ def main(argv=None) -> int:
                     help="also list the largest operators by input shapes")
     ap.add_argument("--udaiic", action="store_true",
                     help="semi with the udaiic hooks (config/hooks/udaiic.yaml)")
+    ap.add_argument("--unroll", type=int, default=1,
+                    help="Trainer.unroll_steps: K steps a call, one CUDA graph a call")
     ap.add_argument("-o", dest="overrides", nargs="*", default=[],
                     help="config overrides, e.g. Data.name=prostate")
     args = ap.parse_args(argv)
@@ -89,14 +95,20 @@ def main(argv=None) -> int:
         raise RuntimeError("profile_step needs a CUDA card")
     device = torch.device("cuda", 0)
     card = _card()
-    run = _build(args.trainer, device, args.overrides, udaiic=args.udaiic)
+    K = max(args.unroll, 1)
+    overrides = [*args.overrides, *([f"Trainer.unroll_steps={K}"] if K > 1 else [])]
+    run = _build(args.trainer, device, overrides, udaiic=args.udaiic)
     name = (f"{args.trainer}/udaiic" if args.udaiic else
             "/".join([args.trainer] + [h.name for h in run.hooks if args.trainer == "mt"]))
+    if K > 1:
+        name += f"/unroll{K}"
+    calls = max(args.steps // K, 1)
+    args.steps = calls * K
     run.run(3)
     torch.cuda.synchronize()
     for r in range(args.rounds):
         t0 = time.perf_counter()
-        run.run(args.steps)
+        run.run(calls)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / args.steps * 1e3
         print(f"{name} round {r}: {ms:.3f} ms/step, "
@@ -105,7 +117,7 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=args.shapes) as prof:
         t0 = time.perf_counter()
-        run.run(args.steps)
+        run.run(calls)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

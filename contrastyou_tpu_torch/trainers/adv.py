@@ -101,6 +101,9 @@ class AdversarialTrainer(Trainer):
     activate_hooks = False
     data_parallel_refusal = ("JAX's adversarial loop does not shard its batches "
                              "(contrastyou_tpu/trainers/adv.py tra_epoch)")
+    unroll_refusal = ("JAX's adversarial trainer builds its own step and loop and runs one "
+                      "step a call whatever unroll_steps is (contrastyou_tpu/trainers/adv.py "
+                      "tra_epoch)")
 
     def __init__(self, *, reg_weight: float = 0.01, dis_consider_image: bool = False, **kwargs):
         if int(kwargs.get("accumulate_iter", 1)) != 1:

@@ -385,6 +385,9 @@ class PretrainEncoderTrainer(Trainer):
     data_parallel_refusal = ("JAX's pretraining loop does not shard its batches "
                              "(contrastyou_tpu/trainers/pretrain.py tra_epoch); the pretrain "
                              "step does: build_pretrain_step(data_group=)")
+    unroll_refusal = ("JAX's pretraining trainers build their own step and loop and run one "
+                      "step a call whatever unroll_steps is "
+                      "(contrastyou_tpu/trainers/pretrain.py)")
 
     def __init__(self, *, contrast_loader=None, monitor_loader=None, **kwargs):
         if contrast_loader is not None:

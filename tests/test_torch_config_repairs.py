@@ -60,20 +60,25 @@ def test_acdc_subtask_targets_are_remapped_as_jax(name):
 
 @pytest.mark.parametrize("key,value", [("Trainer.unroll_steps", "2"), ("Trainer.profile", "true")])
 def test_unported_keys_raise(key, value):
-    """A non-default value of a key the port does not implement raises
-    ``NotImplementedError`` naming it, in both run builders, before anything
-    is built. ``Trainer.profile`` was such a key until the profiler trace
-    was ported: it has left :data:`UNPORTED_KEYS`, which holds the TPU knob
-    alone, and both run-building functions take it."""
-    ported = key == "Trainer.profile"
-    assert (tuple(key.split(".")) in UNPORTED_KEYS) is not ported
-    assert list(UNPORTED_KEYS) == [("Trainer", "unroll_steps")]
+    """Both keys that were refused as unported are ported: they have left
+    :data:`UNPORTED_KEYS`, which is empty. ``Trainer.profile`` is taken by
+    both run-building functions. ``Trainer.unroll_steps`` is accepted by the
+    ``semi`` run, whose step then runs that many steps a call (metrics
+    stacked [2, ...]); pretraining refuses it, naming the key, as JAX's
+    pretraining runs one step a call."""
+    assert UNPORTED_KEYS == {}
     for trainer, build, size in (("semi", build_semi_run, dict(raw_size=40, n_slices=8)),
                                  ("pretrain", build_pretrain_run, dict(raw_size=36, n_scans=6))):
         cfg = parse_config(["-o", f"Trainer.name={trainer}", f"+{key}={value}"])
-        if ported:
+        if key == "Trainer.profile":
             assert cfg["Trainer"]["profile"] is True
             build(cfg, **size, **SMALL)
+            continue
+        assert cfg["Trainer"]["unroll_steps"] == 2
+        if trainer == "semi":
+            run = build(cfg, **size, **SMALL)
+            m = run.step(run.state, run.generator, 0, run.host_rng)
+            assert m["sup_loss"].shape == (2,) and run.state.step == 2
             continue
         with pytest.raises(NotImplementedError, match=re.escape(key)):
             build(cfg, **size, **SMALL)

@@ -24,6 +24,7 @@ chip_smoke.py times.
 import pytest
 import torch
 
+from contrastyou_tpu_torch.engine.hooks import TrainerHook
 from contrastyou_tpu_torch.ops import convblock as cb
 from contrastyou_tpu_torch.ops import iic, supcon
 from torch_parity import scaled_close
@@ -773,3 +774,89 @@ def test_profile_step_names_the_hand_kernels():
     for kind in ("false, 2", "true, 2", "true, 4"):
         assert _hand_kernel(ns + f"supcon_kernel<{kind}>" + args) == "D1/D2 supcon"
     assert _hand_kernel("void at::native::elementwise_kernel<128, 4>") is None
+
+
+def _unroll_run(unroll: int):
+    """The ``semi`` run at full width on 32 x 32 crops (the kernels take the
+    narrow levels' 32 and 64 channels), ``unroll`` steps a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from contrastyou_tpu_torch.main import build_semi_run, parse_config
+    cfg = parse_config(["-o", "Trainer.name=semi", f"Trainer.unroll_steps={unroll}"])
+    return build_semi_run(cfg, device=torch.device("cuda"), raw_size=40, crop=32, n_slices=8)
+
+
+@pytest.mark.gpu
+def test_unrolled_graph_matches_eager_steps():
+    """``semi`` at K = 2, three calls (the eager warm-up, a capture and
+    replay, a replay: one CUDA graph a call) against six eager steps from
+    one seed: the sampled batch indices equal, losses and parameters within
+    TOL, the replays' draws not frozen, the launches the eager steps make,
+    and ``step`` 6."""
+    from contrastyou_tpu_torch.engine.trainer import kernel_launches
+    K, calls = 2, 3
+    losses, ids, launches = {}, {}, {}
+    runs = {}
+    for unroll in (1, K):
+        run = runs[unroll] = _unroll_run(unroll)
+        drawn, draw = [], run.labeled_cache.draw
+        run.labeled_cache.draw = lambda g, n, draw=draw, drawn=drawn: (
+            drawn.append(draw(g, n)) or drawn[-1])
+        for reset in (cb.reset_launch_counts, supcon.reset_launch_counts,
+                      iic.reset_launch_counts):
+            reset()
+        got = [run.step(run.state, run.generator, 0, run.host_rng)
+               for _ in range(K * calls if unroll == 1 else calls)]
+        losses[unroll] = torch.cat([m["total_loss"].reshape(-1) for m in got])
+        ids[unroll] = torch.stack([d[0] for d in drawn])
+        launches[unroll] = kernel_launches()
+    graph = runs[K].step.graph
+    assert graph.replays == calls - 1 and graph.launches_per_graph
+    assert torch.equal(ids[1], ids[K]) and not torch.equal(ids[K][2:4], ids[K][4:6])
+    scaled_close(losses[K], losses[1], tol=TOL)
+    assert launches[1] == launches[K] and runs[K].state.step == runs[1].state.step == K * calls
+    for (k, a), b in zip(runs[K].state.model.state_dict().items(),
+                         runs[1].state.model.state_dict().values()):
+        if a.is_floating_point():
+            scaled_close(a, b, tol=TOL)
+
+
+class _SyncHook(TrainerHook):
+    """A hook whose loss reads a value back to the host."""
+
+    def loss(self, ctx, state):
+        scale = float(ctx.unlabeled_logits.float().mean().abs() + 1)   # reads back
+        return ctx.unlabeled_logits.float().mean() * 0 * scale, state, {}
+
+
+class _HostCountHook(TrainerHook):
+    """A hook that counts its steps on the host."""
+
+    def init_state(self, bundle):
+        return {"count": 0}
+
+    def loss(self, ctx, state):
+        return ctx.unlabeled_logits.float().mean() * 0, {"count": state["count"] + 1}, {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hook,match", [(_SyncHook, "CUDA graph capture of 2 steps failed"),
+                                        (_HostCountHook, "a host value")])
+def test_unrolled_graph_capture_failure_raises(hook, match):
+    """A step that reads back to the host, or keeps host state, cannot be
+    replayed: the capture raises naming the path, and the run never falls
+    back to eager steps."""
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.steps import build_cached_train_step, init_train_state
+    run = _unroll_run(1)
+    hooks = [*run.hooks, hook(hook_name="probe")]
+    state = init_train_state(ModelBundle(run.state.model, (32, 32, 1)), hooks,
+                             run.state.optimizer)
+    step = build_cached_train_step(ModelBundle(run.state.model, (32, 32, 1)), hooks,
+                                   labeled_cache=run.labeled_cache,
+                                   unlabeled_cache=run.unlabeled_cache, unroll=2)
+    step(state, run.generator, 0, run.host_rng)             # the eager warm-up
+    with pytest.raises(RuntimeError, match=match) as err:
+        step(state, run.generator, 0, run.host_rng)
+    assert "device-cached semi step" in str(err.value)
+    assert step.graph.replays == 0

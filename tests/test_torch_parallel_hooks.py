@@ -153,10 +153,12 @@ def test_ict_draws_are_whole_and_mix_the_ranks_rows(ranks, one_process):
     mixed batch, which takes rows of the other rank."""
     ref = one_process["ict"]["seen"]
     lam, perm = ref["draw"]
+    perm = perm.tolist()
     assert sorted(perm) == list(range(2 * B))
     per = B // W
     for r, res in enumerate(ranks):
-        assert res["ict"]["seen"]["draw"] == (lam, perm)
+        rlam, rperm = res["ict"]["seen"]["draw"]
+        assert torch.equal(rlam, lam) and rperm.tolist() == perm
         rows = [*range(r * per, (r + 1) * per), *range(B + r * per, B + (r + 1) * per)]
         assert torch.equal(res["ict"]["seen"]["student_input"], ref["student_input"][rows]), r
     own = [{*range(r * per, (r + 1) * per), *range(B + r * per, B + (r + 1) * per)}

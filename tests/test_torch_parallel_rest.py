@@ -187,11 +187,12 @@ def test_mixup_draws_are_cut_by_part_and_mix_the_ranks_rows(ranks, one_process):
     second views) of the one-process mixed batch, bitwise."""
     ref = one_process["mixup"]["seen"]
     geo, lam, perm = ref["draw"]
+    perm = perm.tolist()
     assert sorted(perm) == list(range(2 * B))
     per = B // W
     for r, res in enumerate(ranks):
         rgeo, rlam, rperm = res["mixup"]["seen"]["draw"]
-        assert (rlam, rperm) == (lam, perm)
+        assert torch.equal(rlam, lam) and rperm.tolist() == perm
         assert all(torch.equal(a, b[r * per:(r + 1) * per]) for a, b in zip(rgeo, geo))
         rows = [*range(r * per, (r + 1) * per), *range(B + r * per, B + (r + 1) * per)]
         assert torch.equal(res["mixup"]["seen"]["student_input"], ref["student_input"][rows]), r
