@@ -271,7 +271,8 @@ Phases, in order; any failure exits non-zero:
    capture and its replay, a replay): losses and every state tensor within
    ``KERNEL_RTOL`` (the state's difference in units of what the steps
    changed; bitwise expected, and printed, where the step has no
-   nondeterministic op: ``semi/udaiic`` is held beside a second eager run),
+   nondeterministic op: ``semi/udaiic``'s eager runs part from each other
+   as far as the graph's, PR 24),
    each step's draws those of the eager step and found in the graph's
    input buffers at its replay, the two replays' draws apart, each step's
    learning rate the schedule's, launches equal to the eager run's and 3x
@@ -284,7 +285,20 @@ Phases, in order; any failure exits non-zero:
    and C2 launched as 32 ``semi`` steps imply. ``python3 chip_smoke.py
    unroll [kind ...]`` runs the same check on other trainers
    (``P23_EXTRA``: ``ft``, ``uamt``, ``mixup``, ``multicore``, ``dmt``,
-   ``dmt/second_order``, ``ccblocks``).
+   ``dmt/second_order``, ``ccblocks``); phase 23 also drives DMT's ``mt``
+   and ``method2``-``method4`` rules;
+24. chunked evaluation: 44 validation scans of 8-20 slices at
+   full width (one chunk of 32 batches and one padded to 32), three
+   ``Trainer.eval_epoch`` passes each for ``semi`` (after a K = 8 train
+   epoch, its eval graph in the train graph's memory pool), ``mt`` (its
+   teacher) and ``multicore``: one capture, launches 2 x 32 x (8 K1 + 1
+   K2) a pass, every replayed chunk bit for bit its eager run (losses,
+   counts, per-scan DSC), ms a scan against the eager chunks and the
+   per-scan path, peak and reserved memory (a pool of its own against the
+   train graph's); then 2 gloo ranks on the card: ``semi/dp`` device-cached
+   and host-fed, ``mt/dp`` and ``dmt/dp`` at K = 8 bit for bit K = 1 (a
+   loop on ranks), and the sharded chunked eval against one process's, two
+   collectives a chunk. ``python3 chip_smoke.py eval`` runs phase 24 alone.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The line before the last is the kernels' JSON record: ``launches``
@@ -3402,7 +3416,7 @@ def run_phase17(device, card: str, recs: dict, extra=()) -> dict:
 # --- phases 18 and 19: data parallelism ---------------------------------------
 
 #: ranks, slices a rank (labeled and unlabeled each), steps a path
-DP_WORLD, DP_BATCH, DP_STEPS = 2, 5, 5
+DP_WORLD, DP_BATCH, DP_STEPS = 2, 5, 3
 #: the data-parallel paths, (name, overrides of ``parse_config``), each on
 #: ``DP_WORLD`` ranks of ``DP_BATCH`` + ``DP_BATCH`` slices (``ft``: the
 #: labeled batch alone) against one process at the global batch: phase 18's
@@ -4346,9 +4360,12 @@ P23_UNROLL, P23_CALLS = 8, 3
 #: (path, its config, host-fed): ``semi`` + consistency device-cached and
 #: host-fed, then the udaiic hooks (E1/E2 in the graph), MT and ICT (the
 #: EMA teacher updated in place; ICT's draws from the host generator)
+#: then DMT's rules but ``method1`` and ``second_order`` (``P23_EXTRA``'s)
+P23_DMT_RULES = ("mt", "method2", "method3", "method4")
 P23_PATHS = [("semi/unroll", "semi", False), ("semi/unroll/host", "semi", True),
              ("semi/udaiic/unroll", "udaiic", False), ("mt/unroll", "mt", False),
-             ("ict/unroll", "ict", False)]
+             ("ict/unroll", "ict", False),
+             *((f"dmt/{m}/unroll", f"dmt/{m}", False) for m in P23_DMT_RULES)]
 #: the entry point's run of phase 23: a short epoch of two graph calls
 P23_MAIN_ARGV = ["-o", "Trainer.name=semi", f"Trainer.unroll_steps={P23_UNROLL}",
                  "Trainer.device_cache=true", "Trainer.max_epoch=2",
@@ -4364,7 +4381,8 @@ P23_EXTRA = ("ft", "uamt", "mixup", "multicore", "dmt", "dmt/second_order", "ccb
 P23_OVERRIDES = {"ft": ["Trainer.name=ft"], "mixup": ["Trainer.name=mixup"],
                  "multicore": ["Trainer.name=multicore", "+IIDSegParameters.weight=0.01"],
                  "dmt": ["Trainer.name=dmt"],
-                 "dmt/second_order": ["Trainer.name=dmt", f"{DMT_METHOD}=second_order"],
+                 **{f"dmt/{m}": ["Trainer.name=dmt", f"{DMT_METHOD}={m}"]
+                    for m in ("second_order", *P23_DMT_RULES)},
                  "ccblocks": ["Trainer.name=semi", "~ConsistencyParameters", *P15_CC, *P15_RR,
                               *P15_IMSAT]}
 
@@ -4384,22 +4402,26 @@ class P23Feed:
     run's synthetic split with a seeded numpy generator, sent through pinned
     memory as the trainer sends them, and the step's draws from the run's
     generators; the eager side steps ``build_train_step``, the graph side
-    ``build_unrolled_train_step``."""
+    ``build_unrolled_train_step``. On a ``group`` of W ranks (phase 24b)
+    each rank crops its own rows from a generator seeded with its rank and
+    keeps its rows of the global batch's draws."""
 
-    def __init__(self, run, device, unroll: int, seed: int = 5):
+    def __init__(self, run, device, unroll: int, seed: int = 5, group=None):
         import numpy as np
         from contrastyou_tpu_torch.engine.bundle import ModelBundle
         from contrastyou_tpu_torch.engine.steps import (build_train_step,
                                                         build_unrolled_train_step)
-        self.run, self.device, self.unroll = run, device, unroll
-        self.rng = np.random.default_rng(seed)
+        self.run, self.device, self.unroll, self.group = run, device, unroll, group
+        self.world = 1 if group is None else group.size
+        self.rng = np.random.default_rng(seed + (0 if group is None else group.rank))
         #: each call's stacked labeled images (K > 1)
         self.log: list = []
         self.split = [(c.images.cpu().numpy(), c.targets.cpu().numpy(), c.crop)
                       for c in (run.labeled_cache, run.unlabeled_cache)]
         bundle = ModelBundle(run.state.model, (self.split[0][2], self.split[0][2], 1))
-        self.step = (build_train_step(bundle, run.hooks) if unroll == 1 else
-                     build_unrolled_train_step(bundle, run.hooks, unroll=unroll))
+        self.step = (build_train_step(bundle, run.hooks, data_group=group) if unroll == 1 else
+                     build_unrolled_train_step(bundle, run.hooks, unroll=unroll,
+                                               data_group=group))
 
     def _crop(self, which: int, n: int):
         images, targets, c = self.split[which]
@@ -4411,7 +4433,7 @@ class P23Feed:
     def _one(self):
         import numpy as np
         import torch
-        from contrastyou_tpu_torch.engine.steps import sample_step_draws
+        from contrastyou_tpu_torch.engine.steps import sample_step_draws, shard_step_draws
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
@@ -4419,14 +4441,19 @@ class P23Feed:
 
         idx, img, tgt = self._crop(0, 5)
         _, uimg, _ = self._crop(1, 5)
-        batch = {"labeled_image": dev(np.stack(img)[..., None]),
+        # [..., None] of a fresh stack: the channel axis's stride as a
+        # stacked row's (the backward's kernels on the CPU read it)
+        batch = {"labeled_image": dev(np.stack([i[..., None] for i in img])),
                  "labeled_target": dev(np.stack(tgt)),
-                 "unlabeled_image": dev(np.stack(uimg)[..., None])}
-        shape = tuple(batch["unlabeled_image"].shape)
+                 "unlabeled_image": dev(np.stack([i[..., None] for i in uimg]))}
+        def whole(x):
+            return (x.shape[0] * self.world, *x.shape[1:])
+
+        shape = whole(batch["unlabeled_image"])
         draws = sample_step_draws(self.run.generator, shape[0], self.run.hooks,
                                   host_rng=self.run.host_rng, shape=shape,
-                                  labeled_shape=tuple(batch["labeled_image"].shape))
-        return batch, draws, torch.as_tensor(idx)
+                                  labeled_shape=whole(batch["labeled_image"]))
+        return batch, shard_step_draws(draws, self.run.hooks, self.group), torch.as_tensor(idx)
 
     def __call__(self):
         import torch
@@ -4567,14 +4594,13 @@ def _p23_compare(e: dict, g: dict) -> dict:
 
 
 def p23_path(path: str, kind: str, host: bool, device, card: str,
-             profiled: bool = False, eager_twice: bool = False) -> dict:
+             profiled: bool = False) -> dict:
     """One path of phase 23: from one state and one seed, P23_CALLS x K
     eager steps at K = 1 and P23_CALLS calls at K = P23_UNROLL, held
     against each other (losses and every state tensor at KERNEL_RTOL, the
     draws each step consumed, the learning rates, the launches); the last
     call timed against the last K eager steps with CUDA events.
-    ``eager_twice``: a second eager run measures the eager steps' own
-    run-to-run difference beside the graph's; ``profiled``: the busy share
+    ``profiled``: the busy share
     of one more call and of as many eager steps. Returns the graph run's
     launches and its record."""
     import torch
@@ -4582,7 +4608,6 @@ def p23_path(path: str, kind: str, host: bool, device, card: str,
     K, calls = P23_UNROLL, P23_CALLS
     steps = K * calls
     e = _p23_run(kind, host, 1, device, steps, K)
-    e2 = _p23_run(kind, host, 1, device, steps, K) if eager_twice else None
     g = _p23_run(kind, host, K, device, steps, K)
     cmp = _p23_compare(e, g)
     rel, state_rel, first = cmp["loss_rel"], cmp["state_rel"], cmp["first_apart"]
@@ -4602,14 +4627,6 @@ def p23_path(path: str, kind: str, host: bool, device, card: str,
           f"({e['ms'] / g['ms']:.2f}x; CUDA events; host clock {e['wall_ms']:.3f} / "
           f"{g['wall_ms']:.3f}); peak {e['peak']:.2f} / {g['peak']:.2f} GiB above the process's "
           f"on {card}")
-    again = None
-    if e2 is not None:
-        again = _p23_compare(e, e2)
-        print(f"{path}: a second eager run against the first: losses "
-              f"{again['losses_bitwise']}/{steps} bitwise (first apart: step "
-              f"{again['first_apart']}), worst rel {again['loss_rel']:.2e}; "
-              f"{again['state_bitwise']}/{again['state_tensors']} state tensors bitwise, the "
-              f"difference {again['state_rel']:.2e} of the steps' change")
     if rel > KERNEL_RTOL or state_rel > KERNEL_RTOL:
         raise AssertionError(f"{path}: graph vs eager loss rel {rel:.2e}, state {state_rel:.2e} "
                              f"of the steps' change (limit {KERNEL_RTOL})")
@@ -4646,12 +4663,10 @@ def p23_path(path: str, kind: str, host: bool, device, card: str,
            "graph_wall_ms": g["wall_ms"], "capture_s": g["capture_s"],
            "launches_per_graph": per_graph, "eager_peak_gib": e["peak"],
            "graph_peak_gib": g["peak"], **cmp}
-    if again is not None:
-        rec["eager_again"] = again
     if profiled:
         rec["idle"] = rec_idle
     launches = g["launches"]
-    del e, e2, g
+    del e, g
     torch.cuda.empty_cache()
     return {"launches": launches, "record": rec}
 
@@ -4693,8 +4708,7 @@ def run_phase23(device, card: str) -> dict:
 
     by_path, recs = {}, {}
     for path, kind, host in P23_PATHS:
-        r = p23_path(path, kind, host, device, card, profiled=path == "semi/unroll",
-                     eager_twice=kind == "udaiic")
+        r = p23_path(path, kind, host, device, card, profiled=path == "semi/unroll")
         by_path[path], recs[path] = r["launches"], r["record"]
     saved_paths = package.DATA_PATH, package.RUN_PATH
     try:
@@ -4728,6 +4742,381 @@ def run_phase23(device, card: str) -> dict:
     finally:
         package.DATA_PATH, package.RUN_PATH = saved_paths
     print("phase 23 records: " + json.dumps(recs))
+    return by_path
+
+
+# --- phase 24: chunked evaluation, one CUDA graph a chunk; K steps a call on ranks ---------
+
+#: phase 24a's validation scans: P24_EACH of each slice count (44 scans, one
+#: pass a chunk of 32 and one of 12 padded to 32, every batch 20 slices)
+P24_SLICES, P24_EACH, P24_TRAIN_SCANS = (8, 12, 16, 20), 11, 4
+#: 24a's trainers, (path, overrides, train steps before the passes): ``semi``
+#: + consistency with a K = 8 train graph on the device cache (its eval
+#: graph captured into the train graph's memory pool), ``mt`` evaluated on
+#: its teacher after two steps, ``multicore`` (``prob_transform``)
+P24_EVAL = [("semi/eval", ["Trainer.name=semi", "Trainer.unroll_steps=8",
+                           "Trainer.device_cache=true", "Trainer.num_batches=16"], True),
+            ("mt/eval", ["Trainer.name=mt", "Trainer.device_cache=true",
+                         "Trainer.num_batches=2"], True),
+            ("multicore/eval", ["Trainer.name=multicore", "+IIDSegParameters.weight=0.01"],
+             False)]
+#: 24b: the paths on DP_WORLD ranks at K = P23_UNROLL against K = 1, (path,
+#: overrides, host-fed)
+P24_DP = [("semi/dp/unroll", P19_PATHS[0][1], False), ("semi/dp/unroll/host", P19_PATHS[0][1], True),
+          ("mt/dp/unroll", ["Trainer.name=mt"], False),
+          ("dmt/dp/unroll", ["Trainer.name=dmt"], False)]
+#: 24b: calls of K = 8 (the last call timed against the last 8 of as many
+#: one-step calls)
+P24_DP_CALLS = 1
+#: 24b: the sharded eval against one process's: the loss's relative
+#: difference (the numerators summed over the ranks in another order) and
+#: the DSC's (a bf16 pixel may round the other way at another batch size,
+#: moving one scan's dice by ~1/|union| ~ 1e-6 here)
+P24_EVAL_LOSS_RTOL, P24_EVAL_DSC_ATOL = 1e-5, 1e-4
+
+
+def write_p24_layout(root) -> None:
+    from contrastyou_tpu_torch.data.synthetic import synthesize_acdc_like
+    for i, n in enumerate(P24_SLICES):
+        synthesize_acdc_like(root, num_train_scans=P24_TRAIN_SCANS if i == 0 else 0,
+                             num_val_scans=P24_EACH, slices_per_scan=n, size=LOOP_SIZE, seed=i,
+                             first_scan=1 if i == 0 else P24_TRAIN_SCANS + i * P24_EACH + 1)
+
+
+def p24_batches(root) -> list:
+    """Every validation scan of the layout as one eval batch (padded to the
+    longest), read once: the passes time the staging and the device."""
+    from contrastyou_tpu_torch.data.creator import create_tra_test_dataset
+    from contrastyou_tpu_torch.data.loader import BatchLoader
+    from contrastyou_tpu_torch.data.sampler import ScanBatchSampler
+    _, test = create_tra_test_dataset("acdc", str(root))
+    return list(BatchLoader(test, batch_sampler=ScanBatchSampler(test, shuffle=False),
+                            infinite=False))
+
+
+def p24_trainer(path: str, overrides: list, device, group=None):
+    from contrastyou_tpu_torch import main as port_main
+    cfg = port_main.parse_config(["-o", *overrides, "Trainer.max_epoch=1",
+                                  f"Trainer.save_dir=p24_{path.replace('/', '_')}"])
+    return port_main.build_trainer(cfg, device=device, data_group=group)
+
+
+def _stage(chunk: list, device) -> list:
+    import numpy as np
+    import torch
+    return [torch.from_numpy(np.stack([b[k] for b in chunk])).to(device)
+            for k in ("image", "target", "mask")]
+
+
+def _by_scan(outs: list, names: list, sums: dict) -> None:
+    """Add a chunk's per-row counts to ``sums`` by scan name."""
+    inter, union = (x.reshape(-1, x.shape[-1]).cpu() for x in outs[1:])
+    for i, name in enumerate(names):
+        if name is not None:
+            a, b = sums.setdefault(name, [0, 0])
+            sums[name] = [a + inter[i], b + union[i]]
+
+
+def _dsc(sums: dict):
+    import torch
+    return {k: ((2 * a.double() + 1e-16) / (b.double() + 1e-16)) for k, (a, b) in sums.items()}
+
+
+def p24_eval(path: str, overrides: list, train: bool, batches: list, device, card: str,
+             timed: bool = True) -> dict:
+    """24a on one trainer: its train epoch (``train``), then three
+    ``eval_epoch`` passes over ``batches`` (the first chunk the eager
+    warm-up, the second the capture and its replay, then replays):
+    captures, replays, launches (each pass
+    chunks x 32 x (8 K1 + 1 K2)), ms a scan and peak memory of each; every
+    chunk replayed against its eager run on the same device tensors,
+    bitwise (losses, counts, per-scan DSC), the passes' statistics equal;
+    with ``timed``, timed against the eager chunks and the per-scan path
+    (``build_eval_step`` a scan, as before chunking). On ``semi`` the memory
+    an eval capture adds in the train graph's pool and in a pool of its
+    own."""
+    import torch
+    from contrastyou_tpu_torch.engine.graph import GraphPool
+    from contrastyou_tpu_torch.engine.steps import build_scanned_eval_step
+
+    gib = 2 ** 30
+    trainer = p24_trainer(path, overrides, device)
+    if train:
+        trainer.tra_epoch(0)
+    model = trainer._inference_state()
+    teacher = model is not trainer._model
+    scanned = trainer._scanned_eval()
+    graph = scanned.graph
+    n = len(batches)
+    K = trainer.EVAL_CHUNK
+    chunks = list(trainer._eval_chunks(batches))
+    want = {k: len(chunks) * K * v for k, v in EVAL_FORWARD_LAUNCHES.items()}
+    passes = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        _reset_counts()
+        t0 = time.perf_counter()
+        stats, score = trainer.eval_epoch(batches, 0, "val")
+        torch.cuda.synchronize()
+        passes.append({"ms_scan": (time.perf_counter() - t0) / n * 1e3, "stats": stats,
+                       "launches": _counts(), "captures": graph.captures,
+                       "replays": graph.replays,
+                       "peak_gib": (torch.cuda.max_memory_allocated() - base) / gib,
+                       "reserved_added_gib": (torch.cuda.memory_reserved() - reserved) / gib})
+        got = {k: passes[-1]["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"{path} pass {i + 1}: launches {got}, want {want}")
+    # every chunk has one shape: the first call is the warm-up, the second
+    # (pass 1's second chunk) captures, every later call replays
+    captures = [1 if len(chunks) > 1 else 0, 1, 1]
+    if ([p["captures"] for p in passes] != captures
+            or passes[-1]["replays"] != 3 * len(chunks) - 1):
+        raise AssertionError(f"{path}: captures {[p['captures'] for p in passes]}, replays "
+                             f"{passes[-1]['replays']} (want {captures} and "
+                             f"{3 * len(chunks) - 1})")
+    per_graph = graph.launches_per_graph
+    if per_graph != {k: K * v for k, v in EVAL_FORWARD_LAUNCHES.items()}:
+        raise AssertionError(f"{path}: a graph launches {per_graph}")
+    if not all(p["stats"] == passes[0]["stats"] for p in passes):
+        raise AssertionError(f"{path}: the passes' statistics differ: "
+                             f"{[p['stats']['eval'] for p in passes]}")
+    # each chunk: the replay against the eager chunk on the same tensors
+    sums = {"graph": {}, "eager": {}}
+    apart = 0
+    for chunk, names, _ in chunks:
+        x = _stage(chunk, device)
+        g = scanned(model, *x)
+        e = graph.body(model, *x)
+        apart += sum(int((a != b).sum()) for a, b in zip(g, e))
+        _by_scan(g, names, sums["graph"])
+        _by_scan(e, names, sums["eager"])
+    dg, de = _dsc(sums["graph"]), _dsc(sums["eager"])
+    if apart or set(dg) != set(de) or not all(torch.equal(dg[k], de[k]) for k in dg):
+        raise AssertionError(f"{path}: the replays differ from the eager chunks in {apart} "
+                             f"elements")
+    if len(dg) != n:
+        raise AssertionError(f"{path}: {len(dg)} scans counted of {n}")
+    # the eager chunks and the per-scan path, timed
+    eager_ms = eager_peak = scan_ms = scan_peak = math.nan
+    if timed:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for chunk, _, _ in chunks:
+            out = graph.body(model, *_stage(chunk, device))
+            torch.cat([o.reshape(-1).double() for o in out]).cpu()
+        torch.cuda.synchronize()
+        eager_ms, eager_peak = ((time.perf_counter() - t0) / n * 1e3,
+                                (torch.cuda.max_memory_allocated() - base) / gib)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _, tensors in trainer._eval_batches(batches):
+            trainer._eval_step(model, *tensors)
+        torch.cuda.synchronize()
+        scan_ms, scan_peak = ((time.perf_counter() - t0) / n * 1e3,
+                              (torch.cuda.max_memory_allocated() - base) / gib)
+    rec = {"scans": n, "chunks": len(chunks), "chunk_shape": list(chunks[0][0][0]["image"].shape),
+           "graph_ms_scan": passes[2]["ms_scan"], "pass2_ms_scan": passes[1]["ms_scan"],
+           "pass1_ms_scan": passes[0]["ms_scan"], "eager_chunk_ms_scan": eager_ms,
+           "per_scan_ms_scan": scan_ms, "captures": graph.captures, "replays": graph.replays,
+           "launches_per_graph": per_graph, "launches_per_pass": passes[2]["launches"],
+           "graph_peak_gib": passes[2]["peak_gib"], "pass1_peak_gib": passes[0]["peak_gib"],
+           "eager_chunk_peak_gib": eager_peak, "per_scan_peak_gib": scan_peak,
+           "pass1_reserved_added_gib": passes[0]["reserved_added_gib"],
+           "teacher": teacher, "val_dsc_mean": passes[2]["stats"]["eval"]["dice"]["DSC_mean"]}
+    train_graph = getattr(trainer._train_step, "graph", None)
+    if train_graph is not None and train_graph.replays:
+        x = _stage(chunks[0][0], device)
+        for name, pool in (("shared", train_graph.pool), ("own", GraphPool())):
+            other = build_scanned_eval_step(trainer._bundle, pool=pool, **trainer._eval_kwargs())
+            other(model, *x)                        # the warm-up
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved()
+            out = other(model, *x)                  # the capture and its replay
+            torch.cuda.synchronize()
+            rec[f"capture_reserved_{name}_pool_gib"] = (torch.cuda.memory_reserved()
+                                                        - before) / gib
+            if not all(torch.equal(a, b) for a, b in zip(out, scanned(model, *x))):
+                raise AssertionError(f"{path}: the {name}-pool graph differs")
+            del other, out
+    print(f"{path}: {n} scans as {len(chunks)} chunks of {K} batches {rec['chunk_shape']}"
+          f"{' (the teacher)' if teacher else ''}: graph {rec['graph_ms_scan']:.3f} ms a scan "
+          f"(pass 1, the warm-up and the capture: {rec['pass1_ms_scan']:.3f}; pass 2 "
+          f"{rec['pass2_ms_scan']:.3f}), eager chunks {eager_ms:.3f}, per scan "
+          f"{scan_ms:.3f}; {graph.captures} capture, {graph.replays} replays, a graph "
+          f"{per_graph}; the replays bitwise equal to the eager chunks (losses, counts, "
+          f"{len(dg)} scans' DSC); peak above the process's: graph {rec['graph_peak_gib']:.3f}, "
+          f"pass 1 {rec['pass1_peak_gib']:.3f}, eager chunks {eager_peak:.3f}, per scan "
+          f"{scan_peak:.3f} GiB; on {card}")
+    if "capture_reserved_shared_pool_gib" in rec:
+        print(f"{path}: reserved memory an eval capture adds: in the train graph's pool "
+              f"{rec['capture_reserved_shared_pool_gib']:.3f} GiB, in a pool of its own "
+              f"{rec['capture_reserved_own_pool_gib']:.3f} GiB (its static inputs included)")
+    launches = passes[2]["launches"]
+    del trainer, model, scanned, graph, chunks
+    torch.cuda.empty_cache()
+    return {"launches": launches, "record": rec}
+
+
+def p24_rank(rank: int, world: int, port: int, out: str, data: str) -> None:
+    """One rank of 24b (a spawned process, gloo, every rank on cuda:0)."""
+    import torch
+    import torch.distributed as dist
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch.parallel import init_distributed
+
+    group = init_distributed(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                             backend="gloo", device="cuda:0")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _count_collectives()
+    package.DATA_PATH, package.RUN_PATH = data, f"{out}/runs"
+    try:
+        res = {"paths": {}}
+        for path, overrides, host in P24_DP:
+            res["paths"][path] = {K: p24_dp_run(overrides, host, K, group)
+                                  for K in (1, P23_UNROLL)}
+            torch.cuda.empty_cache()
+        trainer = p24_trainer("semi/dp/eval", ["Trainer.name=semi"], group.device, group)
+        batches = p24_batches(data)
+        evals = []
+        for _ in range(2):                      # the warm-up, the capture and replays
+            COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats, _ = trainer.eval_epoch(batches, 0, "val")
+            torch.cuda.synchronize()
+            evals.append({"stats": stats, "ms_scan": (time.perf_counter() - t0) / len(batches) * 1e3,
+                          "collectives": dict(COLLECTIVES)})
+        res["eval"] = {"passes": evals, "chunks": len(list(trainer._eval_chunks(batches))),
+                       "replays": trainer._scanned_eval().graph.replays,
+                       "rows": batches[0]["image"].shape[0] // world}
+        torch.save(res, f"{out}/p24_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def p24_dp_run(overrides: list, host: bool, K: int, group) -> dict:
+    """P24_DP_CALLS x P23_UNROLL steps of one 24b path on this rank, K a
+    call: the losses, every state tensor's digest, ms/step of the last
+    P23_UNROLL steps."""
+    import hashlib
+
+    import torch
+    from contrastyou_tpu_torch.main import build_semi_run
+
+    run = build_semi_run(p19_config([*overrides, f"Trainer.unroll_steps={K}"], DP_BATCH),
+                         device=group.device, data_group=group)
+    feed = P23Feed(run, group.device, K, group=group) if host else (
+        lambda: run.step(run.state, run.generator, 0, run.host_rng))
+    steps = P24_DP_CALLS * P23_UNROLL
+    losses = []
+    for i in range(steps // K):
+        if i * K == steps - P23_UNROLL:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        m = feed()
+        losses.append(m["total_loss"].reshape(-1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / P23_UNROLL * 1e3
+    graph = getattr(feed.step if host else run.step, "graph", None)
+
+    def digest(t):
+        return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+    return {"losses": torch.cat(losses).cpu(), "ms": ms, "step": run.state.step,
+            "state": {k: digest(v) for k, v in _p23_state(run).items()},
+            "replays": 0 if graph is None else graph.replays}
+
+
+def run_phase24(device, card: str) -> dict:
+    """Phase 24: (a) the chunked eval of ``semi``, ``mt`` (its teacher) and
+    ``multicore`` on 44 validation scans at full width (``p24_eval``); (b)
+    DP_WORLD gloo ranks on the card: each path of P24_DP at K = P23_UNROLL
+    bitwise against K = 1 on the same ranks (losses, every state tensor on
+    every rank, the ranks equal), no graph replayed; the sharded chunked
+    eval against one process's (loss, DSC), two collectives a chunk."""
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.multiprocessing as mp
+    import contrastyou_tpu_torch as package
+
+    by_path, recs = {}, {}
+    saved_paths = package.DATA_PATH, package.RUN_PATH
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p24_") as tmp:
+            data = Path(tmp) / "data"
+            t0 = time.perf_counter()
+            write_p24_layout(data)
+            package.DATA_PATH, package.RUN_PATH = str(data), str(Path(tmp) / "runs")
+            batches = p24_batches(data)
+            print(f"24a: wrote and read {len(batches)} validation scans of {P24_SLICES} slices "
+                  f"in {time.perf_counter() - t0:.1f} s")
+            for path, overrides, train in P24_EVAL:
+                r = p24_eval(path, overrides, train, batches, device, card,
+                             timed=path == P24_EVAL[0][0])
+                by_path[path], recs[path] = r["launches"], r["record"]
+            one = p24_trainer("semi/one/eval", ["Trainer.name=semi"], device)
+            one_stats = [one.eval_epoch(batches, 0, "val")[0] for _ in range(2)]
+            del one
+            torch.cuda.empty_cache()
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            t0 = time.perf_counter()
+            mp.spawn(p24_rank, args=(DP_WORLD, port, tmp, str(data)), nprocs=DP_WORLD,
+                     join=True)
+            print(f"24b: {DP_WORLD} gloo ranks on {device} done in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            ranks = [torch.load(f"{tmp}/p24_rank{r}.pt") for r in range(DP_WORLD)]
+    finally:
+        package.DATA_PATH, package.RUN_PATH = saved_paths
+    for path, _, _ in P24_DP:
+        res = [r["paths"][path] for r in ranks]
+        one_k, many = res[0][1], res[0][P23_UNROLL]
+        same = sum(int(one_k["state"][k] == many["state"][k]) for k in one_k["state"])
+        equal_ranks = all(r[P23_UNROLL]["state"] == many["state"] for r in res)
+        print(f"{path}: {DP_WORLD} ranks, {P24_DP_CALLS} calls of {P23_UNROLL} against "
+              f"{P24_DP_CALLS * P23_UNROLL} steps of 1: losses "
+              f"{int((one_k['losses'] == many['losses']).sum())}/{len(many['losses'])} bitwise, "
+              f"{same}/{len(one_k['state'])} state tensors bitwise, ranks equal {equal_ranks}; "
+              f"{many['ms']:.3f} ms/step at K = {P23_UNROLL} (a loop), {one_k['ms']:.3f} at "
+              f"K = 1 (rank 1: {res[1][P23_UNROLL]['ms']:.3f} / {res[1][1]['ms']:.3f}); on {card}")
+        if (not torch.equal(one_k["losses"], many["losses"]) or same != len(one_k["state"])
+                or not equal_ranks or many["replays"] or many["step"] != one_k["step"]):
+            raise AssertionError(f"{path}: K = {P23_UNROLL} on {DP_WORLD} ranks differs from "
+                                 f"K = 1 (or replayed a graph: {many['replays']})")
+        recs[path] = {"ms": many["ms"], "k1_ms": one_k["ms"]}
+    ev = [r["eval"] for r in ranks]
+    want, got = one_stats[1]["eval"], ev[0]["passes"][1]["stats"]["eval"]
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    dsc = max(abs(got["dice"][k] - want["dice"][k]) for k in want["dice"])
+    per_chunk = {k: v / ev[0]["chunks"] for k, v in ev[0]["passes"][1]["collectives"].items()}
+    print(f"semi/dp/eval: {DP_WORLD} ranks of {ev[0]['rows']} rows a batch against one process: "
+          f"loss rel {loss_rel:.2e}, DSC worst {dsc:.2e} (one process's DSC_mean "
+          f"{want['dice']['DSC_mean']:.4f}); the ranks' statistics equal "
+          f"{all(e['passes'][1]['stats'] == ev[0]['passes'][1]['stats'] for e in ev)}; "
+          f"collectives a chunk {per_chunk}; {ev[0]['replays']} replays; "
+          f"{ev[0]['passes'][1]['ms_scan']:.3f} ms a scan (warm-up pass "
+          f"{ev[0]['passes'][0]['ms_scan']:.3f}); on {card}")
+    if (loss_rel > P24_EVAL_LOSS_RTOL or dsc > P24_EVAL_DSC_ATOL
+            or per_chunk != {"all_reduce": 1, "all_gather": 1}
+            or not all(e["passes"][1]["stats"] == ev[0]["passes"][1]["stats"] for e in ev)
+            or not ev[0]["replays"]):
+        raise AssertionError(f"semi/dp/eval: {DP_WORLD} ranks against one process: loss rel "
+                             f"{loss_rel:.2e}, DSC {dsc:.2e}, collectives a chunk {per_chunk}")
+    recs["semi/dp/eval"] = {"loss_rel": loss_rel, "dsc_worst": dsc, "collectives": per_chunk,
+                            "ms_scan": ev[0]["passes"][1]["ms_scan"]}
+    print("phase 24 records: " + json.dumps(recs))
     return by_path
 
 
@@ -4818,6 +5207,12 @@ def main() -> int:
     by_path.update(run_phase23(device, card))
     torch.cuda.empty_cache()
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    print(f"chunked evaluation, one CUDA graph a chunk of 32 eval batches, and K = "
+          f"{P23_UNROLL} steps a call on {DP_WORLD} ranks (phase 24):")
+    t0 = time.perf_counter()
+    by_path.update(run_phase24(device, card))
+    torch.cuda.empty_cache()
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
     for trainer, data, warmup, timed in (
             ("pretrain_decoder", "acdc", PRETRAIN_WARMUP, PRETRAIN_TIMED),
             ("pretrain", "acdc", 1, ENCODER_STEPS - 1),
@@ -4844,6 +5239,25 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def eval_main() -> int:
+    """``python3 chip_smoke.py eval``: phase 24 alone, the kernels built
+    first."""
+    import torch
+    from contrastyou_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = _card()
+    print(card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    t0 = time.perf_counter()
+    run_phase24(torch.device("cuda", 0), card)
+    print(f"phase 24: passed in {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -4876,4 +5290,5 @@ def unroll_main(kinds) -> int:
 
 if __name__ == "__main__":
     sys.exit(main() if len(sys.argv) == 1 else
-             unroll_main(sys.argv[2:]) if sys.argv[1] == "unroll" else 2)
+             unroll_main(sys.argv[2:]) if sys.argv[1] == "unroll" else
+             eval_main() if sys.argv[1:] == ["eval"] else 2)

@@ -11,8 +11,11 @@ steps): :func:`build_unrolled_train_step` takes K host-fed batches stacked
 ``unroll=K`` samples K batches and their draws a call; both return every
 metric stacked ``[K, ...]``. The i-th step of a call makes the draws the
 i-th of K one-step calls makes, so at one seed K and 1 train the same
-steps. On the CPU the K steps run as a loop; on the card one call is one
+steps, in one process and on W > 1 ranks. On the CPU and on W > 1 ranks
+the K steps run as a loop; in one process on the card one call is one
 CUDA graph, captured once and replayed (``engine/graph.py``).
+:func:`build_scanned_eval_step` evaluates a chunk of K eval batches a call
+(JAX's scanned eval; one CUDA graph a chunk shape on the card).
 
 Every random draw is explicit: the ``semi`` step takes a :class:`StepDraws`
 (the unlabeled batch's GeoParams and gammas, each drawing hook's draws and
@@ -49,15 +52,16 @@ from ..ops.affine import (GeoParams, sample_gammas, sample_geo_params,
 from ..parallel.collectives import gather_rows, mean_over_ranks, num_ranks, sum_gradients
 from ..parallel.mesh import DataGroup, data_parallel, multi_rank, shard_batch
 from .bundle import ModelBundle
-from .graph import StepGraph
+from .graph import EvalGraph, GraphPool, StepGraph
 from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
 from .state import TrainState
 
 __all__ = ["POINT_NUMS", "StepDraws", "draw_points", "point_grids", "sample_hook_draws",
            "sample_step_draws", "sample_ft_draws", "shard_draw", "shard_step_draws", "init_train_state",
-           "DATA_PARALLEL_MODES", "check_data_parallel", "refuse_unroll_on_ranks", "commit_state",
+           "DATA_PARALLEL_MODES", "check_data_parallel", "commit_state",
            "build_train_step", "stack_batches", "build_unrolled_train_step",
-           "build_cached_train_step", "tta_probs", "build_eval_step"]
+           "build_cached_train_step", "tta_probs", "build_eval_step",
+           "build_scanned_eval_step"]
 
 
 class StepDraws(NamedTuple):
@@ -343,18 +347,6 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     return step
 
 
-def refuse_unroll_on_ranks(unroll: int, data_group: Optional[DataGroup]) -> None:
-    """Raise ``NotImplementedError`` for K > 1 steps a call on W > 1 ranks:
-    a call of K steps is one CUDA graph on the card, and the ranks'
-    collectives (gloo's host round trips) cannot be captured in one."""
-    group = multi_rank(data_group)
-    if unroll > 1 and group is not None:
-        raise NotImplementedError(
-            f"unroll_steps={unroll} on {group.size} ranks: a call of {unroll} steps is one "
-            f"CUDA graph on the card, and the ranks' collectives (host round trips under "
-            f"gloo) cannot be captured in it; use unroll_steps=1 on ranks")
-
-
 def _with_lr(state: TrainState, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The step's metrics plus ``lr``, the learning rate of its update."""
     lr = getattr(state.optimizer, "lr", None)
@@ -376,8 +368,9 @@ def build_unrolled_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook],
     ``batches``' i-th rows (each value stacked [K, ...], :func:`stack_batches`)
     and ``draws[i]``. Every metric comes back stacked [K, ...], plus ``lr``
     [K], each update's learning rate. On the card one call is one CUDA graph
-    (``engine/graph.py``); on the CPU the steps run as a loop."""
-    refuse_unroll_on_ranks(unroll, data_group)
+    (``engine/graph.py``); on the CPU, and on W > 1 ranks (``data_group``:
+    ``batches`` and ``draws`` this rank's rows of each step's, as
+    :func:`build_train_step` takes them), the steps run as a loop."""
     hooks = tuple(hooks)
     step = build_train_step(bundle, hooks, data_group=data_group, **kwargs)
 
@@ -387,7 +380,7 @@ def build_unrolled_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook],
             _with_lr(state, step(state, {k: v[i] for k, v in batches.items()}, draws[i], epoch))
             for i in range(unroll)])
 
-    graph = StepGraph(body, unroll=unroll,
+    graph = StepGraph(body, unroll=unroll, capture=multi_rank(data_group) is None,
                       name=f"the unrolled {kwargs.get('mode', 'semi')} step")
 
     def unrolled(state: TrainState, batches: Dict[str, torch.Tensor],
@@ -428,9 +421,10 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     ``place_on_mesh`` replicates them): the batches are per rank, so every
     rank draws the global batch of W times as many slices, and its draws,
     from the same generator and keeps its rows; ``labeled_scan_id`` is the
-    global batch's."""
+    global batch's. At K > 1 on W > 1 ranks each of the K steps draws its
+    global batch so and the K steps run as a loop, not a graph (the ranks'
+    collectives are not captured; ``engine/graph.py``)."""
     semi = unlabeled_cache is not None
-    refuse_unroll_on_ranks(unroll, data_group)
     W = num_ranks(data_group)
     hooks = tuple(hooks)
     needs_map = [h.name for h in hooks if h.needs_superpixel]
@@ -473,7 +467,7 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     def body(state, drawn_list, epoch):
         return stack_batches([_with_lr(state, one(state, d, epoch)) for d in drawn_list])
 
-    graph = StepGraph(body, unroll=unroll,
+    graph = StepGraph(body, unroll=unroll, capture=multi_rank(data_group) is None,
                       name=f"the device-cached {'semi' if semi else 'ft'} step")
 
     def run(state: TrainState, drawn_list: Sequence[dict], epoch: int = 0):
@@ -508,6 +502,21 @@ def tta_probs(model: torch.nn.Module, image: torch.Tensor,
     return (probs(()) + probs((2,)) + probs((1,)) + probs((1, 2))) / 4.0
 
 
+def _eval_counts(probs: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                 num_classes: int) -> tuple:
+    """(loss, pred, inter, union) of one eval batch from its class
+    probabilities: the KL to the one-hot target per pixel, averaged per
+    sample and over the ``mask``-ed samples; the argmax; per-sample [B, C]
+    dice counts zeroed where ``mask`` is False."""
+    per_px = kl_div(probs, F.one_hot(target.long(), num_classes).float(), reduction="none")
+    m = mask.float()
+    loss = (per_px.mean((1, 2)) * m).sum() / m.sum().clamp(min=1.0)
+    pred = probs.argmax(-1)
+    inter, union = slice_intersection_union(pred, target, num_classes=num_classes)
+    mi = mask.long()[:, None]
+    return loss, pred, inter * mi, union * mi
+
+
 def build_eval_step(bundle: ModelBundle, *, tta: bool = False,
                     prob_transform: Optional[Callable] = None,
                     target_num_classes: Optional[int] = None) -> Callable:
@@ -527,13 +536,36 @@ def build_eval_step(bundle: ModelBundle, *, tta: bool = False,
             probs = tta_probs(model, image, prob_transform)
         else:
             probs = _probs(model, image, prob_transform)
-        per_px = kl_div(probs, F.one_hot(target.long(), num_classes).float(),
-                        reduction="none")
-        m = mask.float()
-        loss = (per_px.mean((1, 2)) * m).sum() / m.sum().clamp(min=1.0)
-        pred = probs.argmax(-1)
-        inter, union = slice_intersection_union(pred, target, num_classes=num_classes)
-        mi = mask.long()[:, None]
-        return loss, pred, inter * mi, union * mi
+        return _eval_counts(probs, target, mask, num_classes)
 
     return eval_step
+
+
+def build_scanned_eval_step(bundle: ModelBundle, *, prob_transform: Optional[Callable] = None,
+                            target_num_classes: Optional[int] = None,
+                            pool: Optional[GraphPool] = None) -> Callable:
+    """-> ``scanned(model, images [K,B,H,W,1], targets [K,B,H,W], masks
+    [K,B]) -> (loss [K], inter [K,B,C], union [K,B,C])``, JAX's
+    ``build_scanned_eval_step``: each of the K stacked eval batches as
+    :func:`build_eval_step` (no TTA) takes it, a padded batch (mask all
+    False) giving loss 0 and zero counts. On the CPU a loop over K; on a
+    CUDA device one graph per chunk shape and eval model, captured at the
+    second call and replayed (``engine/graph.py`` ``EvalGraph``,
+    ``scanned.graph``; ``pool``: the memory pool it shares, the train
+    graph's)."""
+    num_classes = target_num_classes or bundle.num_classes
+
+    @torch.no_grad()
+    def body(model, images, targets, masks):
+        outs = [_eval_counts(_probs(model, x, prob_transform), y, m, num_classes)
+                for x, y, m in zip(images.unbind(0), targets.unbind(0), masks.unbind(0))]
+        return (torch.stack([o[0] for o in outs]), torch.stack([o[2] for o in outs]),
+                torch.stack([o[3] for o in outs]))
+
+    graph = EvalGraph(body, name="the chunked eval step", pool=pool)
+
+    def scanned(model, images, targets, masks):
+        return graph(model, images, targets, masks)
+
+    scanned.graph = graph
+    return scanned

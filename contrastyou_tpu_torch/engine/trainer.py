@@ -48,12 +48,27 @@ epoch's timing records carry ``profiled: True``.
 ``unroll_steps`` = K runs K train steps a call, as JAX's trainer:
 ``num_batches // K`` calls an epoch (JAX's warning when K does not divide
 ``num_batches``), each call's metrics stacked [K, ...] and taken into the
-meters as their mean with weight K, the dice counts per scan over the K x B
-rows, ``state.step`` advanced by K. The i-th step of a call draws as the
-i-th of K one-step calls does, so K and 1 train the same steps. On the card
+meters step by step (so the epoch's statistics are those of K calls of
+one step, where JAX adds their mean with weight K), the dice counts per
+scan over the K x B rows, ``state.step`` advanced by K. The i-th step of
+a call draws as the i-th of K one-step calls does, so K and 1 train the
+same steps. On the card
 a call is one CUDA graph (``engine/graph.py``), host-fed batches reaching it
-through pinned memory; on the CPU the K steps run as a loop. Trainers that
-build their own step (``adv``, pretraining) and W > 1 ranks refuse K > 1.
+through pinned memory; on the CPU, and on W > 1 ranks (whose collectives
+are not captured), the K steps run as a loop. Trainers that build their
+own step (``adv``, pretraining) refuse K > 1. The train ``timing`` record
+carries ``graph``: whether the epoch's calls replayed a CUDA graph.
+
+Evaluation (JAX's ``eval_epoch``): a validation or test pass takes its
+batches (one scan each, padded to the longest) in chunks of
+:attr:`Trainer.EVAL_CHUNK`; a pass of more batches pads its last chunk to
+that many with masked copies of its last batch, so every chunk has one
+shape. A chunk is one call of ``build_scanned_eval_step`` (on the card one
+CUDA graph per chunk shape and eval model, captured at its second call and
+replayed after), its stacked batches reaching the device through pinned
+memory, its losses and counts read back once; the ``timing`` record
+carries ``batches``, ``chunks`` and ``graph``. Inference stays one scan a
+call (TTA, the predictions, the surface distances).
 
 ``two_stage`` (``semi`` steps) picks two forwards (labeled, then unlabeled
 and transformed) or one over all three; ``accumulate_iter`` makes the
@@ -67,8 +82,12 @@ sizes are per rank. Host-fed, each rank's loaders read its stride of the
 indices (``InfiniteRandomSampler(process_index=, process_count=)``); with
 the device cache every rank draws the global batch and keeps its rows, so
 the run is the one-process run at W times the batch. The step's metrics
-are global, so every rank's meters hold the global values; eval shards
-each batch that divides by W and gathers its counts. Only rank 0 writes
+are global, so every rank's meters hold the global values. Eval shards
+the batch axis of a chunk whose batches divide by W (each rank evaluates
+its rows, with no collective inside the chunk's graph), then sums the
+chunk's loss numerators and counts over the ranks and gathers its dice
+counts in row order, two collectives a chunk; a chunk of batches that do
+not divide is evaluated whole on every rank. Only rank 0 writes
 ``config.yaml``, ``storage.csv``, the checkpoints, ``.success`` and
 ``inference_result.json``, the events and the trace; a resume loads on
 every rank.
@@ -77,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import logging
 import os
@@ -106,8 +126,8 @@ from .checkpoint import (load_checkpoint, load_model_params, load_train_state, s
                          train_state_dict)
 from .hooks import TrainerHook, hook_parameters
 from .optim import create_optimizer
-from .steps import (build_cached_train_step, build_eval_step, build_train_step,
-                    build_unrolled_train_step, init_train_state, refuse_unroll_on_ranks,
+from .steps import (build_cached_train_step, build_eval_step, build_scanned_eval_step,
+                    build_train_step, build_unrolled_train_step, init_train_state,
                     sample_ft_draws, sample_step_draws, shard_step_draws, stack_batches)
 
 __all__ = ["Trainer", "epoch_seed", "hook_metrics", "kernel_launches", "HOOK_DRAW_SEED_OFFSET",
@@ -141,6 +161,11 @@ def kernel_launches() -> t.Dict[str, int]:
     return {**convblock.LAUNCHES, **supcon.LAUNCHES, **iic.LAUNCHES}
 
 
+def _replays(step) -> int:
+    """The CUDA graph replays of a built step so far (0 without a graph)."""
+    return getattr(getattr(step, "graph", None), "replays", 0)
+
+
 def epoch_seed(seed: int, epoch: int, offset: int = 10_000) -> int:
     """The step generator's seed in ``epoch`` (JAX folds ``offset + epoch``
     into its key: 10_000 in training, 20_000 in pretraining)."""
@@ -149,6 +174,9 @@ def epoch_seed(seed: int, epoch: int, offset: int = 10_000) -> int:
 
 class Trainer:
     """Generic trainer; ``trainers/`` subclasses pick the step mode."""
+
+    #: eval batches a call (JAX's ``Trainer.EVAL_CHUNK``)
+    EVAL_CHUNK: int = 32
 
     activate_hooks: bool = True
     train_mode: str = "semi"        # "semi" | "ft"
@@ -195,7 +223,6 @@ class Trainer:
             raise NotImplementedError(f"{type(self).__name__} does not take "
                                       f"Trainer.unroll_steps={self._unroll}: "
                                       f"{self.unroll_refusal}")
-        refuse_unroll_on_ranks(self._unroll, self._group)
         self._profile = bool(profile) or bool(os.environ.get("CONTRASTYOU_PROFILE"))
         self._profiling = False
         self._model = model
@@ -535,6 +562,7 @@ class Trainer:
                            "per epoch", self._num_batches, K, num_calls * K)
         indicator = Indicator(range(num_calls), desc=f"train {epoch:03d}")
         last = num_calls - 1
+        replays = _replays(self._train_step)
         t0 = time.perf_counter()
         with meters:
             for it in indicator:
@@ -554,12 +582,13 @@ class Trainer:
                     metrics = self._train_step(self._state, stack_batches([b for _, b, _ in inputs]),
                                                [d for _, _, d in inputs], epoch)
                     self._add_host_counts(dice, metrics, [lab for lab, _, _ in inputs])
-                for key in ("sup_loss", "reg_loss"):
-                    meters.add(key, metrics[key] if K == 1 else metrics[key].mean(), n=K)
-                for hook in self._active_hooks:
-                    hm = hook_metrics(metrics, hook.name)
-                    hook_meters[hook.name].add(**(hm if K == 1 else
-                                                  {k: v.mean(0) for k, v in hm.items()}))
+                # a call's K steps one by one: the meters sum as over K one-step calls
+                for m in ([metrics] if K == 1 else
+                          [{k: v[i] for k, v in metrics.items()} for i in range(K)]):
+                    for key in ("sup_loss", "reg_loss"):
+                        meters.add(key, m[key])
+                    for hook in self._active_hooks:
+                        hook_meters[hook.name].add(**hook_metrics(m, hook.name))
                 if it == 0:
                     self._log_figures(metrics, epoch)
                 # reading a meter waits for the device: every tenth step, as JAX's loop
@@ -574,15 +603,17 @@ class Trainer:
         stats = dict(meters.statistics())
         stats["tra"]["lr"] = float(self._schedule(int(self._state.step)))
         steps = num_calls * K
-        logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s%s%s)", epoch,
+        graph = _replays(self._train_step) > replays
+        logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s%s%s%s)", epoch,
                     steps, seconds, seconds / steps * 1e3,
                     "device cache" if self._device_cache else "host-fed",
-                    f", {K} steps a call" if K > 1 else "",
+                    f", {K} steps a call" if K > 1 else "", ", CUDA graphs" if graph else "",
                     ", profiled" if self._profiling else "",
                     extra={"timing": {"phase": "train", "epoch": epoch,
                                       "steps": steps, "seconds": seconds,
                                       "device_cache": self._device_cache,
-                                      "unroll_steps": K, "profiled": self._profiling}})
+                                      "unroll_steps": K, "graph": graph,
+                                      "profiled": self._profiling}})
         return stats
 
     @staticmethod
@@ -612,9 +643,10 @@ class Trainer:
         if self._group is None:
             dice.add_counts(inter, union, group_name=[s for lab in labeled for s in lab["scan"]])
         else:
-            # the ranks' scans, in the order of the gathered counts
-            ids = gather_rows(self._to_device(labeled[0]["scan_id"]).long(), self._group)
-            dice.add_counts(inter, union, group_ids=ids,
+            # the ranks' scans of each step, in the order of its gathered counts
+            ids = torch.stack([self._to_device(lab["scan_id"]).long() for lab in labeled])
+            ids = gather_rows(ids.T.contiguous(), self._group).T
+            dice.add_counts(inter, union, group_ids=ids.reshape(-1),
                             id_table=self._labeled_loader.dataset.get_scan_list())
 
     # --- evaluation -------------------------------------------------------
@@ -649,6 +681,32 @@ class Trainer:
             yield batch, (self._to_device(batch["image"]), self._to_device(batch["target"]),
                           self._to_device(batch["mask"]))
 
+    def _scanned_eval(self) -> t.Callable:
+        """The chunked eval step, built at the first pass (trainers override
+        ``_build_steps``), its graphs in the train graph's memory pool."""
+        if getattr(self, "_scanned_eval_step", None) is None:
+            graph = getattr(getattr(self, "_train_step", None), "graph", None)
+            self._scanned_eval_step = build_scanned_eval_step(
+                self._bundle, pool=getattr(graph, "pool", None), **self._eval_kwargs())
+        return self._scanned_eval_step
+
+    def _eval_chunks(self, loader) -> t.Iterator[tuple]:
+        """(host batches, their scan names, real batches) of each chunk of
+        :attr:`EVAL_CHUNK` batches; in a pass of more, the last chunk padded
+        with masked copies of its last batch named None."""
+        K, batches = self.EVAL_CHUNK, iter(loader)
+        for c in itertools.count():
+            chunk = list(itertools.islice(batches, K))
+            if not chunk:
+                return
+            n_real = len(chunk)
+            names = [name for b in chunk for name in b["scan"]]
+            if n_real < K and c > 0:
+                pad = {**chunk[-1], "mask": np.zeros_like(chunk[-1]["mask"])}
+                chunk += [pad] * (K - n_real)
+                names += [None] * ((K - n_real) * len(pad["scan"]))
+            yield chunk, names, n_real
+
     def eval_epoch(self, loader, epoch: int, stage: str = "eval") -> t.Tuple[dict, float]:
         num_classes = self.num_classes
         meters = MeterInterface(default_focus="eval")
@@ -656,33 +714,61 @@ class Trainer:
         dice = meters.register_meter("dice", UniversalDice(
             num_classes, report_axis=range(1, num_classes)))
         model = self._inference_state()
-        t0, n = time.perf_counter(), 0
+        graph = self._scanned_eval().graph
+        replays = graph.replays
+        t0, batches, chunks, pending = time.perf_counter(), 0, 0, None
         with meters:
-            for batch, tensors in self._eval_batches(loader):
-                loss, inter, union = self._eval_counts(model, tensors)
-                meters.add("loss", loss)
-                dice.add_counts(inter, union, group_name=batch["scan"])
-                n += 1
+            for chunk, names, n_real in self._eval_chunks(loader):
+                out = self._eval_chunk(model, chunk)
+                # the previous chunk's results, read while this one runs
+                if pending is not None:
+                    self._add_chunk(meters, dice, *pending)
+                pending = out, names, n_real
+                batches, chunks = batches + n_real, chunks + 1
+            if pending is not None:
+                self._add_chunk(meters, dice, *pending)
         stats = dict(meters.statistics())
-        self._log_eval(stage, epoch, n, time.perf_counter() - t0)
+        self._log_eval(stage, epoch, batches, time.perf_counter() - t0, chunks=chunks,
+                       graph=graph.replays > replays)
         return stats, float(stats["eval"]["dice"]["DSC_mean"])
 
-    def _eval_counts(self, model, tensors) -> tuple:
-        """(loss, inter, union) of one eval batch (image, target, mask). On W
-        ranks a batch that divides by W is sharded, as JAX's mesh eval does:
-        each rank evaluates its rows, the loss's masked sum and count are
-        summed over ranks and the per-sample counts gathered in row order;
-        another batch is evaluated whole on every rank."""
+    def _eval_chunk(self, model, chunk: list) -> tuple:
+        """(loss [K], inter [K, B, C], union [K, B, C]) of a chunk's K host
+        batches, on the device. On W ranks a chunk whose batches divide by W
+        is sharded on its batch axis, as JAX's mesh eval does: each rank
+        evaluates its rows, then the loss's masked sums and counts are
+        summed over the ranks and the per-sample counts gathered in row
+        order; another chunk is evaluated whole on every rank."""
         group = self._group
-        if group is None or tensors[0].shape[0] % group.size:
-            loss, _, inter, union = self._eval_step(model, *tensors)
+        host = [torch.from_numpy(np.stack([b[k] for b in chunk])) for k in
+                ("image", "target", "mask")]
+        sharded = group is not None and host[0].shape[1] % group.size == 0
+        if sharded:
+            host = shard_batch(host, group, batch_dim=1)
+        images, targets, masks = (self._to_device(x.contiguous().numpy(), pinned=True)
+                                  for x in host)
+        loss, inter, union = self._scanned_eval()(model, images, targets, masks)
+        if not sharded:
             return loss, inter, union
-        image, target, mask = shard_batch(tensors, group)
-        loss, _, inter, union = self._eval_step(model, image, target, mask)
-        count = mask.float().sum()
+        count = masks.float().sum(1)
         num, count = all_reduce_sum(torch.stack([loss * count.clamp(min=1.0), count]), group)
-        return (num / count.clamp(min=1.0), gather_rows(inter, group),
-                gather_rows(union, group))
+        # [B/W, 2, K, C] rows gathered in rank order -> [2, K, B, C]
+        counts = gather_rows(torch.stack([inter, union]).permute(2, 0, 1, 3).contiguous(),
+                             group).permute(1, 2, 0, 3)
+        return num / count.clamp(min=1.0), counts[0], counts[1]
+
+    @staticmethod
+    def _add_chunk(meters, dice, out: tuple, names: list, n_real: int) -> None:
+        """A chunk's results into the meters, read back at once: one loss a
+        real batch, the dice counts of every row (padded rows named None)."""
+        loss, inter, union = out
+        flat = torch.cat([x.reshape(-1).double() for x in out]).cpu().numpy()
+        loss_h, inter_h, union_h = np.split(flat, [loss.numel(), loss.numel() + inter.numel()])
+        for v in loss_h[:n_real]:
+            meters.add("loss", float(v))
+        c = inter.shape[-1]
+        dice.add_counts(inter_h.astype(np.int64).reshape(-1, c),
+                        union_h.astype(np.int64).reshape(-1, c), group_name=names)
 
     def _log_eval(self, stage: str, epoch: int, batches: int, seconds: float, **extra) -> None:
         logger.info("%s epoch %d: %d batches in %.3f s", stage, epoch, batches, seconds,

@@ -604,12 +604,14 @@ def _timing_records():
         log.setLevel(level)
 
 
-def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16):
+def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
+                   data_group: Optional[DataGroup] = None):
     """The experiment of ``config`` (see the module docstring) -> its
-    trainer, after training and, but for pretraining, inference."""
+    trainer, after training and, but for pretraining, inference; on the
+    ``data_group``'s W ranks when given (:func:`build_trainer`)."""
     t0 = time.perf_counter()
     with _timing_records() as timing:
-        trainer, name, best = _run(config, device, dtype)
+        trainer, name, best = _run(config, device, dtype, data_group)
     if trainer.is_master:
         (Path(trainer.save_dir) / "launches.json").write_text(json.dumps(
             {"launches": kernel_launches(), "trainer": name,
@@ -618,7 +620,14 @@ def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
     return trainer
 
 
-def _run(config: Mapping, device, dtype: torch.dtype):
+def build_trainer(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat16,
+                  data_group: Optional[DataGroup] = None):
+    """The trainer :func:`run_experiment` runs: ``Trainer.name``'s on the
+    config's data, its hooks registered, initialised, warm-started and
+    resumed from ``trainer_checkpoint`` or ``<save_dir>/last``. With a
+    ``data_group`` of W ranks the loaders' batch sizes are per rank and each
+    rank reads its stride of the indices (``engine/trainer.py``); a trainer
+    whose ``data_parallel`` is False refuses the group."""
     refuse_unported_keys(config)
     check_warm_start(config)
     seed = int(config.get("RandomSeed", 10))
@@ -627,17 +636,20 @@ def _run(config: Mapping, device, dtype: torch.dtype):
     logging.getLogger(__name__).info("run %s: Trainer.name=%s on %s",
                                      config["Trainer"].get("save_dir"), name, device)
     is_pretrain = name in PRETRAIN_TRAINERS
+    stride = {} if data_group is None else dict(process_index=data_group.rank,
+                                                process_count=data_group.size)
     labeled, unlabeled, val, test = get_data(
-        data, config.get("LabeledLoader", {}), config.get("UnlabeledLoader", {}),
-        root_dir=package.DATA_PATH, pretrain=is_pretrain,
-        order_num=int(data.get("order_num", 0)))
+        data, {**config.get("LabeledLoader", {}), **stride},
+        {**config.get("UnlabeledLoader", {}), **stride}, root_dir=package.DATA_PATH,
+        pretrain=is_pretrain, order_num=int(data.get("order_num", 0)))
     num_classes = dataset_spec(str(data["name"])).train_classes
     multicore = multicore_classes(config, num_classes) if name == "multicore" else {}
     gen = torch.Generator(device=device).manual_seed(seed)
     model = _model(config, device, dtype, None, gen,
                    num_classes * multicore.get("multiplier", 1))
     kwargs = dict(model=model, labeled_loader=labeled, unlabeled_loader=unlabeled,
-                  val_loader=val, test_loader=test, config=config, seed=seed, **multicore,
+                  val_loader=val, test_loader=test, config=config, seed=seed,
+                  data_group=data_group, **multicore,
                   **{k: v for k, v in config["Trainer"].items() if k not in ("name", "device")})
     if is_pretrain:
         clp = {k: v for k, v in config.get("ContrastiveLoaderParams", {}).items()
@@ -657,6 +669,12 @@ def _run(config: Mapping, device, dtype: torch.dtype):
     resume = config.get("trainer_checkpoint") or find_checkpoint(trainer.save_dir)
     if resume:
         trainer.resume_from_path(resume)
+    return trainer
+
+
+def _run(config: Mapping, device, dtype: torch.dtype, data_group: Optional[DataGroup] = None):
+    trainer = build_trainer(config, device=device, dtype=dtype, data_group=data_group)
+    name = config["Trainer"].get("name") or "semi"
     best = trainer.start_training()
     if trainer.runs_inference:
         best_ckpt = Path(trainer.save_dir) / "best"

@@ -860,3 +860,65 @@ def test_unrolled_graph_capture_failure_raises(hook, match):
         step(state, run.generator, 0, run.host_rng)
     assert "device-cached semi step" in str(err.value)
     assert step.graph.replays == 0
+
+
+def _eval_inputs(seed: int, K: int = 2, B: int = 3, S: int = 32):
+    """A chunk of K eval batches of B slices on the card (the last batch
+    half padded)."""
+    g = torch.Generator().manual_seed(seed)
+    masks = torch.ones(K, B, dtype=torch.bool)
+    masks[-1, B // 2:] = False
+    return [x.cuda() for x in (torch.rand(K, B, S, S, 1, generator=g),
+                               torch.randint(0, 4, (K, B, S, S), generator=g, dtype=torch.int32),
+                               masks)]
+
+
+@pytest.mark.gpu
+def test_eval_graph_matches_eager_chunks():
+    """The chunked eval step on the card: the first call the eager warm-up,
+    the second captures and replays, the third replays on other inputs;
+    each bitwise equal to the eager chunk on the same inputs; one capture,
+    the launches of a replay those the capture recorded; a replaced
+    parameter recaptures, and the replay then reads the new weights."""
+    from contrastyou_tpu_torch.engine.bundle import ModelBundle
+    from contrastyou_tpu_torch.engine.steps import build_scanned_eval_step
+    from contrastyou_tpu_torch.engine.trainer import kernel_launches
+    run = _unroll_run(1)
+    model = run.state.model
+    scanned = build_scanned_eval_step(ModelBundle(model, (32, 32, 1)))
+    graph = scanned.graph
+    for seed in range(3):
+        x = _eval_inputs(seed)
+        before = kernel_launches()
+        got = scanned(model, *x)
+        after = kernel_launches()
+        for a, b in zip(got, graph.body(model, *x)):
+            assert torch.equal(a, b), seed
+        if seed == 2:
+            assert {k: after[k] - before.get(k, 0) for k in graph.launches_per_graph} == \
+                graph.launches_per_graph
+    assert graph.captures == 1 and graph.replays == 2 and graph.launches_per_graph
+    conv = model._Conv1.conv[0]
+    conv.weight = torch.nn.Parameter(conv.weight.detach() * 1.5)
+    x = _eval_inputs(3)
+    for a, b in zip(scanned(model, *x), graph.body(model, *x)):
+        assert torch.equal(a, b)
+    assert graph.captures == 2
+
+
+@pytest.mark.gpu
+def test_eval_graph_capture_failure_raises():
+    """A chunk body that reads a value back cannot be captured: the second
+    call raises naming the path; no eager result stands in for the graph."""
+    from contrastyou_tpu_torch.engine.graph import EvalGraph
+    run = _unroll_run(1)
+
+    def body(model, images, targets, masks):
+        return images.sum() * float(images.mean())
+
+    graph = EvalGraph(body, name="the probe eval")
+    x = _eval_inputs(0)
+    graph(run.state.model, *x)
+    with pytest.raises(RuntimeError, match="the probe eval: the CUDA graph capture"):
+        graph(run.state.model, *x)
+    assert graph.replays == 0

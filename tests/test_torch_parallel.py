@@ -393,10 +393,27 @@ def test_unported_trainer_raises_on_two_ranks(name):
 
 
 def test_parallel_package_imports_no_jax():
-    code = ("import sys; import contrastyou_tpu_torch.parallel, contrastyou_tpu_torch.engine."
-            "trainer; bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'contrastyou_tpu')]; print(bad); "
-            "sys.exit(1 if bad else 0)")
+    """``parallel/``, the trainer and the CUDA-graph module import none of
+    JAX's modules, and a chunk of the chunked eval step runs with them
+    blocked."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'contrastyou_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "import contrastyou_tpu_torch.parallel, contrastyou_tpu_torch.engine.trainer\n"
+            "from contrastyou_tpu_torch.engine.graph import EvalGraph, StepGraph\n"
+            "from contrastyou_tpu_torch.engine.bundle import ModelBundle\n"
+            "from contrastyou_tpu_torch.engine.steps import build_scanned_eval_step\n"
+            "from contrastyou_tpu_torch.models.unet import UNet\n"
+            "m = UNet(max_channel=32, dtype=torch.float32)"
+            ".init_weights(torch.Generator().manual_seed(0))\n"
+            "loss, inter, union = build_scanned_eval_step(ModelBundle(m, (16, 16, 1)))(\n"
+            "    m, torch.rand(2, 1, 16, 16, 1), torch.zeros(2, 1, 16, 16, dtype=torch.long),\n"
+            "    torch.tensor([[True], [False]]))\n"
+            "assert loss.shape == (2,) and float(loss[1]) == 0 and not union[1].any()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'contrastyou_tpu') and sys.modules[m] is not None]\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

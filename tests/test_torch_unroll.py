@@ -28,7 +28,8 @@ tests/test_torch_cuda.py and chip_smoke.py).
 - (e) The port's mirrors of tests/test_unrolled_trainer.py and of
   tests/test_device_cache.py's unrolled run, and JAX's warning when K does
   not divide ``num_batches``.
-- (f) The refusals: ``adv`` and pretraining at K > 1, W > 1 ranks at K > 1.
+- (f) The refusals: ``adv`` and pretraining at K > 1; W > 1 ranks at K > 1
+  no longer refused (a loop of K steps, no graph).
 """
 import copy
 import logging
@@ -425,17 +426,24 @@ def test_trainers_with_their_own_loop_refuse_unroll(paths, name):
 
 
 def test_ranks_refuse_unroll(tmp_path):
-    """W > 1 ranks and K > 1: the builders and the trainer raise before any
-    collective (no process group is needed to refuse)."""
+    """W > 1 ranks and K > 1: the builders and the ``semi`` trainer no
+    longer refuse; on ranks the K steps of a call run as a loop, never as a
+    CUDA graph (the ranks' collectives are host round trips), and the
+    trainers with a loop of their own refuse K as in one process
+    (tests/test_torch_parallel_unroll.py runs the steps on two ranks)."""
     group = DataGroup(rank=0, size=2, device=torch.device("cpu"), process_group=None)
     run = build_semi_run(parse_config(["-o", "Trainer.name=semi"]), **SMALL)
     bundle = ModelBundle(run.state.model, (S, S, 1))
-    with pytest.raises(NotImplementedError, match="cannot be captured"):
-        build_cached_train_step(bundle, run.hooks, labeled_cache=run.labeled_cache,
-                                unlabeled_cache=run.unlabeled_cache, data_group=group, unroll=2)
-    with pytest.raises(NotImplementedError, match="cannot be captured"):
-        build_unrolled_train_step(bundle, run.hooks, data_group=group, unroll=2)
+    cached = build_cached_train_step(bundle, run.hooks, labeled_cache=run.labeled_cache,
+                                     unlabeled_cache=run.unlabeled_cache, data_group=group,
+                                     unroll=2)
+    unrolled = build_unrolled_train_step(bundle, run.hooks, data_group=group, unroll=2)
+    assert not cached.graph.capture and not unrolled.graph.capture
+    assert build_unrolled_train_step(bundle, run.hooks, unroll=2).graph.capture
+    from contrastyou_tpu_torch.trainers.adv import AdversarialTrainer
     from contrastyou_tpu_torch.trainers.semi import SemiTrainer
-    with pytest.raises(NotImplementedError, match="2 ranks"):
-        SemiTrainer(model=run.state.model, labeled_loader=None, save_dir=str(tmp_path / "run"),
-                    data_group=group, unroll_steps=2)
+    SemiTrainer(model=run.state.model, labeled_loader=None, save_dir=str(tmp_path / "run"),
+                data_group=group, unroll_steps=2)
+    with pytest.raises(NotImplementedError, match="one step a call"):
+        AdversarialTrainer(model=run.state.model, labeled_loader=None,
+                           save_dir=str(tmp_path / "adv"), unroll_steps=2)

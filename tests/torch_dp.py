@@ -24,9 +24,10 @@ from contrastyou_tpu_torch.engine.bundle import ModelBundle
 from contrastyou_tpu_torch.engine.hooks import StepContext, hook_parameters
 from contrastyou_tpu_torch.engine.optim import create_optimizer
 from contrastyou_tpu_torch.engine.steps import (StepDraws, build_cached_train_step,
-                                                build_train_step, init_train_state,
-                                                sample_ft_draws, sample_step_draws,
-                                                shard_step_draws)
+                                                build_train_step, build_unrolled_train_step,
+                                                init_train_state, sample_ft_draws,
+                                                sample_step_draws, shard_step_draws,
+                                                stack_batches)
 from contrastyou_tpu_torch.hooks.autoencoder import DenoisingAutoEncoderTrainerHook
 from contrastyou_tpu_torch.hooks.ccblock import CrossCorrelationHook
 from contrastyou_tpu_torch.hooks.consistency import ConsistencyTrainerHook
@@ -361,8 +362,10 @@ REST_CONFIGS = {
     "pretrain_cc": ("pretrain", 0, lambda m: [
         _nce_encoder(m), _cc(m, "Up_conv2", {k: CC_TINY[k] for k in ("cc", "rr")}, 1)], {}),
 }
-#: every configuration a rank worker runs
-CONFIGS = {**{k: (*v, {}) for k, v in HOOK_CONFIGS.items()}, **REST_CONFIGS}
+#: every configuration a rank worker runs (``consistency``: the hook alone,
+#: tests/test_torch_parallel_unroll_jax.py's)
+CONFIGS = {**{k: (*v, {}) for k, v in HOOK_CONFIGS.items()}, **REST_CONFIGS,
+           "consistency": ("semi", 0, lambda m: [ConsistencyTrainerHook(weight=1.0)], {})}
 #: the colour jitter of the pretrain configurations (ACDC's)
 PRETRAIN_JITTER = 0.5
 
@@ -426,10 +429,11 @@ def global_draws(job: dict, name: str, hooks, i: int):
                              labeled_shape=labeled)
 
 
-def build_config_step(bundle, hooks, name: str, group=None):
+def build_config_step(bundle, hooks, name: str, group=None, unroll: int = 1):
     """Configuration ``name``'s step over ``group``: the pretrain step, or
     ``build_train_step`` in its mode (multicore with its criterion, the
-    prototype probabilities summed to the 4 classes)."""
+    prototype probabilities summed to the 4 classes); ``unroll`` > 1:
+    ``build_unrolled_train_step`` of that many steps a call."""
     mode, _, _, opts = CONFIGS[name]
     if mode == "pretrain":
         return build_pretrain_step(bundle, hooks, until=feature_until_from_hooks(*hooks),
@@ -439,6 +443,9 @@ def build_config_step(bundle, hooks, name: str, group=None):
         criterion = MultiCoreKL(prototype_groups(4, opts["multiplier"]))
         kw = dict(sup_criterion=criterion, prob_transform=criterion.reduced_simplex,
                   target_num_classes=4)
+    if unroll > 1:
+        return build_unrolled_train_step(bundle, hooks, unroll=unroll, mode=mode,
+                                         data_group=group, **kw)
     return build_train_step(bundle, hooks, mode=mode, data_group=group, **kw)
 
 
@@ -495,7 +502,9 @@ def run_hook_steps(job: dict, name: str, group=None) -> dict:
     global batch and draws (this rank's rows of both): the metrics of each
     step, the gradients of the first (before its update), and after the
     last the parameters, BN statistics, hook states (the teachers) and what
-    UAMT, ICT and MixUp saw at the first step."""
+    UAMT, ICT and MixUp saw at the first step. ``job['unroll']`` = K > 1:
+    K steps a call (``build_unrolled_train_step``) on the batch stacked K
+    times, each step's metrics unstacked; no gradients kept."""
     mode, epoch, _, _ = CONFIGS[name]
     bundle, hooks, state = build_hook_state(job, name)
     for module in (state.model, *hooks):
@@ -513,22 +522,31 @@ def run_hook_steps(job: dict, name: str, group=None) -> dict:
     order = job.get("order")
     if order is not None:
         batch = reorder_rows(batch, order)
-    step = build_config_step(bundle, hooks, name, group)
+    unroll = job.get("unroll", 1)
+    step = build_config_step(bundle, hooks, name, group, unroll)
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
     named = {id(p): k for k, p in state.model.named_parameters()}
     named.update({id(p): f"{h.name}/{k}" for h in hooks if isinstance(h, torch.nn.Module)
                   for k, p in h.named_parameters()})
     names = [named[id(p)] for p in params]
     out = {"metrics": []}
+    draws = []
     for i in range(job.get("steps", 2)):
-        draws = global_draws(job, name, hooks, i)
+        d = global_draws(job, name, hooks, i)
         if order is not None:
-            draws = reorder_rows(draws, order)
-        draws = (shard_batch(draws, group) if mode == "pretrain"
-                 else shard_step_draws(draws, hooks, group))
-        m = step(state, shard_batch(batch, group), draws, epoch)
-        out["metrics"].append({k: v.detach().clone() for k, v in m.items()})
-        if i == 0:
+            d = reorder_rows(d, order)
+        draws.append(shard_batch(d, group) if mode == "pretrain"
+                     else shard_step_draws(d, hooks, group))
+    batch = shard_batch(batch, group)
+    for i in range(0, len(draws), unroll):
+        if unroll == 1:
+            m = step(state, batch, draws[i], epoch)
+            out["metrics"].append({k: v.detach().clone() for k, v in m.items()})
+        else:
+            m = step(state, stack_batches([batch] * unroll), draws[i:i + unroll], epoch)
+            out["metrics"] += [{k: v[j].detach().clone() for k, v in m.items()}
+                               for j in range(unroll)]
+        if i == 0 and unroll == 1:
             out["grads"] = {k: p.grad.clone() for k, p in zip(names, params)}
     out["params"] = {k: p.detach().clone() for k, p in zip(names, params)}
     out["buffers"] = {k: b.clone() for k, b in state.model.named_buffers()}
@@ -537,12 +555,35 @@ def run_hook_steps(job: dict, name: str, group=None) -> dict:
     return out
 
 
+def run_cached_unroll(job: dict, group=None) -> dict:
+    """One call of ``job['unroll']`` device-cached ``consistency`` steps on
+    the job's caches (``job['cache']``, numpy arrays and ids) at
+    ``job['per_rank']`` slices a rank and batch, replaying the job's draws
+    of the global batches (``job['cached_draws']``): the metrics of each
+    step, the parameters and BN statistics after."""
+    bundle, hooks, state = build_hook_state(job, "consistency")
+    replicate(state.model, group)
+    caches = [DeviceDataCache.from_arrays(**c, device="cpu") for c in job["cache"]]
+    step = build_cached_train_step(bundle, hooks, labeled_cache=caches[0],
+                                   unlabeled_cache=caches[1], labeled_batch=job["per_rank"],
+                                   unlabeled_batch=job["per_rank"], data_group=group,
+                                   unroll=job["unroll"])
+    m = step.run(state, job["cached_draws"])
+    return {"metrics": [{k: v[j].detach().clone() for k, v in m.items()}
+                        for j in range(job["unroll"])],
+            "params": {k: p.detach().clone() for k, p in state.model.named_parameters()},
+            "buffers": {k: b.clone() for k, b in state.model.named_buffers()}}
+
+
 def hooks_worker(group, job_path: str, out_dir: str) -> None:
     """Every configuration of the job on this rank, in turn; with the job's
     ``hv`` also the Hessian-vector products of :func:`collective_hvp` and
-    :func:`dmt_hessian_term`."""
+    :func:`dmt_hessian_term`; with its ``cached_draws`` the device-cached
+    call of :func:`run_cached_unroll`."""
     job = torch.load(job_path, weights_only=False)     # the job's draws are named tuples
     out = {name: run_hook_steps(job, name, group) for name in job["configs"]}
+    if "cached_draws" in job:
+        out["cached"] = run_cached_unroll(job, group)
     if "hv" in job:
         out["hv"] = {case: collective_hvp(job["hv"], case, group) for case in HVP_CASES}
         out["hv"]["dmt"] = dmt_hessian_term(job, group)
@@ -679,3 +720,130 @@ def slice_loop_worker(group, spec: dict, out_dir: str) -> None:
         result[kind] = slice_digests(trainer)
     torch.save(result, out / f"slice_rank{r}.pt")
 
+
+
+# --- chunked evaluation and K steps a call on ranks ----------------------------------
+
+def count_collectives() -> dict:
+    """Count this process's ``torch.distributed`` all-reduces and
+    all-gathers (the port's collectives call them through the module) in
+    the returned dict, by kind."""
+    counts = {"all_reduce": 0, "all_gather": 0}
+    for kind in counts:
+        fn = getattr(dist, kind)
+
+        def counted(*args, _fn=fn, _kind=kind, **kwargs):
+            counts[_kind] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(dist, kind, counted)
+    return counts
+
+
+def eval_trainer(job: dict, save_dir: str, group=None):
+    """The ``semi`` trainer of :func:`semi_trainer` on the job's layout with
+    the job's weights, evaluating ``job['chunk']`` batches a call."""
+    trainer = semi_trainer(job["spec"], save_dir, per_rank=2, device_cache=False, max_epoch=1,
+                           group=group)
+    trainer._model.load_state_dict(job["model"])
+    trainer.EVAL_CHUNK = job["chunk"]
+    return trainer
+
+
+def eval_worker(group, job_path: str, out_dir: str) -> None:
+    """Each of the job's passes (name -> eval batches) through
+    ``Trainer.eval_epoch`` on this rank: the statistics and the collectives
+    it ran."""
+    job = torch.load(job_path, weights_only=False)
+    trainer = eval_trainer(job, str(Path(out_dir) / f"eval_r{group.rank}"), group)
+    counts = count_collectives()
+    out = {}
+    for name, batches in job["passes"].items():
+        counts.update(dict.fromkeys(counts, 0))
+        stats, _ = trainer.eval_epoch(batches, 0, name)
+        out[name] = {"stats": stats, "collectives": dict(counts)}
+    torch.save(out, Path(out_dir) / f"eval_rank{group.rank}.pt")
+
+
+#: the trainers that take K steps a call on W > 1 ranks, as the overrides of
+#: ``main.build_semi_run`` (its device-cached step); ``semi_host`` is
+#: ``semi`` fed host batches (``build_unrolled_train_step``)
+UNROLL_KINDS = {"semi": ["Trainer.name=semi"], "semi_host": ["Trainer.name=semi"],
+                "ft": ["Trainer.name=ft", "+EvalEMAParameters.alpha=0.99"],
+                "mt": ["Trainer.name=mt"], "mixup": ["Trainer.name=mixup"],
+                "multicore": ["Trainer.name=multicore", "+IIDSegParameters.weight=0.01"],
+                "dmt": ["Trainer.name=dmt"]}
+#: the small size of the K-steps runs
+UNROLL_SMALL = dict(device="cpu", dtype=torch.float32, raw_size=40, crop=32, n_slices=8,
+                    max_channel=32)
+
+
+def host_batches(steps: int, rows: int, size: int, seed: int) -> list:
+    """``steps`` host-fed ``semi`` batches of ``rows`` slices (numpy arrays
+    of fresh, canonical strides) from a seeded generator."""
+    rng = np.random.default_rng(seed)
+    return [{"labeled_image": rng.random((rows, size, size, 1), np.float32),
+             "labeled_target": rng.integers(0, 4, (rows, size, size)),
+             "unlabeled_image": rng.random((rows, size, size, 1), np.float32)}
+            for _ in range(steps)]
+
+
+def run_unroll(kind: str, unroll: int, group=None, *, per_rank: int = 2, steps: int = 4,
+               host: list = None) -> dict:
+    """``steps`` train steps of ``kind`` at ``per_rank`` slices a rank and
+    batch (the global batch with one process), ``unroll`` a call, over
+    ``group``: each step's total loss and every state tensor after them
+    (the model's, the optimizer's, the hooks'). ``host``: the host batches
+    of each step (this rank's rows), for ``semi_host``."""
+    from contrastyou_tpu_torch.engine.steps import build_unrolled_train_step, stack_batches
+    from contrastyou_tpu_torch.main import build_semi_run, parse_config
+    cfg = parse_config(["-o", *UNROLL_KINDS[kind], f"Trainer.unroll_steps={unroll}",
+                        f"LabeledLoader.batch_size={per_rank}",
+                        f"UnlabeledLoader.batch_size={per_rank}"])
+    run = build_semi_run(cfg, data_group=group, **UNROLL_SMALL)
+    if host is None:
+        calls = [run.step(run.state, run.generator, 0, run.host_rng)
+                 for _ in range(steps // unroll)]
+    else:
+        bundle = ModelBundle(run.state.model, (UNROLL_SMALL["crop"],) * 2 + (1,))
+        step = (build_train_step(bundle, run.hooks, data_group=group) if unroll == 1 else
+                build_unrolled_train_step(bundle, run.hooks, unroll=unroll, data_group=group))
+        W = num_ranks(group)
+        batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in host]
+        draws = []
+        for b in batches:
+            shape = (b["unlabeled_image"].shape[0] * W, *b["unlabeled_image"].shape[1:])
+            draws.append(shard_step_draws(sample_step_draws(
+                run.generator, shape[0], run.hooks, host_rng=run.host_rng, shape=shape,
+                labeled_shape=shape), run.hooks, group))
+        calls = [step(run.state, batches[i], draws[i]) if unroll == 1 else
+                 step(run.state, stack_batches(batches[i:i + unroll]), draws[i:i + unroll])
+                 for i in range(0, steps, unroll)]
+    state = {f"model/{k}": v.clone() for k, v in run.state.model.state_dict().items()}
+    for i, st in enumerate(run.state.optimizer.state.values()):
+        state.update({f"opt{i}/{k}": v.clone() for k, v in st.items()})
+    state.update({f"hooks/{k}": v for k, v in _tensors(run.state.hook_states).items()})
+    graph = getattr(run.step, "graph", None)
+    return {"losses": torch.cat([m["total_loss"].reshape(-1) for m in calls]), "state": state,
+            "step": run.state.step, "replays": 0 if graph is None else graph.replays}
+
+
+def unroll_worker(group, spec: dict, out_dir: str) -> None:
+    """Each of ``spec['kinds']`` at K = 1 and K = ``spec['unroll']`` on this
+    rank; then, with ``spec['main']``, ``main.run_experiment`` on the
+    layout at each K, into save dirs of its own (rank 0's files are read)."""
+    import contrastyou_tpu_torch as package
+    from contrastyou_tpu_torch import main as port_main
+    package.DATA_PATH = spec.get("data", package.DATA_PATH)
+    out = {}
+    for kind in spec["kinds"]:
+        host = (host_batches(spec["steps"], 2, UNROLL_SMALL["crop"], 100 + group.rank)
+                if kind == "semi_host" else None)
+        out[kind] = {K: run_unroll(kind, K, group, steps=spec["steps"], host=host)
+                     for K in (1, spec["unroll"])}
+    for K in (1, spec["unroll"]) if spec.get("main") else ():
+        cfg = port_main.parse_config(["-o", *spec["main"], f"Trainer.unroll_steps={K}",
+                                      f"Trainer.save_dir={out_dir}/main_k{K}_r{group.rank}"])
+        port_main.run_experiment(cfg, device=torch.device("cpu"), dtype=torch.float32,
+                                 data_group=group)
+    torch.save(out, Path(out_dir) / f"unroll_rank{group.rank}.pt")
