@@ -51,15 +51,37 @@ captured, so the pool always has a live graph.
 launches without calling the wrappers, so the launches a capture recorded
 are kept (``launches_per_graph``) and added to the counters at each replay:
 ``kernel_launches()`` reads replays x captured, for both kinds of graph.
+
+:data:`GRAPH_STATS` counts, over the process, the step and eval graphs'
+warm-ups, captures and replays and the host seconds of their captures
+(``step_capture_s``, ``eval_capture_s``: from ``torch.cuda.graph``'s entry
+to its exit, no synchronize added), for a whole run's ``launches.json`` and
+the benchmark; a :class:`StepGraph` keeps its own ``captures`` and
+``capture_s``, which the trainer's train ``timing`` records read, as its
+eval records read their :class:`EvalGraph`'s ``replays``. The phases of a
+call are host spans (``tracing.py``):
+``cy/graph/warmup``, ``cy/graph/capture``, ``cy/graph/key`` (the state's
+fingerprint walk and the key compare), ``cy/graph/inputs`` (the copies into
+the static inputs), ``cy/graph/replay`` (the launch and the counters) and
+``cy/graph/outputs`` (the outputs' copies).
 """
 from __future__ import annotations
 
+import time
 import typing as t
 
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["GraphPool", "StepGraph", "EvalGraph"]
+from ..tracing import span
+
+__all__ = ["GRAPH_STATS", "GraphPool", "StepGraph", "EvalGraph"]
+
+#: the process's graph warm-ups, captures and replays and the host seconds
+#: spent capturing, by kind
+GRAPH_STATS: t.Dict[str, float] = {
+    "step_warmups": 0, "step_captures": 0, "step_replays": 0, "step_capture_s": 0.0,
+    "eval_warmups": 0, "eval_captures": 0, "eval_replays": 0, "eval_capture_s": 0.0}
 
 
 def _launch_counters() -> tuple:
@@ -122,47 +144,63 @@ class GraphPool:
         return self._handle
 
 
-def _warm_up(fn):
+def _warm_up(fn, kind: str):
+    GRAPH_STATS[f"{kind}_warmups"] += 1
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    with span("cy/graph/warmup"), torch.cuda.stream(side):
         out = fn()
     torch.cuda.current_stream().wait_stream(side)
     return out
 
 
-def _capture(fn, pool: GraphPool, failed: str) -> tuple:
+def _capture(fn, pool: GraphPool, failed: str, kind: str) -> tuple:
     """Capture ``fn()`` into a new graph in ``pool`` -> (graph, its outputs,
-    the hand kernels' launches it recorded, a dict per counter); the
-    counters are left as they were. A capture that fails raises
-    ``RuntimeError`` starting with ``failed``."""
+    the hand kernels' launches it recorded, a dict per counter, the host
+    seconds of the capture); the counters are left as they were, the
+    seconds added to ``GRAPH_STATS`` under ``kind``. A capture that fails
+    raises ``RuntimeError`` starting with ``failed``."""
     counters = _launch_counters()
     counts = [dict(c) for c in counters]
     graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph, pool=pool(), capture_error_mode="thread_local"):
+        with span("cy/graph/capture"), torch.cuda.graph(graph, pool=pool(),
+                                                        capture_error_mode="thread_local"):
             out = fn()
     except Exception as e:
         raise RuntimeError(f"{failed} ({type(e).__name__}: {e})") from e
     finally:
+        seconds = time.perf_counter() - t0
+        GRAPH_STATS[f"{kind}_capture_s"] += seconds
         deltas = []
         for c, old in zip(counters, counts):
             delta = {k: v - old.get(k, 0) for k, v in c.items()}
             deltas.append({k: v for k, v in delta.items() if v})
             c.clear()
             c.update(old)
-    return graph, out, deltas
+    return graph, out, deltas, seconds
 
 
-def _replay(graph, deltas: list, out):
+def _replay(graph, deltas: list, out, kind: str):
     """Replay ``graph``, add its launches to the counters and return copies
     of its outputs (the next replay of any graph in the pool may overwrite
     them)."""
-    graph.replay()
-    for c, delta in zip(_launch_counters(), deltas):
-        for k, v in delta.items():
-            c[k] = c.get(k, 0) + v
-    return pytree.tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor) else v, out)
+    with span("cy/graph/replay"):
+        graph.replay()
+        for c, delta in zip(_launch_counters(), deltas):
+            for k, v in delta.items():
+                c[k] = c.get(k, 0) + v
+        GRAPH_STATS[f"{kind}_replays"] += 1
+    with span("cy/graph/outputs"):
+        return pytree.tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor) else v, out)
+
+
+def _copy_into(statics: list, values: list) -> None:
+    with span("cy/graph/inputs"):
+        for s, v in zip(statics, values):
+            if isinstance(v, torch.Tensor):
+                s.copy_(v)
 
 
 def _per_graph(deltas: list) -> t.Dict[str, int]:
@@ -179,7 +217,9 @@ class StepGraph:
         self.body, self.unroll, self.name = body, int(unroll), name
         self.capture = bool(capture)
         self.pool = pool if pool is not None else GraphPool()
-        self.replays = 0
+        self.replays = self.captures = 0
+        #: the host seconds of the captures so far
+        self.capture_s = 0.0
         #: the hand kernels' launches one replay makes (counted at capture)
         self.launches_per_graph: t.Dict[str, int] = {}
         self._graph: t.Optional[torch.cuda.CUDAGraph] = None
@@ -193,21 +233,23 @@ class StepGraph:
         if (self.unroll == 1 or not self.capture
                 or not next(state.model.parameters()).is_cuda):
             return self.body(state, inputs, epoch)
-        leaves, spec = pytree.tree_flatten(inputs)
-        shape_key = (spec, _shape_key(leaves), id(state))
-        if shape_key not in self._warm:
-            out = _warm_up(lambda: self.body(state, inputs, epoch))
+        with span("cy/graph/key"):
+            leaves, spec = pytree.tree_flatten(inputs)
+            shape_key = (spec, _shape_key(leaves), id(state))
+            warm = shape_key in self._warm
+            same = warm and self._key == (shape_key, int(epoch),
+                                          tuple(_fingerprint(state).items()))
+        if not warm:
+            out = _warm_up(lambda: self.body(state, inputs, epoch), "step")
             self._warm.add(shape_key)
             return out
-        key = (shape_key, int(epoch), tuple(_fingerprint(state).items()))
-        if key != self._key:
+        if not same:
             self._capture(state, leaves, spec, epoch)
-            self._key = (shape_key, int(epoch), tuple(_fingerprint(state).items()))
+            with span("cy/graph/key"):
+                self._key = (shape_key, int(epoch), tuple(_fingerprint(state).items()))
         else:
-            for s, v in zip(self._statics, leaves):
-                if isinstance(v, torch.Tensor):
-                    s.copy_(v)
-        out = _replay(self._graph, self._deltas, self._out)
+            _copy_into(self._statics, leaves)
+        out = _replay(self._graph, self._deltas, self._out, "step")
         self.replays += 1
         state.step += self.unroll
         return out
@@ -217,9 +259,10 @@ class StepGraph:
         statics = [v.clone() if isinstance(v, torch.Tensor) else v for v in leaves]
         step, before = state.step, _fingerprint(state)
         try:
-            graph, out, deltas = _capture(
+            graph, out, deltas, seconds = _capture(
                 lambda: self.body(state, pytree.tree_unflatten(statics, spec), epoch),
-                self.pool, f"{self.name}: the CUDA graph capture of {self.unroll} steps failed")
+                self.pool, f"{self.name}: the CUDA graph capture of {self.unroll} steps failed",
+                "step")
         finally:
             state.step = step
         after = _fingerprint(state)
@@ -231,6 +274,9 @@ class StepGraph:
                 f"graph would not repeat; such state must be updated in place on the device")
         self._graph, self._out, self._deltas, self._statics = graph, out, deltas, statics
         self.launches_per_graph = _per_graph(deltas)
+        self.captures += 1
+        self.capture_s += seconds
+        GRAPH_STATS["step_captures"] += 1
 
 
 class _Captured(t.NamedTuple):
@@ -259,27 +305,32 @@ class EvalGraph:
     def __call__(self, model: torch.nn.Module, *inputs: torch.Tensor):
         if not inputs[0].is_cuda:
             return self.body(model, *inputs)
-        key = (id(model), _shape_key(list(inputs)))
-        if key not in self._warm:
-            out = _warm_up(lambda: self.body(model, *inputs))
+        with span("cy/graph/key"):
+            key = (id(model), _shape_key(list(inputs)))
+            warm = key in self._warm
+            if warm:
+                fingerprint = _model_fingerprint(model)
+                entry = self._graphs.get(key)
+                same = (entry is not None and entry.model is model
+                        and entry.fingerprint == fingerprint)
+        if not warm:
+            out = _warm_up(lambda: self.body(model, *inputs), "eval")
             self._warm.add(key)
             return out
-        fingerprint = _model_fingerprint(model)
-        entry = self._graphs.get(key)
-        if entry is None or entry.model is not model or entry.fingerprint != fingerprint:
+        if not same:
             statics = [x.clone() for x in inputs]
-            graph, out, deltas = _capture(
+            graph, out, deltas, _ = _capture(
                 lambda: self.body(model, *statics), self.pool,
                 f"{self.name}: the CUDA graph capture of the eval chunk "
-                f"{tuple(inputs[0].shape)} failed")
+                f"{tuple(inputs[0].shape)} failed", "eval")
             # the entry replaced only now: the pool keeps a live graph
             entry = self._graphs[key] = _Captured(graph, model, fingerprint, statics, out,
                                                   deltas)
             self.captures += 1
+            GRAPH_STATS["eval_captures"] += 1
             self.launches_per_graph = _per_graph(deltas)
         else:
-            for s, x in zip(entry.statics, inputs):
-                s.copy_(x)
-        out = _replay(entry.graph, entry.deltas, entry.out)
+            _copy_into(entry.statics, inputs)
+        out = _replay(entry.graph, entry.deltas, entry.out, "eval")
         self.replays += 1
         return out

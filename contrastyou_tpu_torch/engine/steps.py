@@ -51,6 +51,7 @@ from ..ops.affine import (GeoParams, sample_gammas, sample_geo_params,
                           transform_image, transform_logits)
 from ..parallel.collectives import gather_rows, mean_over_ranks, num_ranks, sum_gradients
 from ..parallel.mesh import DataGroup, data_parallel, multi_rank, shard_batch
+from ..tracing import hook_span_names, span
 from .bundle import ModelBundle
 from .graph import EvalGraph, GraphPool, StepGraph
 from .hooks import StepContext, TrainerHook, check_hook_names, combined_taps
@@ -255,6 +256,7 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     check_data_parallel(hooks, group, mode=mode, sup_criterion=sup_criterion)
     taps = combined_taps(hooks)
     num_classes = target_num_classes or bundle.num_classes
+    hook_spans = hook_span_names(hooks)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: Optional[StepDraws], epoch: int = 0) -> Dict[str, torch.Tensor]:
@@ -262,86 +264,94 @@ def build_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
             return run(state, batch, draws, epoch)
 
     def run(state, batch, draws, epoch):
-        state.model.train()
-        labeled_image = batch["labeled_image"]
-        labeled_target = batch["labeled_target"]
-        ctx = StepContext(labeled_image=labeled_image, labeled_target=labeled_target,
-                          epoch=epoch, bundle=bundle, data_group=group)
-        if mode != "semi" or two_stage:
-            labeled_logits, labeled_taps = bundle.apply_train(labeled_image, taps=taps)
-        if draws is not None:
-            ctx.hook_draws = dict(draws.hooks or {})
-        if mode == "semi":
-            unlabeled_image = batch["unlabeled_image"]
-            nu = unlabeled_image.shape[0]
-            ctx.unlabeled_image = unlabeled_image
-            ctx.unlabeled_image_tf = transform_image(unlabeled_image, draws.geo, draws.gammas)
-            ctx.geo_params = draws.geo
-            ctx.point_draws = dict(draws.points or {})
-            ctx.superpixel = batch.get("unlabeled_superpixel")
-            ctx.label_group = batch.get("unlabeled_scan_id")
-            ctx.partition_group = batch.get("unlabeled_partition")
-            ctx.patient_group = batch.get("unlabeled_patient")
-            ctx.cycle_group = batch.get("unlabeled_cycle")
-            if two_stage:
-                u_logits, u_taps = bundle.apply_train(
-                    torch.cat([unlabeled_image, ctx.unlabeled_image_tf], 0), taps=taps,
-                    update_stats=not disable_bn)
-            else:
-                nl = labeled_image.shape[0]
-                logits, all_taps = bundle.apply_train(
-                    torch.cat([labeled_image, unlabeled_image, ctx.unlabeled_image_tf], 0),
-                    taps=taps)
-                labeled_logits, u_logits = logits[:nl], logits[nl:]
-                labeled_taps = {k: v[:nl] for k, v in all_taps.items()}
-                u_taps = {k: v[nl:] for k, v in all_taps.items()}
-            ctx.unlabeled_logits, ctx.unlabeled_tf_logits = u_logits[:nu], u_logits[nu:]
-            ctx.unlabeled_logits_tf = transform_logits(ctx.unlabeled_logits, draws.geo)
-            ctx.unlabeled_taps = {k: v[:nu] for k, v in u_taps.items()}
-            ctx.unlabeled_tf_taps = {k: v[nu:] for k, v in u_taps.items()}
-        ctx.labeled_logits, ctx.labeled_taps = labeled_logits, labeled_taps
+        with span("cy/step/forward"):
+            state.model.train()
+            labeled_image = batch["labeled_image"]
+            labeled_target = batch["labeled_target"]
+            ctx = StepContext(labeled_image=labeled_image, labeled_target=labeled_target,
+                              epoch=epoch, bundle=bundle, data_group=group)
+            if mode != "semi" or two_stage:
+                labeled_logits, labeled_taps = bundle.apply_train(labeled_image, taps=taps)
+            if draws is not None:
+                ctx.hook_draws = dict(draws.hooks or {})
+            if mode == "semi":
+                unlabeled_image = batch["unlabeled_image"]
+                nu = unlabeled_image.shape[0]
+                ctx.unlabeled_image = unlabeled_image
+                ctx.unlabeled_image_tf = transform_image(unlabeled_image, draws.geo, draws.gammas)
+                ctx.geo_params = draws.geo
+                ctx.point_draws = dict(draws.points or {})
+                ctx.superpixel = batch.get("unlabeled_superpixel")
+                ctx.label_group = batch.get("unlabeled_scan_id")
+                ctx.partition_group = batch.get("unlabeled_partition")
+                ctx.patient_group = batch.get("unlabeled_patient")
+                ctx.cycle_group = batch.get("unlabeled_cycle")
+                if two_stage:
+                    u_logits, u_taps = bundle.apply_train(
+                        torch.cat([unlabeled_image, ctx.unlabeled_image_tf], 0), taps=taps,
+                        update_stats=not disable_bn)
+                else:
+                    nl = labeled_image.shape[0]
+                    logits, all_taps = bundle.apply_train(
+                        torch.cat([labeled_image, unlabeled_image, ctx.unlabeled_image_tf], 0),
+                        taps=taps)
+                    labeled_logits, u_logits = logits[:nl], logits[nl:]
+                    labeled_taps = {k: v[:nl] for k, v in all_taps.items()}
+                    u_taps = {k: v[nl:] for k, v in all_taps.items()}
+                ctx.unlabeled_logits, ctx.unlabeled_tf_logits = u_logits[:nu], u_logits[nu:]
+                ctx.unlabeled_logits_tf = transform_logits(ctx.unlabeled_logits, draws.geo)
+                ctx.unlabeled_taps = {k: v[:nu] for k, v in u_taps.items()}
+                ctx.unlabeled_tf_taps = {k: v[nu:] for k, v in u_taps.items()}
+            ctx.labeled_logits, ctx.labeled_taps = labeled_logits, labeled_taps
 
-        onehot = F.one_hot(labeled_target.long(), num_classes).float()
-        probs = torch.softmax(labeled_logits, -1)
-        sup_loss = kl_div(probs, onehot) if sup_criterion is None else sup_criterion(probs, onehot)
-        reg_loss = sup_loss.new_zeros(())
+            onehot = F.one_hot(labeled_target.long(), num_classes).float()
+            probs = torch.softmax(labeled_logits, -1)
+            sup_loss = (kl_div(probs, onehot) if sup_criterion is None
+                        else sup_criterion(probs, onehot))
+            reg_loss = sup_loss.new_zeros(())
         metrics: Dict[str, torch.Tensor] = {}
         new_states = {}
-        for hook in hooks:
-            h_loss, h_state, h_metrics = hook.loss(ctx, state.hook_states[hook.name])
-            reg_loss = reg_loss + hook.weight * h_loss
-            if h_state is not None:
-                new_states[hook.name] = h_state
-            metrics[f"{hook.name}/loss"] = h_loss.detach()
-            # copies: a metric may be a state tensor that the commit below overwrites
-            metrics.update({f"{hook.name}/{k}": v.detach().clone() for k, v in h_metrics.items()})
-        total = sup_loss + reg_loss
+        with span("cy/step/hooks"):
+            for hook in hooks:
+                with span(hook_spans[hook.name]):
+                    h_loss, h_state, h_metrics = hook.loss(ctx, state.hook_states[hook.name])
+                reg_loss = reg_loss + hook.weight * h_loss
+                if h_state is not None:
+                    new_states[hook.name] = h_state
+                metrics[f"{hook.name}/loss"] = h_loss.detach()
+                # copies: a metric may be a state tensor that the commit below overwrites
+                metrics.update({f"{hook.name}/{k}": v.detach().clone()
+                                for k, v in h_metrics.items()})
+            total = sup_loss + reg_loss
 
-        state.optimizer.zero_grad(set_to_none=True)
-        if group is None:
-            total.backward()
-        else:
-            # this rank's share: the shares of the ranks sum to the global loss
-            (total / group.size).backward()
-            sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
-                          group)
-        state.optimizer.step()
-        for name, h_state in new_states.items():
-            state.hook_states[name] = commit_state(state.hook_states[name], h_state)
-        for hook in hooks:
-            state.hook_states[hook.name] = hook.post_step(
-                ctx, state.model, state.hook_states[hook.name])
-        state.step += 1
+        with span("cy/step/backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            if group is None:
+                total.backward()
+            else:
+                # this rank's share: the shares of the ranks sum to the global loss
+                (total / group.size).backward()
+                sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
+                              group)
+        with span("cy/step/optimizer"):
+            state.optimizer.step()
+        with span("cy/step/commit"):
+            for name, h_state in new_states.items():
+                state.hook_states[name] = commit_state(state.hook_states[name], h_state)
+            for hook in hooks:
+                state.hook_states[hook.name] = hook.post_step(
+                    ctx, state.model, state.hook_states[hook.name])
+            state.step += 1
 
-        pred = probs.detach() if prob_transform is None else prob_transform(probs.detach())
-        inter, union = slice_intersection_union(pred.argmax(-1), labeled_target,
-                                                num_classes=num_classes)
-        metrics.update(sup_loss=sup_loss.detach(), reg_loss=reg_loss.detach(),
-                       total_loss=total.detach())
-        if group is not None:
-            metrics = mean_over_ranks(metrics, group)
-            inter, union = gather_rows(inter, group), gather_rows(union, group)
-        metrics.update(dice_inter=inter, dice_union=union)
+            pred = probs.detach() if prob_transform is None else prob_transform(probs.detach())
+            inter, union = slice_intersection_union(pred.argmax(-1), labeled_target,
+                                                    num_classes=num_classes)
+            metrics.update(sup_loss=sup_loss.detach(), reg_loss=reg_loss.detach(),
+                           total_loss=total.detach())
+            if group is not None:
+                metrics = mean_over_ranks(metrics, group)
+                inter, union = gather_rows(inter, group), gather_rows(union, group)
+            metrics.update(dice_inter=inter, dice_union=union)
         return metrics
 
     return step
@@ -440,25 +450,28 @@ def build_cached_train_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *
     def draw(generator: torch.Generator, host_rng=None) -> dict:
         """One step's draws, in the order of the step: the labeled batch,
         the unlabeled batch, the transform and the hooks'."""
-        drawn = {"labeled": labeled_cache.draw(generator, labeled_batch * W)}
-        if semi:
-            drawn["unlabeled"] = unlabeled_cache.draw(generator, unlabeled_batch * W)
-            shape = (unlabeled_batch * W, unlabeled_cache.crop, unlabeled_cache.crop, 1)
-            drawn["draws"] = sample_step_draws(generator, shape[0], hooks, host_rng=host_rng,
-                                               shape=shape, labeled_shape=labeled_shape)
-        else:
-            drawn["draws"] = sample_ft_draws(generator, hooks, host_rng=host_rng,
-                                             shape=labeled_shape)
-        return drawn
+        with span("cy/data/draw"):
+            drawn = {"labeled": labeled_cache.draw(generator, labeled_batch * W)}
+            if semi:
+                drawn["unlabeled"] = unlabeled_cache.draw(generator, unlabeled_batch * W)
+                shape = (unlabeled_batch * W, unlabeled_cache.crop, unlabeled_cache.crop, 1)
+                drawn["draws"] = sample_step_draws(generator, shape[0], hooks,
+                                                   host_rng=host_rng, shape=shape,
+                                                   labeled_shape=labeled_shape)
+            else:
+                drawn["draws"] = sample_ft_draws(generator, hooks, host_rng=host_rng,
+                                                 shape=labeled_shape)
+            return drawn
 
     def one(state: TrainState, drawn: dict, epoch: int) -> Dict[str, torch.Tensor]:
-        lab = labeled_cache.sample_at(*drawn["labeled"])
-        batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
-        if semi:
-            unl = unlabeled_cache.sample_at(*drawn["unlabeled"])
-            batch.update(unlabeled_image=unl["image"], unlabeled_partition=unl["partition"],
-                         unlabeled_scan_id=unl["scan_id"], unlabeled_patient=unl["patient"],
-                         unlabeled_cycle=unl["cycle"])
+        with span("cy/data/draw"):
+            lab = labeled_cache.sample_at(*drawn["labeled"])
+            batch = {"labeled_image": lab["image"], "labeled_target": lab["target"]}
+            if semi:
+                unl = unlabeled_cache.sample_at(*drawn["unlabeled"])
+                batch.update(unlabeled_image=unl["image"], unlabeled_partition=unl["partition"],
+                             unlabeled_scan_id=unl["scan_id"], unlabeled_patient=unl["patient"],
+                             unlabeled_cycle=unl["cycle"])
         metrics = step(state, shard_batch(batch, data_group),
                        shard_step_draws(drawn["draws"], hooks, data_group), epoch)
         metrics["labeled_scan_id"] = lab["scan_id"]

@@ -41,9 +41,15 @@ epoch index 1 under ``torch.profiler`` (CPU and, on the card, CUDA
 activity; the first epoch pays the first launches), from the hooks' epoch
 start to its storage row: the Chrome trace goes to
 ``<save_dir>/profile/epoch_001.pt.trace.json`` beside ``launches.json``,
-the hand-written kernels' launch counts over the same window; on the card a
-trace without device kernels is removed and the run raises, and that
-epoch's timing records carry ``profiled: True``.
+the hand-written kernels' launch counts and the CUDA graphs' counts
+(:func:`graph_stats`) over the same window; on the card a trace without
+device kernels is removed and the run raises, and that epoch's timing
+records carry ``profiled: True``. The trace holds the port's host spans
+(``tracing.py``): ``cy/train/call`` and ``cy/train/meters`` for each call
+of the train step and the meters after it, ``cy/data/host_batch`` for a
+host-fed step's batch and draws, ``cy/eval/chunk`` and ``cy/eval/readback``
+for each eval chunk, and inside them the graph's, the step's and the
+draws' spans.
 
 ``unroll_steps`` = K runs K train steps a call, as JAX's trainer:
 ``num_batches // K`` calls an epoch (JAX's warning when K does not divide
@@ -57,7 +63,10 @@ a call is one CUDA graph (``engine/graph.py``), host-fed batches reaching it
 through pinned memory; on the CPU, and on W > 1 ranks (whose collectives
 are not captured), the K steps run as a loop. Trainers that build their
 own step (``adv``, pretraining) refuse K > 1. The train ``timing`` record
-carries ``graph``: whether the epoch's calls replayed a CUDA graph.
+carries ``graph``: whether the epoch's calls replayed a CUDA graph, and the
+epoch's ``captures`` of it and their host seconds, ``capture_s`` (the
+graph is captured again each epoch, which the hooks read as a host
+number).
 
 Evaluation (JAX's ``eval_epoch``): a validation or test pass takes its
 batches (one scan each, padded to the longest) in chunks of
@@ -119,19 +128,21 @@ from ..meters.storage import Storage
 from ..ops import convblock, iic, supcon
 from ..parallel.collectives import all_reduce_sum, gather_rows, num_ranks
 from ..parallel.mesh import DataGroup, multi_rank, replicate, shard_batch
+from ..tracing import span
 from ..utils.torch_convert import load_pretrained
 from ..writer import SummaryWriter
 from .bundle import ModelBundle
 from .checkpoint import (load_checkpoint, load_model_params, load_train_state, save_checkpoint,
                          train_state_dict)
+from .graph import GRAPH_STATS
 from .hooks import TrainerHook, hook_parameters
 from .optim import create_optimizer
 from .steps import (build_cached_train_step, build_eval_step, build_scanned_eval_step,
                     build_train_step, build_unrolled_train_step, init_train_state,
                     sample_ft_draws, sample_step_draws, shard_step_draws, stack_batches)
 
-__all__ = ["Trainer", "epoch_seed", "hook_metrics", "kernel_launches", "HOOK_DRAW_SEED_OFFSET",
-           "PROFILE_EPOCH"]
+__all__ = ["Trainer", "epoch_seed", "hook_metrics", "kernel_launches", "graph_stats",
+           "HOOK_DRAW_SEED_OFFSET", "PROFILE_EPOCH"]
 
 logger = logging.getLogger(__name__)
 
@@ -161,9 +172,20 @@ def kernel_launches() -> t.Dict[str, int]:
     return {**convblock.LAUNCHES, **supcon.LAUNCHES, **iic.LAUNCHES}
 
 
-def _replays(step) -> int:
-    """The CUDA graph replays of a built step so far (0 without a graph)."""
-    return getattr(getattr(step, "graph", None), "replays", 0)
+def graph_stats() -> t.Dict[str, float]:
+    """The CUDA graphs' warm-ups, captures and replays so far in this
+    process, by kind (``step_*``, ``eval_*``), and the host seconds of their
+    captures by kind (``step_capture_s``, ``eval_capture_s``)
+    (``engine/graph.py`` ``GRAPH_STATS``; zeros on the CPU)."""
+    return dict(GRAPH_STATS)
+
+
+def _graph_counts(step) -> tuple:
+    """(replays, captures, capture seconds) of a built step's CUDA graph so
+    far (zeros without a graph)."""
+    graph = getattr(step, "graph", None)
+    return (getattr(graph, "replays", 0), getattr(graph, "captures", 0),
+            getattr(graph, "capture_s", 0.0))
 
 
 def epoch_seed(seed: int, epoch: int, offset: int = 10_000) -> int:
@@ -507,7 +529,7 @@ class Trainer:
         cuda = self.device.type == "cuda"
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         self._sync()
-        before = kernel_launches()
+        before, graphs_before = kernel_launches(), graph_stats()
         self._profiling = True
         try:
             with profile(activities=activities) as prof:
@@ -516,6 +538,7 @@ class Trainer:
         finally:
             self._profiling = False
         launches = {k: v - before.get(k, 0) for k, v in kernel_launches().items()}
+        graphs = {k: v - graphs_before[k] for k, v in graph_stats().items()}
         t0 = time.perf_counter()
         out = Path(self._save_dir) / "profile"
         out.mkdir(parents=True, exist_ok=True)
@@ -531,7 +554,7 @@ class Trainer:
                 "CUPTI available?); no trace is kept without the device")
         (out / "launches.json").write_text(json.dumps(
             {"epoch": epoch, "trace": trace.name, "device_events": device_events,
-             "launches": launches}, indent=2))
+             "launches": launches, "graphs": graphs}, indent=2))
         seconds = time.perf_counter() - t0
         size = trace.stat().st_size
         logger.info("profile of epoch %d: %s (%d bytes, %d device events) in %.3f s", epoch,
@@ -562,48 +585,59 @@ class Trainer:
                            "per epoch", self._num_batches, K, num_calls * K)
         indicator = Indicator(range(num_calls), desc=f"train {epoch:03d}")
         last = num_calls - 1
-        replays = _replays(self._train_step)
+        counts = _graph_counts(self._train_step)
         t0 = time.perf_counter()
         with meters:
             for it in indicator:
                 if self._device_cache:
-                    metrics = self._train_step(self._state, generator, epoch, host_rng)
-                    dice.add_counts(*self._rows(metrics["dice_inter"], metrics["dice_union"]),
-                                    group_ids=metrics.pop("labeled_scan_id").reshape(-1),
-                                    id_table=self._labeled_cache.scan_names)
+                    with span("cy/train/call"):
+                        metrics = self._train_step(self._state, generator, epoch, host_rng)
+                    with span("cy/train/meters"):
+                        dice.add_counts(*self._rows(metrics["dice_inter"], metrics["dice_union"]),
+                                        group_ids=metrics.pop("labeled_scan_id").reshape(-1),
+                                        id_table=self._labeled_cache.scan_names)
                 elif K == 1:
                     labeled, batch, draws = self._host_step_inputs(
                         labeled_iter, unlabeled_iter, generator, host_rng)
-                    metrics = self._train_step(self._state, batch, draws, epoch)
-                    self._add_host_counts(dice, metrics, [labeled])
+                    with span("cy/train/call"):
+                        metrics = self._train_step(self._state, batch, draws, epoch)
+                    with span("cy/train/meters"):
+                        self._add_host_counts(dice, metrics, [labeled])
                 else:
                     inputs = [self._host_step_inputs(labeled_iter, unlabeled_iter, generator,
                                                      host_rng) for _ in range(K)]
-                    metrics = self._train_step(self._state, stack_batches([b for _, b, _ in inputs]),
-                                               [d for _, _, d in inputs], epoch)
-                    self._add_host_counts(dice, metrics, [lab for lab, _, _ in inputs])
-                # a call's K steps one by one: the meters sum as over K one-step calls
-                for m in ([metrics] if K == 1 else
-                          [{k: v[i] for k, v in metrics.items()} for i in range(K)]):
-                    for key in ("sup_loss", "reg_loss"):
-                        meters.add(key, m[key])
-                    for hook in self._active_hooks:
-                        hook_meters[hook.name].add(**hook_metrics(m, hook.name))
-                if it == 0:
-                    self._log_figures(metrics, epoch)
-                # reading a meter waits for the device: every tenth step, as JAX's loop
-                if (it + 1) * K // 10 > it * K // 10 or it == last:
-                    indicator.set_postfix_statics(
-                        {"tra": {"sup": meters["sup_loss"].summary(),
-                                 "reg": meters["reg_loss"].summary()}},
-                        force_update=it == last)
+                    with span("cy/data/host_batch"):
+                        batches = stack_batches([b for _, b, _ in inputs])
+                    with span("cy/train/call"):
+                        metrics = self._train_step(self._state, batches,
+                                                   [d for _, _, d in inputs], epoch)
+                    with span("cy/train/meters"):
+                        self._add_host_counts(dice, metrics, [lab for lab, _, _ in inputs])
+                with span("cy/train/meters"):
+                    # a call's K steps one by one: the meters sum as over K one-step calls
+                    for m in ([metrics] if K == 1 else
+                              [{k: v[i] for k, v in metrics.items()} for i in range(K)]):
+                        for key in ("sup_loss", "reg_loss"):
+                            meters.add(key, m[key])
+                        for hook in self._active_hooks:
+                            hook_meters[hook.name].add(**hook_metrics(m, hook.name))
+                    if it == 0:
+                        self._log_figures(metrics, epoch)
+                    # reading a meter waits for the device: every tenth step, as JAX's loop
+                    if (it + 1) * K // 10 > it * K // 10 or it == last:
+                        indicator.set_postfix_statics(
+                            {"tra": {"sup": meters["sup_loss"].summary(),
+                                     "reg": meters["reg_loss"].summary()}},
+                            force_update=it == last)
         self._pause_iterators()
         self._sync()
         seconds = time.perf_counter() - t0
         stats = dict(meters.statistics())
         stats["tra"]["lr"] = float(self._schedule(int(self._state.step)))
         steps = num_calls * K
-        graph = _replays(self._train_step) > replays
+        replays, captures, capture_s = (
+            v - old for v, old in zip(_graph_counts(self._train_step), counts))
+        graph = replays > 0
         logger.info("train epoch %d: %d steps in %.3f s (%.3f ms/step, %s%s%s%s)", epoch,
                     steps, seconds, seconds / steps * 1e3,
                     "device cache" if self._device_cache else "host-fed",
@@ -613,6 +647,7 @@ class Trainer:
                                       "steps": steps, "seconds": seconds,
                                       "device_cache": self._device_cache,
                                       "unroll_steps": K, "graph": graph,
+                                      "captures": captures, "capture_s": capture_s,
                                       "profiled": self._profiling}})
         return stats
 
@@ -623,19 +658,20 @@ class Trainer:
 
     def _host_step_inputs(self, labeled_iter, unlabeled_iter, generator, host_rng) -> tuple:
         """(labeled host batch, device batch, draws) of one host-fed step."""
-        labeled = next(labeled_iter)
-        unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
-        batch = self._host_batch(labeled, unlabeled)
-        labeled_shape = self._global_shape(batch["labeled_image"])
-        if unlabeled is not None:
-            shape = self._global_shape(batch["unlabeled_image"])
-            draws = sample_step_draws(generator, shape[0], self._active_hooks,
-                                      host_rng=host_rng, shape=shape,
-                                      labeled_shape=labeled_shape)
-        else:
-            draws = sample_ft_draws(generator, self._active_hooks, host_rng=host_rng,
-                                    shape=labeled_shape)
-        return labeled, batch, shard_step_draws(draws, self._active_hooks, self._group)
+        with span("cy/data/host_batch"):
+            labeled = next(labeled_iter)
+            unlabeled = next(unlabeled_iter) if unlabeled_iter is not None else None
+            batch = self._host_batch(labeled, unlabeled)
+            labeled_shape = self._global_shape(batch["labeled_image"])
+            if unlabeled is not None:
+                shape = self._global_shape(batch["unlabeled_image"])
+                draws = sample_step_draws(generator, shape[0], self._active_hooks,
+                                          host_rng=host_rng, shape=shape,
+                                          labeled_shape=labeled_shape)
+            else:
+                draws = sample_ft_draws(generator, self._active_hooks, host_rng=host_rng,
+                                        shape=labeled_shape)
+            return labeled, batch, shard_step_draws(draws, self._active_hooks, self._group)
 
     def _add_host_counts(self, dice, metrics: dict, labeled: list) -> None:
         """The dice counts of a call's host-fed steps, grouped by their scans."""
@@ -719,14 +755,17 @@ class Trainer:
         t0, batches, chunks, pending = time.perf_counter(), 0, 0, None
         with meters:
             for chunk, names, n_real in self._eval_chunks(loader):
-                out = self._eval_chunk(model, chunk)
+                with span("cy/eval/chunk"):
+                    out = self._eval_chunk(model, chunk)
                 # the previous chunk's results, read while this one runs
                 if pending is not None:
-                    self._add_chunk(meters, dice, *pending)
+                    with span("cy/eval/readback"):
+                        self._add_chunk(meters, dice, *pending)
                 pending = out, names, n_real
                 batches, chunks = batches + n_real, chunks + 1
             if pending is not None:
-                self._add_chunk(meters, dice, *pending)
+                with span("cy/eval/readback"):
+                    self._add_chunk(meters, dice, *pending)
         stats = dict(meters.statistics())
         self._log_eval(stage, epoch, batches, time.perf_counter() - t0, chunks=chunks,
                        graph=graph.replays > replays)

@@ -64,7 +64,8 @@ unlabeled, validation and test scans; ``Trainer.max_epoch`` epochs of
 ``Trainer.num_batches`` steps written to ``storage.csv`` and TensorBoard
 events (``tensorboard/``) with ``config.yaml``, the ``last`` checkpoint,
 ``.success`` and ``launches.json`` (the hand-written kernels' launch counts
-of the process, train, evaluation and inference; the trainer name; the
+of the process, train, evaluation and inference; its CUDA graphs' warm-ups,
+captures, replays and capture seconds, ``graphs``; the trainer name; the
 run's seconds and its ``timing`` records, as the trainer logs them) in
 ``Trainer.save_dir`` (under ``$CONTRASTYOU_RUN_PATH`` when relative). ``semi``
 and ``ft`` (the labeled batch alone, no hook) follow each epoch with
@@ -129,7 +130,7 @@ from .engine.hooks import hook_parameters
 from .engine.optim import create_optimizer
 from .engine.state import TrainState
 from .engine.steps import build_cached_train_step, init_train_state, point_grids
-from .engine.trainer import kernel_launches
+from .engine.trainer import graph_stats, kernel_launches
 from .hooks.creator import create_hook_from_config
 from .loggers import setup_logging
 from .models import get_arch
@@ -141,6 +142,7 @@ from .trainers.pretrain import (build_pretrain_step, check_pretrain_hooks, contr
                                 feature_until_from_hooks, frozen_encoder,
                                 get_contrastive_loader, jitter_strength,
                                 pretrain_trainable, sample_pretrain_draws)
+from .tracing import span
 from .utils.torch_convert import load_pretrained
 
 __all__ = ["MAIN_PATH_CONFIG", "UDAIIC_CONFIG", "MT_CONFIG", "MIXUP_CONFIG", "DMT_CONFIG",
@@ -528,13 +530,17 @@ def build_pretrain_run(config: Mapping, *, device, dtype: torch.dtype = torch.bf
     strength = jitter_strength(data_name)
 
     def cached_step(state: TrainState, generator: torch.Generator, epoch: int = 0):
-        # a short batch is padded by repeating its last slice (data/loader.py collate)
-        idx = next(batches)[:pad_to]
-        idx = idx + idx[-1:] * (pad_to - len(idx))
-        batch = cache.sample_at(torch.tensor(idx, device=cache.device),
-                                *cache.draw_offsets(generator, pad_to))
-        draws = sample_pretrain_draws(generator, pad_to, color_jitter=strength,
-                                      point_grids=grids)
+        with span("cy/data/sampler"):
+            # a short batch is padded by repeating its last slice (data/loader.py collate)
+            idx = next(batches)[:pad_to]
+            idx = idx + idx[-1:] * (pad_to - len(idx))
+        # a pageable copy: the host waits here for the card's earlier work
+        with span("cy/data/index_copy"):
+            idx = torch.tensor(idx, device=cache.device)
+        with span("cy/data/draw"):
+            batch = cache.sample_at(idx, *cache.draw_offsets(generator, pad_to))
+            draws = sample_pretrain_draws(generator, pad_to, color_jitter=strength,
+                                          point_grids=grids)
         return step(state, *shard_batch((batch, draws), data_group), epoch)
 
     return PretrainRun(state, cached_step, gen, pad_to, cache, hooks, until)
@@ -614,7 +620,7 @@ def run_experiment(config: Mapping, *, device, dtype: torch.dtype = torch.bfloat
         trainer, name, best = _run(config, device, dtype, data_group)
     if trainer.is_master:
         (Path(trainer.save_dir) / "launches.json").write_text(json.dumps(
-            {"launches": kernel_launches(), "trainer": name,
+            {"launches": kernel_launches(), "graphs": graph_stats(), "trainer": name,
              "seconds": time.perf_counter() - t0, "timing": timing}, indent=2))
     logging.getLogger(__name__).info("training finished, best score: %s", best)
     return trainer

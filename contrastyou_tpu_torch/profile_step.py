@@ -17,10 +17,13 @@ point takes them (``Data.name=prostate``: 96 images per forward; for
 of ``semi`` + consistency. After warm-up, ``--rounds`` timed windows of
 ``--steps`` steps (host clock around synchronized steps, ms/step), then one
 ``torch.profiler`` window of ``--steps`` steps: device busy time per step
-(the sum of the kernels' device times over the window's wall time), kernels
-per step, and the largest items by device time, grouped by the operator that
-launched them, and the device time of each of the port's hand-written
-kernels. ``--unroll K`` (``semi``, ``mt``) runs ``Trainer.unroll_steps=K``:
+(the union of the device's intervals, kernels, copies and fills, over the
+window's wall time; annotations' device-side mirrors left out), kernels per
+step, the largest items by device time, grouped by the operator that
+launched them, the device time of each of the port's hand-written kernels,
+and the host ms per step of each of the port's spans (``cy/...``,
+``tracing.py``; under a CUDA graph the step's spans run only at its warm-up
+and capture). ``--unroll K`` (``semi``, ``mt``) runs ``Trainer.unroll_steps=K``:
 K steps a call, one CUDA graph a call after the first two calls (eager
 warm-up, capture), ``--steps`` rounded down to whole calls; every figure
 stays per step. Every line names the card and its power limit. Needs a card.
@@ -54,6 +57,17 @@ def _hand_kernel(name: str):
         if fn in name:
             return label
     return None
+
+
+def _union_us(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total
 
 
 def _build(trainer: str, device, overrides=(), *, udaiic: bool = False, **size):
@@ -120,8 +134,10 @@ def main(argv=None) -> int:
         run.run(calls)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.name.startswith("cy/")]
+    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     print(f"{name} profiled window: {wall_us / args.steps / 1e3:.3f} ms/step wall, "
           f"device busy {busy_us / args.steps / 1e3:.3f} ms/step "
           f"({100 * busy_us / wall_us:.1f}%), {len(kernels) / args.steps:.0f} kernels/step "
@@ -161,6 +177,16 @@ def main(argv=None) -> int:
     for key, t in sorted(hand.items(), key=lambda kv: -kv[1]):
         print(f"    {key:70s} {t / args.steps / 1e3:8.3f} ms/step "
               f"{100 * t / busy_us:5.1f}%  {hcount[key] / args.steps:7.1f} calls/step")
+    spans = defaultdict(float)
+    scount = defaultdict(int)
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("cy/"):
+            spans[e.name] += e.time_range.elapsed_us()
+            scount[e.name] += 1
+    print("  the port's spans (host):")
+    for key, t in sorted(spans.items()):
+        print(f"    {key:70s} {t / args.steps / 1e3:8.3f} ms/step "
+              f"{100 * t / wall_us:5.1f}% of wall  {scount[key] / args.steps:7.1f} calls/step")
     return 0
 
 

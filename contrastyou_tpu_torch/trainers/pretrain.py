@@ -63,6 +63,7 @@ from ..ops.affine import (GeoParams, apply_gamma, apply_geometric, sample_gammas
 from ..ops.intensity import color_jitter as apply_jitter
 from ..parallel.collectives import mean_over_ranks, sum_gradients
 from ..parallel.mesh import DataGroup, data_parallel, multi_rank
+from ..tracing import hook_span_names, span
 
 __all__ = ["PRETRAIN_BATCH_SIZE_MAX", "feature_until_from_hooks", "frozen_after",
            "frozen_encoder", "pretrain_trainable", "jitter_strength", "contrastive_sampler",
@@ -251,39 +252,42 @@ def _views(image: torch.Tensor, draws: PretrainDraws) -> Tuple[torch.Tensor, tor
 
 
 def _hook_losses(bundle, hooks, state, batch, draws, epoch, *, until, taps, logits_tf,
-                 group=None, update_stats: bool = True):
+                 hook_spans, group=None, update_stats: bool = True):
     """One forward over both views cut at ``until`` and the hook losses ->
     (reg_loss, metrics, ctx, each hook's new state); ``state`` is not
-    written."""
-    image = batch["image"]
-    view1, view2 = _views(image, draws)
-    n = image.shape[0]
-    out, taps_all = bundle.apply_train(torch.cat([view1, view2], 0), until=until, taps=taps,
-                                       update_stats=update_stats)
-    ctx = StepContext(unlabeled_image=view1, unlabeled_image_tf=view2,
-                      unlabeled_logits=out[:n], unlabeled_tf_logits=out[n:],
-                      unlabeled_taps={k: v[:n] for k, v in taps_all.items()},
-                      unlabeled_tf_taps={k: v[n:] for k, v in taps_all.items()},
-                      label_group=batch.get("scan_id"),
-                      partition_group=batch.get("partition"),
-                      patient_group=batch.get("patient"),
-                      cycle_group=batch.get("cycle"),
-                      superpixel=batch.get("superpixel"),
-                      geo_params=draws.geo, point_draws=draws.points,
-                      hook_draws=dict(draws.hooks),
-                      epoch=epoch, bundle=bundle, data_group=group)
-    if logits_tf:
-        ctx.unlabeled_logits_tf = transform_logits(out[:n], draws.geo)
+    written. ``hook_spans``: each hook's span name (``tracing.py``)."""
+    with span("cy/step/forward"):
+        image = batch["image"]
+        view1, view2 = _views(image, draws)
+        n = image.shape[0]
+        out, taps_all = bundle.apply_train(torch.cat([view1, view2], 0), until=until,
+                                           taps=taps, update_stats=update_stats)
+        ctx = StepContext(unlabeled_image=view1, unlabeled_image_tf=view2,
+                          unlabeled_logits=out[:n], unlabeled_tf_logits=out[n:],
+                          unlabeled_taps={k: v[:n] for k, v in taps_all.items()},
+                          unlabeled_tf_taps={k: v[n:] for k, v in taps_all.items()},
+                          label_group=batch.get("scan_id"),
+                          partition_group=batch.get("partition"),
+                          patient_group=batch.get("patient"),
+                          cycle_group=batch.get("cycle"),
+                          superpixel=batch.get("superpixel"),
+                          geo_params=draws.geo, point_draws=draws.points,
+                          hook_draws=dict(draws.hooks),
+                          epoch=epoch, bundle=bundle, data_group=group)
+        if logits_tf:
+            ctx.unlabeled_logits_tf = transform_logits(out[:n], draws.geo)
     reg_loss = out.new_zeros(())
     metrics: Dict[str, torch.Tensor] = {}
     new_states = {}
-    for hook in hooks:
-        h_loss, h_state, h_metrics = hook.loss(ctx, state.hook_states[hook.name])
-        reg_loss = reg_loss + hook.weight * h_loss
-        if h_state is not None:
-            new_states[hook.name] = h_state
-        metrics[f"{hook.name}/loss"] = h_loss.detach()
-        metrics.update({f"{hook.name}/{k}": v.detach() for k, v in h_metrics.items()})
+    with span("cy/step/hooks"):
+        for hook in hooks:
+            with span(hook_spans[hook.name]):
+                h_loss, h_state, h_metrics = hook.loss(ctx, state.hook_states[hook.name])
+            reg_loss = reg_loss + hook.weight * h_loss
+            if h_state is not None:
+                new_states[hook.name] = h_state
+            metrics[f"{hook.name}/loss"] = h_loss.detach()
+            metrics.update({f"{hook.name}/{k}": v.detach() for k, v in h_metrics.items()})
     return reg_loss, metrics, ctx, new_states
 
 
@@ -300,6 +304,7 @@ def build_monitor_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     hooks = tuple(hooks)
     taps = combined_taps(hooks)
     logits_tf = any(h.reads_logits_tf for h in hooks)
+    hook_spans = hook_span_names(hooks)
 
     @torch.no_grad()
     def monitor(state: TrainState, batch: Dict[str, torch.Tensor], draws: PretrainDraws,
@@ -307,7 +312,7 @@ def build_monitor_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         state.model.train()
         reg_loss, metrics, _, _ = _hook_losses(bundle, hooks, state, batch, draws, epoch,
                                                until=until, taps=taps, logits_tf=logits_tf,
-                                               update_stats=False)
+                                               hook_spans=hook_spans, update_stats=False)
         metrics["reg_loss"] = reg_loss
         return metrics
 
@@ -337,6 +342,7 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
     check_data_parallel(hooks, group, mode="pretrain")
     taps = combined_taps(hooks)
     logits_tf = any(h.reads_logits_tf for h in hooks)
+    hook_spans = hook_span_names(hooks)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: PretrainDraws,
              epoch: int = 0) -> Dict[str, torch.Tensor]:
@@ -347,24 +353,27 @@ def build_pretrain_step(bundle: ModelBundle, hooks: Sequence[TrainerHook], *,
         state.model.train()
         reg_loss, metrics, ctx, new_states = _hook_losses(
             bundle, hooks, state, batch, draws, epoch, until=until, taps=taps,
-            logits_tf=logits_tf, group=group)
+            logits_tf=logits_tf, hook_spans=hook_spans, group=group)
         state.hook_states.update(new_states)
 
-        state.optimizer.zero_grad(set_to_none=True)
-        if group is None:
-            reg_loss.backward()
-        else:
-            # this rank's share: the shares of the ranks sum to the global loss
-            (reg_loss / group.size).backward()
-            sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
-                          group)
-        state.optimizer.step()
-        for hook in hooks:
-            state.hook_states[hook.name] = hook.post_step(
-                ctx, state.model, state.hook_states[hook.name])
-        state.step += 1
-        metrics["reg_loss"] = reg_loss.detach()
-        return metrics if group is None else mean_over_ranks(metrics, group)
+        with span("cy/step/backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            if group is None:
+                reg_loss.backward()
+            else:
+                # this rank's share: the shares of the ranks sum to the global loss
+                (reg_loss / group.size).backward()
+                sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
+                              group)
+        with span("cy/step/optimizer"):
+            state.optimizer.step()
+        with span("cy/step/commit"):
+            for hook in hooks:
+                state.hook_states[hook.name] = hook.post_step(
+                    ctx, state.model, state.hook_states[hook.name])
+            state.step += 1
+            metrics["reg_loss"] = reg_loss.detach()
+            return metrics if group is None else mean_over_ranks(metrics, group)
 
     return step
 
@@ -473,18 +482,21 @@ class PretrainEncoderTrainer(Trainer):
         t0 = time.perf_counter()
         with meters:
             for it in indicator:
-                batch = self._device_contrast_batch(next(self._contrast_iter))
-                draws = self._draws(generator, batch["image"], color_jitter=strength)
-                metrics = self._train_step(self._state, batch, draws, epoch)
-                meters.add("reg_loss", metrics["reg_loss"])
-                for hook in self._active_hooks:
-                    hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
-                if it == 0:
-                    self._log_figures(metrics, epoch)
-                if it % 10 == 9 or it == last:
-                    indicator.set_postfix_statics(
-                        {"pretrain": {"reg": meters["reg_loss"].summary()}},
-                        force_update=it == last)
+                with span("cy/data/host_batch"):
+                    batch = self._device_contrast_batch(next(self._contrast_iter))
+                    draws = self._draws(generator, batch["image"], color_jitter=strength)
+                with span("cy/train/call"):
+                    metrics = self._train_step(self._state, batch, draws, epoch)
+                with span("cy/train/meters"):
+                    meters.add("reg_loss", metrics["reg_loss"])
+                    for hook in self._active_hooks:
+                        hook_meters[hook.name].add(**hook_metrics(metrics, hook.name))
+                    if it == 0:
+                        self._log_figures(metrics, epoch)
+                    if it % 10 == 9 or it == last:
+                        indicator.set_postfix_statics(
+                            {"pretrain": {"reg": meters["reg_loss"].summary()}},
+                            force_update=it == last)
         self._pause_iterators()
         self._sync()
         seconds = time.perf_counter() - t0

@@ -776,6 +776,14 @@ def test_profile_step_names_the_hand_kernels():
     assert _hand_kernel("void at::native::elementwise_kernel<128, 4>") is None
 
 
+def test_profile_step_busy_is_a_union():
+    """profile_step counts the device busy where any interval runs, once:
+    overlapping kernels (two streams) are not summed."""
+    from contrastyou_tpu_torch.profile_step import _union_us
+    assert _union_us([(30, 40), (0, 10), (5, 20)]) == 30
+    assert _union_us([(0, 10), (2, 3), (10, 12)]) == 12 and _union_us([]) == 0
+
+
 def _unroll_run(unroll: int):
     """The ``semi`` run at full width on 32 x 32 crops (the kernels take the
     narrow levels' 32 and 64 channels), ``unroll`` steps a call."""
@@ -819,6 +827,51 @@ def test_unrolled_graph_matches_eager_steps():
                          runs[1].state.model.state_dict().values()):
         if a.is_floating_point():
             scaled_close(a, b, tol=TOL)
+
+
+@pytest.mark.gpu
+def test_profiled_unrolled_calls_count_their_graph_and_emit_spans():
+    """``semi`` at K = 8 under ``torch.profiler``, three calls (the eager
+    warm-up, the capture and its replay, a replay): ``GRAPH_STATS`` counts
+    one warm-up, one capture, two replays and the capture's host seconds as
+    a step graph's, as the graph's own ``captures`` and ``capture_s`` (which
+    the train ``timing`` record reads) do; the trace holds
+    the graph's spans, the step's and the hook's spans only inside the
+    warm-up and the capture (a replay runs no host code), and no span on the
+    device's timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from contrastyou_tpu_torch.engine.trainer import graph_stats
+    run = _unroll_run(8)
+    graph = run.step.graph
+    before = graph_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run.step(run.state, run.generator, 0, run.host_rng)
+        torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in graph_stats().items()}
+    assert {k: delta[k] for k in ("step_warmups", "step_captures", "step_replays")} == {
+        "step_warmups": 1, "step_captures": 1, "step_replays": 2}
+    assert delta["step_capture_s"] > 0 and delta["eval_capture_s"] == 0
+    assert graph.captures == 1 and graph.replays == 2
+    assert graph.capture_s == pytest.approx(delta["step_capture_s"])
+    events = list(prof.profiler.kineto_results.events())
+    spans = [(e.start_ns(), e.end_ns(), e.name()) for e in events
+             if e.device_type() == DeviceType.CPU and e.name().startswith("cy/")]
+    count = {n: sum(1 for _, _, m in spans if m == n) for _, _, n in spans}
+    assert {k: count.get(k) for k in ("cy/graph/warmup", "cy/graph/capture", "cy/graph/inputs",
+                                      "cy/graph/replay", "cy/graph/outputs", "cy/step/forward",
+                                      "cy/hook/consistency")} == {
+        "cy/graph/warmup": 1, "cy/graph/capture": 1, "cy/graph/inputs": 1,
+        "cy/graph/replay": 2, "cy/graph/outputs": 2, "cy/step/forward": 16,
+        "cy/hook/consistency": 16}
+    assert count["cy/data/draw"] == 3 * 8 + 2 * 8 and count["cy/graph/key"] >= 3
+    outer = [(s, e) for s, e, n in spans if n in ("cy/graph/warmup", "cy/graph/capture")]
+    for s, e, n in spans:
+        if n.startswith(("cy/step/", "cy/hook/")):
+            assert any(a <= s and e <= b for a, b in outer), n
+    assert not [e.name() for e in events
+                if e.device_type() == DeviceType.CUDA and e.name().startswith("cy/")]
 
 
 class _SyncHook(TrainerHook):

@@ -287,7 +287,9 @@ def test_cpu_run_writes_events_figures_and_a_trace(tmp_path, monkeypatch):
     """Two epochs of ``semi`` with the cross-correlation block's figure and
     the profiler: every numeric ``storage.csv`` cell is in the events under
     JAX's tag at step = epoch (float32), one ``joint_rr`` image an epoch,
-    epoch 1's Chrome trace and its launch counts, the run's timing records
+    epoch 1's Chrome trace with the port's spans and its launch and graph
+    counts, the run's timing
+    records (the train records with their graph captures) and graph counts
     in ``launches.json``; a resume to a third epoch
     adds an events file holding epoch 2 alone."""
     import contrastyou_tpu_torch as package
@@ -318,6 +320,9 @@ def test_cpu_run_writes_events_figures_and_a_trace(tmp_path, monkeypatch):
     assert not any("fig" in c for c in columns)
     trace = json.loads((run / "profile/epoch_001.pt.trace.json").read_text())
     assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"cy/data/host_batch", "cy/train/call", "cy/step/hooks", "cy/hook/cc_Up_conv2",
+            "cy/train/meters", "cy/eval/chunk", "cy/eval/readback"} <= names
     launches = json.loads((run / "profile/launches.json").read_text())
     assert launches["epoch"] == 1 and launches["device_events"] == 0
     assert set(launches["launches"]) >= {"conv3x3_stats", "supcon_loss", "iic_joints"}
@@ -327,6 +332,10 @@ def test_cpu_run_writes_events_figures_and_a_trace(tmp_path, monkeypatch):
     train = [t for t in record["timing"] if t["phase"] == "train"]
     assert [(t["epoch"], t["steps"], t["profiled"]) for t in train] == [(0, 2, False),
                                                                         (1, 2, True)]
+    # no CUDA graph on the CPU: no capture, no capture seconds, no graph counted
+    assert [(t["graph"], t["captures"], t["capture_s"]) for t in train] == [(False, 0, 0.0)] * 2
+    assert launches["graphs"] == {k: 0 for k in record["graphs"]}
+    assert record["graphs"]["step_captures"] == record["graphs"]["step_capture_s"] == 0
     assert [t["epoch"] for t in record["timing"] if t["phase"] == "events"] == [0, 1]
     assert [t["epoch"] for t in record["timing"] if t["phase"] == "profile"] == [1]
 
